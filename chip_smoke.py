@@ -1,10 +1,19 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA
 Hopper card: builds the CUDA kernels from this checkout, holds each one
-against its plain PyTorch version at the main path's shapes, drives
-``BMoESystem.evaluate`` at the paper's full width (N=10 experts, M=10
-edges, K=3, MLP experts 784->256->10, sparse dispatch, edge cache on),
-and checks the launches and the trust claims.
+against its plain PyTorch version at the main paths' shapes, and drives
+the port's two main paths at the paper's full width (N=10 experts, M=10
+edges, K=3, MLP experts 784->256->10, batch 1000, sparse dispatch at
+capacity 376, edge cache on):
+
+- ``BMoESystem.evaluate`` under ``bmoe`` (and ``traditional``), with the
+  redundancy-vote trust claims;
+- optimistic batch inference (``infer(commit=True)`` + ``flush_trust``):
+  commit, merged audits, court, slash and rollback, under an attacking
+  executor (path A) and under re-audit of honest verifiers (path B).
+
+Each path's launch counts are set to 0 just before it and read just
+after it.
 
     python3 chip_smoke.py
 
@@ -147,6 +156,74 @@ def check_vote(torch, rv, ref, seed: int, name: str, E: int, M: int, T: int,
     return row
 
 
+def _audit_bank(torch, g, E, d, h, o):
+    return {"w1": (torch.randn(E, d, h, generator=g) / d ** 0.5).cuda(),
+            "b1": torch.randn(E, h, generator=g).cuda(),
+            "w2": (torch.randn(E, h, o, generator=g) / h ** 0.5).cuda(),
+            "b2": torch.randn(E, o, generator=g).cuda()}
+
+
+def check_audit_mlp(torch, am, ref, seed: int, name: str, E: int, S: int,
+                    C: int, d: int, h: int, o: int):
+    g = torch.Generator().manual_seed(seed)
+    bank = _audit_bank(torch, g, E, d, h, o)
+    x = torch.randn(S, C, d, generator=g).cuda()
+    gid_host = torch.randint(0, E, (S,), generator=g, dtype=torch.int32)
+    gid = gid_host.cuda()
+    got = am.audit_mlp(bank, x, gid)
+    want = ref.audit_mlp_ref(bank, x, gid_host)   # host ids: no sync
+    torch.cuda.synchronize()
+    ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5))
+    # the work this call's data needs: the distinct experts it gathers
+    used = len(set(gid_host.tolist()))
+    nbytes = 4 * (S * C * d + S + used * (d * h + h + h * o + o) + S * C * o)
+    b_ms, b_by = bound(2.0 * S * C * (d * h + h * o), nbytes, FP32_PEAK)
+    row = {"case": name, "kernel": "audit_mlp",
+           "shape": f"x ({S},{C},{d}), bank E={E} {d}->{h}->{o}",
+           "dtype": "float32",
+           "max_abs_err": float((got - want).abs().max()), "rtol": 1e-5,
+           "atol": 1e-5, "ok": ok,
+           "kernel_ms": time_ms(lambda: am.audit_mlp(bank, x, gid)),
+           "plain_ms": time_ms(lambda: ref.audit_mlp_ref(bank, x, gid_host)),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    emit(row)
+    require(ok, f"audit_mlp {name} disagrees with its plain version "
+                f"(max abs err {row['max_abs_err']})")
+    return row
+
+
+def check_audit_invariance(torch, am):
+    """Rows of the S=40 commit-shaped call, bit for bit, against the same
+    samples from an S=4 call over a permuted subset, from S=1 calls (on
+    the real rows only), and from a call over a stacked (30-expert) bank
+    with gids offset by 10 and 20."""
+    g = torch.Generator().manual_seed(11)
+    bank = _audit_bank(torch, g, 10, 784, 256, 10)
+    x = torch.randn(40, 94, 784, generator=g).cuda()
+    gid = torch.randint(0, 10, (40,), generator=g, dtype=torch.int32).cuda()
+    full = am.audit_mlp(bank, x, gid)
+    sub = torch.tensor([33, 7, 20, 1]).cuda()
+    part = am.audit_mlp(bank, x[sub], gid[sub])
+    singles = [am.audit_mlp({k: v[int(gid[s])][None]
+                             for k, v in bank.items()},
+                            x[s:s + 1, :94 - s].contiguous(),
+                            torch.zeros(1, dtype=torch.int32).cuda())[0]
+               for s in range(40)]
+    stacked = {k: torch.cat([v, v, v]) for k, v in bank.items()}
+    off = (torch.arange(40, dtype=torch.int32) % 3).cuda() * 10
+    moved = am.audit_mlp(stacked, x, gid + off)
+    torch.cuda.synchronize()
+    res = {"phase": "audit_mlp_invariance",
+           "s4_subset_bitwise": _bitwise_equal(torch, part, full[sub]),
+           "s1_real_rows_bitwise": all(
+               _bitwise_equal(torch, one, full[s, :94 - s])
+               for s, one in enumerate(singles)),
+           "stacked_bank_bitwise": _bitwise_equal(torch, moved, full)}
+    emit(res)
+    require(all(v for k, v in res.items() if k != "phase"),
+            f"audit_mlp rows depend on the call: {res}")
+
+
 # ----------------------------------------------------------- main path
 def main_path(torch, np, ops):
     from repro_torch.core.attacks import AttackConfig
@@ -173,7 +250,8 @@ def main_path(torch, np, ops):
     emit({"phase": "main_path", "framework": "bmoe", "batches": 2,
           "batch": 1000, "launches": counts, "accuracy": acc,
           "init_s": init_s, "evaluate_s": first_s})
-    require(counts == {"moe_gemm": 4, "redundancy_vote": 2},
+    require(counts == {"moe_gemm": 4, "redundancy_vote": 2,
+                       "audit_mlp": 0},
             f"evaluate of 2 batches launched {counts}, wanted 4 moe_gemm "
             f"and 2 vote launches")
     require(0.0 <= acc <= 1.0, f"accuracy {acc}")
@@ -185,7 +263,7 @@ def main_path(torch, np, ops):
         sys_b.infer(x1, commit=False)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    prof = profile_batch(torch, sys_b, x1)
+    prof = profile_batch(torch, lambda: sys_b.infer(x1, commit=False))
     wall_ms = sorted(walls)[len(walls) // 2] * 1e3
     emit({"phase": "batch_time", "framework": "bmoe", "batch": 1000,
           "wall_ms": [w * 1e3 for w in walls],
@@ -222,7 +300,8 @@ def main_path(torch, np, ops):
     counts_t = ops.launch_counts()
     emit({"phase": "traditional", "launches": counts_t,
           "max_abs_diff_3of10": float(np.abs(lt3 - lt_clean).max())})
-    require(counts_t == {"moe_gemm": 2, "redundancy_vote": 0},
+    require(counts_t == {"moe_gemm": 2, "redundancy_vote": 0,
+                         "audit_mlp": 0},
             f"traditional batch launched {counts_t}")
     require(not np.array_equal(lt3, lt_clean),
             "traditional under 3 of 10 equals clean")
@@ -247,14 +326,163 @@ def main_path(torch, np, ops):
     return counts
 
 
-def profile_batch(torch, sys_b, x1):
-    """Device time by kernel (and copy) over one warm evaluate batch,
+# ------------------------------------------------ optimistic main path
+def _audit_launches_expected(sys_o):
+    """audit_mlp launches the run's own records call for: one commitment
+    build per committed round, plus every grouped drain call and every
+    eager S=1 recompute the system's closures counted."""
+    calls = sys_o.obs.metrics.snapshot("bmoe.audit_calls")
+    return (sys_o._infer_protocol.stats["committed"]
+            + int(sum(calls.values()))), calls
+
+
+def _never_challenged(state) -> bool:
+    # CHALLENGED books proofs and a court verdict; an honest round that
+    # was never challenged has neither
+    return not state.proofs and state.verdict is None
+
+
+def optimistic_path_a(torch, np, ops, xs, clean_logits):
+    """An executor that always cheats (edge 0) over 6 batches of 1000,
+    then flush: round 0 convicted, slashed and rolled back; rounds 1-5
+    finalized."""
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.core.bmoe import BMoEConfig, BMoESystem
+    from repro_torch.core.reputation import ReputationConfig
+
+    atk = AttackConfig(malicious_edges=(0,), attack_prob=1.0, noise_std=5.0)
+    # the reputation settings of the reference's own inference-pipeline
+    # test: one conviction crosses the exclusion threshold
+    sys_o = BMoESystem(BMoEConfig(
+        framework="optimistic", attack=atk,
+        reputation=ReputationConfig(init=0.5, gain=0.01, slash=0.4,
+                                    exclusion_threshold=0.2)),
+        device="cuda")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    served = [sys_o.infer(x)[0] for x in xs]
+    out = sys_o.flush_trust()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    p = sys_o._infer_protocol
+    want_audit, calls = _audit_launches_expected(sys_o)
+    phases = [p.rounds[r].phase.value for r in sorted(p.rounds)]
+    events = [(e.round_id, e.edge) for e in p.stakes.events]
+    rollbacks = sys_o.ledger.rollbacks()
+    honest_ok = all(_never_challenged(p.rounds[r]) for r in range(1, 6))
+    emit({"phase": "optimistic_path_a", "batches": len(xs), "batch": 1000,
+          "launches": counts, "audit_calls": calls,
+          "protocol": dict(p.stats), "verifiers": dict(p.verifiers.stats),
+          "phases": phases, "executors": [p.rounds[r].executor
+                                          for r in sorted(p.rounds)],
+          "stake_events": events,
+          "excluded": sys_o.reputation.excluded.tolist(),
+          "rollback_payloads": [b.payload for b in rollbacks],
+          "flush": out, "wall_s": wall_s,
+          "honest_round1_bitwise_bmoe_clean": bool(
+              np.array_equal(served[1], clean_logits)),
+          "served_finite": all(bool(np.isfinite(v).all()) for v in served)})
+    require(phases == ["rolled_back"] + ["finalized"] * 5,
+            f"path A phases {phases}")
+    require(p.rounds[0].executor == 0, "round 0's executor is not edge 0")
+    require(events == [(0, 0)], f"path A stake events {events}")
+    require(bool(sys_o.reputation.excluded[0]), "edge 0 not excluded")
+    require(len(rollbacks) == 1
+            and rollbacks[0].payload["domain"] == "infer"
+            and rollbacks[0].payload["rollback_of"] == 0,
+            "path A: not one infer rollback block for round 0")
+    require(honest_ok, "an honest round was challenged")
+    require(counts["audit_mlp"] == want_audit,
+            f"audit_mlp launched {counts['audit_mlp']}, the run's records "
+            f"call for {want_audit} ({calls}, {dict(p.stats)})")
+    require(counts["redundancy_vote"] == p.stats["escalations"] == 1,
+            f"vote launched {counts['redundancy_vote']}, escalations "
+            f"{p.stats['escalations']}")
+    require(counts["moe_gemm"] == 2 * len(xs),
+            f"moe_gemm launched {counts['moe_gemm']}")
+    require(all(v.shape == (1000, 10) and np.isfinite(v).all()
+                for v in served), "served logits shape / finite")
+    # round 1's executor is honest: what it served is the bmoe framework's
+    # clean consensus on the same batch and seeded weights, bit for bit
+    require(np.array_equal(served[1], clean_logits),
+            "honest optimistic round differs from the clean bmoe logits")
+    require(not np.allclose(served[0], clean_logits),
+            "the cheating executor's round served clean logits")
+    return counts
+
+
+def optimistic_path_b(torch, ops, xs):
+    """No attack, every verifier attestation re-audited: the eager S=1
+    recompute must hash every honest leaf as the merged drains did, so
+    no verifier is slashed and no round challenged."""
+    from repro_torch.core.bmoe import BMoEConfig, BMoESystem
+    from repro_torch.trust.protocol import TrustConfig
+
+    sys_o = BMoESystem(BMoEConfig(framework="optimistic",
+                                  trust=TrustConfig(reaudit_rate=1.0)),
+                       device="cuda")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for x in xs:
+        sys_o.infer(x)
+    sys_o.flush_trust()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    p = sys_o._infer_protocol
+    want_audit, calls = _audit_launches_expected(sys_o)
+    emit({"phase": "optimistic_path_b", "batches": len(xs),
+          "launches": counts, "audit_calls": calls,
+          "protocol": dict(p.stats), "verifiers": dict(p.verifiers.stats),
+          "lazy_slashes": len(p.verifiers.lazy_slashes),
+          "phases": [p.rounds[r].phase.value for r in sorted(p.rounds)]})
+    require(p.verifiers.lazy_slashes == [],
+            f"honest verifiers slashed: {p.verifiers.lazy_slashes}")
+    require(all(_never_challenged(st) for st in p.rounds.values()),
+            "a round was challenged without an attack")
+    require(calls.get("bmoe.audit_calls{kind=eager}", 0) >= 1,
+            "no eager S=1 recompute ran")
+    require(counts["audit_mlp"] == want_audit,
+            f"path B audit_mlp launched {counts['audit_mlp']}, records "
+            f"call for {want_audit}")
+    return counts
+
+
+def optimistic_batch_time(torch, xs):
+    """Warm host-clock wall of ``infer(commit=True)`` on a batch of 1000,
+    5 samples (drains land on the batches whose window closes), and the
+    device's busy time over one more batch."""
+    from repro_torch.core.bmoe import BMoEConfig, BMoESystem
+    sys_o = BMoESystem(BMoEConfig(framework="optimistic"), device="cuda")
+    sys_o.infer(xs[0])                      # first batch: cold cache
+    walls, drained = [], []
+    for i in range(5):
+        n0 = sys_o._infer_protocol.stats["audit_drains"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sys_o.infer(xs[1 + i])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        drained.append(sys_o._infer_protocol.stats["audit_drains"] > n0)
+    prof = profile_batch(torch, lambda: sys_o.infer(xs[0]))
+    wall_ms = sorted(walls)[len(walls) // 2] * 1e3
+    emit({"phase": "optimistic_batch_time", "framework": "optimistic",
+          "batch": 1000, "wall_ms": [w * 1e3 for w in walls],
+          "drained": drained,
+          "device_busy_ms": prof["device_busy_us"] / 1e3,
+          "device_idle_share": 1.0 - prof["device_busy_us"] / 1e3 / wall_ms,
+          "profile": prof["top"]})
+
+
+def profile_batch(torch, run):
+    """Device time by kernel (and copy) over one warm call of ``run``,
     from torch.profiler's CUDA activities."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        sys_b.infer(x1, commit=False)
+        run()
         torch.cuda.synchronize()
     rows = []
     for ev in prof.key_averages():
@@ -279,6 +507,7 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(here, "src"))
     import numpy as np
+    from repro_torch.kernels import audit_mlp as am
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import moe_gemm as mg
     from repro_torch.kernels import redundancy_vote as rv
@@ -319,7 +548,31 @@ def main() -> int:
                specials=True)
     check_vote(torch, rv, ref, 10, "max_edges", 3, 32, 300, n_bad=15)
 
+    audit = [check_audit_mlp(torch, am, ref, 12, "commit", 10, 40, 94,
+                             784, 256, 10),
+             check_audit_mlp(torch, am, ref, 13, "merged", 30, 8, 94, 784,
+                             256, 10),
+             check_audit_mlp(torch, am, ref, 14, "ragged", 3, 5, 93, 50, 70,
+                             3)]
+    check_audit_invariance(torch, am)
+
     counts = main_path(torch, np, ops)
+
+    from repro_torch.data.synthetic import FMNIST, make_image_dataset
+    _, _, xo, _ = make_image_dataset(FMNIST, n_train=10, n_test=6000,
+                                     seed=1)
+    xo = xo.reshape(len(xo), -1)
+    xs = [xo[i * 1000:(i + 1) * 1000] for i in range(6)]
+    # path A's round 1 serves batch 1; the bmoe system's clean consensus
+    # on that batch is what an honest executor must serve
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.core.bmoe import BMoEConfig, BMoESystem
+    clean1, _, _ = BMoESystem(BMoEConfig(framework="bmoe"),
+                              device="cuda").infer(xs[1],
+                                                   attack=AttackConfig())
+    counts_a = optimistic_path_a(torch, np, ops, xs, clean1)
+    optimistic_path_b(torch, ops, xs[:3])
+    optimistic_batch_time(torch, xs)
 
     emit({"kernels": [
         {"name": "moe_gemm", "route": "cuda",
@@ -341,6 +594,16 @@ def main() -> int:
          "max_abs_err": vote["max_abs_err"], "ms": vote["kernel_ms"],
          "plain_ms": vote["plain_ms"], "bound_ms": vote["bound_ms"],
          "bound_by": vote["bound_by"], "library_ms": None},
+        {"name": "audit_mlp", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/audit_mlp.cu",
+         "replaces": "src/repro/kernels/audit_gemm.py:58",
+         "launches": counts_a["audit_mlp"],
+         "per": "optimistic path A (6 batches of 1000 + flush); times at "
+                "the commit shape x (40,94,784), bank E=10",
+         "max_abs_err": max(r["max_abs_err"] for r in audit),
+         "ms": audit[0]["kernel_ms"], "plain_ms": audit[0]["plain_ms"],
+         "bound_ms": audit[0]["bound_ms"], "bound_by": audit[0]["bound_by"],
+         "library_ms": None},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

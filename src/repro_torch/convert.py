@@ -11,7 +11,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.core.bmoe import resolve_device
+from repro_torch.kernels.ops import resolve_device
 
 GATE_KEYS = ("b", "w")
 EXPERT_KEYS = ("b1", "b2", "w1", "w2")

@@ -1,9 +1,9 @@
 """The B-MoE system (paper §IV), inference path: task publisher + edge
-layer + blockchain-layer vote + storage layer, running the Step 1-3
-(+6 storage) workflow of Fig. 3 in PyTorch.
+layer + blockchain layer + storage layer, running the Step 1-3 (+6
+storage) workflow of Fig. 3 in PyTorch.
 
-The counterpart of ``repro.core.bmoe`` for ``BMoESystem.infer`` and
-``evaluate`` under two frameworks:
+The counterpart of ``repro.core.bmoe`` for ``BMoESystem.infer``,
+``evaluate`` and ``flush_trust`` under three frameworks:
 
 - ``framework="traditional"``: the paper's baseline — edge i employs
   expert i; no redundancy, no consensus; a malicious edge corrupts its
@@ -12,21 +12,29 @@ The counterpart of ``repro.core.bmoe`` for ``BMoESystem.infer`` and
   (redundancy mechanism); the blockchain layer majority-votes the
   per-expert results (the fused vote kernel on the card) and the gate
   combines the trusted ones.
+- ``framework="optimistic"``: the commit-challenge-audit protocol of
+  ``repro_torch.trust`` at batch granularity — a rotating executor's
+  per-expert outputs are Merkle-committed (built by one ``audit_mlp``
+  launch), the logits are served at once, a verifier pool recomputes
+  sampled leaves off the critical path (merged ``audit_mlp`` drains), and
+  a confirmed fraud proof slashes and excludes the executor, escalates to
+  the dispute court (one vote launch) and mines a rollback block.
 
 One forward: gate -> top-k softmax -> scatter into capacity buckets ->
-grouped expert MLP (two ``moe_gemm`` launches) -> trust step (for
-``bmoe``: M corrupted copies and one vote launch) -> gate-weighted
-combine.  The bank is resolved through the chunked ``ExpertStore`` and
-the edge ``ExpertCache`` first.
+grouped expert MLP (two ``moe_gemm`` launches) -> trust step -> gate-
+weighted combine.  The bank is resolved through the chunked
+``ExpertStore`` and the edge ``ExpertCache`` first.
 
-Randomness is split from the arithmetic: ``BMoESystem`` draws the
+Randomness is split from the arithmetic: ``BMoESystem`` draws each
 round's attack mask and noise from seeded ``torch.Generator``s
-(``core.attacks``), and ``_moe_forward`` takes them as tensors.
+(``core.attacks``), and ``_moe_forward`` takes them as tensors.  The
+commitment noise of a cheating executor and the court's copies are
+numpy draws, byte for byte the JAX package's.
 
 Not in this slice (each raises ``NotImplementedError``; see ROADMAP.md
-queue A): ``framework="optimistic"`` (slice 2), training
-(``train_round``), ``dispatch="dense"``, ``expert_kind="cnn"``,
-reputation and workload balance, and ``mesh="on"``.
+queue A): training (``train_round``, with the training-domain optimistic
+round and its chained-rollback replay), ``dispatch="dense"``,
+``expert_kind="cnn"``, workload balance, and ``mesh="on"``.
 """
 from __future__ import annotations
 
@@ -39,12 +47,22 @@ import torch
 from repro_torch.core import experts as ex
 from repro_torch.core.attacks import (AttackConfig, edge_noise,
                                       round_attack_mask, stream)
-from repro_torch.core.ledger import as_numpy
+from repro_torch.core.consensus import ProofOfWork
+from repro_torch.core.ledger import Ledger, as_numpy, digest_array
+from repro_torch.core.reputation import ReputationConfig, ReputationLedger
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ops import resolve_device
 from repro_torch.models.moe import capacity_positions
 from repro_torch.obs import Observability
 from repro_torch.storage import (ExpertCache, ExpertStore, GateEMA,
                                  NetworkCostModel, StorageNetwork)
+from repro_torch.trust.audit import pack_audit_batch, pack_audit_batch_multi
+from repro_torch.trust.commitments import chunk_bounds
+from repro_torch.trust.da import DataAvailabilityAuditor
+from repro_torch.trust.protocol import (TERMINAL_PHASES, AuditJob,
+                                        OptimisticProtocol, RoundPhase,
+                                        TrustConfig)
+from repro_torch.trust.slashing import DisputeCourt
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,35 +97,20 @@ class BMoEConfig:
     prefetch_topk: int = 0          # EMA-prefetch this many hot experts
     num_storage_nodes: int = 4
     storage_replication: int = 2
+    # data-availability challenges (trust.da): per-chunk sampling rate of
+    # the optimistic framework's storage audits
     da_rate: float = 0.05
     seed: int = 0
-    reputation: Optional[object] = None    # §VI-B/D (not in this slice)
-    workload_balance: bool = False         # §VI-C (not in this slice)
+    reputation: Optional[ReputationConfig] = None   # §VI-B/D
+    workload_balance: bool = False                  # §VI-C (not ported)
     balance_eta: float = 0.5
-    trust: Optional[object] = None         # optimistic knobs (slice 2)
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the CUDA device; CUDA asked for but absent raises
-    (the port never carries on on the CPU unless asked)."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("repro_torch runs on a CUDA device and none is "
-                           "available; pass device='cpu' for the plain "
-                           "PyTorch path")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
+    trust: Optional[TrustConfig] = None             # optimistic knobs
 
 
 def _check_slice(cfg: BMoEConfig) -> None:
-    """Refuse what this slice of the port does not run yet, naming the
-    ROADMAP.md queue item that brings it."""
-    if cfg.framework == "optimistic":
-        raise NotImplementedError(
-            "framework='optimistic' is slice 2 of the port (ROADMAP.md "
-            "queue A, item 1: the trust package and the audit_mlp kernel)")
-    if cfg.framework not in ("bmoe", "traditional"):
+    """Refuse what the port does not run yet, naming the ROADMAP.md
+    queue item that brings it."""
+    if cfg.framework not in ("bmoe", "traditional", "optimistic"):
         raise ValueError(f"unknown framework {cfg.framework!r}")
     if cfg.dispatch != "sparse":
         raise NotImplementedError(
@@ -117,13 +120,22 @@ def _check_slice(cfg: BMoEConfig) -> None:
         raise NotImplementedError(
             f"expert_kind={cfg.expert_kind!r} is not ported yet (ROADMAP.md"
             " queue A, item 3); the port runs the MLP bank")
-    if cfg.reputation is not None or cfg.workload_balance:
+    if cfg.workload_balance:
+        # the balancer's bias only moves in training
         raise NotImplementedError(
-            "reputation and workload balance are not ported yet (ROADMAP.md"
-            " queue A, item 3)")
+            "workload balance is not ported yet (ROADMAP.md queue A, "
+            "item 3)")
     if cfg.mesh == "on":
         raise NotImplementedError(
             "mesh='on' is not ported yet (ROADMAP.md queue A, item 7)")
+    tc = cfg.trust if cfg.trust is not None else TrustConfig()
+    if tc.audit_backend != "batched" or tc.scheduling != "pipelined":
+        # the reference's oracles (per-leaf audits, audits inside the
+        # commit round) come with training, whose tests drive them
+        raise NotImplementedError(
+            f"audit_backend={tc.audit_backend!r}, scheduling="
+            f"{tc.scheduling!r} is not ported yet (ROADMAP.md queue A, "
+            "item 2); the port runs 'batched' and 'pipelined'")
 
 
 class BMoESystem:
@@ -140,8 +152,8 @@ class BMoESystem:
         _check_slice(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
-        # the one observability bundle of the run: storage network, store
-        # and cache record into its registry
+        # the one observability bundle of the run: storage network, store,
+        # cache, trust protocols and DA auditor record into its registry
         self.obs = obs if obs is not None else Observability()
         if params is None:
             self.gate = ex.init_gate(cfg.in_dim, cfg.num_experts, cfg.seed,
@@ -155,6 +167,7 @@ class BMoESystem:
             self.experts = {k: v.to(self.device)
                             for k, v in params["experts"].items()}
             self._check_params()
+        self.ledger = Ledger()
         self.storage = StorageNetwork(
             num_nodes=cfg.num_storage_nodes,
             replication=cfg.storage_replication, seed=cfg.seed,
@@ -178,9 +191,54 @@ class BMoESystem:
         self.obs.metrics.counter("bmoe.storage_s")
         with self.obs.span("publish", metric="bmoe.storage_s", round=0):
             self._publish_bank(None, 0)     # genesis bank: every expert, v0
+        self.pow = ProofOfWork(cfg.num_chain_nodes,
+                               difficulty_bits=cfg.pow_difficulty,
+                               seed=cfg.seed)
         self.round = 0
+        if cfg.framework == "optimistic" and cfg.reputation is None:
+            # exclusion of slashed executors needs a reputation ledger
+            self.reputation = ReputationLedger(cfg.num_edges,
+                                               ReputationConfig())
+        else:
+            self.reputation = (ReputationLedger(cfg.num_edges, cfg.reputation)
+                               if cfg.reputation else None)
         self.activation_counts = np.zeros(cfg.num_experts)
         self.activation_total = 0
+        # batch-inference pipeline (created on the first optimistic
+        # infer): its own round clock, with the training protocol's
+        # stakes, court and reputation
+        self._infer_protocol: Optional[OptimisticProtocol] = None
+        self._infer_round = 0
+        self._infer_ctx: Dict[int, Dict] = {}
+        self._infer_audit_cids: Dict[int, List[str]] = {}
+        self.infer_log: List[Dict] = []
+        # "bmoe.audit_infer_s": verifier-pool drain seconds of the
+        # inference pipeline, off the critical path (an off_path span)
+        self.obs.metrics.counter("bmoe.audit_infer_s")
+        # verification-compute ledger, in expert evaluations x rows:
+        # verify = audit recompute, escalate = dispute-court full votes
+        self.verify_stats = {"base_evals": 0.0, "verify_evals": 0.0,
+                             "escalate_evals": 0.0, "rounds": 0}
+        self.trust_cfg: Optional[TrustConfig] = None
+        self.protocol: Optional[OptimisticProtocol] = None
+        self.da: Optional[DataAvailabilityAuditor] = None
+        if cfg.framework == "optimistic":
+            self.trust_cfg = cfg.trust or TrustConfig(seed=cfg.seed)
+            # the training-domain protocol owns the stake book and the
+            # court; the court votes on this system's device
+            self.protocol = OptimisticProtocol(
+                self.trust_cfg, cfg.num_edges, self.reputation,
+                court=DisputeCourt(cfg.num_edges, device=self.device),
+                metrics=self.obs.metrics, namespace="trust.train")
+            if cfg.da_rate > 0:
+                # storage nodes post their own bonds: a replica that
+                # cannot produce a committed chunk inside the challenge
+                # window is slashed (see trust.da)
+                self.da = DataAvailabilityAuditor(
+                    self.storage, num_nodes=cfg.num_storage_nodes,
+                    window=self.trust_cfg.challenge_window,
+                    sample_rate=cfg.da_rate, seed=cfg.seed,
+                    metrics=self.obs.metrics)
 
     def _check_params(self) -> None:
         cfg = self.cfg
@@ -201,53 +259,80 @@ class BMoESystem:
                                  f"wants {shape}")
 
     # ------------------------------------------------------------ api
+    def train_round(self, x, y, *, attack: Optional[AttackConfig] = None):
+        """Not ported yet, for any framework."""
+        raise NotImplementedError(
+            "train_round is not ported yet (ROADMAP.md queue A, item 2: "
+            "training, with the moe_gemm backward, the training-domain "
+            "optimistic round and its chained-rollback replay)")
+
     def infer(self, x, *, attack: Optional[AttackConfig] = None,
               commit: bool = True):
         """Steps 1-3 (+6): forward only, no updates.  Returns host numpy
         (logits (B, C), activation (N,), support (N,)).
 
-        The round's attack mask and noise depend on ``cfg.seed`` and the
+        ``bmoe`` and ``traditional`` serve their (possibly attacked)
+        consensus view; their attack draw depends on ``cfg.seed`` and the
         training round only (as in the JAX package), so repeated calls
-        replay the same draw.  ``commit`` matters only to the optimistic
-        framework (slice 2); these frameworks serve their (possibly
-        attacked) consensus view either way."""
-        del commit
+        replay it.  Under ``optimistic`` with ``commit=True`` the batch
+        runs the commit-challenge-audit pipeline on the inference round
+        clock (``_optimistic_infer``); ``commit=False`` is the
+        side-effect-free probe of the finalized honest view, which
+        ``evaluate`` uses."""
         cfg = self.cfg
         atk = attack if attack is not None else cfg.attack
         xt = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
         gate_bias, active = self._controls()
-        mask_e, noise = self._draw_attack(atk, xt.shape[0],
-                                          self.round + 1_000_000)
+        if cfg.framework == "optimistic" and commit:
+            return self._optimistic_infer(xt, atk, gate_bias, active)
+        if cfg.framework == "optimistic":
+            mask_e = torch.zeros(cfg.num_edges)
+            noise = torch.zeros(cfg.num_experts,
+                                sparse_capacity(cfg, xt.shape[0]),
+                                cfg.num_classes)
+        else:
+            mask_e, noise = self._draw_attack(atk, xt.shape[0],
+                                              self.round + 1_000_000)
         bank = self._resolve_bank(xt, gate_bias)
         logits, activation, support = _infer_step(
-            self.gate, bank, xt, mask_e, noise, atk.noise_std, gate_bias,
-            active, cfg=cfg)
+            self.gate, bank, xt, mask_e.to(self.device),
+            noise.to(self.device), atk.noise_std, gate_bias, active,
+            cfg=cfg)
         return (as_numpy(logits), as_numpy(activation), as_numpy(support))
 
     def evaluate(self, x, y, *, attack: Optional[AttackConfig] = None,
                  batch: int = 1000) -> float:
         correct = 0
         for i in range(0, len(x), batch):
+            # commit=False: an accuracy probe must not mint inference
+            # rounds, pay commitments, or slash anyone
             logits, _, _ = self.infer(x[i:i + batch], attack=attack,
                                       commit=False)
             correct += int((logits.argmax(-1)
                             == np.asarray(y[i:i + batch])).sum())
         return correct / len(x)
 
-    def _controls(self):
-        """(gate_bias (N,), active (M,)): zero bias and the whole
-        electorate — no balancer or reputation ledger in this slice."""
-        cfg = self.cfg
-        return (torch.zeros(cfg.num_experts, device=self.device),
-                torch.ones(cfg.num_edges, device=self.device))
+    def _active_host(self) -> np.ndarray:
+        """(M,) float32 electorate: reputation-excluded edges are 0."""
+        if self.reputation is None:
+            return np.ones(self.cfg.num_edges, np.float32)
+        return (~self.reputation.excluded).astype(np.float32)
 
-    def _draw_attack(self, atk: AttackConfig, batch: int, round_id: int):
-        """The round's attack mask (M,) and corruption noise: (M, N, cap,
-        C) per-edge copies under ``bmoe``, (N, cap, C) under
-        ``traditional``.  Drawn on the host from streams seeded by
-        (cfg.seed, round, tag[, fold id]), then moved to the device."""
+    def _controls(self):
+        """(gate_bias (N,), active (M,)) on the device: zero bias (no
+        balancer in the port yet) and the reputation electorate."""
+        return (torch.zeros(self.cfg.num_experts, device=self.device),
+                torch.from_numpy(self._active_host()).to(self.device))
+
+    def _draw_attack(self, atk: AttackConfig, batch: int, round_id: int,
+                     sub: Optional[int] = None):
+        """The round's attack mask (M,) and corruption noise, on the host:
+        (M, N, cap, C) per-edge copies under ``bmoe``, (N, cap, C)
+        otherwise.  Drawn from streams seeded by (cfg.seed, round[, sub],
+        tag[, fold id]); the optimistic inference pipeline passes its
+        round id as ``sub``, so back-to-back batches draw independently."""
         cfg = self.cfg
-        base = (cfg.seed + 91, round_id)
+        base = (cfg.seed + 91, round_id) + (() if sub is None else (sub,))
         mask_e = round_attack_mask(atk, cfg.num_edges, stream(*base, "mask"))
         shape = (cfg.num_experts, sparse_capacity(cfg, batch),
                  cfg.num_classes)
@@ -255,11 +340,22 @@ class BMoESystem:
             noise = edge_noise(atk, cfg.num_edges, shape, *base, "noise")
         else:
             noise = torch.randn(shape, generator=stream(*base, "noise"))
-        return mask_e.to(self.device), noise.to(self.device)
+        return mask_e, noise
 
     @property
     def activation_ratio(self) -> np.ndarray:
         return self.activation_counts / max(self.activation_total, 1)
+
+    def _mine(self, payload):
+        tr = self.obs.trace
+        if tr.enabled:
+            # block -> trace correlation, only while tracing: a disabled
+            # run's payloads (and block hashes) stay as without obs
+            payload["trace_id"] = tr.trace_id
+            payload["span_id"] = tr.current_span_id()
+        block = self.pow.mine(len(self.ledger.blocks), self.ledger.head.hash,
+                              payload)
+        self.ledger.append(block)
 
     # ----------------------------------------------------- storage layer
     @staticmethod
@@ -326,18 +422,459 @@ class BMoESystem:
                     version)
         self._bank_version = max(self._bank_version, version)
 
+    def _fetch_expert_manifest(self, manifest_cid: str):
+        """Auditor-side fetch: the exact expert version a round committed
+        against, named by its retained manifest CID.  Every chunk is
+        CID-verified (a corrupted replica is skipped) and reassembled
+        chunk-for-chunk: host numpy, byte-identical to the bank."""
+        return self.expert_store.fetch_manifest(
+            self.expert_store.manifest_by_cid(manifest_cid),
+            self._expert_like)
+
+    def _retain_round_manifests(self, version: int) -> List[str]:
+        """Pin the manifests a round committed against for the length of
+        its challenge window (the data-availability contract)."""
+        cids = []
+        for e in range(self.cfg.num_experts):
+            cid = self.expert_store.manifest_cid(self._object_id(e),
+                                                 version)
+            self.expert_store.retain(cid)
+            cids.append(cid)
+        return cids
+
+    def _run_da(self, now: Optional[int],
+                manifest_cids: Optional[List[str]] = None) -> None:
+        """One data-availability beat: challenge replica nodes for
+        sampled chunks of the given manifests, close past-due challenges
+        (``now=None``: all), and mine one ``da_slash`` block per
+        confirmed fault."""
+        if self.da is None:
+            return
+        n = len(self.da.faults)
+        if manifest_cids:
+            manifests = {}
+            for cid in manifest_cids:
+                man = self.expert_store.manifest_by_cid(cid)
+                manifests[man.object_id] = man
+            self.da.challenge_round(now, manifests)
+        self.da.resolve(now)
+        for f in self.da.faults[n:]:
+            self._mine({"kind": "da_slash", "node": f.executor,
+                        "object": f.object_id, "chunk": f.chunk_index,
+                        "cid": f.cid[:16], "fault": f.kind,
+                        "challenged_round": f.round_id})
+
     def storage_report(self) -> Dict:
         """Byte/transfer economy of the storage layer: network counters
         (with *modeled* transfer seconds), chunk-dedup upload savings,
-        edge-cache counters, and the host wall-clock spent on storage
-        bookkeeping.  Keys as in the JAX package (``da`` is None: no DA
-        challenges without the optimistic framework)."""
+        edge-cache counters, DA challenge stats (None without the
+        optimistic framework), and the host wall-clock spent on storage
+        bookkeeping.  Keys as in the JAX package."""
         return {"network": dict(self.storage.stats),
                 "store": dict(self.expert_store.stats),
                 "cache": (dict(self.edge_cache.stats)
                           if self.edge_cache else None),
-                "da": None,
+                "da": dict(self.da.stats) if self.da else None,
                 "wall_s": float(self.obs.metrics.value("bmoe.storage_s"))}
+
+    def verification_report(self) -> Dict[str, float]:
+        """Per-round verification compute, in expert evaluations x rows
+        (counted, not timed: the keys of the JAX package)."""
+        r = max(self.verify_stats["rounds"], 1)
+        verify = self.verify_stats["verify_evals"]
+        escalate = self.verify_stats["escalate_evals"]
+        return {
+            "base_evals_per_round": self.verify_stats["base_evals"] / r,
+            "verify_evals_per_round": verify / r,
+            "escalate_evals_per_round": escalate / r,
+            "total_verification_per_round": (verify + escalate) / r,
+        }
+
+    # ------------------------------------------- optimistic verification
+    def _optimistic_infer(self, xt, atk, gate_bias, active):
+        """One optimistic inference round: the rotating executor serves
+        its (possibly corrupted) aggregate at once, commits its per-expert
+        bucket outputs, and the round's audit is queued; the backlog
+        drains in one merged recompute when a window is about to close,
+        courts fire in round order, and closed windows finalize.  Rounds
+        are independent (``chained=False``): a conviction revokes only its
+        own round."""
+        cfg = self.cfg
+        proto = self._ensure_infer_protocol()
+        rid = self._infer_round
+        self._infer_round += 1
+        # each inference round draws its own attack lottery (the round id
+        # is folded in, as the JAX package does)
+        mask_e, noise = self._draw_attack(atk, xt.shape[0],
+                                          self.round + 1_000_000, rid)
+        executor = proto.pick_executor(rid)
+        # trace-only spans (no phase metric): a traced run still sees the
+        # fetch/dispatch/commit shape of each inference round
+        with self.obs.span("infer-round", round=rid, kind="infer",
+                           executor=executor):
+            with self.obs.span("fetch", round=rid):
+                bank = self._resolve_bank(xt, gate_bias)
+            version = self._bank_version
+            with self.obs.span("dispatch", round=rid):
+                logits, activation, support = (as_numpy(a) for a in
+                                               _infer_step(
+                    self.gate, bank, xt, mask_e.to(self.device),
+                    noise.to(self.device), atk.noise_std, gate_bias, active,
+                    cfg=cfg, executor=executor))
+            self.gate_ema.update(activation)
+            row_index, bounds = self._commitment_layout(
+                self.gate, xt, xt.shape[0], gate_bias)
+            with self.obs.span("commit", round=rid,
+                               executor=executor) as csp:
+                xin = _flatten_for_gate(xt)     # the published task rows
+                xd = self._pad_task(xin, row_index)
+                honest = self._eager_outputs(bank, xd, bounds, row_index)
+                attacked = bool(mask_e[executor] > 0)
+                state = self._commit_round(proto, rid, executor, honest,
+                                           attacked, atk, 1_000_000 + rid,
+                                           digest_array(xin[:8]), row_index)
+                csp.set(root=state.commitment.root[:16])
+        # data-availability contract: the versions this round committed
+        # against stay retained until its window closes
+        manifests = self._retain_round_manifests(version)
+        self._infer_audit_cids[rid] = manifests
+        self._infer_ctx[rid] = {
+            "prev": (self.gate, bank), "xd": xd, "honest": honest,
+            "executor": executor, "mask_e": mask_e.numpy(), "atk": atk,
+            "active": as_numpy(active), "manifests": manifests,
+        }
+        proto.schedule_audit(rid, self._make_recompute(xd, manifests,
+                                                       row_index))
+        self.infer_log.append({"event": "commit", "round": rid,
+                               "executor": executor,
+                               "root": state.commitment.root[:16]})
+
+        summary = self._drain_trust(proto, self._infer_ctx,
+                                    self._infer_audit_cids, rid, "infer")
+        self._record_infer_verdicts(summary)
+        for frid in proto.advance(rid):
+            self.infer_log.append({"event": "finalize", "round": frid})
+        self._prune_closed_rounds(proto, self._infer_ctx,
+                                  self._infer_audit_cids)
+        return logits, activation, support
+
+    def _sparse_routing(self, gate, x, gate_bias):
+        """Re-derive the round's routing and build the ``(N, capacity)``
+        bucket->task-row index the executor publishes with a sparse
+        commitment.  Empty slots point one past the batch (the zero
+        sentinel row appended to the task)."""
+        cfg = self.cfg
+        eid, pos, keep = (as_numpy(a) for a in
+                          _route_for_commit(gate, x, gate_bias, cfg=cfg))
+        batch = x.shape[0]
+        capacity = sparse_capacity(cfg, batch)
+        row_index = np.full((cfg.num_experts, capacity), batch, np.int32)
+        tok = np.repeat(np.arange(batch, dtype=np.int32), cfg.top_k)
+        row_index[eid[keep], pos[keep]] = tok[keep]
+        return row_index, capacity
+
+    @staticmethod
+    def _pad_task(xt: torch.Tensor, row_index) -> torch.Tensor:
+        """The auditors' task view, on the device: under sparse dispatch
+        the batch plus one trailing zero row (what empty bucket slots
+        recompute from)."""
+        if row_index is None:
+            return xt
+        return torch.cat([xt, xt.new_zeros((1,) + tuple(xt.shape[1:]))])
+
+    def _commitment_layout(self, gate, x, batch: int, gate_bias):
+        """(row_index, bounds) of the round's commitment: bucket-chunk
+        leaves of the capacity buckets (the port runs sparse dispatch)."""
+        row_index, capacity = self._sparse_routing(gate, x, gate_bias)
+        return row_index, chunk_bounds(capacity,
+                                       self.trust_cfg.chunks_per_expert)
+
+    def _batched_recompute_call(self, bank, xd, idx, gid) -> torch.Tensor:
+        """One grouped recompute: ``audit_mlp(bank, xd[idx], gid)`` on the
+        task's device (one kernel launch on the card)."""
+        dev = xd.device
+        return kops.audit_mlp(bank, xd[torch.from_numpy(idx).long().to(dev)],
+                              torch.from_numpy(gid).to(dev))
+
+    def _eager_outputs(self, experts, xd, bounds, row_index=None):
+        """The executor's commitment-building pass: every (expert, chunk)
+        leaf through ONE grouped ``audit_mlp`` call — the auditors' own
+        kernel, so honest leaves recompute bit-identically.  With
+        ``row_index`` the chunks tile each expert's capacity bucket and
+        the task rows come from the committed routing.  Host numpy
+        (N, capacity, C)."""
+        cfg = self.cfg
+        n_chunks = len(bounds) - 1
+        slices = [slice(bounds[c], bounds[c + 1]) for c in range(n_chunks)]
+        work = [(e, sl) for e in range(cfg.num_experts)
+                for sl in slices]                # (e, c) row-major = leaf order
+        idx, gid, n = pack_audit_batch([e for e, _ in work],
+                                       [sl for _, sl in work],
+                                       row_map=row_index)
+        out = as_numpy(self._batched_recompute_call(experts, xd, idx,
+                                                    gid)[:n])
+        parts = [np.concatenate(
+            [out[e * n_chunks + c][:bounds[c + 1] - bounds[c]]
+             for c in range(n_chunks)], axis=0)
+            for e in range(cfg.num_experts)]
+        return np.stack(parts)
+
+    def _count_audit_call(self, kind: str) -> None:
+        """Host-side count of recompute calls, by kind ("drain": one
+        grouped call per drain with sampled leaves, "eager": one S=1 call
+        per fraud-proof check or re-audit recompute) — what the launch
+        counters are held against."""
+        self.obs.metrics.counter("bmoe.audit_calls", kind=kind).add(1)
+
+    def _make_recompute(self, xd, manifests: List[str], row_index=None):
+        """Auditor-side eager recompute of one leaf: fetch the sampled
+        expert from the storage layer by the manifest the round committed
+        against (every chunk CID-verified) and recompute the chunk on the
+        task rows the committed routing names.  It goes through
+        ``ops.audit_mlp`` with S=1 — on the card the same kernel as the
+        batched audits, so a leaf's bytes match theirs bit for bit (a
+        cuBLAS product could differ in the last bit and slash honest
+        verifiers under re-audit)."""
+        cache: Dict[int, Dict[str, torch.Tensor]] = {}
+        dev = xd.device
+        one = torch.zeros(1, dtype=torch.int32, device=dev)
+
+        def recompute(e: int, sl: slice):
+            if e not in cache:
+                tree = self._fetch_expert_manifest(manifests[e])
+                cache[e] = {k: torch.tensor(v)[None].to(dev)
+                            for k, v in tree.items()}
+            rows = (np.arange(sl.start, sl.stop) if row_index is None
+                    else row_index[e, sl])
+            self._count_audit_call("eager")
+            x1 = xd[torch.from_numpy(rows).long().to(dev)][None]
+            return as_numpy(kops.audit_mlp(cache[e], x1, one))[0]
+
+        return recompute
+
+    def _commit_round(self, protocol, rid, executor, honest, attacked, atk,
+                      seed_salt, task_digest, row_index=None):
+        """Build the executor's claimed tensor (corrupted iff it attacks,
+        with the JAX package's numpy draw) and publish the round
+        commitment over the capacity-bucketed buffers plus the routing
+        indices auditors re-derive the buckets from."""
+        claimed = honest
+        if attacked:
+            rng = np.random.default_rng(self.cfg.seed * 7919 + seed_salt)
+            claimed = honest + atk.noise_std * rng.standard_normal(
+                honest.shape).astype(honest.dtype)
+        return protocol.commit(rid, executor, claimed,
+                               task_digest=task_digest, row_index=row_index)
+
+    def _court_publish(self, ctx, claimed, seed_salt):
+        """The dispute court's input: every edge's copy of every expert's
+        result — the paper's full redundancy matrix, reconstructed from
+        the round snapshot and its attack pattern (numpy draws as in the
+        JAX package)."""
+        cfg = self.cfg
+        honest, atk = ctx["honest"], ctx["atk"]
+        pub = np.broadcast_to(
+            honest[:, None],
+            (cfg.num_experts, cfg.num_edges) + honest.shape[1:]).copy()
+        att = np.asarray(ctx["mask_e"]) > 0
+        if atk.colluding:
+            pub[:, att] = claimed[:, None]     # coalition backs the executor
+        else:
+            rng = np.random.default_rng(cfg.seed * 104729 + seed_salt)
+            for m in np.nonzero(att)[0]:
+                pub[:, m] = honest + atk.noise_std * rng.standard_normal(
+                    honest.shape).astype(honest.dtype)
+        pub[:, ctx["executor"]] = claimed
+        return pub
+
+    def _audit_jobs_merged(self, protocol, ctx_store,
+                           jobs: List[AuditJob]):
+        """Audit a whole drained backlog through ONE grouped recompute:
+        the per-round bank snapshots stack to ``(slots*N, ...)`` (one
+        ``torch.cat`` per leaf on the device), the per-round padded tasks
+        concatenate row-wise, and ``VerifierPool.audit_rounds`` fuses
+        every sampled leaf of every drained round into one ``audit_mlp``
+        call + one hash pass.  Fetch-by-manifest is kept per (round,
+        sampled expert)."""
+        cfg = self.cfg
+        ctxs = [ctx_store[j.round_id] for j in jobs]
+        coms = [protocol.rounds[j.round_id].commitment for j in jobs]
+        banks = [c["prev"][1] for c in ctxs]
+        xds = [c["xd"] for c in ctxs]          # each ends in its zero row
+        # a multi-round drain pads to a FIXED (window+1)-slot layout, as
+        # the JAX package does (padding slots repeat round 0's bank and
+        # hold zero task rows; no sample indexes them)
+        row_maps = [c.row_index for c in coms]
+        slots = (self.trust_cfg.challenge_window + 1 if len(jobs) > 1
+                 else 1)
+        slots = max(slots, len(jobs))
+        bmax = max(len(x) for x in xds)
+        row_off = np.arange(slots + 1) * bmax
+        pad_banks = banks + [banks[0]] * (slots - len(banks))
+        stacked_bank = {k: torch.cat([b[k] for b in pad_banks], 0)
+                        for k in banks[0]}
+        xcat = xds[0].new_zeros((slots * bmax,) + tuple(xds[0].shape[1:]))
+        for k, x in enumerate(xds):
+            xcat[k * bmax:k * bmax + len(x)] = x
+        fetched: set = set()
+
+        def multi_fn(slot_ids, experts, slices):
+            for k, e in sorted({(int(k), int(e))
+                                for k, e in zip(slot_ids, experts)}):
+                if (k, e) not in fetched:
+                    self._fetch_expert_manifest(ctxs[k]["manifests"][e])
+                    fetched.add((k, e))
+            # merged drains bucket the sample count to a power of two
+            bucket = 8
+            while bucket < len(experts):
+                bucket *= 2
+            idx, gid, n = pack_audit_batch_multi(slot_ids, experts, slices,
+                                                 row_off, cfg.num_experts,
+                                                 bucket=bucket,
+                                                 row_maps=row_maps)
+            self._count_audit_call("drain")
+            return as_numpy(self._batched_recompute_call(
+                stacked_bank, xcat, idx, gid)[:n])
+
+        return protocol.verifiers.audit_rounds(coms, multi_fn)
+
+    def _drain_trust(self, protocol, ctx_store, cid_store, now,
+                     domain: str) -> Dict:
+        """Drain the deferred-audit backlog: run every queued audit (one
+        merged grouped call under the batched backend), court-resolve the
+        challenged rounds in round order, and mine one rollback block per
+        conviction.  Only the inference domain drains in the port: the
+        training domain, with its chained-rollback replay, comes with
+        training (ROADMAP.md queue A, item 2)."""
+        cfg = self.cfg
+        jobs = protocol.pop_audit_jobs(now)
+        summary: Dict = {"drained": [j.round_id for j in jobs],
+                         "audited_leaves": 0, "fraud_proofs": 0,
+                         "convicted": [], "slashed": []}
+        if not jobs:
+            return summary
+        # verifier-pool work, concurrent with later rounds in deployment:
+        # off the critical path (the port schedules pipelined only)
+        with self.obs.span("audit-drain", metric="bmoe.audit_infer_s",
+                           off_path=True, domain=domain,
+                           drained=[j.round_id for j in jobs]):
+            reports_by_rid = self._audit_jobs_merged(protocol, ctx_store,
+                                                     jobs)
+            for job in jobs:
+                reports = reports_by_rid[job.round_id]
+                protocol.apply_reports(job.round_id, reports,
+                                       job.recompute_fn)
+                audited = sum(r.recomputed_leaves for r in reports)
+                com = protocol.rounds[job.round_id].commitment
+                summary["audited_leaves"] += audited
+                self.verify_stats["verify_evals"] += \
+                    audited * com.rows_per_expert \
+                    / max(com.chunks_per_expert, 1)
+
+        # courts fire in round order
+        n_rollbacks = len(protocol.rollbacks)
+        # the stake book is shared across the train/infer protocols:
+        # attribute slashes by the events this drain books
+        n_events = len(protocol.stakes.events)
+        challenged = sorted(
+            j.round_id for j in jobs
+            if protocol.rounds[j.round_id].phase is RoundPhase.CHALLENGED)
+        for rid in challenged:
+            state = protocol.rounds[rid]
+            if state.phase is not RoundPhase.CHALLENGED:
+                continue
+            ctx = ctx_store[rid]
+            with self.obs.span("court", domain=domain, round=rid,
+                               executor=state.executor) as csp:
+                pub = self._court_publish(ctx, state.commitment.claimed,
+                                          rid)
+                verdict = protocol.court.escalate(
+                    rid, pub, state.executor, active=ctx["active"])
+                state = protocol.resolve(rid, verdict)
+                csp.set(verdict=state.phase.value)
+            summary["fraud_proofs"] += len(state.proofs)
+            self.verify_stats["escalate_evals"] += \
+                cfg.num_edges * cfg.num_experts \
+                * state.commitment.rows_per_expert
+            for cid in cid_store.pop(rid, []):
+                self.expert_store.release(cid)
+            if state.phase is RoundPhase.ROLLED_BACK:
+                summary["convicted"].append(rid)
+
+        summary["slashed"] = sorted(
+            {ev.edge for ev in protocol.stakes.events[n_events:]})
+        for rec in protocol.rollbacks[n_rollbacks:]:
+            self._mine({"kind": "rollback", "domain": domain,
+                        "rollback_of": rec.round_id,
+                        "executor": rec.executor,
+                        "chain": [rec.round_id] + rec.invalidated,
+                        "invalidated": rec.invalidated,
+                        "slashed": [rec.executor],
+                        "at_round": self.round})
+        return summary
+
+    def _prune_closed_rounds(self, protocol, ctx_store, cid_store):
+        """Release snapshots and retained version manifests of rounds
+        that hit a terminal phase."""
+        for rid in list(ctx_store):
+            if protocol.rounds[rid].phase in TERMINAL_PHASES:
+                del ctx_store[rid]
+                for cid in cid_store.pop(rid, []):
+                    self.expert_store.release(cid)
+
+    def flush_trust(self) -> Dict:
+        """Close out the optimistic pipeline: run every still-queued audit,
+        court-resolve what they raise, close every open DA challenge, and
+        advance both clocks past the last open window so every committed
+        round reaches a terminal phase.  The training domain holds no
+        rounds in the port yet (``train_round`` raises), so it has nothing
+        to drain; its clock is advanced as in the JAX package."""
+        out: Dict = {}
+        if self.protocol is None:
+            return out
+        horizon = self.protocol.clock + self.trust_cfg.challenge_window
+        out["finalized"] = self.protocol.advance(horizon)
+        self._run_da(None)               # close every open DA challenge
+        if self._infer_protocol is not None:
+            isummary = self._drain_trust(self._infer_protocol,
+                                         self._infer_ctx,
+                                         self._infer_audit_cids, None,
+                                         "infer")
+            self._record_infer_verdicts(isummary)
+            ihorizon = (self._infer_protocol.clock
+                        + self.trust_cfg.challenge_window)
+            out["infer_finalized"] = self._infer_protocol.advance(ihorizon)
+            for frid in out["infer_finalized"]:
+                self.infer_log.append({"event": "finalize", "round": frid})
+            self._prune_closed_rounds(self._infer_protocol, self._infer_ctx,
+                                      self._infer_audit_cids)
+        return out
+
+    def _ensure_infer_protocol(self) -> OptimisticProtocol:
+        if self._infer_protocol is None:
+            # its own round clock/window, but the SAME stake book, court
+            # and reputation ledger: an inference conviction bars the
+            # executor from the training rotation too.  chained=False:
+            # batches run against frozen weights, so rounds are
+            # independent
+            self._infer_protocol = OptimisticProtocol(
+                self.trust_cfg, self.cfg.num_edges, self.reputation,
+                stakes=self.protocol.stakes, court=self.protocol.court,
+                chained=False, metrics=self.obs.metrics,
+                namespace="trust.infer")
+        return self._infer_protocol
+
+    def _record_infer_verdicts(self, summary: Dict) -> None:
+        for rid in summary["convicted"]:
+            self.infer_log.append({"event": "revoke", "round": rid,
+                                   "executor":
+                                       self._infer_protocol.rounds[rid]
+                                       .executor})
+
+    def pending_inference(self) -> List[int]:
+        """Inference rounds still inside their challenge window."""
+        return ([] if self._infer_protocol is None
+                else self._infer_protocol.pending())
 
 
 # ---------------------------------------------------------------- steps
@@ -387,17 +924,27 @@ def _route_for_commit(gate, x, gate_bias, *, cfg):
     return eid, pos[0], keep[0]
 
 
-def _trust_outputs(outs, mask_e, noise, noise_std, cfg, active):
+def _trust_outputs(outs, mask_e, noise, noise_std, cfg, active,
+                   executor=0):
     """Framework-specific corruption + consensus over the per-expert
     output buckets ``outs`` (N, cap, C).
 
-    ``traditional``: edge i employs expert i, so ``mask_e[i]`` corrupts
-    expert i with ``noise`` (N, cap, C).  ``bmoe``: every edge publishes
+    ``optimistic``: the round's result is whatever the rotating
+    ``executor`` published — corrupted with ``noise`` (N, cap, C) iff
+    ``mask_e[executor]``; verification happens off this path (commit,
+    audit, court).  ``traditional``: edge i employs expert i, so
+    ``mask_e[i]`` corrupts expert i with ``noise`` (N, cap, C).  ``bmoe``:
+    every edge publishes
     every expert's result; edge m's copy is corrupted with ``noise[m]``
     (``noise`` is (M, N, cap, C)), so an honest edge's copy is bitwise
     ``outs``, and the vote over the M copies (one kernel launch on the
     card) picks the trusted one.  Returns (trusted, support, flags)."""
     N, M = cfg.num_experts, cfg.num_edges
+    if cfg.framework == "optimistic":
+        trusted = outs + noise_std * noise * mask_e[executor]
+        support = torch.ones(N, device=outs.device)
+        flags = torch.ones((N, M), dtype=torch.int32, device=outs.device)
+        return trusted, support, flags
     if cfg.framework == "traditional":
         m = mask_e[:N].reshape((N,) + (1,) * (outs.dim() - 1))
         trusted = outs + noise_std * noise * m
@@ -414,7 +961,7 @@ def _trust_outputs(outs, mask_e, noise, noise_std, cfg, active):
 
 
 def _moe_forward(gate, experts, x, mask_e, noise, noise_std, cfg,
-                 gate_bias=None, active=None):
+                 gate_bias=None, active=None, executor=0):
     """Shared forward: returns (trusted_out (B,C), weights (B,N),
     activation (N,), support (N,), flags (N,M), logits (B,N),
     dropped ())."""
@@ -432,7 +979,7 @@ def _moe_forward(gate, experts, x, mask_e, noise, noise_std, cfg,
     if active is None:
         active = torch.ones(cfg.num_edges, device=flat.device)
     trusted, support, flags = _trust_outputs(outs, mask_e, noise, noise_std,
-                                             cfg, active)
+                                             cfg, active, executor)
     # aggregate with gate weights (paper: weighted sum over top-K)
     yk = trusted[eid, posc]                             # (B*k, C)
     wk = weights.gather(1, topi).reshape(-1)
@@ -443,7 +990,8 @@ def _moe_forward(gate, experts, x, mask_e, noise, noise_std, cfg,
 
 
 def _infer_step(gate, experts, x, mask_e, noise, noise_std, gate_bias,
-                active, *, cfg):
+                active, *, cfg, executor=0):
     out, _, activation, support, _, _, _ = _moe_forward(
-        gate, experts, x, mask_e, noise, noise_std, cfg, gate_bias, active)
+        gate, experts, x, mask_e, noise, noise_std, cfg, gate_bias, active,
+        executor)
     return out, activation, support

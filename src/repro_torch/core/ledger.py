@@ -145,3 +145,16 @@ class Ledger:
         """All blocks whose payload matches, chain order."""
         return [b for b in self.blocks
                 if all(b.payload.get(k) == v for k, v in kv.items())]
+
+    def rollbacks(self) -> List[Block]:
+        """The chain's rollback record: one block per confirmed fraud
+        (kind="rollback"), each naming the convicted round, the slashed
+        executor, and the voided chain."""
+        return self.find_all(kind="rollback")
+
+    def slashes(self) -> List[Block]:
+        """Every slash-bearing block, chain order: DA slashes plus any
+        rollback block that burned an executor's stake."""
+        return [b for b in self.blocks
+                if b.payload.get("kind") == "da_slash"
+                or b.payload.get("slashed")]

@@ -22,7 +22,7 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("moe_gemm.cu", "vote.cu")
+SOURCES = ("moe_gemm.cu", "vote.cu", "audit_mlp.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -103,6 +103,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.restype = I
     fn = lib.redundancy_vote_masked_f32
     fn.argtypes = [P, P, F, I, I, I, P, P, P, P]
+    fn.restype = I
+    fn = lib.audit_mlp_f32
+    fn.argtypes = [P] * 7 + [I] * 6 + [P]
     fn.restype = I
     return lib
 

@@ -11,13 +11,28 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels import audit_mlp as _am
 from repro_torch.kernels import moe_gemm as _mg
 from repro_torch.kernels import redundancy_vote as _rv
 from repro_torch.kernels import ref
 from repro_torch.obs import annotate
 
-__all__ = ["kernel_route", "moe_gemm", "redundancy_vote_masked",
-           "launch_counts", "reset_launch_counts"]
+__all__ = ["resolve_device", "kernel_route", "moe_gemm",
+           "redundancy_vote_masked", "audit_mlp", "launch_counts",
+           "reset_launch_counts"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the CUDA device; CUDA asked for but absent raises
+    (the port never carries on on the CPU unless asked)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("repro_torch runs on a CUDA device and none is "
+                           "available; pass device='cpu' for the plain "
+                           "PyTorch path")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
 
 
 def kernel_route(t: torch.Tensor) -> str:
@@ -52,11 +67,26 @@ def redundancy_vote_masked(pub: torch.Tensor, active: torch.Tensor,
         return ref.redundancy_vote_masked_ref(pub, active, atol)
 
 
+def audit_mlp(params: Dict[str, torch.Tensor], x: torch.Tensor,
+              gid: torch.Tensor) -> torch.Tensor:
+    """Batched audit recompute: out[s] = mlp(params[gid[s]], x[s]).
+    params: stacked {w1, b1, w2, b2}; x (S, C, d); gid (S,) -> (S, C, o).
+    Both routes give a row bytes that depend on that row alone."""
+    route = kernel_route(x)
+    with annotate(f"audit_mlp[{route}]"):
+        if route == "cuda":
+            return _am.audit_mlp(params, x, gid)
+        _am.check_operands(params, x, gid)
+        return ref.audit_mlp_ref(params, x, gid)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per wrapper since the last reset."""
-    return {"moe_gemm": _mg.launches, "redundancy_vote": _rv.launches}
+    return {"moe_gemm": _mg.launches, "redundancy_vote": _rv.launches,
+            "audit_mlp": _am.launches}
 
 
 def reset_launch_counts() -> None:
     _mg.launches = 0
     _rv.launches = 0
+    _am.launches = 0

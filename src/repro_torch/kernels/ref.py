@@ -72,3 +72,38 @@ def moe_gemm_ref(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     ``buf.dtype``."""
     out = torch.einsum("ecd,edf->ecf", buf.float(), w.float())
     return out.to(buf.dtype)
+
+
+# ------------------------------------------------- audit recompute MLP
+def rows_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (C, d) @ w (d, f) -> (C, f) as C independent one-row products.
+
+    A CPU GEMM blocks its rows, so a row of a 94-row product can differ
+    in its last bit from the same row computed alone.  Batching the rows
+    as separate (1, d) @ (d, f) products makes each row's bytes depend on
+    that row only — what lets the optimistic framework hash a leaf
+    recomputed from its real rows the same as one cut from a padded
+    call."""
+    return torch.bmm(x[:, None, :], w.expand(x.shape[0], *w.shape))[:, 0]
+
+
+def mlp_rows_ref(p, x: torch.Tensor) -> torch.Tensor:
+    """One expert's 2-layer MLP (``p``: w1, b1, w2, b2), row by row."""
+    h = torch.relu(rows_matmul_ref(x, p["w1"]) + p["b1"])
+    return rows_matmul_ref(h, p["w2"]) + p["b2"]
+
+
+def audit_mlp_ref(params, x: torch.Tensor, gid: torch.Tensor) -> torch.Tensor:
+    """Grouped gather-MLP: out[s] = mlp(params[gid[s]], x[s]).
+
+    params: stacked {w1 (E,d,h), b1 (E,h), w2 (E,h,o), b2 (E,o)};
+    x: (S, C, d); gid: (S,) integer.  The bank is gathered by gid and the
+    per-expert MLP applied per sample and row by row, so on the CPU a row
+    is bitwise the eager S=1 recompute of that row, whatever C the call
+    pads to."""
+    S, C = x.shape[:2]
+    out = torch.empty((S, C, params["w2"].shape[-1]), dtype=torch.float32,
+                      device=x.device)
+    for s, g in enumerate(gid.tolist()):
+        out[s] = mlp_rows_ref({k: v[g] for k, v in params.items()}, x[s])
+    return out

@@ -25,6 +25,7 @@ from repro_torch.core.attacks import AttackConfig
 from repro_torch.data.synthetic import FMNIST, make_image_dataset
 from repro_torch.kernels import ops
 from repro_torch.models.moe import capacity_positions
+from repro_torch.trust.protocol import TrustConfig
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -268,17 +269,29 @@ def test_plain_path_launches_no_kernel(data, port_systems):
     sys_b, _ = port_systems
     ops.reset_launch_counts()
     sys_b.infer(data[2][:50])
-    assert ops.launch_counts() == {"moe_gemm": 0, "redundancy_vote": 0}
+    assert ops.launch_counts() == {"moe_gemm": 0, "redundancy_vote": 0,
+                                   "audit_mlp": 0}
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(framework="optimistic"), "slice 2"),
+    (None, "item 2"),                     # train_round, any framework
     (dict(dispatch="dense"), "item 3"),
     (dict(expert_kind="cnn"), "item 3"),
     (dict(workload_balance=True), "item 3"),
     (dict(mesh="on"), "item 7"),
+    (dict(framework="optimistic",
+          trust=TrustConfig(audit_backend="eager")), "item 2"),
+    (dict(framework="optimistic",
+          trust=TrustConfig(scheduling="synchronous")), "item 2"),
 ])
 def test_unported_options_raise(kw, match):
+    if kw is None:
+        for framework in ("bmoe", "traditional", "optimistic"):
+            sys_ = bmoe.BMoESystem(bmoe.BMoEConfig(framework=framework),
+                                   device="cpu")
+            with pytest.raises(NotImplementedError, match=match):
+                sys_.train_round(np.zeros((8, 784), np.float32), np.zeros(8))
+        return
     with pytest.raises(NotImplementedError, match=match):
         bmoe.BMoESystem(bmoe.BMoEConfig(**kw), device="cpu")
 

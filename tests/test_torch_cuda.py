@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.core.attacks import AttackConfig
 from repro_torch.core.bmoe import BMoEConfig, BMoESystem
+from repro_torch.kernels import audit_mlp as am
 from repro_torch.kernels import moe_gemm as mg
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import redundancy_vote as rv
@@ -80,4 +81,67 @@ def test_evaluate_launches_the_kernels(cuda):
     sys_b = BMoESystem(BMoEConfig(), device=cuda)
     ops.reset_launch_counts()
     sys_b.evaluate(x, y, attack=AttackConfig())
-    assert ops.launch_counts() == {"moe_gemm": 2, "redundancy_vote": 1}
+    assert ops.launch_counts() == {"moe_gemm": 2, "redundancy_vote": 1,
+                                   "audit_mlp": 0}
+
+
+def _bank(seed, E, d, h, o, device):
+    return {"w1": _randn(seed, E, d, h).to(device) / d ** 0.5,
+            "b1": _randn(seed + 1, E, h).to(device),
+            "w2": _randn(seed + 2, E, h, o).to(device) / h ** 0.5,
+            "b2": _randn(seed + 3, E, o).to(device)}
+
+
+@pytest.mark.parametrize("E,S,C,d,h,o", [
+    (10, 40, 94, 784, 256, 10), (30, 8, 94, 784, 256, 10),
+    (3, 5, 93, 50, 70, 3), (2, 3, 17, 100, 300, 20), (1, 1, 1, 1, 1, 1)])
+def test_audit_mlp_kernel_matches_plain(cuda, E, S, C, d, h, o):
+    bank = _bank(E + S, E, d, h, o, cuda)
+    x = _randn(C, S, C, d).to(cuda)
+    gid = torch.from_numpy(np.random.default_rng(d).integers(
+        0, E, S).astype(np.int32)).to(cuda)
+    got = am.audit_mlp(bank, x, gid)
+    want = ref.audit_mlp_ref(bank, x, gid)
+    torch.cuda.synchronize()
+    assert got.shape == (S, C, o)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_audit_mlp_rows_are_bitwise_invariant(cuda):
+    """A sample's rows do not depend on S, its slot, the bank it is
+    gathered from, or the padded C."""
+    bank = _bank(0, 10, 784, 256, 10, cuda)
+    x = _randn(1, 40, 94, 784).to(cuda)
+    gid = torch.arange(40, device=cuda, dtype=torch.int32) % 10
+    full = am.audit_mlp(bank, x, gid)
+    sub = torch.tensor([37, 2, 19, 8], device=cuda)
+    part = am.audit_mlp(bank, x[sub], gid[sub])
+    assert torch.equal(part.view(torch.int32), full[sub].view(torch.int32))
+    stacked = {k: torch.cat([v, v, v]) for k, v in bank.items()}
+    off = am.audit_mlp(stacked, x, gid + 10 * (torch.arange(
+        40, device=cuda, dtype=torch.int32) % 3))
+    assert torch.equal(off.view(torch.int32), full.view(torch.int32))
+    for s, n in ((0, 94), (5, 60), (39, 1)):
+        one = am.audit_mlp({k: v[int(gid[s])][None] for k, v in
+                            bank.items()}, x[s:s + 1, :n].contiguous(),
+                           torch.zeros(1, dtype=torch.int32, device=cuda))
+        assert torch.equal(one[0].view(torch.int32),
+                           full[s, :n].view(torch.int32))
+    with pytest.raises(IndexError):
+        am.audit_mlp(bank, x, gid + 1)
+
+
+def test_optimistic_infer_and_flush_launch_audit_mlp(cuda):
+    x = _randn(3, 1000, 784).numpy()
+    sys_o = BMoESystem(BMoEConfig(framework="optimistic"), device=cuda)
+    ops.reset_launch_counts()
+    for _ in range(3):
+        logits, _, _ = sys_o.infer(x)
+        assert logits.shape == (1000, 10) and np.isfinite(logits).all()
+    sys_o.flush_trust()
+    counts = ops.launch_counts()
+    p = sys_o._infer_protocol
+    calls = sys_o.obs.metrics.snapshot("bmoe.audit_calls")
+    assert counts["audit_mlp"] == p.stats["committed"] + sum(calls.values())
+    assert counts["moe_gemm"] == 6 and counts["redundancy_vote"] == 0
+    assert all(s.phase.value == "finalized" for s in p.rounds.values())
