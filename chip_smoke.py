@@ -10,7 +10,12 @@ capacity 376, edge cache on):
   redundancy-vote trust claims;
 - optimistic batch inference (``infer(commit=True)`` + ``flush_trust``):
   commit, merged audits, court, slash and rollback, under an attacking
-  executor (path A) and under re-audit of honest verifiers (path B).
+  executor (path A) and under re-audit of honest verifiers (path B);
+- the LM stack's prefill and decode at full width, random weights from
+  seed 0: qwen2.5-3b (path C: prefill at S=4096, teacher-forced decode
+  against the full forward, four requests decoded greedily in one batch
+  against each alone, a profile) and recurrentgemma-2b (path D: prefill
+  at S=4096, teacher-forced decode past its 2048-token window).
 
 Each path's launch counts are set to 0 just before it and read just
 after it.
@@ -224,6 +229,273 @@ def check_audit_invariance(torch, am):
             f"audit_mlp rows depend on the call: {res}")
 
 
+# ------------------------------------------------ LM stack kernels
+def attention_pairs(np, Sq: int, Sk: int, causal: bool, window: int,
+                    q_offset: int = 0) -> int:
+    """Unmasked (query, key) pairs: the work this call's masks leave."""
+    qpos = q_offset + np.arange(Sq, dtype=np.int64)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros_like(qpos)
+    hi = np.minimum(qpos, Sk - 1) if causal else np.full_like(qpos, Sk - 1)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def top_kernel(torch, run) -> str:
+    """Name of the kernel with the most device time in one call."""
+    top = profile_batch(torch, run)["top"]
+    return top[0]["name"] if top else "none"
+
+
+def check_flash(torch, np, fa, ref, seed: int, name: str, B: int, S: int,
+                H: int, KH: int, D: int, causal: bool, window: int = 0,
+                softcap: float = 0.0, dtype=None, iters: int = 20):
+    import torch.nn.functional as F
+    dtype = dtype or torch.float32
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(B, S, H, D, generator=g).to("cuda", dtype)
+    k = torch.randn(B, S, KH, D, generator=g).to("cuda", dtype)
+    v = torch.randn(B, S, KH, D, generator=g).to("cuda", dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = fa.flash_attention(q, k, v, **kw)
+    want = ref.attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    err = float((got.float() - want.float()).abs().max())
+    ok = bool(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol))
+    pairs = attention_pairs(np, S, S, causal, window)
+    size = q.element_size()
+    b_ms, b_by = bound(4.0 * B * H * D * pairs,
+                       size * (2 * B * S * H * D + 2 * B * S * KH * D),
+                       FP32_PEAK if dtype == torch.float32 else BF16_PEAK)
+    # the yardstick: one scaled_dot_product_attention call on the same
+    # inputs, heads first, GQA expanded and the window as a boolean mask
+    # (prepared outside the timing); it has no softcap
+    library_ms, backend = None, None
+    if not softcap:
+        G = H // KH
+        qt = q.transpose(1, 2).contiguous()
+        kt = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+        vt = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+        mask = None
+        if window:
+            pos = torch.arange(S, device="cuda")
+            mask = pos[None, :] > pos[:, None] - window
+            if causal:
+                mask &= pos[None, :] <= pos[:, None]
+        sdpa = (lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and not window))
+        library_ms = time_ms(sdpa, iters=iters)
+        backend = top_kernel(torch, sdpa)
+    row = {"case": name, "kernel": "flash_attention",
+           "shape": f"q ({B},{S},{H},{D}), kv heads {KH}",
+           "causal": causal, "window": window, "softcap": softcap,
+           "dtype": str(dtype).replace("torch.", ""), "pairs": pairs,
+           "max_abs_err": err, "rtol": tol, "atol": tol, "ok": ok,
+           "kernel_ms": time_ms(lambda: fa.flash_attention(q, k, v, **kw),
+                                iters=iters),
+           "plain_ms": time_ms(lambda: ref.attention_ref(q, k, v, **kw),
+                               iters=max(iters // 4, 1), reps=2),
+           "library_ms": library_ms, "library_backend": backend,
+           "bound_ms": b_ms, "bound_by": b_by}
+    emit(row)
+    require(ok, f"flash_attention {name} disagrees with its plain version "
+                f"(max abs err {err})")
+    return row
+
+
+def check_rglru(torch, rg, ref, seed: int, name: str, B: int, S: int,
+                C: int):
+    g = torch.Generator().manual_seed(seed)
+    a = (0.5 + 0.5 * torch.rand(B, S, C, generator=g)).cuda()
+    b = torch.randn(B, S, C, generator=g).cuda()
+    got = rg.rglru_scan(a, b)
+    want = ref.rglru_scan_ref(a, b)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5))
+    b_ms, b_by = bound(2.0 * B * S * C, 12.0 * B * S * C, FP32_PEAK)
+    row = {"case": name, "kernel": "rglru_scan", "shape": f"({B},{S},{C})",
+           "dtype": "float32", "max_abs_err": err, "rtol": 1e-5,
+           "atol": 1e-5, "ok": ok, "bitwise": bool(torch.equal(got, want)),
+           "kernel_ms": time_ms(lambda: rg.rglru_scan(a, b)),
+           "plain_ms": time_ms(lambda: ref.rglru_scan_ref(a, b), iters=1,
+                               reps=2),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    emit(row)
+    require(ok, f"rglru_scan {name} disagrees with its plain version "
+                f"(max abs err {err})")
+    return row
+
+
+# ------------------------------------------- LM stack: paths C and D
+def lm_prefill(torch, ops, cfg, params, tokens, want_counts):
+    """The prefill step at (1, 4096): one warm-up, then the main path's
+    run with the launch counts set to 0 around it, two more timed runs
+    (median of 3), peak memory, and one profiled warm run."""
+    from repro_torch.train.step import make_prefill_step
+    prefill = make_prefill_step(cfg)
+    batch = {"tokens": tokens.cuda()}
+    nxt = prefill(params, batch)                 # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, counts = [], None
+    for i in range(3):
+        if i == 0:
+            ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        nxt = prefill(params, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_batch(torch, lambda: prefill(params, batch))
+    wall_ms = sorted(walls)[1] * 1e3
+    S = tokens.shape[1]
+    row = {"phase": "lm_prefill", "model": cfg.name, "batch": 1, "seq": S,
+           "launches": counts, "wall_ms": [w * 1e3 for w in walls],
+           "tokens_per_s": S / (wall_ms / 1e3),
+           "peak_mem_gb": peak / 1e9, "next_token": nxt.tolist(),
+           "device_busy_ms": prof["device_busy_us"] / 1e3,
+           "device_idle_share": 1.0 - prof["device_busy_us"] / 1e3 / wall_ms,
+           "profile": prof["top"]}
+    emit(row)
+    require(nxt.shape == (1, 1) and 0 <= int(nxt) < cfg.padded_vocab,
+            f"{cfg.name} prefill gave {nxt.tolist()}")
+    for k, n in want_counts.items():
+        require(counts[k] == n, f"{cfg.name} prefill launched {counts[k]} "
+                                f"{k}, wanted {n}")
+    return counts, row
+
+
+def decode_vs_train(torch, cfg, params, tokens, S: int):
+    """Teacher-forced decode of ``tokens[:, :S]`` through the caches
+    against the full forward's logits, at the 2e-3 bar of the JAX
+    package's tests/test_consistency.py."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.builder import materialize
+    toks = tokens[:, :S].cuda()
+    full, _ = tfm.forward_train(params, toks, cfg)
+    caches = materialize(tfm.cache_decl(cfg, 1, S), 0, "cuda")
+    dec = torch.empty_like(full)
+    t0 = time.perf_counter()
+    for t in range(S):
+        logits, caches = tfm.forward_decode(params, caches,
+                                            toks[:, t:t + 1], t, cfg)
+        dec[:, t] = logits[:, 0]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / S * 1e3
+    prof = profile_batch(torch, lambda: tfm.forward_decode(
+        params, caches, toks[:, S - 1:], S - 1, cfg))
+    err = float((dec - full).abs().max())
+    ok = bool(torch.allclose(dec, full, rtol=2e-3, atol=2e-3))
+    finite = bool(torch.isfinite(full).all())
+    emit({"phase": "decode_vs_train", "model": cfg.name, "seq": S,
+          "window": cfg.sliding_window if any(
+              s.kind == "local_attn" for s in cfg.block_pattern) else None,
+          "max_abs_err": err, "rtol": 2e-3, "atol": 2e-3, "ok": ok,
+          "logits_finite": finite, "logit_abs_max": float(full.abs().max()),
+          "decode_step_ms": step_ms,
+          "step_device_busy_ms": prof["device_busy_us"] / 1e3,
+          "step_device_idle_share": 1.0 - prof["device_busy_us"] / 1e3
+          / step_ms, "step_profile": prof["top"]})
+    require(finite and full.shape == (1, S, cfg.padded_vocab),
+            f"{cfg.name} forward logits shape {tuple(full.shape)} / finite")
+    require(ok, f"{cfg.name} decode differs from the forward by {err}")
+
+
+def serve_greedy(torch, cfg, params, requests, start, cache_len: int):
+    """Greedy decoding of ``requests`` in one batch, slot r admitted at
+    step ``start[r]``: each step feeds a slot its next prompt token, then
+    its last generated one, at its own position (``pos`` per row), and an
+    inactive slot (not yet admitted, or done) leaves its caches as they
+    were.  This is the decode step ``train.step.make_decode_step`` runs,
+    with the logits kept.  Returns, per request, its logits per step
+    ((n, V) on the card) and its generated tokens."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.builder import materialize
+    B = len(requests)
+    lens = [len(r["prompt"]) + r["max_new_tokens"] - 1 for r in requests]
+    steps = max(s + n for s, n in zip(start, lens))
+    caches = materialize(tfm.cache_decl(cfg, B, cache_len), 0, "cuda")
+    logits_out = [[] for _ in requests]
+    gen = [[] for _ in requests]
+    for t in range(steps):
+        tok, pos, active = [], [], []
+        for r, req in enumerate(requests):
+            i = t - start[r]                    # the request's own step
+            live = 0 <= i < lens[r]
+            plen = len(req["prompt"])
+            tok.append(int(req["prompt"][i]) if live and i < plen
+                       else (gen[r][-1] if live else 0))
+            pos.append(min(max(i, 0), lens[r]))
+            active.append(live)
+        logits, caches = tfm.forward_decode(
+            params, caches, torch.tensor(tok, device="cuda")[:, None],
+            torch.tensor(pos, device="cuda"), cfg,
+            write_mask=torch.tensor(active, device="cuda"))
+        nxt = logits[:, 0].argmax(dim=-1).tolist()
+        for r, req in enumerate(requests):
+            i = t - start[r]
+            if active[r]:
+                logits_out[r].append(logits[r, 0])
+                if i >= len(req["prompt"]) - 1:
+                    gen[r].append(nxt[r])
+    return [torch.stack(x) for x in logits_out], gen
+
+
+def batched_vs_alone(torch, cfg, params):
+    from repro_torch.data.synthetic import serving_requests
+    reqs = list(serving_requests(cfg.vocab_size, 4, max_prompt=64,
+                                 max_new=16, seed=0))
+    cache_len = max(len(r["prompt"]) + r["max_new_tokens"] for r in reqs)
+    t0 = time.perf_counter()
+    batched, gen_b = serve_greedy(torch, cfg, params, reqs, [0, 1, 2, 3],
+                                  cache_len)
+    torch.cuda.synchronize()
+    batched_s = time.perf_counter() - t0
+    errs, same = [], []
+    for r, req in enumerate(reqs):
+        alone, gen_a = serve_greedy(torch, cfg, params, [req], [0],
+                                    cache_len)
+        errs.append(float((batched[r] - alone[0]).abs().max()))
+        same.append(gen_b[r] == gen_a[0])
+    ok = max(errs) <= 1e-4 and all(same)
+    emit({"phase": "batched_decode", "model": cfg.name, "slots": 4,
+          "prompts": [len(r["prompt"]) for r in reqs],
+          "max_new_tokens": [r["max_new_tokens"] for r in reqs],
+          "admitted_at_step": [0, 1, 2, 3], "max_abs_err": errs,
+          "tol": 1e-4, "tokens_equal": same, "ok": ok,
+          "generated": gen_b, "batched_s": batched_s})
+    require(ok, f"batched decode differs from each request alone: {errs}, "
+                f"tokens equal {same}")
+
+
+def lm_path(torch, ops, arch: str, want_counts, decode_seq: int,
+            serving: bool):
+    """One model at full width: init from seed 0 on the card, prefill at
+    S=4096 (the main path's launch counts), decode against the forward,
+    and for qwen2.5-3b the batched-serving check.  The model is freed
+    before returning."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.train.loop import init_model
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = init_model(cfg, 0)
+    torch.cuda.synchronize()
+    emit({"phase": "lm_init", "model": cfg.name,
+          "init_s": time.perf_counter() - t0,
+          "params_gb": torch.cuda.memory_allocated() / 1e9})
+    tokens = next(lm_batches(cfg.vocab_size, 1, 4096, seed=0))["tokens"]
+    counts, row = lm_prefill(torch, ops, cfg, params, tokens, want_counts)
+    decode_vs_train(torch, cfg, params, tokens, decode_seq)
+    if serving:
+        batched_vs_alone(torch, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    return counts, row
+
+
 # ----------------------------------------------------------- main path
 def main_path(torch, np, ops):
     from repro_torch.core.attacks import AttackConfig
@@ -251,7 +523,8 @@ def main_path(torch, np, ops):
           "batch": 1000, "launches": counts, "accuracy": acc,
           "init_s": init_s, "evaluate_s": first_s})
     require(counts == {"moe_gemm": 4, "redundancy_vote": 2,
-                       "audit_mlp": 0},
+                       "audit_mlp": 0, "flash_attention": 0,
+                       "rglru_scan": 0},
             f"evaluate of 2 batches launched {counts}, wanted 4 moe_gemm "
             f"and 2 vote launches")
     require(0.0 <= acc <= 1.0, f"accuracy {acc}")
@@ -301,7 +574,8 @@ def main_path(torch, np, ops):
     emit({"phase": "traditional", "launches": counts_t,
           "max_abs_diff_3of10": float(np.abs(lt3 - lt_clean).max())})
     require(counts_t == {"moe_gemm": 2, "redundancy_vote": 0,
-                         "audit_mlp": 0},
+                         "audit_mlp": 0, "flash_attention": 0,
+                         "rglru_scan": 0},
             f"traditional batch launched {counts_t}")
     require(not np.array_equal(lt3, lt_clean),
             "traditional under 3 of 10 equals clean")
@@ -509,8 +783,10 @@ def main() -> int:
     import numpy as np
     from repro_torch.kernels import audit_mlp as am
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gemm as mg
     from repro_torch.kernels import redundancy_vote as rv
+    from repro_torch.kernels import rglru_scan as rg
 
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 references stay
     torch.backends.cudnn.allow_tf32 = False         # fp32 (no TF32)
@@ -556,6 +832,18 @@ def main() -> int:
                              3)]
     check_audit_invariance(torch, am)
 
+    flash = [check_flash(torch, np, fa, ref, 15, "qwen_layer", 1, 4096, 16,
+                         2, 128, True, iters=5),
+             check_flash(torch, np, fa, ref, 16, "rgemma_layer", 1, 4096, 10,
+                         1, 256, True, window=2048, iters=5)]
+    check_flash(torch, np, fa, ref, 17, "ragged", 2, 1000, 4, 2, 64, False)
+    check_flash(torch, np, fa, ref, 18, "softcap", 1, 512, 8, 4, 128, True,
+                softcap=50.0)
+    check_flash(torch, np, fa, ref, 19, "qwen_layer_bf16", 1, 4096, 16, 2,
+                128, True, dtype=torch.bfloat16, iters=5)
+    scan = check_rglru(torch, rg, ref, 20, "rgemma_layer", 1, 4096, 2560)
+    check_rglru(torch, rg, ref, 21, "ragged", 3, 1000, 300)
+
     counts = main_path(torch, np, ops)
 
     from repro_torch.data.synthetic import FMNIST, make_image_dataset
@@ -573,6 +861,15 @@ def main() -> int:
     counts_a = optimistic_path_a(torch, np, ops, xs, clean1)
     optimistic_path_b(torch, ops, xs[:3])
     optimistic_batch_time(torch, xs)
+
+    counts_c, _ = lm_path(torch, ops, "qwen2.5-3b",
+                          {"flash_attention": 36, "rglru_scan": 0,
+                           "moe_gemm": 0, "redundancy_vote": 0,
+                           "audit_mlp": 0}, decode_seq=256, serving=True)
+    counts_d, _ = lm_path(torch, ops, "recurrentgemma-2b",
+                          {"flash_attention": 8, "rglru_scan": 18,
+                           "moe_gemm": 0, "redundancy_vote": 0,
+                           "audit_mlp": 0}, decode_seq=2112, serving=False)
 
     emit({"kernels": [
         {"name": "moe_gemm", "route": "cuda",
@@ -604,6 +901,28 @@ def main() -> int:
          "ms": audit[0]["kernel_ms"], "plain_ms": audit[0]["plain_ms"],
          "bound_ms": audit[0]["bound_ms"], "bound_by": audit[0]["bound_by"],
          "library_ms": None},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:64",
+         "launches": counts_c["flash_attention"],
+         "launches_by_path": {"qwen2.5-3b prefill": counts_c[
+             "flash_attention"], "recurrentgemma-2b prefill": counts_d[
+             "flash_attention"]},
+         "per": "one qwen2.5-3b prefill at (1, 4096); times per layer, "
+                "q (1,4096,16,128), kv heads 2, causal, fp32",
+         "max_abs_err": max(r["max_abs_err"] for r in flash),
+         "ms": flash[0]["kernel_ms"], "plain_ms": flash[0]["plain_ms"],
+         "bound_ms": flash[0]["bound_ms"], "bound_by": flash[0]["bound_by"],
+         "library_ms": flash[0]["library_ms"]},
+        {"name": "rglru_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+         "replaces": "src/repro/kernels/rglru_scan.py:41",
+         "launches": counts_d["rglru_scan"],
+         "per": "one recurrentgemma-2b prefill at (1, 4096); times per "
+                "layer, (1,4096,2560)",
+         "max_abs_err": scan["max_abs_err"], "ms": scan["kernel_ms"],
+         "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
+         "bound_by": scan["bound_by"], "library_ms": None},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,12 @@
 """Carry weights across from the JAX package (or any numpy source).
 
 Both packages keep the same parameter names and layouts (``x @ w``;
-the expert bank stacked on a leading N axis), so nothing is transposed:
-the arrays are copied as float32 onto the target device.
+the expert bank and the LM's blocks stacked on a leading axis), so
+nothing is transposed: the arrays are copied onto the target device.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -35,3 +35,23 @@ def params_from_numpy(gate: Dict[str, np.ndarray],
 
     return {"gate": {k: put(v) for k, v in gate.items()},
             "experts": {k: put(v) for k, v in experts.items()}}
+
+
+def lm_params_from_numpy(tree: Any, device=None) -> Any:
+    """The port's LM parameter (or cache) tree from the JAX package's, as
+    numpy arrays: the same nested dicts and lists, each array copied in
+    its own dtype onto ``device`` (``None``: the CUDA device)."""
+    dev = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, Mapping):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        arr = np.array(node)
+        if arr.dtype.kind not in "fiub":
+            raise TypeError(f"lm_params_from_numpy: unsupported dtype "
+                            f"{arr.dtype}")
+        return torch.from_numpy(arr).to(dev)
+
+    return walk(tree)

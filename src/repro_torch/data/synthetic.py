@@ -2,15 +2,19 @@
 
 ``make_image_dataset``: Fashion-MNIST-like (28x28x1, 10 classes) and
 CIFAR-10-like (32x32x3, 10 classes) class-conditional data: per-class
-smoothed templates + per-sample noise + random per-sample contrast.  A
-numpy copy of ``repro.data.synthetic.make_image_dataset``: the same seed
-gives the same arrays in both packages.
+smoothed templates + per-sample noise + random per-sample contrast.
+``lm_batches``: token batches with planted bigram structure;
+``serving_requests``: prompts and generation budgets.  Numpy copies of
+``repro.data.synthetic``: the same seed gives the same values in both
+packages (LM tokens as int32 torch tensors on the CPU).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator
 
 import numpy as np
+import torch
 
 @dataclasses.dataclass(frozen=True)
 class ImageSpec:
@@ -54,3 +58,31 @@ def make_image_dataset(spec: ImageSpec, n_train: int = 10_000,
     x_tr, y_tr = sample(n_train)
     x_te, y_te = sample(n_test)
     return x_tr, y_tr, x_te, y_te
+
+
+def lm_batches(vocab_size: int, batch: int, seq: int, *, seed: int = 0,
+               p_structured: float = 0.8) -> Iterator[dict]:
+    """Infinite iterator of {tokens, labels} with planted bigram structure."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(vocab_size)
+    while True:
+        toks = np.empty((batch, seq + 1), dtype=np.int32)
+        toks[:, 0] = rng.integers(0, vocab_size, size=batch)
+        for t in range(seq):
+            structured = rng.random(batch) < p_structured
+            nxt = np.where(structured, perm[toks[:, t]],
+                           rng.integers(0, vocab_size, size=batch))
+            toks[:, t + 1] = nxt
+        yield {"tokens": torch.from_numpy(toks[:, :-1].copy()),
+               "labels": torch.from_numpy(toks[:, 1:].copy())}
+
+
+def serving_requests(vocab_size: int, num_requests: int, *,
+                     max_prompt: int = 64, max_new: int = 16,
+                     seed: int = 0) -> Iterator[dict]:
+    rng = np.random.default_rng(seed)
+    for rid in range(num_requests):
+        plen = int(rng.integers(4, max_prompt))
+        yield {"id": rid,
+               "prompt": rng.integers(0, vocab_size, size=plen).astype(np.int32),
+               "max_new_tokens": int(rng.integers(1, max_new))}

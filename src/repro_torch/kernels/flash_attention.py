@@ -1,0 +1,94 @@
+"""Online-softmax attention: the wrapper of the CUDA kernel in
+``csrc/flash_attention.cu`` (the port of
+``repro.kernels.flash_attention.flash_attention``).
+
+``flash_attention(q, k, v, causal=, window=, softcap=, q_offset=)`` takes
+the model layout, q (B, Sq, H, D) and k, v (B, Sk, KH, D) with H a
+multiple of KH, float32 or bfloat16, and returns (B, Sq, H, D) in the
+input dtype.  q, k and v may be strided views as long as the last
+dimension is contiguous.  Ragged Sq and Sk are taken (masked in the
+kernel).  It takes CUDA tensors only and launches the kernel or raises;
+``kernels.ops.flash_attention`` is the device dispatch that gives CPU
+tensors the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+_DTYPE = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (64, 128, 256)     # the kernel's compiled tile shapes
+
+# kernel launches since the last reset (ops.reset_launch_counts)
+launches = 0
+
+
+def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   window: int = 0, q_offset: int = 0) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"flash_attention wants q (B, Sq, H, D) and k, v "
+                         f"(B, Sk, KH, D), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, Sq, H, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"flash_attention shape mismatch: q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}")
+    KH = k.shape[2]
+    if KH == 0 or H % KH:
+        raise ValueError(f"flash_attention: {H} query heads are not a "
+                         f"multiple of {KH} kv heads")
+    if k.shape[1] == 0:
+        raise ValueError("flash_attention needs at least one key")
+    if q.dtype != k.dtype or q.dtype != v.dtype or q.dtype not in _DTYPE:
+        raise TypeError(f"flash_attention takes float32 or bfloat16 "
+                        f"operands of one dtype, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attention operands on different devices")
+    if window < 0 or q_offset < 0:
+        raise ValueError(f"flash_attention: window {window} and q_offset "
+                         f"{q_offset} must be >= 0")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, q_offset: int = 0) -> torch.Tensor:
+    """Launch the CUDA kernel on CUDA tensors."""
+    global launches
+    check_operands(q, k, v, window=window, q_offset=q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention launches on CUDA tensors, got "
+                         f"{q.device}")
+    if torch.cuda.get_device_capability(q.device) != (9, 0):
+        raise RuntimeError("flash_attention is built for sm_90a (Hopper); "
+                           f"device {torch.cuda.get_device_name(q.device)} "
+                           f"is not")
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention needs the head dim contiguous")
+    if H > 65535 or B > 65535:
+        raise ValueError(f"flash_attention: grid limit 65535 on H={H}, "
+                         f"B={B}")
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    strides = (ctypes.c_longlong * 9)(*[t.stride(i) for t in (q, k, v)
+                                        for i in (0, 1, 2)])
+    lib = build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            strides, _DTYPE[q.dtype], B, Sq, Sk, H, KH, D, int(causal),
+            int(window), int(q_offset), D ** -0.5, float(softcap or 0.0),
+            stream)
+    build.check(code, "flash_attention")
+    launches += 1
+    return out

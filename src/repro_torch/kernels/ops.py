@@ -12,14 +12,16 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import audit_mlp as _am
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import moe_gemm as _mg
 from repro_torch.kernels import redundancy_vote as _rv
+from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import ref
 from repro_torch.obs import annotate
 
 __all__ = ["resolve_device", "kernel_route", "moe_gemm",
-           "redundancy_vote_masked", "audit_mlp", "launch_counts",
-           "reset_launch_counts"]
+           "redundancy_vote_masked", "audit_mlp", "flash_attention",
+           "rglru_scan", "launch_counts", "reset_launch_counts"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -80,13 +82,43 @@ def audit_mlp(params: Dict[str, torch.Tensor], x: torch.Tensor,
         return ref.audit_mlp_ref(params, x, gid)
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, q_offset: int = 0) -> torch.Tensor:
+    """Online-softmax attention in the model layout: q (B, Sq, H, D),
+    k/v (B, Sk, KH, D) -> (B, Sq, H, D) in q's dtype.  Query row i sits at
+    absolute position ``q_offset + i``; ``window`` > 0 keeps the last
+    ``window`` keys (inclusive of self)."""
+    route = kernel_route(q)
+    with annotate(f"flash_attention[{route}]"):
+        if route == "cuda":
+            return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                                       softcap=softcap, q_offset=q_offset)
+        _fa.check_operands(q, k, v, window=window, q_offset=q_offset)
+        return ref.attention_ref(q, k, v, causal=causal, window=window,
+                                 softcap=softcap, q_offset=q_offset)
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t over axis 1 from h = 0; a, b (B, S, C)
+    float32 -> h (B, S, C) float32."""
+    route = kernel_route(a)
+    with annotate(f"rglru_scan[{route}]"):
+        if route == "cuda":
+            return _rg.rglru_scan(a, b)
+        _rg.check_operands(a, b)
+        return ref.rglru_scan_ref(a, b)
+
+
+_KERNELS = {"moe_gemm": _mg, "redundancy_vote": _rv, "audit_mlp": _am,
+            "flash_attention": _fa, "rglru_scan": _rg}
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per wrapper since the last reset."""
-    return {"moe_gemm": _mg.launches, "redundancy_vote": _rv.launches,
-            "audit_mlp": _am.launches}
+    return {name: mod.launches for name, mod in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    _mg.launches = 0
-    _rv.launches = 0
-    _am.launches = 0
+    for mod in _KERNELS.values():
+        mod.launches = 0

@@ -107,3 +107,53 @@ def audit_mlp_ref(params, x: torch.Tensor, gid: torch.Tensor) -> torch.Tensor:
     for s, g in enumerate(gid.tolist()):
         out[s] = mlp_rows_ref({k: v[g] for k, v in params.items()}, x[s])
     return out
+
+
+# ------------------------------------------------- flash attention
+NEG_INF = -1e30
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0,
+                  softcap: float = 0.0, q_offset: int = 0) -> torch.Tensor:
+    """Naive softmax attention (the counterpart of JAX
+    ``kernels/ref.py::attention_ref``, with the kernel's ``q_offset``).
+
+    q: (B, Sq, H, D), k/v: (B, Sk, KH, D) with H = KH * G; query row i
+    sits at absolute position ``q_offset + i``, key j at j.  Masked
+    scores are set to -1e30, so a row with every key masked averages v
+    over the Sk keys.  Scores, softmax and the weighted sum run in
+    float32; the output is cast to ``q.dtype``."""
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    qh = q.float().reshape(B, Sq, KH, G, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qh, k.float()) * (D ** -0.5)
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    qpos = q_offset + torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+# ------------------------------------------------- RG-LRU scan
+def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t along axis 1 from h = 0, as a sequential
+    loop.  a, b: (B, S, C) -> h (B, S, C) float32.  Each step rounds the
+    product and then the sum (no fused multiply-add), as the CUDA kernel
+    does, so on the card the two agree bit for bit."""
+    a, b = a.float(), b.float()
+    h = torch.zeros_like(a[:, 0])
+    out = torch.empty_like(a)
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        out[:, t] = h
+    return out

@@ -1,0 +1,231 @@
+"""Decoder-only model over the layer kinds the port runs so far (the
+counterpart of ``repro.models.transformer``): ``attn``, ``local_attn`` and
+``rglru`` layers with dense SwiGLU MLPs.
+
+Parameters and KV-caches are declared with ``repro_torch.models.builder``
+exactly as the JAX package declares them (blocks stacked on a leading
+axis), so a JAX tree carried across by ``convert.lm_params_from_numpy``
+drops in.  Where JAX scans over the stacked blocks, the port loops in
+Python over views of the leading axis.  The ``moe`` MLP and the ``ssm``
+layer raise ``NotImplementedError`` naming their ROADMAP items.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models.builder import Leaf, stack
+from repro_torch.models.config import LayerSpec, ModelConfig
+from repro_torch.models.layers import (attn_decl, attn_decode, attn_train,
+                                       mlp_decl, rmsnorm, swiglu)
+
+
+def _refuse(spec: LayerSpec) -> None:
+    if spec.kind == "ssm":
+        raise NotImplementedError("ssm layers are not ported yet: ROADMAP "
+                                  "A4.1 (slice 4, mamba2-2.7b)")
+    if spec.mlp == "moe":
+        raise NotImplementedError("moe MLPs are not ported yet: ROADMAP "
+                                  "A4.2 (LM MoE layers)")
+    if spec.kind not in ("attn", "local_attn", "rglru"):
+        raise ValueError(spec.kind)
+
+
+# ------------------------------------------------------------- decls
+def layer_decl(spec: LayerSpec, cfg: ModelConfig) -> dict:
+    _refuse(spec)
+    decl = {"norm1": Leaf((cfg.d_model,), ("embed",), "zeros")}
+    if spec.kind in ("attn", "local_attn"):
+        decl["attn"] = attn_decl(cfg)
+    else:
+        decl["rglru"] = rglru_lib.rglru_decl(cfg)
+    if spec.mlp != "none":
+        decl["norm2"] = Leaf((cfg.d_model,), ("embed",), "zeros")
+        decl["mlp"] = mlp_decl(cfg)
+    return decl
+
+
+def model_decl(cfg: ModelConfig) -> dict:
+    nb = cfg.resolved_num_blocks
+    decl = {
+        "embed": Leaf((cfg.padded_vocab, cfg.d_model), ("vocab", "embed"),
+                      scale=0.02),
+        "final_norm": Leaf((cfg.d_model,), ("embed",), "zeros"),
+        "blocks": {str(i): stack(layer_decl(s, cfg), nb)
+                   for i, s in enumerate(cfg.block_pattern)},
+    }
+    if cfg.remainder:
+        decl["remainder"] = [layer_decl(s, cfg) for s in cfg.remainder]
+    if not cfg.tie_embeddings:
+        decl["lm_head"] = Leaf((cfg.d_model, cfg.padded_vocab),
+                               ("embed", "vocab"), scale=0.02)
+    return decl
+
+
+def _attn_cache_decl(cfg: ModelConfig, batch: int, cache_len: int,
+                     window: int) -> dict:
+    cap = min(window, cache_len) if window else cache_len
+    seq_ax = "kv_seq" if window else "cache_seq"
+    shape = (batch, cap, cfg.num_kv_heads, cfg.resolved_head_dim)
+    axes = ("batch", seq_ax, "kv_heads", "head_dim")
+    if cfg.kv_cache_dtype == "int8":
+        # absmax-quantized cache + per-slot-head scales
+        sshape = (batch, cap, cfg.num_kv_heads)
+        saxes = ("batch", seq_ax, "kv_heads")
+        return {"k": Leaf(shape, axes, "zeros", dtype="int8"),
+                "v": Leaf(shape, axes, "zeros", dtype="int8"),
+                "k_scale": Leaf(sshape, saxes, "zeros", dtype="float32"),
+                "v_scale": Leaf(sshape, saxes, "zeros", dtype="float32")}
+    return {"k": Leaf(shape, axes, "zeros"), "v": Leaf(shape, axes, "zeros")}
+
+
+def _layer_cache_decl(spec: LayerSpec, cfg: ModelConfig, batch: int,
+                      cache_len: int) -> dict:
+    _refuse(spec)
+    if spec.kind == "attn":
+        return _attn_cache_decl(cfg, batch, cache_len, 0)
+    if spec.kind == "local_attn":
+        return _attn_cache_decl(cfg, batch, cache_len, cfg.sliding_window)
+    inner = cfg.rglru_expand * cfg.d_model
+    return {
+        "h": Leaf((batch, inner), ("batch", "rglru_inner"), "zeros"),
+        "conv": Leaf((batch, cfg.ssm_conv_width - 1, inner),
+                     ("batch", "conv", "rglru_inner"), "zeros"),
+    }
+
+
+def cache_decl(cfg: ModelConfig, batch: int, cache_len: int) -> dict:
+    nb = cfg.resolved_num_blocks
+    decl = {"blocks": {str(i): stack(_layer_cache_decl(s, cfg, batch,
+                                                       cache_len), nb)
+                       for i, s in enumerate(cfg.block_pattern)}}
+    if cfg.remainder:
+        decl["remainder"] = [_layer_cache_decl(s, cfg, batch, cache_len)
+                             for s in cfg.remainder]
+    return decl
+
+
+# ------------------------------------------------------------- apply
+def _index(tree, i: int):
+    """Layer ``i`` of a stacked tree: views of the leading axis."""
+    return {k: (_index(v, i) if isinstance(v, dict) else v[i])
+            for k, v in tree.items()}
+
+
+def _stack(trees):
+    first = trees[0]
+    return {k: (_stack([t[k] for t in trees]) if isinstance(first[k], dict)
+                else torch.stack([t[k] for t in trees]))
+            for k in first}
+
+
+def _map2(fn, new, old):
+    return {k: (_map2(fn, new[k], old[k]) if isinstance(new[k], dict)
+                else fn(new[k], old[k])) for k in new}
+
+
+def _embed(params, tokens):
+    return params["embed"][torch.as_tensor(tokens).to(
+        params["embed"].device, torch.long)]
+
+
+def _head(params, x, cfg: ModelConfig):
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return x @ head
+
+
+def _layer_train(spec: LayerSpec, p, x, cfg, chunks):
+    _refuse(spec)
+    h = rmsnorm(x, p["norm1"], cfg.norm_eps)
+    if spec.kind in ("attn", "local_attn"):
+        window = cfg.sliding_window if spec.kind == "local_attn" else 0
+        y = attn_train(p["attn"], h, cfg, window=window,
+                       q_chunk=chunks[0], kv_chunk=chunks[1])
+    else:
+        y = rglru_lib.rglru_train(p["rglru"], h, cfg)
+    x = x + y
+    if spec.mlp != "none":
+        h = rmsnorm(x, p["norm2"], cfg.norm_eps)
+        x = x + swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"],
+                       p["mlp"]["w_down"])
+    return x
+
+
+def forward_train(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
+                  q_chunk=512, kv_chunk=512):
+    """tokens: (B, S_text) integer; prefix_embeds: optional (B, P, d)
+    stub modality embeddings prepended to the sequence.  Returns (logits
+    (B, S, padded_vocab), aux_loss): aux is a zero scalar, as no MoE layer
+    runs yet."""
+    x = _embed(params, tokens)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    chunks = (q_chunk, kv_chunk)
+    for b in range(cfg.resolved_num_blocks):
+        for i, spec in enumerate(cfg.block_pattern):
+            x = _layer_train(spec, _index(params["blocks"][str(i)], b), x,
+                             cfg, chunks)
+    for i, spec in enumerate(cfg.remainder):
+        x = _layer_train(spec, params["remainder"][i], x, cfg, chunks)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _head(params, x, cfg), aux
+
+
+def _mask_rows(mask, new, old):
+    """Row-select a cache leaf: rows where ``mask`` is False keep their
+    old value (the slot is not advancing this step)."""
+    m = mask.reshape((-1,) + (1,) * (new.dim() - 1))
+    return torch.where(m, new, old)
+
+
+def _layer_decode(spec: LayerSpec, p, cache, x, pos, cfg, write_mask=None):
+    _refuse(spec)
+    h = rmsnorm(x, p["norm1"], cfg.norm_eps)
+    if spec.kind in ("attn", "local_attn"):
+        window = cfg.sliding_window if spec.kind == "local_attn" else 0
+        y, new_cache = attn_decode(p["attn"], h, cache, pos, cfg,
+                                   window=window)
+    else:
+        y, new_cache = rglru_lib.rglru_decode(p["rglru"], h, cache, cfg)
+    if write_mask is not None:
+        # inactive slots must not advance KV rows or recurrent state
+        new_cache = _map2(lambda n, o: _mask_rows(write_mask, n, o),
+                          new_cache, cache)
+    x = x + y
+    if spec.mlp != "none":
+        h = rmsnorm(x, p["norm2"], cfg.norm_eps)
+        x = x + swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"],
+                       p["mlp"]["w_down"])
+    return x, new_cache
+
+
+def forward_decode(params, caches, tokens, pos, cfg: ModelConfig, *,
+                   write_mask=None):
+    """One decode step.  tokens: (B, 1); pos: int scalar (all rows at the
+    same absolute position) or (B,) integer tensor (per-slot positions).
+    Returns (logits (B, 1, padded_vocab), new_caches); the caches passed
+    in are not modified.
+
+    ``write_mask`` (B,) bool: rows where it is False run the (padded)
+    compute but leave their KV rows and recurrent state untouched."""
+    x = _embed(params, tokens)
+    if write_mask is not None:
+        write_mask = torch.as_tensor(write_mask, device=x.device).bool()
+    nb = cfg.resolved_num_blocks
+    per_layer = {str(i): [] for i in range(len(cfg.block_pattern))}
+    for b in range(nb):
+        for i, spec in enumerate(cfg.block_pattern):
+            x, nc = _layer_decode(spec, _index(params["blocks"][str(i)], b),
+                                  _index(caches["blocks"][str(i)], b), x,
+                                  pos, cfg, write_mask)
+            per_layer[str(i)].append(nc)
+    new_caches = {"blocks": {k: _stack(v) for k, v in per_layer.items()}}
+    if cfg.remainder:
+        new_caches["remainder"] = []
+        for i, spec in enumerate(cfg.remainder):
+            x, nc = _layer_decode(spec, params["remainder"][i],
+                                  caches["remainder"][i], x, pos, cfg,
+                                  write_mask)
+            new_caches["remainder"].append(nc)
+    return _head(params, x, cfg), new_caches

@@ -270,7 +270,8 @@ def test_plain_path_launches_no_kernel(data, port_systems):
     ops.reset_launch_counts()
     sys_b.infer(data[2][:50])
     assert ops.launch_counts() == {"moe_gemm": 0, "redundancy_vote": 0,
-                                   "audit_mlp": 0}
+                                   "audit_mlp": 0, "flash_attention": 0,
+                                   "rglru_scan": 0}
 
 
 @pytest.mark.parametrize("kw,match", [
@@ -333,8 +334,15 @@ def test_port_imports_neither_jax_nor_repro():
         spec.loader.exec_module(importlib.util.module_from_spec(spec))
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "repro" or m.startswith("repro.")]
-        print(len(names), bad)
-        sys.exit(1 if bad or len(names) < 15 else 0)
+        lm = {{"repro_torch.configs", "repro_torch.models.builder",
+              "repro_torch.models.layers", "repro_torch.models.rglru",
+              "repro_torch.models.ssm", "repro_torch.models.transformer",
+              "repro_torch.train.step", "repro_torch.train.loop",
+              "repro_torch.kernels.flash_attention",
+              "repro_torch.kernels.rglru_scan"}}
+        missing = sorted(lm - set(names))
+        print(len(names), bad, missing)
+        sys.exit(1 if bad or missing or len(names) < 25 else 0)
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,

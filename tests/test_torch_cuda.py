@@ -12,10 +12,16 @@ import torch
 
 from repro_torch.core.attacks import AttackConfig
 from repro_torch.core.bmoe import BMoEConfig, BMoESystem
+from repro_torch.configs import get_config
 from repro_torch.kernels import audit_mlp as am
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import moe_gemm as mg
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import redundancy_vote as rv
+from repro_torch.kernels import rglru_scan as rg
+from repro_torch.models import transformer
+from repro_torch.models.builder import materialize
+from repro_torch.train.loop import init_model
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
@@ -82,7 +88,8 @@ def test_evaluate_launches_the_kernels(cuda):
     ops.reset_launch_counts()
     sys_b.evaluate(x, y, attack=AttackConfig())
     assert ops.launch_counts() == {"moe_gemm": 2, "redundancy_vote": 1,
-                                   "audit_mlp": 0}
+                                   "audit_mlp": 0, "flash_attention": 0,
+                                   "rglru_scan": 0}
 
 
 def _bank(seed, E, d, h, o, device):
@@ -145,3 +152,94 @@ def test_optimistic_infer_and_flush_launch_audit_mlp(cuda):
     assert counts["audit_mlp"] == p.stats["committed"] + sum(calls.values())
     assert counts["moe_gemm"] == 6 and counts["redundancy_vote"] == 0
     assert all(s.phase.value == "finalized" for s in p.rounds.values())
+
+
+# the chip_smoke shapes (qwen2.5-3b and recurrentgemma-2b layers, ragged,
+# softcap), then every compiled head dim, fully masked rows and a q_offset
+@pytest.mark.parametrize("B,Sq,Sk,H,KH,D,causal,window,softcap,q_offset", [
+    (1, 4096, 4096, 16, 2, 128, True, 0, 0.0, 0),
+    (1, 4096, 4096, 10, 1, 256, True, 2048, 0.0, 0),
+    (2, 1000, 1000, 4, 2, 64, False, 0, 0.0, 0),
+    (1, 512, 512, 8, 4, 128, True, 0, 50.0, 0),
+    (2, 130, 130, 4, 1, 64, True, 32, 0.0, 0),
+    (1, 97, 97, 2, 2, 256, False, 16, 20.0, 0),
+    (1, 16, 40, 4, 2, 64, True, 8, 0.0, 100),
+    (1, 48, 300, 6, 3, 128, True, 64, 0.0, 252),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, H, KH, D,
+                                              causal, window, softcap,
+                                              q_offset, dtype):
+    q = _randn(Sq + D, B, Sq, H, D).to(cuda, dtype)
+    k = _randn(Sk + H, B, Sk, KH, D).to(cuda, dtype)
+    v = _randn(Sk + KH, B, Sk, KH, D).to(cuda, dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              q_offset=q_offset)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, **kw)
+    assert ops.launch_counts()["flash_attention"] == 1
+    want = ref.attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, Sq, H, D)
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_reads_strided_views(cuda):
+    """q, k, v cut out of one fused (B, S, H + 2 KH, D) projection."""
+    qkv = _randn(5, 2, 200, 8, 64).to(cuda)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    got = fa.flash_attention(q, k, v, causal=True, window=50)
+    want = ref.attention_ref(q, k, v, causal=True, window=50)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q[..., :48], k[..., :48], v[..., :48])
+
+
+@pytest.mark.parametrize("B,S,C", [(1, 4096, 2560), (3, 1000, 300),
+                                   (2, 7, 5), (1, 1, 1)])
+def test_rglru_scan_kernel_matches_plain(cuda, B, S, C):
+    rng = np.random.default_rng(S + C)
+    a = torch.from_numpy(rng.uniform(0.5, 1.0, (B, S, C)).astype(
+        np.float32)).to(cuda)
+    b = _randn(C, B, S, C).to(cuda)
+    got = rg.rglru_scan(a, b)
+    want = ref.rglru_scan_ref(a, b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_recurrentgemma_smoke_prefill_on_the_card(cuda):
+    """The smoke-width model on the card launches each kernel once per
+    layer of its kind and agrees with the port's CPU run at 1e-4; so does
+    the teacher-forced decode against the full forward (2e-3)."""
+    cfg = get_config("recurrentgemma-2b", smoke=True)
+    p_cpu = init_model(cfg, 0, "cpu")
+    p = _to(p_cpu, cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 72)).astype(np.int32))
+    ops.reset_launch_counts()
+    got, _ = transformer.forward_train(p, toks, cfg)
+    torch.cuda.synchronize()
+    n_attn = sum(s.kind == "local_attn" for s in cfg.block_pattern)
+    n_rglru = sum(s.kind == "rglru" for s in cfg.block_pattern)
+    assert ops.launch_counts()["flash_attention"] == n_attn * cfg.num_blocks
+    assert ops.launch_counts()["rglru_scan"] == n_rglru * cfg.num_blocks
+    want, _ = transformer.forward_train(p_cpu, toks, cfg)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    caches = materialize(transformer.cache_decl(cfg, 2, 72), 0, cuda)
+    outs = []
+    for t in range(72):
+        lg, caches = transformer.forward_decode(p, caches,
+                                                toks[:, t:t + 1], t, cfg)
+        outs.append(lg[:, 0])
+    torch.testing.assert_close(torch.stack(outs, 1), got, rtol=2e-3,
+                               atol=2e-3)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)

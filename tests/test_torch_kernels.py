@@ -12,11 +12,16 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.moe_gemm import moe_gemm as jax_moe_gemm
 from repro.kernels.redundancy_vote import pairwise_agreement as jax_agree
+from repro.models.layers import blockwise_attention as jax_blockwise
+from repro.models.rglru import rglru_scan as jax_rglru_scan
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import moe_gemm as mg
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import redundancy_vote as rv
+from repro_torch.kernels import rglru_scan as rg
 
 # tolerances of tests/test_kernels.py: fp32 1e-5, bf16 2e-2 (atol 8x)
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -169,3 +174,134 @@ def test_vote_refuses_what_the_kernel_cannot_take():
         ops.redundancy_vote_masked(torch.zeros(2, 3, 8), torch.ones(4))
     with pytest.raises(ValueError, match="CUDA"):
         rv.redundancy_vote_masked(torch.zeros(2, 3, 8), torch.ones(3))
+
+
+# ----------------------------------------------------- flash attention
+def _qkv(seed, B, Sq, Sk, H, KH, D):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Sq, H, D)).astype(np.float32),
+            rng.standard_normal((B, Sk, KH, D)).astype(np.float32),
+            rng.standard_normal((B, Sk, KH, D)).astype(np.float32))
+
+
+# tests/test_kernels.py's grid (B, S, H, KH, D, causal, window), then
+# D=256 (recurrentgemma), MQA and GQA with softcap
+FLASH_CASES = [
+    (1, 64, 2, 1, 32, True, 0), (2, 128, 4, 2, 64, True, 32),
+    (1, 256, 4, 1, 32, False, 0), (2, 64, 2, 2, 64, False, 32),
+    (1, 128, 4, 4, 32, True, 0), (2, 256, 2, 1, 64, True, 32),
+    (1, 128, 2, 1, 256, True, 64), (1, 128, 8, 1, 64, True, 0),
+    (1, 128, 8, 4, 128, True, 0),
+]
+
+
+@pytest.mark.parametrize("softcap", [0.0, 20.0])
+@pytest.mark.parametrize("B,S,H,KH,D,causal,window", FLASH_CASES)
+def test_flash_attention_plain_matches_jax(B, S, H, KH, D, causal, window,
+                                           softcap):
+    """The plain version against JAX's attention_ref at 1e-5 and the
+    Pallas kernel (interpret mode, bq = bk = 64) at 2e-4, the JAX bar."""
+    q, k, v = _qkv(S + H + D, B, S, S, H, KH, D)
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=causal,
+                              window=window, softcap=softcap)
+    want = jref.attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              causal=causal, window=window, softcap=softcap)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    pallas = jax_flash(*(jnp.moveaxis(jnp.asarray(a), 1, 2)
+                         for a in (q, k, v)),
+                       causal=causal, window=window, softcap=softcap,
+                       bq=64, bk=64, interpret=True)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(jnp.moveaxis(pallas, 2, 1)),
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KH,D,causal,window", [
+    (2, 1000, 1000, 4, 2, 64, False, 0),     # chip_smoke's ragged case
+    (1, 77, 77, 2, 1, 32, True, 16),
+    (1, 40, 40, 4, 1, 256, True, 32),
+    (2, 33, 70, 2, 2, 64, False, 0),
+])
+def test_flash_attention_plain_ragged_matches_jax_ref(B, Sq, Sk, H, KH, D,
+                                                      causal, window):
+    """Ragged lengths: the Pallas kernel refuses them, so only JAX's
+    attention_ref holds the plain version here."""
+    q, k, v = _qkv(Sq + Sk, B, Sq, Sk, H, KH, D)
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=causal,
+                              window=window)
+    want = jref.attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              causal=causal, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("q_offset,window", [(24, 0), (24, 16), (100, 8)])
+def test_flash_attention_q_offset_matches_jax_blockwise(q_offset, window):
+    """Chunked prefill: queries at absolute positions q_offset + i against
+    keys from 0, held against JAX's blockwise_attention.  At q_offset 100
+    with window 8 every key is masked for every row (all keys lie below
+    the window), and both average v over the keys."""
+    q, k, v = _qkv(q_offset, 1, 16, 40, 4, 2, 32)
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=True,
+                              window=window, q_offset=q_offset)
+    want = jax_blockwise(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         causal=True, window=window, q_offset=q_offset,
+                         q_chunk=8, kv_chunk=8)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_flash_attention_dispatch_follows_device():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(0, 1, 8, 8, 2, 1, 32))
+    before = ops.launch_counts()["flash_attention"]
+    ops.flash_attention(q, k, v)
+    assert ops.launch_counts()["flash_attention"] == before   # plain
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention(q, k, v)                     # the kernel wrapper
+    with pytest.raises(ValueError, match="multiple"):
+        ops.flash_attention(q[:, :, :1].expand(1, 8, 3, 32),
+                            torch.cat([k, k], 2), torch.cat([v, v], 2))
+    with pytest.raises(ValueError, match="mismatch"):
+        ops.flash_attention(q, k, v[:, :4])
+    with pytest.raises(TypeError):
+        ops.flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="q_offset"):
+        ops.flash_attention(q, k, v, q_offset=-1)
+
+
+# ------------------------------------------------------- RG-LRU scan
+def _ab(seed, B, S, C):
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.5, 1.0, (B, S, C)).astype(np.float32)
+    b = rng.standard_normal((B, S, C)).astype(np.float32)
+    return a, b
+
+
+@pytest.mark.parametrize("B,S,C", [(1, 64, 128), (2, 40, 256), (3, 1000, 300),
+                                   (1, 7, 5)])
+def test_rglru_scan_plain_matches_jax(B, S, C):
+    """The sequential loop against JAX's associative scan at 2e-4 (not
+    against the Pallas kernel, whose own test fails on this tree)."""
+    a, b = _ab(S + C, B, S, C)
+    got = ops.rglru_scan(torch.from_numpy(a), torch.from_numpy(b))
+    want = jax_rglru_scan(jnp.asarray(a), jnp.asarray(b))
+    assert got.dtype == torch.float32 and got.shape == (B, S, C)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_rglru_scan_dispatch_follows_device():
+    a, b = (torch.from_numpy(x) for x in _ab(0, 1, 8, 4))
+    before = ops.launch_counts()["rglru_scan"]
+    ops.rglru_scan(a, b)
+    assert ops.launch_counts()["rglru_scan"] == before
+    with pytest.raises(ValueError, match="CUDA"):
+        rg.rglru_scan(a, b)
+    with pytest.raises(ValueError, match="shape"):
+        ops.rglru_scan(a, b[:, :4])
+    with pytest.raises(TypeError):
+        ops.rglru_scan(a.double(), b.double())

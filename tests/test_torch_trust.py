@@ -354,7 +354,8 @@ def test_plain_audit_mlp_launches_nothing():
     tb = {k: torch.from_numpy(v) for k, v in _bank(2, 2, 8, 4, 3).items()}
     ops.audit_mlp(tb, torch.zeros(2, 3, 8), torch.tensor([1, 0]))
     assert ops.launch_counts() == {"moe_gemm": 0, "redundancy_vote": 0,
-                                   "audit_mlp": 0}
+                                   "audit_mlp": 0, "flash_attention": 0,
+                                   "rglru_scan": 0}
 
 
 # ------------------------------------------------------------- system
@@ -403,7 +404,8 @@ def test_optimistic_infer_matches_jax(data, case):
         assert tsys.pending_inference() == jsys.pending_inference()
     assert tsys.flush_trust() == jsys.flush_trust()
     assert ops.launch_counts() == {"moe_gemm": 0, "redundancy_vote": 0,
-                                   "audit_mlp": 0}
+                                   "audit_mlp": 0, "flash_attention": 0,
+                                   "rglru_scan": 0}
     tp, jp = tsys._infer_protocol, jsys._infer_protocol
 
     def strip(log):
