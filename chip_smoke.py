@@ -14,8 +14,11 @@ capacity 376, edge cache on):
 - the LM stack's prefill and decode at full width, random weights from
   seed 0: qwen2.5-3b (path C: prefill at S=4096, teacher-forced decode
   against the full forward, four requests decoded greedily in one batch
-  against each alone, a profile) and recurrentgemma-2b (path D: prefill
-  at S=4096, teacher-forced decode past its 2048-token window).
+  against each alone, a profile), recurrentgemma-2b (path D: prefill
+  at S=4096, teacher-forced decode past its 2048-token window) and
+  mamba2-2.7b (path E: prefill at S=4096, 32 SSD chunks, teacher-forced
+  decode over 384 tokens across two chunk boundaries, four requests
+  decoded in one batch against each alone).
 
 Each path's launch counts are set to 0 just before it and read just
 after it.
@@ -31,6 +34,7 @@ without the rest of the repository beside it, it exits non-zero too.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -326,7 +330,52 @@ def check_rglru(torch, rg, ref, seed: int, name: str, B: int, S: int,
     return row
 
 
-# ------------------------------------------- LM stack: paths C and D
+def check_ssd(torch, ss, ref, seed: int, name: str, B: int, S: int, H: int,
+              P: int, N: int, chunk: int, iters: int = 20):
+    """The SSD kernel against the sequential recurrence from zero, on
+    inputs drawn as the JAX package's tests/test_kernels.py draws them."""
+    import torch.nn.functional as F
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, S, H, P, generator=g).cuda()
+    dt = (F.softplus(torch.randn(B, S, H, generator=g)) * 0.1).cuda()
+    A = (-torch.randn(H, generator=g).abs() - 0.1).cuda()
+    Bm = (torch.randn(B, S, N, generator=g) * 0.5).cuda()
+    Cm = (torch.randn(B, S, N, generator=g) * 0.5).cuda()
+    state0 = torch.zeros(B, H, P, N, device="cuda")
+    got = ss.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    want = ref.ssd_scan_ref(x, dt, A, Bm, Cm, state0)[0]
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, rtol=2e-4, atol=2e-4))
+    Q = min(chunk, S)
+    nc = S // Q
+    pairs = Q * (Q + 1) // 2             # causal (i, j): j <= i in a chunk
+    # per (b, chunk): the scores times x per head (pairs * P) and C B^T
+    # once, shared by the heads (pairs * N); per (b, h): C state^T where
+    # the state is not zero (chunks 1..nc-1) and the state update where
+    # a later chunk reads it (chunks 0..nc-2), Q*N*P each
+    flops = 2.0 * B * (nc * (H * pairs * P + pairs * N)
+                       + H * (nc - 1) * 2 * Q * N * P)
+    nbytes = 4.0 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * N)
+    b_ms, b_by = bound(flops, nbytes, FP32_PEAK)
+    row = {"case": name, "kernel": "ssd_scan",
+           "shape": f"x ({B},{S},{H},{P}), N {N}, chunk {Q}",
+           "dtype": "float32", "max_abs_err": err, "rtol": 2e-4,
+           "atol": 2e-4, "ok": ok, "finite": bool(torch.isfinite(got).all()),
+           "kernel_ms": time_ms(lambda: ss.ssd_scan(x, dt, A, Bm, Cm,
+                                                    chunk=chunk),
+                                iters=iters),
+           "plain_ms": time_ms(lambda: ref.ssd_scan_ref(x, dt, A, Bm, Cm,
+                                                        state0),
+                               iters=1, reps=2),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    emit(row)
+    require(ok and row["finite"], f"ssd_scan {name} disagrees with its "
+                                  f"plain version (max abs err {err})")
+    return row
+
+
+# --------------------------------------- LM stack: paths C, D and E
 def lm_prefill(torch, ops, cfg, params, tokens, want_counts):
     """The prefill step at (1, 4096): one warm-up, then the main path's
     run with the launch counts set to 0 around it, two more timed runs
@@ -407,14 +456,16 @@ def serve_greedy(torch, cfg, params, requests, start, cache_len: int):
     """Greedy decoding of ``requests`` in one batch, slot r admitted at
     step ``start[r]``: each step feeds a slot its next prompt token, then
     its last generated one, at its own position (``pos`` per row), and an
-    inactive slot (not yet admitted, or done) leaves its caches as they
-    were.  This is the decode step ``train.step.make_decode_step`` runs,
-    with the logits kept.  Returns, per request, its logits per step
-    ((n, V) on the card) and its generated tokens."""
+    inactive slot (not yet admitted, done, or ``None``: a slot that holds
+    no request) leaves its caches as they were.  This is the decode step
+    ``train.step.make_decode_step`` runs, with the logits kept.  Returns,
+    per slot, its logits per step ((n, V) on the card, None for an empty
+    slot) and its generated tokens."""
     from repro_torch.models import transformer as tfm
     from repro_torch.models.builder import materialize
     B = len(requests)
-    lens = [len(r["prompt"]) + r["max_new_tokens"] - 1 for r in requests]
+    lens = [len(r["prompt"]) + r["max_new_tokens"] - 1 if r else 0
+            for r in requests]
     steps = max(s + n for s, n in zip(start, lens))
     caches = materialize(tfm.cache_decl(cfg, B, cache_len), 0, "cuda")
     logits_out = [[] for _ in requests]
@@ -423,10 +474,9 @@ def serve_greedy(torch, cfg, params, requests, start, cache_len: int):
         tok, pos, active = [], [], []
         for r, req in enumerate(requests):
             i = t - start[r]                    # the request's own step
-            live = 0 <= i < lens[r]
-            plen = len(req["prompt"])
-            tok.append(int(req["prompt"][i]) if live and i < plen
-                       else (gen[r][-1] if live else 0))
+            live = req is not None and 0 <= i < lens[r]
+            tok.append(int(req["prompt"][i]) if live and i < len(
+                req["prompt"]) else (gen[r][-1] if live else 0))
             pos.append(min(max(i, 0), lens[r]))
             active.append(live)
         logits, caches = tfm.forward_decode(
@@ -440,10 +490,18 @@ def serve_greedy(torch, cfg, params, requests, start, cache_len: int):
                 logits_out[r].append(logits[r, 0])
                 if i >= len(req["prompt"]) - 1:
                     gen[r].append(nxt[r])
-    return [torch.stack(x) for x in logits_out], gen
+    return [torch.stack(x) if x else None for x in logits_out], gen
 
 
-def batched_vs_alone(torch, cfg, params):
+def batched_vs_alone(torch, cfg, params, width1_tol):
+    """Four requests decoded in one 4-slot batch (admitted at steps 0-3)
+    against each one alone: in the same 4-slot batch with the other slots
+    empty (the serving engine's fixed width: bar 1e-4 and the same
+    tokens), and in a batch of width 1 (the same tokens, the logits
+    within ``width1_tol``).  Across widths the library products round
+    differently (cuBLAS picks its kernel by the row count), so the
+    width-1 error grows with how far the model amplifies rounding, as
+    its decode-against-forward error does."""
     from repro_torch.data.synthetic import serving_requests
     reqs = list(serving_requests(cfg.vocab_size, 4, max_prompt=64,
                                  max_new=16, seed=0))
@@ -453,29 +511,39 @@ def batched_vs_alone(torch, cfg, params):
                                   cache_len)
     torch.cuda.synchronize()
     batched_s = time.perf_counter() - t0
-    errs, same = [], []
+    errs, same, errs1, same1 = [], [], [], []
     for r, req in enumerate(reqs):
-        alone, gen_a = serve_greedy(torch, cfg, params, [req], [0],
+        slots = [None] * 4
+        slots[r] = req
+        alone, gen_a = serve_greedy(torch, cfg, params, slots, [0] * 4,
                                     cache_len)
-        errs.append(float((batched[r] - alone[0]).abs().max()))
-        same.append(gen_b[r] == gen_a[0])
-    ok = max(errs) <= 1e-4 and all(same)
+        errs.append(float((batched[r] - alone[r]).abs().max()))
+        same.append(gen_b[r] == gen_a[r])
+        alone1, gen_1 = serve_greedy(torch, cfg, params, [req], [0],
+                                     cache_len)
+        errs1.append(float((batched[r] - alone1[0]).abs().max()))
+        same1.append(gen_b[r] == gen_1[0])
+    ok = (max(errs) <= 1e-4 and all(same) and all(same1)
+          and max(errs1) <= width1_tol)
     emit({"phase": "batched_decode", "model": cfg.name, "slots": 4,
           "prompts": [len(r["prompt"]) for r in reqs],
           "max_new_tokens": [r["max_new_tokens"] for r in reqs],
           "admitted_at_step": [0, 1, 2, 3], "max_abs_err": errs,
-          "tol": 1e-4, "tokens_equal": same, "ok": ok,
+          "tol": 1e-4, "tokens_equal": same,
+          "width1_max_abs_err": errs1, "width1_tol": width1_tol,
+          "width1_tokens_equal": same1, "ok": ok,
           "generated": gen_b, "batched_s": batched_s})
-    require(ok, f"batched decode differs from each request alone: {errs}, "
-                f"tokens equal {same}")
+    require(ok, f"batched decode differs from each request alone: {errs} "
+                f"(same width), {errs1} (width 1), tokens equal {same}, "
+                f"{same1}")
 
 
 def lm_path(torch, ops, arch: str, want_counts, decode_seq: int,
-            serving: bool):
+            serving: bool, width1_tol=None):
     """One model at full width: init from seed 0 on the card, prefill at
     S=4096 (the main path's launch counts), decode against the forward,
-    and for qwen2.5-3b the batched-serving check.  The model is freed
-    before returning."""
+    and where ``serving`` is set the batched-serving check.  The model is
+    freed before returning, so the next path's peak does not stack on it."""
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import lm_batches
     from repro_torch.train.loop import init_model
@@ -490,8 +558,9 @@ def lm_path(torch, ops, arch: str, want_counts, decode_seq: int,
     counts, row = lm_prefill(torch, ops, cfg, params, tokens, want_counts)
     decode_vs_train(torch, cfg, params, tokens, decode_seq)
     if serving:
-        batched_vs_alone(torch, cfg, params)
+        batched_vs_alone(torch, cfg, params, width1_tol)
     del params
+    gc.collect()
     torch.cuda.empty_cache()
     return counts, row
 
@@ -524,7 +593,7 @@ def main_path(torch, np, ops):
           "init_s": init_s, "evaluate_s": first_s})
     require(counts == {"moe_gemm": 4, "redundancy_vote": 2,
                        "audit_mlp": 0, "flash_attention": 0,
-                       "rglru_scan": 0},
+                       "rglru_scan": 0, "ssd_scan": 0},
             f"evaluate of 2 batches launched {counts}, wanted 4 moe_gemm "
             f"and 2 vote launches")
     require(0.0 <= acc <= 1.0, f"accuracy {acc}")
@@ -575,7 +644,7 @@ def main_path(torch, np, ops):
           "max_abs_diff_3of10": float(np.abs(lt3 - lt_clean).max())})
     require(counts_t == {"moe_gemm": 2, "redundancy_vote": 0,
                          "audit_mlp": 0, "flash_attention": 0,
-                         "rglru_scan": 0},
+                         "rglru_scan": 0, "ssd_scan": 0},
             f"traditional batch launched {counts_t}")
     require(not np.array_equal(lt3, lt_clean),
             "traditional under 3 of 10 equals clean")
@@ -787,6 +856,7 @@ def main() -> int:
     from repro_torch.kernels import moe_gemm as mg
     from repro_torch.kernels import redundancy_vote as rv
     from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import ssd_scan as ss
 
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 references stay
     torch.backends.cudnn.allow_tf32 = False         # fp32 (no TF32)
@@ -843,6 +913,12 @@ def main() -> int:
                 128, True, dtype=torch.bfloat16, iters=5)
     scan = check_rglru(torch, rg, ref, 20, "rgemma_layer", 1, 4096, 2560)
     check_rglru(torch, rg, ref, 21, "ragged", 3, 1000, 300)
+    ssd = [check_ssd(torch, ss, ref, 22, "mamba2_layer", 1, 4096, 80, 64,
+                     128, 128, iters=5),
+           check_ssd(torch, ss, ref, 23, "jax_test_shape", 2, 256, 3, 16,
+                     8, 32),
+           check_ssd(torch, ss, ref, 24, "single_chunk", 1, 48, 16, 32, 32,
+                     128)]
 
     counts = main_path(torch, np, ops)
 
@@ -864,12 +940,20 @@ def main() -> int:
 
     counts_c, _ = lm_path(torch, ops, "qwen2.5-3b",
                           {"flash_attention": 36, "rglru_scan": 0,
-                           "moe_gemm": 0, "redundancy_vote": 0,
-                           "audit_mlp": 0}, decode_seq=256, serving=True)
+                           "ssd_scan": 0, "moe_gemm": 0,
+                           "redundancy_vote": 0, "audit_mlp": 0},
+                          decode_seq=256, serving=True, width1_tol=1e-4)
     counts_d, _ = lm_path(torch, ops, "recurrentgemma-2b",
                           {"flash_attention": 8, "rglru_scan": 18,
-                           "moe_gemm": 0, "redundancy_vote": 0,
-                           "audit_mlp": 0}, decode_seq=2112, serving=False)
+                           "ssd_scan": 0, "moe_gemm": 0,
+                           "redundancy_vote": 0, "audit_mlp": 0},
+                          decode_seq=2112, serving=False)
+    # path E: 384 decode steps cross two chunk boundaries of the forward
+    counts_e, _ = lm_path(torch, ops, "mamba2-2.7b",
+                          {"ssd_scan": 64, "flash_attention": 0,
+                           "rglru_scan": 0, "moe_gemm": 0,
+                           "redundancy_vote": 0, "audit_mlp": 0},
+                          decode_seq=384, serving=True, width1_tol=5e-4)
 
     emit({"kernels": [
         {"name": "moe_gemm", "route": "cuda",
@@ -923,6 +1007,16 @@ def main() -> int:
          "max_abs_err": scan["max_abs_err"], "ms": scan["kernel_ms"],
          "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
          "bound_by": scan["bound_by"], "library_ms": None},
+        {"name": "ssd_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan.py:53",
+         "launches": counts_e["ssd_scan"],
+         "per": "one mamba2-2.7b prefill at (1, 4096); times per layer, "
+                "x (1,4096,80,64), N 128, chunk 128",
+         "max_abs_err": max(r["max_abs_err"] for r in ssd),
+         "ms": ssd[0]["kernel_ms"], "plain_ms": ssd[0]["plain_ms"],
+         "bound_ms": ssd[0]["bound_ms"], "bound_by": ssd[0]["bound_by"],
+         "library_ms": None},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@
 ``get_config(arch_id, smoke)`` returns the same ``ModelConfig`` as the JAX
 package for the architectures the port runs so far: ``qwen2.5-3b``,
 ``recurrentgemma-2b`` and ``smollm-360m`` (attention, local attention and
-RG-LRU layers with dense SwiGLU MLPs).  Every other id the JAX package
+RG-LRU layers with dense SwiGLU MLPs) and ``mamba2-2.7b`` (Mamba-2 SSD
+layers, no MLP).  Every other id the JAX package
 knows raises ``NotImplementedError`` naming the ROADMAP item that brings
 it; an id neither package knows raises ``KeyError``.
 """
@@ -31,11 +32,11 @@ _MODULES = {
     "qwen2.5-3b": "qwen2_5_3b",
     "smollm-360m": "smollm_360m",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "mamba2-2.7b": "mamba2_2_7b",
 }
 
 # arch id -> the ROADMAP queue-A item that ports it
 _NOT_PORTED = {
-    "mamba2-2.7b": "A4.1 (slice 4: models/ssm.py and the ssd_scan kernel)",
     "qwen2-moe-a2.7b": "A4.2 (LM MoE layers)",
     "llama4-maverick-400b-a17b": "A4.2 (LM MoE layers)",
     "bmoe-paper": "A4.2 (LM MoE layers)",

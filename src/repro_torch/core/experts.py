@@ -39,8 +39,10 @@ def _fan_in_std(shape) -> float:
 
 
 def init_gate(in_dim: int, num_experts: int, seed: int,
-              device="cpu") -> Params:
-    """Gate ``w`` normal with std 0.01, zero bias."""
+              device=None) -> Params:
+    """Gate ``w`` normal with std 0.01, zero bias, on ``device``
+    (``None``: the CUDA device)."""
+    device = kops.resolve_device(device)
     return {"w": _normal((in_dim, num_experts), 0.01, seed,
                          "gate/w").to(device),
             "b": torch.zeros(num_experts, device=device)}
@@ -48,9 +50,11 @@ def init_gate(in_dim: int, num_experts: int, seed: int,
 
 def init_mlp_bank(num_experts: int, seed: int, *, in_dim: int = 784,
                   hidden: int = 256, out: int = 10,
-                  device="cpu") -> Params:
+                  device=None) -> Params:
     """Stacked MLP bank: ``w1`` (N, in, hidden), ``w2`` (N, hidden, out)
-    normal with std 1/sqrt(fan_in), zero biases."""
+    normal with std 1/sqrt(fan_in), zero biases, on ``device`` (``None``:
+    the CUDA device)."""
+    device = kops.resolve_device(device)
     s1, s2 = (num_experts, in_dim, hidden), (num_experts, hidden, out)
     return {"w1": _normal(s1, _fan_in_std(s1), seed, "experts/w1").to(device),
             "b1": torch.zeros((num_experts, hidden), device=device),

@@ -23,7 +23,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("moe_gemm.cu", "vote.cu", "audit_mlp.cu", "flash_attention.cu",
-           "rglru_scan.cu")
+           "rglru_scan.cu", "ssd_scan.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -114,6 +114,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.restype = I
     fn = lib.rglru_scan_f32
     fn.argtypes = [P] * 3 + [I] * 3 + [P]
+    fn.restype = I
+    fn = lib.ssd_scan_f32
+    fn.argtypes = [P] * 6 + [ctypes.POINTER(ctypes.c_longlong)] + [I] * 6 \
+        + [P]
     fn.restype = I
     return lib
 

@@ -16,12 +16,14 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import moe_gemm as _mg
 from repro_torch.kernels import redundancy_vote as _rv
 from repro_torch.kernels import rglru_scan as _rg
+from repro_torch.kernels import ssd_scan as _ss
 from repro_torch.kernels import ref
 from repro_torch.obs import annotate
 
 __all__ = ["resolve_device", "kernel_route", "moe_gemm",
            "redundancy_vote_masked", "audit_mlp", "flash_attention",
-           "rglru_scan", "launch_counts", "reset_launch_counts"]
+           "rglru_scan", "ssd_scan", "launch_counts",
+           "reset_launch_counts"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -110,8 +112,25 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return ref.rglru_scan_ref(a, b)
 
 
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bmat: torch.Tensor, Cmat: torch.Tensor,
+             chunk: int = 128) -> torch.Tensor:
+    """Mamba-2 SSD scan from a zero state: x (B, S, H, P), dt (B, S, H),
+    A (H,), Bmat/Cmat (B, S, N), float32 -> y (B, S, H, P) float32.  S
+    must be a multiple of min(chunk, S)."""
+    route = kernel_route(x)
+    with annotate(f"ssd_scan[{route}]"):
+        if route == "cuda":
+            return _ss.ssd_scan(x, dt, A, Bmat, Cmat, chunk)
+        _ss.check_operands(x, dt, A, Bmat, Cmat, chunk)
+        B, _, H, P = x.shape
+        state0 = torch.zeros((B, H, P, Bmat.shape[-1]), dtype=torch.float32,
+                             device=x.device)
+        return ref.ssd_scan_ref(x, dt, A, Bmat, Cmat, state0)[0]
+
+
 _KERNELS = {"moe_gemm": _mg, "redundancy_vote": _rv, "audit_mlp": _am,
-            "flash_attention": _fa, "rglru_scan": _rg}
+            "flash_attention": _fa, "rglru_scan": _rg, "ssd_scan": _ss}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -157,3 +157,26 @@ def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         h = a[:, t] * h + b[:, t]
         out[:, t] = h
     return out
+
+
+# ------------------------------------------------- SSD scan
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bmat: torch.Tensor, Cmat: torch.Tensor,
+                 state0: torch.Tensor):
+    """The sequential SSM recurrence (the counterpart of JAX
+    ``kernels/ref.py::ssd_scan_ref``).
+
+    x: (B, S, H, P), dt: (B, S, H), A: (H,), Bmat/Cmat: (B, S, N),
+    state0: (B, H, P, N).  h_t = exp(dt_t A) h_{t-1} + dt_t x_t (outer)
+    B_t and y_t = C_t . h_t.  Returns (y (B, S, H, P), state (B, H, P, N))
+    in float32."""
+    x, dt, A = x.float(), dt.float(), A.float()
+    Bmat, Cmat = Bmat.float(), Cmat.float()
+    state = state0.float()
+    ys = torch.empty_like(x)
+    for t in range(x.shape[1]):
+        decay = torch.exp(dt[:, t] * A)                       # (B, H)
+        ds = torch.einsum("bh,bhp,bn->bhpn", dt[:, t], x[:, t], Bmat[:, t])
+        state = state * decay[:, :, None, None] + ds
+        ys[:, t] = torch.einsum("bn,bhpn->bhp", Cmat[:, t], state)
+    return ys, state

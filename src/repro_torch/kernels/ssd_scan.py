@@ -1,0 +1,97 @@
+"""Mamba-2 chunked SSD scan: the wrapper of the CUDA kernel in
+``csrc/ssd_scan.cu`` (the port of ``repro.kernels.ssd_scan.ssd_scan``).
+
+``ssd_scan(x, dt, A, Bmat, Cmat, chunk=128)`` takes x (B, S, H, P), dt
+(B, S, H), A (H,) and Bmat, Cmat (B, S, N), float32, and returns y
+(B, S, H, P) float32 from a zero initial state, in chunks of
+Q = min(chunk, S) steps; S must be a multiple of Q.  x and dt may be
+strided views of the model's tensors (x's last dimension contiguous), so
+nothing is transposed or copied.  It takes CUDA tensors only and launches
+the kernel or raises; ``kernels.ops.ssd_scan`` is the device dispatch that
+gives CPU tensors the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+# the kernel's register tiles: head dim, state size and chunk length
+MAX_P, MAX_N, MAX_Q = 64, 128, 128
+
+# kernel launches since the last reset (ops.reset_launch_counts)
+launches = 0
+
+
+def check_operands(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   Bmat: torch.Tensor, Cmat: torch.Tensor,
+                   chunk: int) -> int:
+    """Validate the operands of either route; returns the chunk length
+    Q = min(chunk, S)."""
+    if x.dim() != 4:
+        raise ValueError(f"ssd_scan wants x (B, S, H, P), got "
+                         f"{tuple(x.shape)}")
+    B, S, H, _ = x.shape
+    if (tuple(dt.shape) != (B, S, H) or tuple(A.shape) != (H,)
+            or Bmat.dim() != 3 or tuple(Bmat.shape[:2]) != (B, S)
+            or Cmat.shape != Bmat.shape):
+        raise ValueError(f"ssd_scan shape mismatch: x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, A {tuple(A.shape)}, B "
+                         f"{tuple(Bmat.shape)}, C {tuple(Cmat.shape)}")
+    ops = (x, dt, A, Bmat, Cmat)
+    if any(t.dtype != torch.float32 for t in ops):
+        raise TypeError(f"ssd_scan takes float32 operands, got "
+                        f"{[str(t.dtype) for t in ops]}")
+    if any(t.device != x.device for t in ops):
+        raise ValueError("ssd_scan operands on different devices")
+    if chunk < 1:
+        raise ValueError(f"ssd_scan: chunk {chunk} must be >= 1")
+    Q = min(chunk, S)
+    if S and S % Q:
+        raise ValueError(f"S={S} not divisible by chunk={Q}")
+    return Q
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bmat: torch.Tensor, Cmat: torch.Tensor,
+             chunk: int = 128) -> torch.Tensor:
+    """Launch the CUDA kernel on CUDA tensors."""
+    global launches
+    Q = check_operands(x, dt, A, Bmat, Cmat, chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan launches on CUDA tensors, got "
+                         f"{x.device}")
+    if torch.cuda.get_device_capability(x.device) != (9, 0):
+        raise RuntimeError("ssd_scan is built for sm_90a (Hopper); device "
+                           f"{torch.cuda.get_device_name(x.device)} is not")
+    B, S, H, P = x.shape
+    N = Bmat.shape[-1]
+    if P > MAX_P or N > MAX_N or Q > MAX_Q:
+        raise ValueError(f"ssd_scan takes head dim <= {MAX_P}, state <= "
+                         f"{MAX_N} and chunk <= {MAX_Q}; got P={P}, N={N}, "
+                         f"Q={Q}")
+    if x.stride(3) != 1 or Bmat.stride(2) != 1 or Cmat.stride(2) != 1:
+        raise ValueError("ssd_scan needs the last dimension of x, B and C "
+                         "contiguous")
+    if B > 65535:
+        raise ValueError(f"ssd_scan: batch {B} exceeds the grid's y limit "
+                         f"of 65535")
+    y = torch.empty((B, S, H, P), dtype=torch.float32, device=x.device)
+    if y.numel() == 0 or N == 0:
+        return y.zero_()
+    A = A.contiguous()
+    strides = (ctypes.c_longlong * 10)(
+        *x.stride()[:3], *dt.stride(), *Bmat.stride()[:2],
+        *Cmat.stride()[:2])
+    lib = build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.ssd_scan_f32(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                                Bmat.data_ptr(), Cmat.data_ptr(),
+                                y.data_ptr(), strides, B, S, H, P, N, Q,
+                                stream)
+    build.check(code, "ssd_scan")
+    launches += 1
+    return y

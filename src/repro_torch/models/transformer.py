@@ -1,19 +1,20 @@
 """Decoder-only model over the layer kinds the port runs so far (the
-counterpart of ``repro.models.transformer``): ``attn``, ``local_attn`` and
-``rglru`` layers with dense SwiGLU MLPs.
+counterpart of ``repro.models.transformer``): ``attn``, ``local_attn``,
+``rglru`` and ``ssm`` layers, with dense SwiGLU MLPs or none.
 
 Parameters and KV-caches are declared with ``repro_torch.models.builder``
 exactly as the JAX package declares them (blocks stacked on a leading
 axis), so a JAX tree carried across by ``convert.lm_params_from_numpy``
 drops in.  Where JAX scans over the stacked blocks, the port loops in
-Python over views of the leading axis.  The ``moe`` MLP and the ``ssm``
-layer raise ``NotImplementedError`` naming their ROADMAP items.
+Python over views of the leading axis.  The ``moe`` MLP raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.builder import Leaf, stack
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import (attn_decl, attn_decode, attn_train,
@@ -21,13 +22,10 @@ from repro_torch.models.layers import (attn_decl, attn_decode, attn_train,
 
 
 def _refuse(spec: LayerSpec) -> None:
-    if spec.kind == "ssm":
-        raise NotImplementedError("ssm layers are not ported yet: ROADMAP "
-                                  "A4.1 (slice 4, mamba2-2.7b)")
     if spec.mlp == "moe":
         raise NotImplementedError("moe MLPs are not ported yet: ROADMAP "
                                   "A4.2 (LM MoE layers)")
-    if spec.kind not in ("attn", "local_attn", "rglru"):
+    if spec.kind not in ("attn", "local_attn", "rglru", "ssm"):
         raise ValueError(spec.kind)
 
 
@@ -37,8 +35,10 @@ def layer_decl(spec: LayerSpec, cfg: ModelConfig) -> dict:
     decl = {"norm1": Leaf((cfg.d_model,), ("embed",), "zeros")}
     if spec.kind in ("attn", "local_attn"):
         decl["attn"] = attn_decl(cfg)
-    else:
+    elif spec.kind == "rglru":
         decl["rglru"] = rglru_lib.rglru_decl(cfg)
+    else:
+        decl["ssm"] = ssm_lib.ssm_decl(cfg)
     if spec.mlp != "none":
         decl["norm2"] = Leaf((cfg.d_model,), ("embed",), "zeros")
         decl["mlp"] = mlp_decl(cfg)
@@ -86,6 +86,15 @@ def _layer_cache_decl(spec: LayerSpec, cfg: ModelConfig, batch: int,
         return _attn_cache_decl(cfg, batch, cache_len, 0)
     if spec.kind == "local_attn":
         return _attn_cache_decl(cfg, batch, cache_len, cfg.sliding_window)
+    if spec.kind == "ssm":
+        H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        convdim = cfg.ssm_inner + 2 * N
+        return {
+            "state": Leaf((batch, H, P, N),
+                          ("batch", "ssm_heads", None, "state"), "zeros"),
+            "conv": Leaf((batch, cfg.ssm_conv_width - 1, convdim),
+                         ("batch", "conv", None), "zeros"),
+        }
     inner = cfg.rglru_expand * cfg.d_model
     return {
         "h": Leaf((batch, inner), ("batch", "rglru_inner"), "zeros"),
@@ -142,8 +151,10 @@ def _layer_train(spec: LayerSpec, p, x, cfg, chunks):
         window = cfg.sliding_window if spec.kind == "local_attn" else 0
         y = attn_train(p["attn"], h, cfg, window=window,
                        q_chunk=chunks[0], kv_chunk=chunks[1])
-    else:
+    elif spec.kind == "rglru":
         y = rglru_lib.rglru_train(p["rglru"], h, cfg)
+    else:
+        y = ssm_lib.ssm_train(p["ssm"], h, cfg)
     x = x + y
     if spec.mlp != "none":
         h = rmsnorm(x, p["norm2"], cfg.norm_eps)
@@ -186,8 +197,10 @@ def _layer_decode(spec: LayerSpec, p, cache, x, pos, cfg, write_mask=None):
         window = cfg.sliding_window if spec.kind == "local_attn" else 0
         y, new_cache = attn_decode(p["attn"], h, cache, pos, cfg,
                                    window=window)
-    else:
+    elif spec.kind == "rglru":
         y, new_cache = rglru_lib.rglru_decode(p["rglru"], h, cache, cfg)
+    else:
+        y, new_cache = ssm_lib.ssm_decode(p["ssm"], h, cache, cfg)
     if write_mask is not None:
         # inactive slots must not advance KV rows or recurrent state
         new_cache = _map2(lambda n, o: _mask_rows(write_mask, n, o),

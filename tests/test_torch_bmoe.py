@@ -271,7 +271,7 @@ def test_plain_path_launches_no_kernel(data, port_systems):
     sys_b.infer(data[2][:50])
     assert ops.launch_counts() == {"moe_gemm": 0, "redundancy_vote": 0,
                                    "audit_mlp": 0, "flash_attention": 0,
-                                   "rglru_scan": 0}
+                                   "rglru_scan": 0, "ssd_scan": 0}
 
 
 @pytest.mark.parametrize("kw,match", [
@@ -305,6 +305,10 @@ def test_default_device_is_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_numpy({"w": np.zeros((2, 2)), "b": np.zeros(2)},
                           {k: np.zeros(1) for k in ("w1", "b1", "w2", "b2")})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        experts.init_gate(784, 10, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        experts.init_mlp_bank(10, seed=0)
 
 
 def test_params_from_numpy_checks_keys():
@@ -375,13 +379,14 @@ def test_expert_apply_matches_jax_and_the_grouped_path():
 
 
 def test_port_init_follows_the_jax_init_laws():
-    gate = experts.init_gate(784, 10, seed=0)
-    bank = experts.init_mlp_bank(10, seed=0)
+    gate = experts.init_gate(784, 10, seed=0, device="cpu")
+    bank = experts.init_mlp_bank(10, seed=0, device="cpu")
     assert gate["w"].shape == (784, 10) and not gate["b"].any()
     assert abs(float(gate["w"].std()) - 0.01) < 1e-3
     assert abs(float(bank["w1"].std()) - 784 ** -0.5) < 1e-3
     assert abs(float(bank["w2"].std()) - 256 ** -0.5) < 2e-3
     assert not bank["b1"].any() and not bank["b2"].any()
-    again = experts.init_mlp_bank(10, seed=0)
+    again = experts.init_mlp_bank(10, seed=0, device="cpu")
     assert all(torch.equal(bank[k], again[k]) for k in bank)
-    assert not torch.equal(bank["w1"], experts.init_mlp_bank(10, 1)["w1"])
+    assert not torch.equal(bank["w1"], experts.init_mlp_bank(
+        10, 1, device="cpu")["w1"])

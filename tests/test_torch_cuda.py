@@ -19,6 +19,7 @@ from repro_torch.kernels import moe_gemm as mg
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import redundancy_vote as rv
 from repro_torch.kernels import rglru_scan as rg
+from repro_torch.kernels import ssd_scan as ss
 from repro_torch.models import transformer
 from repro_torch.models.builder import materialize
 from repro_torch.train.loop import init_model
@@ -89,7 +90,7 @@ def test_evaluate_launches_the_kernels(cuda):
     sys_b.evaluate(x, y, attack=AttackConfig())
     assert ops.launch_counts() == {"moe_gemm": 2, "redundancy_vote": 1,
                                    "audit_mlp": 0, "flash_attention": 0,
-                                   "rglru_scan": 0}
+                                   "rglru_scan": 0, "ssd_scan": 0}
 
 
 def _bank(seed, E, d, h, o, device):
@@ -230,6 +231,107 @@ def test_recurrentgemma_smoke_prefill_on_the_card(cuda):
     caches = materialize(transformer.cache_decl(cfg, 2, 72), 0, cuda)
     outs = []
     for t in range(72):
+        lg, caches = transformer.forward_decode(p, caches,
+                                                toks[:, t:t + 1], t, cfg)
+        outs.append(lg[:, 0])
+    torch.testing.assert_close(torch.stack(outs, 1), got, rtol=2e-3,
+                               atol=2e-3)
+
+
+def _ssd_inputs(seed, B, S, H, P, N):
+    """As tests/test_kernels.py draws them: dt = 0.1 softplus(z),
+    A = -|z| - 0.1, B and C at scale 0.5."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, H, P))
+    dt = np.logaddexp(0.0, rng.standard_normal((B, S, H))) * 0.1
+    A = -np.abs(rng.standard_normal(H)) - 0.1
+    Bm = rng.standard_normal((B, S, N)) * 0.5
+    Cm = rng.standard_normal((B, S, N)) * 0.5
+    return [torch.from_numpy(a.astype(np.float32)) for a in (x, dt, A, Bm, Cm)]
+
+
+def _ssd_plain(x, dt, A, Bm, Cm):
+    state0 = torch.zeros(x.shape[0], x.shape[2], x.shape[3], Bm.shape[-1],
+                         device=x.device)
+    return ref.ssd_scan_ref(x, dt, A, Bm, Cm, state0)[0]
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (2, 256, 3, 16, 8, 32), (1, 64, 1, 32, 16, 64), (2, 256, 3, 32, 16, 64),
+    (1, 48, 16, 32, 32, 128),              # a single chunk of 48
+    (1, 512, 4, 64, 128, 128),             # mamba2-2.7b's P and N
+    (2, 96, 5, 24, 40, 96), (1, 21, 2, 7, 3, 7),    # off the 16-wide tiles
+])
+def test_ssd_scan_kernel_matches_plain(cuda, B, S, H, P, N, chunk):
+    x, dt, A, Bm, Cm = (t.to(cuda) for t in _ssd_inputs(S + P, B, S, H, P,
+                                                         N))
+    ops.reset_launch_counts()
+    got = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    assert ops.launch_counts()["ssd_scan"] == 1
+    want = _ssd_plain(x, dt, A, Bm, Cm)
+    torch.cuda.synchronize()
+    assert got.shape == (B, S, H, P) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_ssd_scan_reads_strided_views(cuda):
+    """x and dt cut out of wider (B, S, ., .) tensors, B and C out of one
+    (B, S, 2N) projection: the kernel reads them through strides."""
+    x, dt, A, Bm, Cm = (t.to(cuda) for t in _ssd_inputs(3, 2, 256, 4, 32,
+                                                         16))
+    xw = torch.cat([x, x], dim=2)[:, :, 1:5]           # head stride 2x
+    dtw = torch.cat([dt, dt], dim=2)[:, :, 2:6]
+    bc = torch.cat([Bm, Cm], dim=-1)
+    assert not (xw.is_contiguous() or dtw.is_contiguous())
+    got = ss.ssd_scan(xw, dtw, A, bc[..., :16], bc[..., 16:], chunk=64)
+    want = _ssd_plain(xw, dtw, A, bc[..., :16], bc[..., 16:])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_ssd_scan_refuses_what_the_kernel_does_not_take(cuda):
+    x, dt, A, Bm, Cm = (t.to(cuda) for t in _ssd_inputs(4, 1, 256, 2, 64,
+                                                         128))
+    with pytest.raises(ValueError, match="not divisible"):
+        ss.ssd_scan(x[:, :200], dt[:, :200], A, Bm[:, :200], Cm[:, :200],
+                    chunk=128)
+    with pytest.raises(ValueError, match="head dim"):
+        ss.ssd_scan(torch.cat([x, x], -1), dt, A, Bm, Cm)        # P = 128
+    with pytest.raises(ValueError, match="state"):
+        ss.ssd_scan(x, dt, A, torch.cat([Bm, Bm], -1),
+                    torch.cat([Cm, Cm], -1))                     # N = 256
+    with pytest.raises(ValueError, match="chunk"):
+        ss.ssd_scan(x, dt, A, Bm, Cm, chunk=256)                 # Q = 256
+    with pytest.raises(TypeError):
+        ss.ssd_scan(x.double(), dt, A, Bm, Cm)
+    with pytest.raises(TypeError):
+        ss.ssd_scan(x.bfloat16(), dt, A, Bm, Cm)
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A,
+                    Bm, Cm)
+
+
+def test_mamba2_smoke_prefill_on_the_card(cuda):
+    """The smoke-width mamba2 on the card launches one ssd_scan per layer
+    and agrees with the port's CPU run at 1e-4; so does the teacher-forced
+    decode against the full forward (2e-3)."""
+    cfg = get_config("mamba2-2.7b", smoke=True)
+    p_cpu = init_model(cfg, 0, "cpu")
+    p = _to(p_cpu, cuda)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 256)).astype(np.int32))
+    ops.reset_launch_counts()
+    got, _ = transformer.forward_train(p, toks, cfg)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"moe_gemm": 0, "redundancy_vote": 0,
+                                   "audit_mlp": 0, "flash_attention": 0,
+                                   "rglru_scan": 0,
+                                   "ssd_scan": cfg.num_layers}
+    want, _ = transformer.forward_train(p_cpu, toks, cfg)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    caches = materialize(transformer.cache_decl(cfg, 2, 256), 0, cuda)
+    outs = []
+    for t in range(256):
         lg, caches = transformer.forward_decode(p, caches,
                                                 toks[:, t:t + 1], t, cfg)
         outs.append(lg[:, 0])

@@ -15,13 +15,17 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.moe_gemm import moe_gemm as jax_moe_gemm
 from repro.kernels.redundancy_vote import pairwise_agreement as jax_agree
+from repro.kernels.ssd_scan import ssd_scan as jax_ssd_scan
 from repro.models.layers import blockwise_attention as jax_blockwise
 from repro.models.rglru import rglru_scan as jax_rglru_scan
+from repro.models.ssm import ssd_chunked as jax_ssd_chunked
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import moe_gemm as mg
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import redundancy_vote as rv
 from repro_torch.kernels import rglru_scan as rg
+from repro_torch.kernels import ssd_scan as ss
+from repro_torch.models import ssm
 
 # tolerances of tests/test_kernels.py: fp32 1e-5, bf16 2e-2 (atol 8x)
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -305,3 +309,85 @@ def test_rglru_scan_dispatch_follows_device():
         ops.rglru_scan(a, b[:, :4])
     with pytest.raises(TypeError):
         ops.rglru_scan(a.double(), b.double())
+
+
+# ------------------------------------------------------------ SSD scan
+def _ssd_inputs(seed, B, S, H, P, N, state=False):
+    """Drawn as tests/test_kernels.py draws them: dt = 0.1 softplus(z),
+    A = -|z| - 0.1, B and C at scale 0.5."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    dt = (np.logaddexp(0.0, rng.standard_normal((B, S, H))) * 0.1).astype(
+        np.float32)
+    A = (-np.abs(rng.standard_normal(H)) - 0.1).astype(np.float32)
+    Bm = (rng.standard_normal((B, S, N)) * 0.5).astype(np.float32)
+    Cm = (rng.standard_normal((B, S, N)) * 0.5).astype(np.float32)
+    s0 = (rng.standard_normal((B, H, P, N)) if state
+          else np.zeros((B, H, P, N))).astype(np.float32)
+    return x, dt, A, Bm, Cm, s0
+
+
+def test_ssd_scan_ref_matches_jax_ref():
+    """The sequential recurrence from a non-zero state: y and the state."""
+    args = _ssd_inputs(0, 2, 50, 3, 16, 8, state=True)
+    y, st = ref.ssd_scan_ref(*map(torch.from_numpy, args))
+    jy, jst = jref.ssd_scan_ref(*map(jnp.asarray, args))
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(st.numpy(), np.asarray(jst), rtol=1e-5,
+                               atol=1e-5)
+
+
+# tests/test_kernels.py's grid (B, S, H, P, N, chunk): every value of each
+# axis appears, and the single-chunk case of chip_smoke.py
+SSD_CASES = [
+    (1, 64, 1, 16, 8, 32), (2, 256, 3, 16, 8, 32), (1, 256, 3, 32, 16, 64),
+    (2, 64, 1, 32, 16, 64), (1, 64, 3, 32, 8, 32), (2, 256, 1, 16, 16, 64),
+    (1, 48, 2, 32, 32, 128),
+]
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_CASES)
+def test_ssd_scan_plain_matches_pallas(B, S, H, P, N, chunk):
+    """ops.ssd_scan on the CPU (the sequential recurrence from zero)
+    against the Pallas kernel in interpret mode, at the JAX bar 2e-4."""
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(S + P + N, B, S, H, P, N)
+    ops.reset_launch_counts()
+    got = ops.ssd_scan(*map(torch.from_numpy, (x, dt, A, Bm, Cm)),
+                       chunk=chunk)
+    assert ops.launch_counts()["ssd_scan"] == 0               # CPU: plain
+    want = jax_ssd_scan(*map(jnp.asarray, (x, dt, A, Bm, Cm)), chunk=chunk,
+                        interpret=True)
+    assert got.dtype == torch.float32 and got.shape == (B, S, H, P)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
+
+
+@pytest.mark.parametrize("S,chunk", [(64, 16), (96, 32), (40, 40)])
+def test_ssd_chunked_matches_jax(S, chunk):
+    """The port's chunked form from a non-zero state against JAX's."""
+    args = _ssd_inputs(S, 2, S, 3, 16, 8, state=True)
+    y, st = ssm.ssd_chunked(*map(torch.from_numpy, args), chunk)
+    jy, jst = jax_ssd_chunked(*map(jnp.asarray, args), chunk)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_allclose(st.numpy(), np.asarray(jst), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_ssd_scan_refuses_ragged_chunks_and_bad_operands():
+    x, dt, A, Bm, Cm = map(torch.from_numpy,
+                           _ssd_inputs(1, 1, 96, 2, 16, 8)[:5])
+    with pytest.raises(ValueError, match="not divisible"):
+        ops.ssd_scan(x, dt, A, Bm, Cm, chunk=64)        # 96 % 64
+    with pytest.raises(ValueError, match="not divisible"):
+        ss.ssd_scan(x, dt, A, Bm, Cm, chunk=64)
+    ops.ssd_scan(x, dt, A, Bm, Cm, chunk=200)           # one chunk of 96
+    with pytest.raises(ValueError, match="CUDA"):
+        ss.ssd_scan(x, dt, A, Bm, Cm)                   # the kernel wrapper
+    with pytest.raises(ValueError, match="mismatch"):
+        ops.ssd_scan(x, dt[:, :, :1], A, Bm, Cm)
+    with pytest.raises(ValueError, match="mismatch"):
+        ops.ssd_scan(x, dt, A, Bm, Cm[..., :4])
+    with pytest.raises(TypeError):
+        ops.ssd_scan(x.double(), dt, A, Bm, Cm)

@@ -4,7 +4,7 @@ CPU, at smoke width.
 JAX parameters are materialised from a PRNG key and carried across with
 ``lm_params_from_numpy``; tokens come from numpy seeds.  On the CPU the
 port's kernel wrappers run their plain versions (attention_ref, the
-sequential RG-LRU loop), so this holds the port's model code and those
+sequential RG-LRU and SSM recurrences), so this holds the port's model code and those
 plain versions against the JAX package: configs and declarations exactly,
 layers at 1e-5, full-sequence logits and per-step decode logits and
 caches at 1e-4, teacher-forced decode against the full forward at 2e-3
@@ -33,7 +33,7 @@ from repro_torch.models import builder, layers, rglru, ssm, transformer
 from repro_torch.train import step
 from repro_torch.train.loop import init_model
 
-ARCHS = ("qwen2.5-3b", "recurrentgemma-2b", "smollm-360m")
+ARCHS = ("qwen2.5-3b", "recurrentgemma-2b", "smollm-360m", "mamba2-2.7b")
 PORTED = set(ARCHS)
 
 
@@ -127,14 +127,20 @@ def test_decls_match_jax_at_full_width(arch, kv):
 
 
 def test_full_width_param_counts():
-    """What the chip run allocates: about 3.4 B (qwen2.5-3b) and 3.55 B
-    (recurrentgemma-2b) parameters, padded vocab included."""
+    """What the chip run allocates: about 3.4 B (qwen2.5-3b), 3.55 B
+    (recurrentgemma-2b) and 2.83 B (mamba2-2.7b) parameters, padded vocab
+    included."""
     n = {a: builder.count_params(transformer.model_decl(get_config(a)))
          for a in ARCHS}
     assert 3.3e9 < n["qwen2.5-3b"] < 3.5e9
     assert 3.5e9 < n["recurrentgemma-2b"] < 3.6e9
+    assert 2.8e9 < n["mamba2-2.7b"] < 2.9e9
     assert get_config("qwen2.5-3b").padded_vocab == 152064
     assert get_config("recurrentgemma-2b").padded_vocab == 256000
+    cfg = get_config("mamba2-2.7b")
+    assert cfg.padded_vocab == 50432 and not cfg.tie_embeddings
+    assert (cfg.ssm_inner, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+            cfg.ssm_conv_width, cfg.ssm_chunk) == (5120, 80, 64, 128, 4, 128)
 
 
 def test_materialize_is_seeded_per_leaf():
@@ -244,6 +250,33 @@ def test_decode_attention_matches_jax(window, vector):
     _close(got, want, 1e-5)
 
 
+@pytest.mark.parametrize("S", [40, 64])
+def test_ssm_block_matches_jax(S):
+    """``ssm_train`` (one chunk of 40; two chunks of 32 in the JAX form
+    against the port's sequential plain scan at 64) at 2e-4, and one
+    ``ssm_decode`` step from a non-zero state and conv history at 1e-5."""
+    cfg = dataclasses.replace(get_config("mamba2-2.7b", smoke=True),
+                              ssm_chunk=32 if S == 64 else 128)
+    jp = jbuilder.materialize(jssm.ssm_decl(cfg), jax.random.PRNGKey(5))
+    jp["A_log"] = jnp.asarray(_rand(13, cfg.ssm_heads, scale=0.5))
+    jp["dt_bias"] = jnp.asarray(_rand(14, cfg.ssm_heads, scale=0.5))
+    p = lm_params_from_numpy(_np(jp), device="cpu")
+    x = _rand(15, 2, S, cfg.d_model)
+    _close(ssm.ssm_train(p, _t(x), cfg),
+           jssm.ssm_train(jp, jnp.asarray(x), cfg), 2e-4)
+    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    cache = {"state": _rand(16, 2, H, P, N),
+             "conv": _rand(17, 2, cfg.ssm_conv_width - 1,
+                           cfg.ssm_inner + 2 * N)}
+    got, gc = ssm.ssm_decode(p, _t(x[:, :1]),
+                             {k: _t(v) for k, v in cache.items()}, cfg)
+    want, wc = jssm.ssm_decode(jp, jnp.asarray(x[:, :1]),
+                               {k: jnp.asarray(v) for k, v in cache.items()},
+                               cfg)
+    _close(got, want, 1e-5)
+    _assert_trees_close(gc, wc, 1e-5)
+
+
 def test_rglru_block_matches_jax():
     cfg = get_config("recurrentgemma-2b", smoke=True)
     jp = jbuilder.materialize(jrglru.rglru_decl(cfg), jax.random.PRNGKey(4))
@@ -313,7 +346,8 @@ def _decode_both(cfg, jp, p, B, cache_len, feeds):
     return torch.stack(out, 1)
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "recurrentgemma-2b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "recurrentgemma-2b",
+                                  "mamba2-2.7b"])
 def test_decode_scalar_pos_matches_jax(models, arch):
     """Scalar positions over 40 steps: past recurrentgemma's smoke window
     (32), so its ring cache wraps."""
@@ -323,7 +357,8 @@ def test_decode_scalar_pos_matches_jax(models, arch):
                                      for t in range(40)))
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "recurrentgemma-2b"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "recurrentgemma-2b",
+                                  "mamba2-2.7b"])
 def test_decode_vector_pos_with_write_mask_matches_jax(models, arch):
     """Three slots at their own depths (one admitted later, one that
     sits out every third step): per-row positions and the active mask."""
@@ -389,10 +424,26 @@ def test_teacher_forced_decode_matches_forward(arch):
 def test_unported_layer_kinds_raise():
     cfg = get_config("qwen2.5-3b", smoke=True)
     from repro_torch.models.config import LayerSpec
-    with pytest.raises(NotImplementedError, match="A4.1"):
-        transformer.layer_decl(LayerSpec("ssm", "dense"), cfg)
     with pytest.raises(NotImplementedError, match="A4.2"):
         transformer.layer_decl(LayerSpec("attn", "moe"), cfg)
     enc = dataclasses.replace(cfg, num_encoder_layers=2)
     with pytest.raises(NotImplementedError, match="A4.3"):
         step.model_forward({}, {"tokens": None}, enc)
+
+
+def test_ssm_write_mask_keeps_an_inactive_rows_state_and_conv(models):
+    """A row whose write_mask is False keeps its SSM state and conv
+    history bit for bit, while the active row advances both."""
+    cfg, _, p = models["mamba2-2.7b"]
+    caches = builder.materialize(transformer.cache_decl(cfg, 2, 8), 0, "cpu")
+    toks = _t(_tokens(cfg, 2, 3, 7))
+    for t in range(2):
+        _, caches = transformer.forward_decode(p, caches, toks[:, t:t + 1],
+                                               t, cfg)
+    _, new = transformer.forward_decode(p, caches, toks[:, 2:3], 2, cfg,
+                                        write_mask=torch.tensor([True,
+                                                                 False]))
+    for k in ("state", "conv"):
+        old, cur = caches["blocks"]["0"][k], new["blocks"]["0"][k]
+        assert torch.equal(cur[:, 1], old[:, 1]), k
+        assert not torch.equal(cur[:, 0], old[:, 0]), k
