@@ -24,6 +24,11 @@ Each path's launch counts are set to 0 just before it and read just
 after it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels moe_gemm flash_attention
+
+The second form builds, then checks and times only the named kernels'
+cases and stops (no main path, no last line): run from two trees in one
+call, it compares two versions of a kernel on one card.
 
 Prints, in order: the card's name and power limit (nvidia-smi), the
 build time, one JSON line per kernel case, the main-path lines, one
@@ -37,11 +42,14 @@ from __future__ import annotations
 import gc
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
 
 FP32_PEAK = 67e12        # H100 SXM, fp32 outside the tensor cores
+TF32X3_PEAK = 495e12 / 3  # dense TF32 tensor cores, 3 products per fp32 one
 BF16_PEAK = 989e12       # H100 SXM, dense bf16 tensor cores
 HBM_BYTES_PER_S = 3.35e12
 
@@ -104,9 +112,10 @@ def check_moe_gemm(torch, mg, ref, seed: int, name: str, E: int, C: int,
     ok = bool(torch.allclose(got.float(), want.float(), rtol=tol,
                              atol=tol * 8))
     size = buf.element_size()
-    b_ms, b_by = bound(2.0 * E * C * d * f,
-                       (E * C * d + E * d * f + E * C * f) * size,
-                       FP32_PEAK if dtype == torch.float32 else BF16_PEAK)
+    flops = 2.0 * E * C * d * f
+    nbytes = (E * C * d + E * d * f + E * C * f) * size
+    fp32 = dtype == torch.float32
+    b_ms, b_by = bound(flops, nbytes, TF32X3_PEAK if fp32 else BF16_PEAK)
     row = {"case": name, "kernel": "moe_gemm",
            "shape": f"({E},{C},{d})x({E},{d},{f})",
            "dtype": str(dtype).replace("torch.", ""),
@@ -115,11 +124,29 @@ def check_moe_gemm(torch, mg, ref, seed: int, name: str, E: int, C: int,
            "kernel_ms": time_ms(lambda: mg.moe_gemm(buf, w)),
            "plain_ms": time_ms(lambda: ref.moe_gemm_ref(buf, w)),
            "library_ms": time_ms(lambda: torch.bmm(buf, w)),
-           "bound_ms": b_ms, "bound_by": b_by}
+           "bound_ms": b_ms, "bound_by": b_by,
+           "bound_fp32_cores_ms": (bound(flops, nbytes, FP32_PEAK)[0]
+                                   if fp32 else None)}
     emit(row)
     require(ok, f"moe_gemm {name} disagrees with its plain version "
                 f"(max abs err {row['max_abs_err']})")
     return row
+
+
+def moe_gemm_cases(torch, mg, ref):
+    """The B-MoE path's two expert layers in fp32 (returned) and bf16, and
+    a ragged shape."""
+    gemm = [check_moe_gemm(torch, mg, ref, 1, "layer1", 10, 376, 784, 256,
+                           torch.float32),
+            check_moe_gemm(torch, mg, ref, 2, "layer2", 10, 376, 256, 10,
+                           torch.float32)]
+    check_moe_gemm(torch, mg, ref, 3, "ragged", 2, 100, 50, 70,
+                   torch.float32)
+    check_moe_gemm(torch, mg, ref, 4, "layer1_bf16", 10, 376, 784, 256,
+                   torch.bfloat16)
+    check_moe_gemm(torch, mg, ref, 5, "layer2_bf16", 10, 376, 256, 10,
+                   torch.bfloat16)
+    return gemm
 
 
 def _bitwise_equal(torch, a, b) -> bool:
@@ -267,9 +294,10 @@ def check_flash(torch, np, fa, ref, seed: int, name: str, B: int, S: int,
     ok = bool(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol))
     pairs = attention_pairs(np, S, S, causal, window)
     size = q.element_size()
-    b_ms, b_by = bound(4.0 * B * H * D * pairs,
-                       size * (2 * B * S * H * D + 2 * B * S * KH * D),
-                       FP32_PEAK if dtype == torch.float32 else BF16_PEAK)
+    flops = 4.0 * B * H * D * pairs
+    nbytes = size * (2 * B * S * H * D + 2 * B * S * KH * D)
+    fp32 = dtype == torch.float32
+    b_ms, b_by = bound(flops, nbytes, TF32X3_PEAK if fp32 else BF16_PEAK)
     # the yardstick: one scaled_dot_product_attention call on the same
     # inputs, heads first, GQA expanded and the window as a boolean mask
     # (prepared outside the timing); it has no softcap
@@ -299,11 +327,28 @@ def check_flash(torch, np, fa, ref, seed: int, name: str, B: int, S: int,
            "plain_ms": time_ms(lambda: ref.attention_ref(q, k, v, **kw),
                                iters=max(iters // 4, 1), reps=2),
            "library_ms": library_ms, "library_backend": backend,
-           "bound_ms": b_ms, "bound_by": b_by}
+           "bound_ms": b_ms, "bound_by": b_by,
+           "bound_fp32_cores_ms": (bound(flops, nbytes, FP32_PEAK)[0]
+                                   if fp32 else None)}
     emit(row)
     require(ok, f"flash_attention {name} disagrees with its plain version "
                 f"(max abs err {err})")
     return row
+
+
+def flash_cases(torch, np, fa, ref):
+    """A qwen2.5-3b and a recurrentgemma-2b layer in fp32 (returned), the
+    qwen layer in bf16, a ragged and a softcapped case."""
+    flash = [check_flash(torch, np, fa, ref, 15, "qwen_layer", 1, 4096, 16,
+                         2, 128, True, iters=5),
+             check_flash(torch, np, fa, ref, 16, "rgemma_layer", 1, 4096, 10,
+                         1, 256, True, window=2048, iters=5)]
+    check_flash(torch, np, fa, ref, 17, "ragged", 2, 1000, 4, 2, 64, False)
+    check_flash(torch, np, fa, ref, 18, "softcap", 1, 512, 8, 4, 128, True,
+                softcap=50.0)
+    check_flash(torch, np, fa, ref, 19, "qwen_layer_bf16", 1, 4096, 16, 2,
+                128, True, dtype=torch.bfloat16, iters=5)
+    return flash
 
 
 def check_rglru(torch, rg, ref, seed: int, name: str, B: int, S: int,
@@ -840,6 +885,46 @@ def profile_batch(torch, run):
                     for us, k, c in rows[:8]]}
 
 
+def ptxas_report(log: str):
+    """Per kernel function, from ``nvcc -Xptxas -v`` output (build.py's
+    nvcc.log): source, function (demangled where c++filt is found),
+    registers, static shared memory, stack and spill bytes."""
+    fns, source, cur = [], None, None
+    for ln in log.splitlines():
+        m = re.match(r"== (\S+) \(rc=", ln)
+        if m:
+            source = m.group(1)
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = {"source": source, "function": m.group(1), "registers": None,
+                   "smem_bytes": 0, "stack_bytes": None, "spill_stores": None,
+                   "spill_loads": None}
+            fns.append(cur)
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            cur["stack_bytes"], cur["spill_stores"], cur["spill_loads"] = (
+                int(x) for x in m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            cur["smem_bytes"] = int(sm.group(1)) if sm else 0
+    filt = shutil.which("cu++filt") or shutil.which("c++filt")
+    if filt and fns:
+        out = subprocess.run([filt], input="\n".join(f["function"] for f in fns),
+                             capture_output=True, text=True).stdout.split("\n")
+        for f, name in zip(fns, out):
+            name = name.strip().replace("(anonymous namespace)::", "")
+            name = name[5:] if name.startswith("void ") else name
+            if name.endswith(")"):              # drop the parameter list
+                name = name[:name.rfind("(")]
+            f["function"] = name or f["function"]
+    return fns
+
+
 # ---------------------------------------------------------- entry point
 def main() -> int:
     import torch
@@ -869,23 +954,24 @@ def main() -> int:
     t0 = time.perf_counter()
     build.library()
     log = (build.library_path().parent / "nvcc.log").read_text()
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
     print(f"build: {time.perf_counter() - t0:.1f} s ({build.library_path()})",
           flush=True)
-    for ln in ptxas:
-        print(f"  ptxas: {ln}", flush=True)
+    for fn in ptxas_report(log):
+        emit({"ptxas": fn})
+        # the tensor-core kernels keep every instantiation out of local memory
+        if fn["source"] in ("moe_gemm.cu", "flash_attention.cu"):
+            require(fn["spill_stores"] == 0 and fn["spill_loads"] == 0,
+                    f"ptxas spills in {fn['function']}")
 
-    gemm = [check_moe_gemm(torch, mg, ref, 1, "layer1", 10, 376, 784, 256,
-                           torch.float32),
-            check_moe_gemm(torch, mg, ref, 2, "layer2", 10, 376, 256, 10,
-                           torch.float32)]
-    check_moe_gemm(torch, mg, ref, 3, "ragged", 2, 100, 50, 70,
-                   torch.float32)
-    check_moe_gemm(torch, mg, ref, 4, "layer1_bf16", 10, 376, 784, 256,
-                   torch.bfloat16)
-    check_moe_gemm(torch, mg, ref, 5, "layer2_bf16", 10, 376, 256, 10,
-                   torch.bfloat16)
+    if "--kernels" in sys.argv:
+        # only the named kernels' cases, e.g. to time two trees in one call
+        cases = {"moe_gemm": lambda: moe_gemm_cases(torch, mg, ref),
+                 "flash_attention": lambda: flash_cases(torch, np, fa, ref)}
+        for name in sys.argv[sys.argv.index("--kernels") + 1:]:
+            cases[name]()
+        return 0
+
+    gemm = moe_gemm_cases(torch, mg, ref)
     vote = check_vote(torch, rv, ref, 6, "path", 10, 10, 3760, n_bad=3)
     check_vote(torch, rv, ref, 7, "majority_flips", 10, 10, 3760, n_bad=6)
     check_vote(torch, rv, ref, 8, "masked", 10, 10, 3760, n_bad=4,
@@ -902,15 +988,7 @@ def main() -> int:
                              3)]
     check_audit_invariance(torch, am)
 
-    flash = [check_flash(torch, np, fa, ref, 15, "qwen_layer", 1, 4096, 16,
-                         2, 128, True, iters=5),
-             check_flash(torch, np, fa, ref, 16, "rgemma_layer", 1, 4096, 10,
-                         1, 256, True, window=2048, iters=5)]
-    check_flash(torch, np, fa, ref, 17, "ragged", 2, 1000, 4, 2, 64, False)
-    check_flash(torch, np, fa, ref, 18, "softcap", 1, 512, 8, 4, 128, True,
-                softcap=50.0)
-    check_flash(torch, np, fa, ref, 19, "qwen_layer_bf16", 1, 4096, 16, 2,
-                128, True, dtype=torch.bfloat16, iters=5)
+    flash = flash_cases(torch, np, fa, ref)
     scan = check_rglru(torch, rg, ref, 20, "rgemma_layer", 1, 4096, 2560)
     check_rglru(torch, rg, ref, 21, "ragged", 3, 1000, 300)
     ssd = [check_ssd(torch, ss, ref, 22, "mamba2_layer", 1, 4096, 80, 64,
@@ -966,6 +1044,7 @@ def main() -> int:
          "plain_ms": sum(r["plain_ms"] for r in gemm),
          "bound_ms": sum(r["bound_ms"] for r in gemm),
          "bound_by": gemm[0]["bound_by"],
+         "bound_fp32_cores_ms": sum(r["bound_fp32_cores_ms"] for r in gemm),
          "library_ms": sum(r["library_ms"] for r in gemm)},
         {"name": "redundancy_vote", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/vote.cu",
@@ -997,6 +1076,7 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in flash),
          "ms": flash[0]["kernel_ms"], "plain_ms": flash[0]["plain_ms"],
          "bound_ms": flash[0]["bound_ms"], "bound_by": flash[0]["bound_by"],
+         "bound_fp32_cores_ms": flash[0]["bound_fp32_cores_ms"],
          "library_ms": flash[0]["library_ms"]},
         {"name": "rglru_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",

@@ -4,9 +4,9 @@ Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` process (all
 started together) for ``sm_90a``, and the objects are linked into one
 shared library with a plain C interface, loaded with ``ctypes``.  The
 build happens at first use, never at import, and is keyed by a hash of
-the sources and flags: ``build/repro_torch/<key>/`` under the repository
-root (listed in ``.gitignore``) holds the library, so an unchanged tree
-builds once.  ``nvcc -Xptxas -v`` output (registers, shared memory,
+the sources, headers and flags: ``build/repro_torch/<key>/`` under the
+repository root (listed in ``.gitignore``) holds the library, so an
+unchanged tree builds once.  ``nvcc -Xptxas -v`` output (registers, shared memory,
 spills) is kept beside it in ``nvcc.log``.
 """
 from __future__ import annotations
@@ -24,6 +24,8 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("moe_gemm.cu", "vote.cu", "audit_mlp.cu", "flash_attention.cu",
            "rglru_scan.cu", "ssd_scan.cu")
+# included by moe_gemm.cu and flash_attention.cu; part of the build key
+HEADERS = ("tf32x3.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -43,7 +45,7 @@ def _nvcc() -> str:
 
 def build_key() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode() + b"\0" + (CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 

@@ -20,7 +20,7 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128, 256)     # the kernel's compiled tile shapes
+HEAD_DIMS = (32, 64, 128, 256)     # the kernel's compiled head dims
 
 # kernel launches since the last reset (ops.reset_launch_counts)
 launches = 0
@@ -73,9 +73,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention needs the head dim contiguous")
-    if H > 65535 or B > 65535:
-        raise ValueError(f"flash_attention: grid limit 65535 on H={H}, "
-                         f"B={B}")
+    if B * H >= 2 ** 31 or (Sq + 63) // 64 > 65535:    # 64-row q tiles
+        raise ValueError(f"flash_attention: B*H={B * H} or Sq={Sq} over "
+                         f"the grid's limits")
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out

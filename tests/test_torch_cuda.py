@@ -43,7 +43,11 @@ def _randn(seed, *shape):
 @pytest.mark.parametrize("E,C,d,f,dtype", [
     (10, 376, 784, 256, torch.float32), (10, 376, 256, 10, torch.float32),
     (2, 100, 50, 70, torch.float32), (1, 1, 1, 1, torch.float32),
-    (10, 376, 784, 256, torch.bfloat16), (2, 100, 50, 70, torch.bfloat16)])
+    (10, 376, 784, 256, torch.bfloat16), (2, 100, 50, 70, torch.bfloat16),
+    # ragged against the 64 x 64 and 32 x 16 tiles and the K steps
+    (3, 129, 17, 33, torch.float32), (1, 1, 8, 1, torch.float32),
+    (2, 65, 260, 16, torch.float32), (3, 129, 17, 33, torch.bfloat16),
+    (10, 376, 256, 10, torch.bfloat16), (1, 1, 8, 1, torch.bfloat16)])
 def test_moe_gemm_kernel_matches_plain(cuda, E, C, d, f, dtype):
     buf = _randn(E + C, E, C, d).to(cuda, dtype)
     w = _randn(d + f, E, d, f).to(cuda, dtype)
@@ -166,6 +170,15 @@ def test_optimistic_infer_and_flush_launch_audit_mlp(cuda):
     (1, 97, 97, 2, 2, 256, False, 16, 20.0, 0),
     (1, 16, 40, 4, 2, 64, True, 8, 0.0, 100),
     (1, 48, 300, 6, 3, 128, True, 64, 0.0, 252),
+    # D 32 and 64 with Sq no multiple of the 64-row query tile
+    (2, 100, 100, 4, 2, 32, True, 0, 0.0, 0),
+    (1, 77, 77, 6, 3, 64, False, 0, 0.0, 0),
+    # window edges inside a key tile (32 keys at D 128, 16 at D 256)
+    (1, 300, 300, 4, 1, 128, True, 100, 0.0, 0),
+    (1, 200, 200, 2, 1, 256, True, 45, 0.0, 0),
+    # q_offset with Sk no multiple of the key tile
+    (2, 30, 173, 4, 2, 64, True, 0, 0.0, 143),
+    (1, 70, 333, 2, 2, 256, True, 0, 0.0, 263),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, H, KH, D,
@@ -184,6 +197,27 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, H, KH, D,
     assert got.dtype == dtype and got.shape == (B, Sq, H, D)
     tol = 2e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("case", ["moe_gemm_layer1", "moe_gemm_layer2",
+                                  "flash_causal_gqa", "flash_window_d256"])
+def test_kernels_are_bitwise_repeatable(cuda, case):
+    """Two launches on the same inputs give the same bits: one fixed
+    reduction order per output, no split-K, no atomics."""
+    if case.startswith("moe_gemm"):
+        E, C, d, f = (10, 376, 784, 256) if case.endswith("1") else (
+            10, 376, 256, 10)
+        args = (_randn(1, E, C, d).to(cuda), _randn(2, E, d, f).to(cuda))
+        run = lambda: mg.moe_gemm(*args)
+    else:
+        H, KH, D, window = (16, 2, 128, 0) if case.endswith("gqa") else (
+            10, 1, 256, 200)
+        q = _randn(3, 1, 600, H, D).to(cuda)
+        k, v = (_randn(s, 1, 600, KH, D).to(cuda) for s in (4, 5))
+        run = lambda: fa.flash_attention(q, k, v, causal=True, window=window)
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
 
 
 def test_flash_attention_reads_strided_views(cuda):

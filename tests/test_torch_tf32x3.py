@@ -1,0 +1,130 @@
+"""The arithmetic of the port's tensor-core kernels, emulated on the CPU.
+
+``moe_gemm.cu`` and ``flash_attention.cu`` run their float32 products on
+the tensor cores as 3xTF32 (``csrc/tf32x3.cuh``): each operand is split as
+hi = tf32(x), rounded to nearest with ties away from zero onto 10 mantissa
+bits (the value ``cvt.rna.tf32.f32`` gives), and lo = x - hi, which the
+tensor core reads cut to TF32 (its low 13 bits dropped); a * b is taken as
+a_lo * b_hi + a_hi * b_lo + a_hi * b_hi, accumulated in float32.  Here the
+rounding is done by int32 bit arithmetic, as in the kernels, and the
+products by float32 matmuls, at the shapes of the port's main paths
+(experts cut to 2), and held against float64 at the bars the card tests
+use: 3xTF32 meets them, one TF32 product per product does not.
+
+The tensor cores accumulate in their own order and may round their sums
+differently from a float32 matmul on the CPU, so this is the argument for
+the route, not the proof: ``tests/test_torch_cuda.py`` holds the kernels
+themselves against their plain versions on the card."""
+import numpy as np
+import pytest
+import torch
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (ties away from zero): add half of
+    TF32's last place to the magnitude bits, drop the low 13 bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_cut(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> TF32 by dropping the low 13 bits, as the tensor core
+    reads a float32 register given as a TF32 operand."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def split(x: torch.Tensor):
+    hi = tf32_rna(x)
+    return hi, tf32_cut(x - hi)
+
+
+def mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The two small terms first, then hi * hi, as the kernels order them."""
+    ah, al = split(a)
+    bh, bl = split(b)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def mm_1xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return tf32_rna(a) @ tf32_rna(b)     # hi * hi alone
+
+
+def _randn(seed, *shape):
+    return torch.from_numpy(
+        np.random.default_rng(seed).standard_normal(shape).astype(np.float32))
+
+
+def attention(q, k, v, mm, *, causal, window):
+    """Softmax attention in q's dtype with its two products through
+    ``mm``: q (B, S, H, D), k/v (B, S, KH, D), masked scores at -1e30."""
+    B, S, H, D = q.shape
+    KH = k.shape[2]
+    qh = q.reshape(B, S, KH, H // KH, D).permute(0, 2, 3, 1, 4)
+    kt = k.permute(0, 2, 3, 1)[:, :, None]            # (B, KH, 1, D, S)
+    s = mm(qh, kt) * D ** -0.5                         # (B, KH, G, S, S)
+    pos = torch.arange(S)
+    keep = torch.ones(S, S, dtype=torch.bool)
+    if causal:
+        keep &= pos[None, :] <= pos[:, None]
+    if window:
+        keep &= pos[None, :] > pos[:, None] - window
+    s = torch.where(keep, s, torch.full((), -1e30, dtype=s.dtype))
+    o = mm(torch.softmax(s, dim=-1), v.permute(0, 2, 1, 3)[:, :, None])
+    return o.permute(0, 3, 1, 2, 4).reshape(B, S, H, D)
+
+
+def test_split_keeps_21_bits():
+    """hi has TF32's 10 mantissa bits and is within half of its last place
+    of x; hi + lo is within 2^-21 of x: the dropped lo * lo term and lo's
+    cut bits are each under 2^-21 of a product."""
+    x = _randn(0, 100_000) * torch.from_numpy(
+        np.exp(np.random.default_rng(1).uniform(-20, 20, 100_000))
+        .astype(np.float32))
+    hi, lo = split(x)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert not (lo.view(torch.int32) & 0x1FFF).any()
+    assert ((x - hi).abs() <= hi.abs() * 2.0 ** -11).all()
+    err = (x.double() - hi.double() - lo.double()).abs()
+    assert (err <= x.abs().double() * 2.0 ** -21).all()
+
+
+# (E, C, d, f): the B-MoE expert layers with E cut from 10 to 2
+GEMM_CASES = {"layer1": (2, 376, 784, 256), "layer2": (2, 376, 256, 10)}
+
+
+@pytest.mark.parametrize("route,meets_bar", [("3xtf32", True),
+                                             ("1xtf32", False)])
+@pytest.mark.parametrize("layer", sorted(GEMM_CASES))
+def test_moe_gemm_arithmetic(layer, route, meets_bar):
+    """Within the card test's fp32 bar (rtol 1e-5, atol 8e-5) of float64
+    with 3xTF32, not with one TF32 product."""
+    E, C, d, f = GEMM_CASES[layer]
+    buf, w = _randn(C + d, E, C, d), _randn(d + f, E, d, f)
+    mm = mm_3xtf32 if route == "3xtf32" else mm_1xtf32
+    got = mm(buf, w).double()
+    want = buf.double() @ w.double()
+    assert torch.allclose(got, want, rtol=1e-5, atol=8e-5) == meets_bar, \
+        float((got - want).abs().max())
+
+
+# (S, H, KH, D, window): qwen2.5-3b's causal GQA heads at S = 512, and a
+# recurrentgemma-style D = 256 MQA layer with a window inside the sequence
+ATTN_CASES = {"causal_gqa_d128": (512, 16, 2, 128, 0),
+              "window_d256": (384, 4, 1, 256, 100)}
+
+
+@pytest.mark.parametrize("route,meets_bar", [("3xtf32", True),
+                                             ("1xtf32", False)])
+@pytest.mark.parametrize("case", sorted(ATTN_CASES))
+def test_attention_arithmetic(case, route, meets_bar):
+    """Within the card test's fp32 bar (2e-4) of float64 with 3xTF32 in
+    both products, not with one TF32 product."""
+    S, H, KH, D, window = ATTN_CASES[case]
+    q, k, v = (_randn(seed, 1, S, n, D) for seed, n in
+               ((S, H), (S + 1, KH), (S + 2, KH)))
+    mm = mm_3xtf32 if route == "3xtf32" else mm_1xtf32
+    got = attention(q, k, v, mm, causal=True, window=window).double()
+    want = attention(q.double(), k.double(), v.double(), torch.matmul,
+                     causal=True, window=window)
+    assert torch.allclose(got, want, rtol=2e-4, atol=2e-4) == meets_bar, \
+        float((got - want).abs().max())
