@@ -24,11 +24,12 @@ Each path's launch counts are set to 0 just before it and read just
 after it.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --kernels moe_gemm flash_attention
+    python3 chip_smoke.py --kernels moe_gemm flash_attention ssd_scan
 
 The second form builds, then checks and times only the named kernels'
-cases and stops (no main path, no last line): run from two trees in one
-call, it compares two versions of a kernel on one card.
+cases (``moe_gemm``, ``flash_attention``, ``ssd_scan``,
+``redundancy_vote``) and stops (no main path, no last line): run from two
+trees in one call, it compares two versions of a kernel on one card.
 
 Prints, in order: the card's name and power limit (nvidia-smi), the
 build time, one JSON line per kernel case, the main-path lines, one
@@ -338,7 +339,8 @@ def check_flash(torch, np, fa, ref, seed: int, name: str, B: int, S: int,
 
 def flash_cases(torch, np, fa, ref):
     """A qwen2.5-3b and a recurrentgemma-2b layer in fp32 (returned), the
-    qwen layer in bf16, a ragged and a softcapped case."""
+    qwen layer in bf16, a ragged, a softcapped and a windowed D = 48
+    case."""
     flash = [check_flash(torch, np, fa, ref, 15, "qwen_layer", 1, 4096, 16,
                          2, 128, True, iters=5),
              check_flash(torch, np, fa, ref, 16, "rgemma_layer", 1, 4096, 10,
@@ -348,6 +350,8 @@ def flash_cases(torch, np, fa, ref):
                 softcap=50.0)
     check_flash(torch, np, fa, ref, 19, "qwen_layer_bf16", 1, 4096, 16, 2,
                 128, True, dtype=torch.bfloat16, iters=5)
+    check_flash(torch, np, fa, ref, 27, "d48_window", 2, 512, 6, 2, 48,
+                True, window=100)
     return flash
 
 
@@ -376,9 +380,13 @@ def check_rglru(torch, rg, ref, seed: int, name: str, B: int, S: int,
 
 
 def check_ssd(torch, ss, ref, seed: int, name: str, B: int, S: int, H: int,
-              P: int, N: int, chunk: int, iters: int = 20):
-    """The SSD kernel against the sequential recurrence from zero, on
-    inputs drawn as the JAX package's tests/test_kernels.py draws them."""
+              P: int, N: int, chunk: int, iters: int = 20,
+              profiled: bool = False):
+    """The SSD kernels against the sequential recurrence from zero, on
+    inputs drawn as the JAX package's tests/test_kernels.py draws them.
+    One call is one count of ``ss.launches``; where ``profiled``, the
+    CUDA launches of one call and each one's device time are read from
+    torch.profiler (``cuda_launches_per_call``, ``launch_profile``)."""
     import torch.nn.functional as F
     g = torch.Generator().manual_seed(seed)
     x = torch.randn(B, S, H, P, generator=g).cuda()
@@ -402,7 +410,8 @@ def check_ssd(torch, ss, ref, seed: int, name: str, B: int, S: int, H: int,
     flops = 2.0 * B * (nc * (H * pairs * P + pairs * N)
                        + H * (nc - 1) * 2 * Q * N * P)
     nbytes = 4.0 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * N)
-    b_ms, b_by = bound(flops, nbytes, FP32_PEAK)
+    # the four products run as 3xTF32 on the tensor cores
+    b_ms, b_by = bound(flops, nbytes, TF32X3_PEAK)
     row = {"case": name, "kernel": "ssd_scan",
            "shape": f"x ({B},{S},{H},{P}), N {N}, chunk {Q}",
            "dtype": "float32", "max_abs_err": err, "rtol": 2e-4,
@@ -413,11 +422,30 @@ def check_ssd(torch, ss, ref, seed: int, name: str, B: int, S: int, H: int,
            "plain_ms": time_ms(lambda: ref.ssd_scan_ref(x, dt, A, Bm, Cm,
                                                         state0),
                                iters=1, reps=2),
-           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "bound_fp32_cores_ms": bound(flops, nbytes, FP32_PEAK)[0]}
+    if profiled:
+        prof = profile_batch(torch, lambda: ss.ssd_scan(x, dt, A, Bm, Cm,
+                                                        chunk=chunk))["ssd"]
+        row["cuda_launches_per_call"] = prof["cuda_launches"]
+        row["launch_profile"] = prof["by_kernel"]
     emit(row)
     require(ok and row["finite"], f"ssd_scan {name} disagrees with its "
                                   f"plain version (max abs err {err})")
     return row
+
+
+def ssd_cases(torch, ss, ref):
+    """A mamba2-2.7b layer (first), the JAX test shape, one chunk of 48,
+    and ragged chunks of 100 through the state pass."""
+    return [check_ssd(torch, ss, ref, 22, "mamba2_layer", 1, 4096, 80, 64,
+                      128, 128, iters=5, profiled=True),
+            check_ssd(torch, ss, ref, 23, "jax_test_shape", 2, 256, 3, 16,
+                      8, 32),
+            check_ssd(torch, ss, ref, 24, "single_chunk", 1, 48, 16, 32, 32,
+                      128),
+            check_ssd(torch, ss, ref, 25, "ragged_chunks", 2, 300, 8, 64,
+                      128, 100)]
 
 
 # --------------------------------------- LM stack: paths C, D and E
@@ -442,11 +470,26 @@ def lm_prefill(torch, ops, cfg, params, tokens, want_counts):
         if i == 0:
             counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    ops.reset_launch_counts()
     prof = profile_batch(torch, lambda: prefill(params, batch))
+    ssd_calls = ops.launch_counts()["ssd_scan"]
     wall_ms = sorted(walls)[1] * 1e3
     S = tokens.shape[1]
     row = {"phase": "lm_prefill", "model": cfg.name, "batch": 1, "seq": S,
-           "launches": counts, "wall_ms": [w * 1e3 for w in walls],
+           "launches": counts,
+           # one ssd_scan call runs several CUDA launches (C B^T, chunk
+           # states, state pass, outputs): the profiled run's calls, its
+           # ssd_* CUDA launches and their device time
+           "ssd_profiled": {"calls": ssd_calls,
+                            "cuda_launches": prof["ssd"]["cuda_launches"],
+                            "cuda_launches_per_call": (
+                                prof["ssd"]["cuda_launches"] / ssd_calls
+                                if ssd_calls else None),
+                            "device_ms": prof["ssd"]["device_us"] / 1e3,
+                            "device_share": prof["ssd"]["device_us"]
+                            / prof["device_busy_us"],
+                            "by_kernel": prof["ssd"]["by_kernel"]},
+           "wall_ms": [w * 1e3 for w in walls],
            "tokens_per_s": S / (wall_ms / 1e3),
            "peak_mem_gb": peak / 1e9, "next_token": nxt.tolist(),
            "device_busy_ms": prof["device_busy_us"] / 1e3,
@@ -865,24 +908,40 @@ def optimistic_batch_time(torch, xs):
 
 def profile_batch(torch, run):
     """Device time by kernel (and copy) over one warm call of ``run``,
-    from torch.profiler's CUDA activities."""
+    from torch.profiler's CUDA activities: the eight largest rows, and
+    the ``ssd_*`` kernels' launches and time summed (``ssd``).  A one-step
+    warm-up with a throwaway fill comes first: without it the first
+    kernel of ``run`` is missing from the trace."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        prof.step()
         run()
         torch.cuda.synchronize()
+        prof.step()
     rows = []
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA or ev.key.startswith("Activity"):
+        # the schedule's step annotation spans the whole step on the device
+        if (ev.device_type != DeviceType.CUDA
+                or ev.key.startswith(("Activity", "ProfilerStep"))):
             continue
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0))
         rows.append((float(dev_us), ev.key, ev.count))
     rows.sort(reverse=True)
+    ssd = [r for r in rows if re.search(r"\bssd_\w+_kernel\b", r[1])]
     return {"device_busy_us": sum(r[0] for r in rows),
             "top": [{"name": k[:70], "device_us": us, "count": c}
-                    for us, k, c in rows[:8]]}
+                    for us, k, c in rows[:8]],
+            "ssd": {"cuda_launches": sum(r[2] for r in ssd),
+                    "device_us": sum(r[0] for r in ssd),
+                    "by_kernel": {re.search(r"ssd_\w+_kernel", k)[0]:
+                                  {"device_us": us, "count": c}
+                                  for us, k, c in ssd}}}
 
 
 def ptxas_report(log: str):
@@ -959,14 +1018,18 @@ def main() -> int:
     for fn in ptxas_report(log):
         emit({"ptxas": fn})
         # the tensor-core kernels keep every instantiation out of local memory
-        if fn["source"] in ("moe_gemm.cu", "flash_attention.cu"):
+        if fn["source"] in ("moe_gemm.cu", "flash_attention.cu",
+                            "ssd_scan.cu"):
             require(fn["spill_stores"] == 0 and fn["spill_loads"] == 0,
                     f"ptxas spills in {fn['function']}")
 
     if "--kernels" in sys.argv:
         # only the named kernels' cases, e.g. to time two trees in one call
         cases = {"moe_gemm": lambda: moe_gemm_cases(torch, mg, ref),
-                 "flash_attention": lambda: flash_cases(torch, np, fa, ref)}
+                 "flash_attention": lambda: flash_cases(torch, np, fa, ref),
+                 "ssd_scan": lambda: ssd_cases(torch, ss, ref),
+                 "redundancy_vote": lambda: check_vote(
+                     torch, rv, ref, 6, "path", 10, 10, 3760, n_bad=3)}
         for name in sys.argv[sys.argv.index("--kernels") + 1:]:
             cases[name]()
         return 0
@@ -978,7 +1041,9 @@ def main() -> int:
                inactive=(0, 2))
     check_vote(torch, rv, ref, 9, "nan_inf_tail", 4, 5, 1500, n_bad=1,
                specials=True)
-    check_vote(torch, rv, ref, 10, "max_edges", 3, 32, 300, n_bad=15)
+    check_vote(torch, rv, ref, 10, "one_word", 3, 32, 300, n_bad=15)
+    check_vote(torch, rv, ref, 26, "two_words", 3, 40, 300, n_bad=19,
+               inactive=(0, 39), specials=True)
 
     audit = [check_audit_mlp(torch, am, ref, 12, "commit", 10, 40, 94,
                              784, 256, 10),
@@ -991,12 +1056,7 @@ def main() -> int:
     flash = flash_cases(torch, np, fa, ref)
     scan = check_rglru(torch, rg, ref, 20, "rgemma_layer", 1, 4096, 2560)
     check_rglru(torch, rg, ref, 21, "ragged", 3, 1000, 300)
-    ssd = [check_ssd(torch, ss, ref, 22, "mamba2_layer", 1, 4096, 80, 64,
-                     128, 128, iters=5),
-           check_ssd(torch, ss, ref, 23, "jax_test_shape", 2, 256, 3, 16,
-                     8, 32),
-           check_ssd(torch, ss, ref, 24, "single_chunk", 1, 48, 16, 32, 32,
-                     128)]
+    ssd = ssd_cases(torch, ss, ref)
 
     counts = main_path(torch, np, ops)
 
@@ -1094,8 +1154,10 @@ def main() -> int:
          "per": "one mamba2-2.7b prefill at (1, 4096); times per layer, "
                 "x (1,4096,80,64), N 128, chunk 128",
          "max_abs_err": max(r["max_abs_err"] for r in ssd),
+         "cuda_launches_per_call": ssd[0]["cuda_launches_per_call"],
          "ms": ssd[0]["kernel_ms"], "plain_ms": ssd[0]["plain_ms"],
          "bound_ms": ssd[0]["bound_ms"], "bound_by": ssd[0]["bound_by"],
+         "bound_fp32_cores_ms": ssd[0]["bound_fp32_cores_ms"],
          "library_ms": None},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",

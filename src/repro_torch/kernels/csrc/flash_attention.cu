@@ -7,8 +7,8 @@
 // the JAX LM stack's blockwise_attention (models/layers.py) mirrors in jnp.
 // Same contract: causal and sliding-window masks, GQA (query head h reads
 // kv head h / G), tanh logit softcap, masked scores at -1e30, float32
-// statistics and accumulator, output in the input dtype; D in {32, 64,
-// 128, 256}.
+// statistics and accumulator, output in the input dtype; D in {32, 48,
+// 64, 128, 256}, every head dim of the repository's configs.
 //
 // Layout: q (B, Sq, H, D) and k, v (B, Sk, KH, D), the model's own layout,
 // read through element strides (the last dimension must be contiguous), so
@@ -101,11 +101,14 @@ __device__ __forceinline__ bool has_key(int qpos, const Params& p) {
 }
 
 // Row padding in elements.  Q and K rows: fp32 fragments are read 16 bytes
-// at a time (below), so rows sit 16 banks apart; bf16 rows 4 banks apart.
-// V rows: 16 bytes, 4 banks apart for fp32.  With these every fragment load
-// of a warp is free of bank conflicts.
-template <typename T>
-__host__ __device__ constexpr int qk_pad() { return sizeof(T) == 4 ? 16 : 8; }
+// at a time (below), so rows sit 16 banks apart (no padding at D = 48,
+// whose rows already do); bf16 rows 4 banks apart.  V rows: 16 bytes, 4
+// banks apart for fp32.  With these every fragment load of a warp is free
+// of bank conflicts.
+template <typename T, int D>
+__host__ __device__ constexpr int qk_pad() {
+  return sizeof(T) == 4 ? (D % 32 == 16 ? 0 : 16) : 8;
+}
 template <typename T>
 __host__ __device__ constexpr int v_pad() { return 16 / sizeof(T); }
 
@@ -131,7 +134,7 @@ __host__ __device__ constexpr int min_blocks() {
 template <int D, int BK>
 __device__ __forceinline__ void qk(float (&s)[BK / 8][4], const float* Qw,
                                    const float* Ks, int g, int q) {
-  constexpr int LD = D + qk_pad<float>();
+  constexpr int LD = D + qk_pad<float, D>();
 #pragma unroll 2
   for (int kk = 0; kk < D; kk += 16) {
     const float4 qa = *reinterpret_cast<const float4*>(Qw + g * LD + kk +
@@ -192,7 +195,7 @@ template <int D, int BK>
 __device__ __forceinline__ void qk(float (&s)[BK / 8][4],
                                    const __nv_bfloat16* Qw,
                                    const __nv_bfloat16* Ks, int g, int q) {
-  constexpr int LD = D + qk_pad<__nv_bfloat16>();
+  constexpr int LD = D + qk_pad<__nv_bfloat16, D>();
 #pragma unroll 4
   for (int kk = 0; kk < D; kk += 16) {
     uint32_t a[4];
@@ -241,7 +244,7 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 
 template <typename T, int D>
 __host__ __device__ constexpr int smem_bytes() {
-  return ((kBQ + key_tile<D>()) * (D + qk_pad<T>()) +
+  return ((kBQ + key_tile<D>()) * (D + qk_pad<T, D>()) +
           key_tile<D>() * (D + v_pad<T>())) * (int)sizeof(T);
 }
 
@@ -249,7 +252,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, min_blocks<D>())
 flash_fwd_kernel(Params p) {
   constexpr int BK = key_tile<D>();
-  constexpr int LQ = D + qk_pad<T>(), LV = D + v_pad<T>();
+  constexpr int LQ = D + qk_pad<T, D>(), LV = D + v_pad<T>();
   constexpr int NS = BK / 8;     // S n-tiles (8 keys each) per warp
   constexpr int NO = D / 8;      // O n-tiles per warp
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -413,6 +416,7 @@ int dispatch(Params p, int D, void* stream) {
   p.vec = vec;
   switch (D) {
     case 32: return launch<T, 32>(p, stream);
+    case 48: return launch<T, 48>(p, stream);
     case 64: return launch<T, 64>(p, stream);
     case 128: return launch<T, 128>(p, stream);
     case 256: return launch<T, 256>(p, stream);

@@ -1,64 +1,90 @@
-// Mamba-2 chunked SSD scan for Hopper (sm_90a).
+// Mamba-2 chunked SSD scan for Hopper (sm_90a), chunk-parallel on the
+// tensor cores.
 //
 // Replaces: src/repro/kernels/ssd_scan.py::ssd_scan, the Pallas TPU kernel
-// (grid (B, H, nchunks) with the chunk axis innermost and the carried (P, N)
-// state in VMEM scratch), whose jnp form is repro/models/ssm.py::ssd_chunked.
-// Same contract: x (B, S, H, P), dt (B, S, H), A (H,), B and C (B, S, N) —
-// one group shared by every head — float32, the state starting at zero,
-// S a multiple of the chunk length Q; y (B, S, H, P) float32.
+// (grid (B, H, nchunks) with the chunk axis innermost and the carried
+// (P, N) state in VMEM scratch), whose jnp form is repro/models/ssm.py::
+// ssd_chunked.  Same contract: x (B, S, H, P), dt (B, S, H), A (H,), B and
+// C (B, S, N) — one group shared by every head — float32, the state
+// starting at zero, S a multiple of the chunk length Q; y (B, S, H, P)
+// float32.
 //
-// Per (b, h) and per chunk of Q steps, with cum = cumsum(dt * A):
-//   L[i, j]  = exp(cum_i - cum_j) for j <= i, else 0 (masked before the
-//              exponential: above the diagonal the exponent is positive and
-//              would overflow, and inf * 0 is NaN);
-//   y        = ((C B^T) o L o dt_j) x + exp(cum) o (C state^T);
-//   state   <- exp(cum_Q) state + ((exp(cum_Q - cum) dt) o x)^T B.
-// All four products run here, on the CUDA cores in fp32 FMA chains.
+// Per (b, h) and per chunk c of Q steps, with cum = cumsum(dt * A):
+//   L[i, j] = exp(cum_i - cum_j) for j <= i, else 0 (masked before the
+//             exponential: above the diagonal the exponent is positive and
+//             would overflow, and inf * 0 is NaN);
+//   y_c     = ((C B^T) o L o dt_j) x + exp(cum) o (C s_c^T);
+//   s_c+1   = exp(cum_Q) s_c + ((exp(cum_Q - cum) dt) o x)^T B,  s_0 = 0.
 //
-// Layout: x and dt are read in the model's own layout through element
-// strides (x's last dimension contiguous), B and C through their batch and
-// sequence strides, so the wrapper makes no transposed copy; y is written
-// contiguous in (B, S, H, P).
+// What bounds it on the H100: the scores times x per head over the
+// Q(Q+1)/2 causal pairs of a chunk (times P), C B^T once per (b, chunk)
+// over the same pairs (times N), and Q*N*P each for C s^T (every chunk but
+// the first, whose state is zero) and x^T B (every chunk but the last,
+// whose state nothing reads).  At mamba2-2.7b's prefill (B=1, S=4096,
+// H=80, P=64, N=128, Q=128) that is 13.2 GFLOP against 173 MB of
+// operands.  All four products go through the tensor cores as 3xTF32
+// (tf32x3.cuh), an effective 495/3 = 165 TFLOP/s: bound by operations,
+// 0.080 ms (0.197 ms at the 67 TFLOP/s of the CUDA cores).
 //
-// What bounds it on the H100: the work the function needs is the scores
-// times x per head over the Q(Q+1)/2 causal pairs of a chunk (times P), C B^T
-// once per (b, chunk) over the same pairs (times N), and Q*N*P each for
-// C state^T (every chunk but the first, whose state is zero) and x^T B
-// (every chunk but the last, whose state nothing reads).  At mamba2-2.7b's
-// prefill (B=1, S=4096, H=80, P=64, N=128, Q=128) that is 13.2 GFLOP
-// against 173 MB of operands: bound by operations, 0.197 ms at the
-// 67 TFLOP/s fp32 peak.
+// Design: the chunks are split across blocks, as Mamba-2's own chunked
+// algorithm does (arXiv:2405.21060 §6), in four launches in stream order:
+//  1. ssd_cb: C B^T once per (b, chunk), not per head, into the CB scratch
+//     (B, nc, Q, LQ) with zeros above the diagonal (2 MB at mamba2's
+//     shape: it stays in L2 for launch 4);
+//  2. ssd_chunk_state, one block per (b, chunk, h) but the last chunk: the
+//     chunk's cumsum, w = exp(cum_Q - cum) dt, ds_c = (w o x)^T B (P x N,
+//     K = Q) into the state scratch (B, nc-1, H, P, N), and exp(cum_Q);
+//  3. ssd_state_pass, one thread per (b, h, p, n): s_c = exp(cum_Q) s_c-1 +
+//     ds_c in place over the chunks, the fp32 fma recurrence of the
+//     sequential kernel this replaces; bound by bytes;
+//  4. ssd_chunk_out, one block per (b, chunk, h) (2,560 at mamba2's shape):
+//     y = (exp(cum) o C) s^T + scores x as ONE accumulation over K = N + Q,
+//     staged in 64-wide K slices through a 2-stage cp.async ring: the C / s
+//     slices first, whose sum is then scaled by exp(cum) as the reference
+//     scales C s^T, then the CB / x slices, each CB slice rewritten in
+//     shared memory as it lands into the scores CB o L o dt_j (masked
+//     first), so one mma loop serves both kinds.
+//     Each warp owns two 16-row tiles, one from each end of the causal
+//     triangle, so every warp does the same work; a tile skips the key
+//     steps above its rows.
+// Fragments are read from fp32 shared memory and split in registers (the
+// tf32x3.cuh header says why mma.sync and not wgmma); the row strides of
+// the staged tiles keep every fragment load of a warp on 32 distinct banks.
+// Ragged Q, P and N are staged with zero fill and masked on store; nothing
+// is read past S.  Launches 2 and 4 hold two blocks an SM (108 KB and
+// 105 KB of shared memory) and walk the heads fastest, so the blocks
+// resident together read whole rows of x and contiguous states, and share
+// one chunk's C and C B^T in L2.
 //
-// Design (right and simple first):
-// - one block of 256 threads per (b, h); it walks the chunks in order and
-//   carries the (P, N) state in shared memory, so nothing crosses blocks;
-// - a chunk's C, B (Q x N, rows padded to N + 1 words), x (Q x P), dt, the
-//   inclusive cumsum (one warp, shuffles) and the state-update weights are
-//   staged in shared memory; the Q x Q scores are never whole: they are
-//   built 32 key columns at a time (Q x 33 words), so at Q = 128, N = 128,
-//   P = 64 the block holds 216 KB, under the 227 KB a block may opt in to;
-// - each thread owns a strided 8 x 4 micro-tile of y (rows ty + 16r,
-//   columns tx + 16c) in registers across the chunk, an 8 x 2 micro-tile of
-//   each score tile, and a 4 x 8 micro-tile of the state update; a score
-//   tile's rows that lie wholly above the diagonal are skipped;
-// - C B^T is recomputed per head, as the Pallas kernel does; with B = 1
-//   only H = 80 blocks run on 132 SMs.  Sharing C B^T across heads and
-//   splitting the chunks across blocks (chunk states first, then a short
-//   scan over them) is a perf PR's work.
-#include <cuda_runtime.h>
+// Determinism: every output has one fixed reduction order (the K steps in
+// order, inter-chunk slices before intra-chunk ones), with no split-K and
+// no atomics; a row b reads only row b's inputs and scratch, so its bytes
+// do not depend on the batch width or on the other rows.
+#include "tf32x3.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;     // 16 row groups (ty) x 16 lanes (tx)
+using tc::mma_tf32;
+using tc::split;
+
+constexpr int kThreads = 256;     // 8 warps in every launch
 constexpr int kMaxQ = 128;
 constexpr int kMaxP = 64;
 constexpr int kMaxN = 128;
-constexpr int kJT = 32;           // key columns of one score tile
-constexpr int kR = kMaxQ / 16;    // y and score rows per thread
-constexpr int kC = kMaxP / 16;    // y columns per thread
-constexpr int kSC = kJT / 16;     // score columns per thread
-constexpr int kSA = kMaxP / 16;   // state rows (p) per thread
-constexpr int kSB = kMaxN / 16;   // state columns (n) per thread
+constexpr int kSlice = 64;        // K slice of launch 4
+constexpr int kStages = 2;
+// Row strides (floats) of the staged tiles.  An operand whose fragment is
+// read at (row g, column t) has a stride of 4 (mod 32), one read at (row t,
+// column g) a stride of 8 (mod 32).
+constexpr int kLdCB = kMaxN + 4;  // C and B rows in launch 1
+constexpr int kLdX = kMaxP + 8;   // x rows, keys by P
+constexpr int kLdB = kMaxN + 8;   // B rows in launch 2, keys by N
+constexpr int kLdS = kSlice + 4;  // a K slice of C, CB or s rows
+constexpr int kSliceA = kMaxQ * kLdS;     // A part of a ring stage
+// B part: an s slice (P rows of kSlice) or an x slice (kSlice rows of P)
+constexpr int kSliceB = kMaxP * kLdS > kSlice * kLdX ? kMaxP * kLdS
+                                                     : kSlice * kLdX;
+constexpr int kAhead = 8;         // state loads in flight in launch 3
 
 struct Params {
   const float* x;
@@ -67,234 +93,487 @@ struct Params {
   const float* Bm;
   const float* Cm;
   float* y;
+  float* cb;      // (B, nc, Q, LQ) C B^T, zero above the diagonal
+  float* st;      // (B, nc-1, H, P, N) ds_c, then the state after chunk c
+  float* decay;   // (B, nc, H) exp(cum_Q) of chunk c
   long long x_sb, x_ss, x_sh;
   long long dt_sb, dt_ss, dt_sh;
   long long b_sb, b_ss;
   long long c_sb, c_ss;
-  int S, H, P, N, Q;
+  int S, H, P, N, Q, nc, LQ;
+  int vec_x, vec_b, vec_c, vec_s;   // 16-byte copies (aligned rows)
 };
 
-__global__ void __launch_bounds__(kThreads)
-ssd_scan_kernel(const Params p) {
-  extern __shared__ float smem[];
-  const int Q = p.Q, P = p.P, N = p.N;
-  const int NS = N + 1;             // padded row of C, B and the state
-  const int TS = kJT + 1;           // padded row of the score tile
-  float* Cs = smem;                 // [Q][NS]
-  float* Bs = Cs + Q * NS;          // [Q][NS]
-  float* xs = Bs + Q * NS;          // [Q][P]
-  float* St = xs + Q * P;           // [P][NS] the carried state
-  float* Ss = St + P * NS;          // [Q][TS] one score tile
-  float* dts = Ss + Q * TS;         // [Q] dt
-  float* cums = dts + Q;            // [Q] inclusive cumsum of dt * A
-  float* ws = cums + Q;             // [Q] exp(cum_Q - cum) * dt
+__host__ __device__ constexpr int round_up(int v, int m) {
+  return (v + m - 1) / m * m;
+}
 
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const float Ah = p.A[h];
-  const float* xb = p.x + b * p.x_sb + h * p.x_sh;
-  const float* dtb = p.dt + b * p.dt_sb + h * p.dt_sh;
-  const float* Bb = p.Bm + b * p.b_sb;
-  const float* Cb = p.Cm + b * p.c_sb;
-  const long long y_ss = (long long)p.H * P;
-  float* yb = p.y + ((long long)b * p.S * p.H + h) * P;
+// d[i][j] += a[i] b[j] in 3xTF32 over the warp's MI x NJ tiles where
+// on_i[i] and on_j[j], one of the three products at a time across all the
+// tiles (lo * hi, then hi * lo, then hi * hi).  Each tile sees
+// tc::mma_3xtf32's order, and no mma.sync waits on the one just before it.
+template <int MI, int NJ>
+__device__ __forceinline__ void mma_tiles(float (&d)[MI][NJ][4],
+                                          const uint32_t (&ah)[MI][4],
+                                          const uint32_t (&al)[MI][4],
+                                          const uint32_t (&bh)[NJ][2],
+                                          const uint32_t (&bl)[NJ][2],
+                                          const bool (&on_i)[MI],
+                                          const bool (&on_j)[NJ]) {
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      if (on_i[i] && on_j[j]) mma_tf32(d[i][j], al[i], bh[j]);
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      if (on_i[i] && on_j[j]) mma_tf32(d[i][j], ah[i], bl[j]);
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      if (on_i[i] && on_j[j]) mma_tf32(d[i][j], ah[i], bh[j]);
+}
 
-  // rows and columns this thread owns, clamped into range: a clamped
-  // index only ever feeds a result that is not written
-  int ri[kR], yc[kC], sa[kSA], sb[kSB];
-#pragma unroll
-  for (int r = 0; r < kR; ++r) ri[r] = min(ty + 16 * r, Q - 1);
-#pragma unroll
-  for (int c = 0; c < kC; ++c) yc[c] = min(tx + 16 * c, P - 1);
-#pragma unroll
-  for (int a = 0; a < kSA; ++a) sa[a] = min(ty + 16 * a, P - 1);
-#pragma unroll
-  for (int e = 0; e < kSB; ++e) sb[e] = min(tx + 16 * e, N - 1);
+// The chunk's dt (strided) into dts[kMaxQ], zero past Q.
+__device__ __forceinline__ void stage_dt(float* dts, const float* dtc,
+                                         long long dt_ss, int Q, int tid) {
+  for (int j = tid; j < kMaxQ; j += kThreads)
+    tc::cp_async4(dts + j, j < Q ? dtc + j * dt_ss : dtc, j < Q ? 4 : 0);
+}
 
-  for (int k = tid; k < P * NS; k += kThreads) St[k] = 0.f;
+// cums = inclusive cumsum of dt * A over the chunk, by one warp (4 steps a
+// lane); entries past Q repeat cum_Q-1.
+__device__ __forceinline__ void chunk_cumsum(const float* dts, float* cums,
+                                             float Ah, int Q, int lane) {
+  float v[4];
+  float run = 0.f;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int j = lane * 4 + u;
+    run += (j < Q) ? dts[j] * Ah : 0.f;
+    v[u] = run;
+  }
+  float incl = run;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float t = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += t;
+  }
+  const float off = incl - run;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) cums[lane * 4 + u] = off + v[u];
+}
 
-  for (int c0 = 0; c0 < p.S; c0 += Q) {
-    // ---- stage the chunk
-    for (int k = tid; k < Q * P; k += kThreads) {
-      const int j = k / P, pp = k - j * P;
-      xs[k] = xb[(long long)(c0 + j) * p.x_ss + pp];
+// ---------------------------------------------- 1. C B^T per (b, chunk)
+// Warp w owns rows 16w..16w+15 and the 8-key tiles up to its diagonal.
+__global__ void __launch_bounds__(kThreads, 1)
+ssd_cb_kernel(const Params p) {
+  extern __shared__ __align__(16) float smem[];
+  float* Cs = smem;                     // [kMaxQ][kLdCB]
+  float* Bs = Cs + kMaxQ * kLdCB;       // [kMaxQ][kLdCB]
+  const int c = blockIdx.x, b = blockIdx.y;
+  const int Q = p.Q, N = p.N, c0 = c * Q;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, q = lane % 4;
+  const int MT = (Q + 15) / 16;
+  tc::stage_tile(Cs, kLdCB, p.Cm + b * p.c_sb + (long long)c0 * p.c_ss,
+                 p.c_ss, MT * 16, kMaxN, Q, N, p.vec_c != 0, tid,
+                 kThreads);
+  tc::stage_tile(Bs, kLdCB, p.Bm + b * p.b_sb + (long long)c0 * p.b_ss,
+                 p.b_ss, MT * 16, kMaxN, Q, N, p.vec_b != 0, tid,
+                 kThreads);
+  tc::cp_async_commit();
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  if (warp >= MT) return;
+
+  const int m0 = 16 * warp;
+  const int jt_hi = min(2 * warp + 1, (Q + 7) / 8 - 1);
+  float acc[kMaxQ / 32][1][4][4];   // key tile 4u + j in acc[u][0][j]
+#pragma unroll
+  for (int u = 0; u < kMaxQ / 32; ++u)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[u][0][j][r] = 0.f;
+  const bool on_m[1] = {true};
+  for (int kk = 0; kk < N; kk += 8) {
+    uint32_t ah[1][4], al[1][4];
+    const float* a = Cs + (m0 + g) * kLdCB + kk + q;
+    split(a[0], ah[0][0], al[0][0]);
+    split(a[8 * kLdCB], ah[0][1], al[0][1]);
+    split(a[4], ah[0][2], al[0][2]);
+    split(a[8 * kLdCB + 4], ah[0][3], al[0][3]);
+#pragma unroll
+    for (int u = 0; u < kMaxQ / 32; ++u) {      // four key tiles at a time
+      if (4 * u > jt_hi) continue;
+      uint32_t bh[4][2], bl[4][2];
+      bool on[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        on[j] = 4 * u + j <= jt_hi;
+        if (!on[j]) continue;
+        const float* bp = Bs + (32 * u + 8 * j + g) * kLdCB + kk + q;
+        split(bp[0], bh[j][0], bl[j][0]);
+        split(bp[4], bh[j][1], bl[j][1]);
+      }
+      mma_tiles<1, 4>(acc[u], ah, al, bh, bl, on_m, on);
     }
-    for (int k = tid; k < Q * N; k += kThreads) {
-      const int j = k / N, n = k - j * N;
-      Bs[j * NS + n] = Bb[(long long)(c0 + j) * p.b_ss + n];
-      Cs[j * NS + n] = Cb[(long long)(c0 + j) * p.c_ss + n];
-    }
-    for (int j = tid; j < Q; j += kThreads)
-      dts[j] = dtb[(long long)(c0 + j) * p.dt_ss];
-    __syncthreads();
+  }
 
-    // ---- cum = inclusive cumsum of dt * A: one warp, 4 steps a lane
-    if (tid < 32) {
-      float v[4];
-      float run = 0.f;
+  float* cb = p.cb + ((long long)b * p.nc + c) * Q * p.LQ;
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int j = tid * 4 + u;
-        run += (j < Q) ? dts[j] * Ah : 0.f;
-        v[u] = run;
-      }
-      float incl = run;
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int i = m0 + g + 8 * h2;
+    if (i >= Q) continue;
+    float* row = cb + (long long)i * p.LQ;
 #pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float t = __shfl_up_sync(0xffffffffu, incl, o);
-        if (tid >= o) incl += t;
+    for (int jt = 0; jt < kMaxQ / 8; ++jt) {
+      const int j = 8 * jt + 2 * q;
+      if (j >= p.LQ) continue;
+      float v0 = 0.f, v1 = 0.f;
+      if (jt <= jt_hi) {
+        v0 = j <= i ? acc[jt / 4][0][jt % 4][2 * h2] : 0.f;
+        v1 = j + 1 <= i ? acc[jt / 4][0][jt % 4][2 * h2 + 1] : 0.f;
       }
-      const float off = incl - run;
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int j = tid * 4 + u;
-        if (j < Q) cums[j] = off + v[u];
-      }
+      *reinterpret_cast<float2*>(row + j) = make_float2(v0, v1);
     }
-    __syncthreads();
-    const float total = cums[Q - 1];
-    for (int j = tid; j < Q; j += kThreads)
-      ws[j] = expf(total - cums[j]) * dts[j];   // read after later barriers
-
-    // ---- y = exp(cum) o (C state^T): the carried state's part
-    float acc[kR][kC];
-#pragma unroll
-    for (int r = 0; r < kR; ++r)
-#pragma unroll
-      for (int c = 0; c < kC; ++c) acc[r][c] = 0.f;
-    if (c0 > 0) {                   // the first chunk starts from zero
-      for (int n = 0; n < N; ++n) {
-        float cv[kR], sv[kC];
-#pragma unroll
-        for (int r = 0; r < kR; ++r) cv[r] = Cs[ri[r] * NS + n];
-#pragma unroll
-        for (int c = 0; c < kC; ++c) sv[c] = St[yc[c] * NS + n];
-#pragma unroll
-        for (int r = 0; r < kR; ++r)
-#pragma unroll
-          for (int c = 0; c < kC; ++c) acc[r][c] = fmaf(cv[r], sv[c], acc[r][c]);
-      }
-#pragma unroll
-      for (int r = 0; r < kR; ++r) {
-        const float e = expf(cums[ri[r]]);
-#pragma unroll
-        for (int c = 0; c < kC; ++c) acc[r][c] *= e;
-      }
-    }
-
-    // ---- y += ((C B^T) o L o dt_j) x, one tile of kJT keys at a time
-    for (int j0 = 0; j0 < Q; j0 += kJT) {
-      const int r0 = j0 / 16;       // rows ty + 16r with r < r0 lie above
-      const int jn = min(kJT, Q - j0);
-      int jc[kSC];
-#pragma unroll
-      for (int c = 0; c < kSC; ++c) jc[c] = min(j0 + tx + 16 * c, Q - 1);
-      float s[kR][kSC];
-#pragma unroll
-      for (int r = 0; r < kR; ++r)
-#pragma unroll
-        for (int c = 0; c < kSC; ++c) s[r][c] = 0.f;
-      for (int n = 0; n < N; ++n) {
-        float cv[kR], bv[kSC];
-#pragma unroll
-        for (int r = 0; r < kR; ++r) cv[r] = r < r0 ? 0.f : Cs[ri[r] * NS + n];
-#pragma unroll
-        for (int c = 0; c < kSC; ++c) bv[c] = Bs[jc[c] * NS + n];
-#pragma unroll
-        for (int r = 0; r < kR; ++r) {
-          if (r < r0) continue;
-#pragma unroll
-          for (int c = 0; c < kSC; ++c) s[r][c] = fmaf(cv[r], bv[c], s[r][c]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kR; ++r) {
-        const int i = ty + 16 * r;
-        if (r < r0 || i >= Q) continue;
-#pragma unroll
-        for (int c = 0; c < kSC; ++c) {
-          const int j = j0 + tx + 16 * c;
-          float v = 0.f;
-          if (j <= i) v = s[r][c] * expf(cums[i] - cums[j]) * dts[j];
-          Ss[i * TS + tx + 16 * c] = v;
-        }
-      }
-      __syncthreads();
-      for (int jj = 0; jj < jn; ++jj) {
-        float sv[kR], xv[kC];
-#pragma unroll
-        for (int r = 0; r < kR; ++r) sv[r] = r < r0 ? 0.f : Ss[ri[r] * TS + jj];
-#pragma unroll
-        for (int c = 0; c < kC; ++c) xv[c] = xs[(j0 + jj) * P + yc[c]];
-#pragma unroll
-        for (int r = 0; r < kR; ++r) {
-          if (r < r0) continue;
-#pragma unroll
-          for (int c = 0; c < kC; ++c) acc[r][c] = fmaf(sv[r], xv[c], acc[r][c]);
-        }
-      }
-      __syncthreads();
-    }
-
-#pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      const int i = ty + 16 * r;
-      if (i >= Q) continue;
-#pragma unroll
-      for (int c = 0; c < kC; ++c) {
-        const int pc = tx + 16 * c;
-        if (pc < P) yb[(long long)(c0 + i) * y_ss + pc] = acc[r][c];
-      }
-    }
-
-    // ---- state <- exp(cum_Q) state + ((exp(cum_Q - cum) dt) o x)^T B
-    if (c0 + Q < p.S) {             // the last chunk's state is not returned
-      float ds[kSA][kSB];
-#pragma unroll
-      for (int a = 0; a < kSA; ++a)
-#pragma unroll
-        for (int e = 0; e < kSB; ++e) ds[a][e] = 0.f;
-      for (int j = 0; j < Q; ++j) {
-        const float wj = ws[j];
-        float xv[kSA], bv[kSB];
-#pragma unroll
-        for (int a = 0; a < kSA; ++a) xv[a] = wj * xs[j * P + sa[a]];
-#pragma unroll
-        for (int e = 0; e < kSB; ++e) bv[e] = Bs[j * NS + sb[e]];
-#pragma unroll
-        for (int a = 0; a < kSA; ++a)
-#pragma unroll
-          for (int e = 0; e < kSB; ++e) ds[a][e] = fmaf(xv[a], bv[e], ds[a][e]);
-      }
-      const float decay = expf(total);
-#pragma unroll
-      for (int a = 0; a < kSA; ++a) {
-        const int pa = ty + 16 * a;
-        if (pa >= P) continue;
-#pragma unroll
-        for (int e = 0; e < kSB; ++e) {
-          const int nb = tx + 16 * e;
-          if (nb < N) St[pa * NS + nb] = decay * St[pa * NS + nb] + ds[a][e];
-        }
-      }
-    }
-    __syncthreads();                // before the next chunk is staged
   }
 }
+
+// ------------------------------ 2. chunk states per (b, chunk, h)
+// ds (P x N) = (w o x)^T B with K = Q: warps 2 (32 rows of p) x 4 (32
+// columns of n), two 16-row and four 8-column tiles each.
+__global__ void __launch_bounds__(kThreads, 2)
+ssd_chunk_state_kernel(const Params p) {
+  extern __shared__ __align__(16) float smem[];
+  float* xs = smem;                     // [kMaxQ][kLdX]
+  float* Bs = xs + kMaxQ * kLdX;        // [kMaxQ][kLdB]
+  float* dts = Bs + kMaxQ * kLdB;       // [kMaxQ]
+  float* cums = dts + kMaxQ;            // [kMaxQ]
+  float* ws = cums + kMaxQ;             // [kMaxQ] exp(cum_Q - cum) * dt
+  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int Q = p.Q, P = p.P, N = p.N, c0 = c * Q;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, q = lane % 4;
+
+  stage_dt(dts, p.dt + b * p.dt_sb + h * p.dt_sh + (long long)c0 * p.dt_ss,
+           p.dt_ss, Q, tid);
+  tc::stage_tile(xs, kLdX,
+                 p.x + b * p.x_sb + h * p.x_sh + (long long)c0 * p.x_ss,
+                 p.x_ss, round_up(Q, 8), kMaxP, Q, P,
+                 p.vec_x != 0, tid, kThreads);
+  tc::stage_tile(Bs, kLdB, p.Bm + b * p.b_sb + (long long)c0 * p.b_ss,
+                 p.b_ss, round_up(Q, 8), kMaxN, Q, N,
+                 p.vec_b != 0, tid, kThreads);
+  tc::cp_async_commit();
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  if (warp == 0) chunk_cumsum(dts, cums, p.A[h], Q, lane);
+  __syncthreads();
+  const float total = cums[Q - 1];
+  for (int j = tid; j < kMaxQ; j += kThreads)
+    ws[j] = j < Q ? expf(total - cums[j]) * dts[j] : 0.f;
+  if (tid == 0) p.decay[((long long)b * p.nc + c) * p.H + h] = expf(total);
+  __syncthreads();
+
+  const int wm0 = 32 * (warp / 4), wn0 = 32 * (warp % 4);
+  if (wm0 >= P || wn0 >= N) return;
+  bool m_on[2], n_on[4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) m_on[i] = wm0 + 16 * i < P;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) n_on[j] = wn0 + 8 * j < N;
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+
+  for (int kk = 0; kk < Q; kk += 8) {
+    const float w0 = ws[kk + q], w1 = ws[kk + q + 4];
+    uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (!n_on[j]) continue;
+      const float* bp = Bs + (kk + q) * kLdB + wn0 + 8 * j + g;
+      split(bp[0], bh[j][0], bl[j][0]);
+      split(bp[4 * kLdB], bh[j][1], bl[j][1]);
+    }
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (!m_on[i]) continue;
+      // A (p, key) = w_key * x[key][p]: a0 (g, t), a1 (g+8, t), a2 (g,
+      // t+4), a3 (g+8, t+4)
+      const float* a = xs + (kk + q) * kLdX + wm0 + 16 * i + g;
+      split(a[0] * w0, ah[i][0], al[i][0]);
+      split(a[8] * w0, ah[i][1], al[i][1]);
+      split(a[4 * kLdX] * w1, ah[i][2], al[i][2]);
+      split(a[4 * kLdX + 8] * w1, ah[i][3], al[i][3]);
+    }
+    mma_tiles<2, 4>(acc, ah, al, bh, bl, m_on, n_on);
+  }
+
+  float* st = p.st + (((long long)b * (p.nc - 1) + c) * p.H + h) *
+                         (long long)P * N;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int pr = wm0 + 16 * i + g + 8 * h2;
+      if (pr >= P) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = wn0 + 8 * j + 2 * q;
+        if (n < N) st[pr * N + n] = acc[i][j][2 * h2];
+        if (n + 1 < N) st[pr * N + n + 1] = acc[i][j][2 * h2 + 1];
+      }
+    }
+}
+
+// ------------------------------ 3. the state pass, in place
+// st[c] holds ds_c; afterwards the state after chunk c (chunk c+1's input).
+__global__ void __launch_bounds__(kThreads)
+ssd_state_pass_kernel(const Params p) {
+  const long long per = (long long)p.H * p.P * p.N;   // one chunk, one row
+  const long long e = blockIdx.x * (long long)kThreads + threadIdx.x;
+  if (e >= per) return;
+  const int b = blockIdx.y;
+  const int h = (int)(e / ((long long)p.P * p.N));
+  const int ns = p.nc - 1;                             // stored states
+  float* s = p.st + (long long)b * ns * per + e;
+  const float* dec = p.decay + (long long)b * p.nc * p.H + h;
+  float run = s[0];                                    // s_1 = ds_0
+  for (int c = 1; c < ns; c += kAhead) {
+    float ds[kAhead], dk[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u)
+      if (c + u < ns) {
+        ds[u] = s[(c + u) * per];
+        dk[u] = dec[(long long)(c + u) * p.H];
+      }
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u)
+      if (c + u < ns) {
+        run = fmaf(dk[u], run, ds[u]);
+        s[(c + u) * per] = run;
+      }
+  }
+}
+
+// ------------------------------ 4. outputs per (b, chunk, h)
+__global__ void __launch_bounds__(kThreads, 2)
+ssd_chunk_out_kernel(const Params p) {
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;                         // [kStages][kSliceA]
+  float* Bs = As + kStages * kSliceA;       // [kStages][kSliceB]
+  float* dts = Bs + kStages * kSliceB;      // [kMaxQ]
+  float* cums = dts + kMaxQ;                // [kMaxQ]
+  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int Q = p.Q, P = p.P, N = p.N;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, q = lane % 4;
+  const int MT = (Q + 15) / 16;
+  // K slices: C s^T over N (none for the first chunk, whose state is
+  // zero), then the scores times x over the Q keys
+  const int KI = c > 0 ? (N + kSlice - 1) / kSlice : 0;
+  const int KT = KI + (Q + kSlice - 1) / kSlice;
+
+  auto stage = [&](int kt) {
+    float* a = As + (kt % kStages) * kSliceA;
+    float* bs = Bs + (kt % kStages) * kSliceB;
+    const long long c0 = (long long)c * Q;
+    if (kt < KI) {
+      const int n0 = kt * kSlice;
+      tc::stage_tile(a, kLdS, p.Cm + b * p.c_sb + c0 * p.c_ss + n0, p.c_ss,
+                     MT * 16, kSlice, Q, N - n0, p.vec_c != 0, tid,
+                     kThreads);
+      tc::stage_tile(bs, kLdS,
+                     p.st + (((long long)b * (p.nc - 1) + c - 1) * p.H + h) *
+                                (long long)P * N + n0,
+                     N, round_up(P, 8), kSlice, P, N - n0, p.vec_s != 0,
+                     tid, kThreads);
+    } else {
+      const int j0 = (kt - KI) * kSlice;
+      tc::stage_tile(a, kLdS,
+                     p.cb + ((long long)b * p.nc + c) * Q * p.LQ + j0, p.LQ,
+                     MT * 16, kSlice, Q, p.LQ - j0, true, tid, kThreads);
+      tc::stage_tile(bs, kLdX,
+                     p.x + b * p.x_sb + h * p.x_sh + (c0 + j0) * p.x_ss,
+                     p.x_ss, kSlice, kMaxP, Q - j0, P,
+                     p.vec_x != 0, tid, kThreads);
+    }
+  };
+
+  stage_dt(dts, p.dt + b * p.dt_sb + h * p.dt_sh + (long long)c * Q * p.dt_ss,
+           p.dt_ss, Q, tid);
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {  // group 0 holds dt too
+    if (st < KT) stage(st);
+    tc::cp_async_commit();
+  }
+  tc::cp_async_wait<kStages - 2>();
+  __syncthreads();
+  if (warp == 0) chunk_cumsum(dts, cums, p.A[h], Q, lane);
+
+  // warp w: 16-row tiles k and 7 - k (k = w / 2), columns 32 (w % 2) + 32
+  const int pair = warp >> 1;
+  const int mt[2] = {pair, kMaxQ / 16 - 1 - pair};
+  const int wn0 = 32 * (warp & 1);
+  bool n_on[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) n_on[j] = wn0 + 8 * j < P;
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+
+  for (int kt = 0; kt < KT; ++kt) {
+    tc::cp_async_wait<kStages - 2>();
+    __syncthreads();                        // slice kt landed; kt-1 consumed
+    if (kt + kStages - 1 < KT) stage(kt + kStages - 1);
+    tc::cp_async_commit();
+    float* a = As + (kt % kStages) * kSliceA;
+    const float* bs = Bs + (kt % kStages) * kSliceB;
+    const bool inter = kt < KI;
+    // first key of an intra slice; inter slices skip no tile
+    const int j0 = inter ? -kMaxQ : (kt - KI) * kSlice;
+
+    if (!inter) {
+      // the scores CB o L o dt_j in place, the mask first, four keys a
+      // thread; rows above the slice (i < j0: their 16-row tiles skip it)
+      // are left as they are
+      for (int e = tid; e < MT * 16 * (kSlice / 4); e += kThreads) {
+        const int i = e / (kSlice / 4), jj = e % (kSlice / 4) * 4;
+        if (i < j0) continue;
+        const int j = j0 + jj;
+        float4* v = reinterpret_cast<float4*>(a + i * kLdS + jj);
+        const float4 cj = *reinterpret_cast<const float4*>(cums + j);
+        const float4 dj = *reinterpret_cast<const float4*>(dts + j);
+        const float ci = cums[i];
+        float4 sc = *v;
+        sc.x = j <= i ? sc.x * expf(ci - cj.x) * dj.x : 0.f;
+        sc.y = j + 1 <= i ? sc.y * expf(ci - cj.y) * dj.y : 0.f;
+        sc.z = j + 2 <= i ? sc.z * expf(ci - cj.z) * dj.z : 0.f;
+        sc.w = j + 3 <= i ? sc.w * expf(ci - cj.w) * dj.w : 0.f;
+        *v = sc;
+      }
+      __syncthreads();
+    }
+
+    // B fragment (k, column p): s rows [p][n] for C s^T, x rows [key][p]
+    // for the scores times x
+    const int rs = inter ? kLdS : 1, ks = inter ? 1 : kLdX;
+    const int kn = inter ? min(kSlice, N - kt * kSlice) : min(kSlice, Q - j0);
+#pragma unroll 1
+    for (int kk = 0; kk < kn; kk += 8) {
+      uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (!n_on[j]) continue;
+        const float* bp = bs + (wn0 + 8 * j + g) * rs + (kk + q) * ks;
+        split(bp[0], bh[j][0], bl[j][0]);
+        split(bp[4 * ks], bh[j][1], bl[j][1]);
+      }
+      // one tile's three products back to back: measured 5% faster here
+      // than mma_tiles' order
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        // a tile past Q, or whose rows all lie above these keys, adds
+        // nothing
+        if (mt[i] >= MT || 16 * mt[i] + 15 < j0 + kk) continue;
+        const float* ap = a + (16 * mt[i] + g) * kLdS + kk + q;
+        uint32_t ah[4], al[4];
+        split(ap[0], ah[0], al[0]);
+        split(ap[8 * kLdS], ah[1], al[1]);
+        split(ap[4], ah[2], al[2]);
+        split(ap[8 * kLdS + 4], ah[3], al[3]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (n_on[j]) tc::mma_3xtf32(acc[i][j], ah, al, bh[j], bl[j]);
+      }
+    }
+    if (kt == KI - 1) {
+      // the state's part, C s^T, is summed: scale its rows by exp(cum)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int row = 16 * mt[i] + g + 8 * h2;
+          const float e = row < Q ? expf(cums[row]) : 0.f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            acc[i][j][2 * h2] *= e;
+            acc[i][j][2 * h2 + 1] *= e;
+          }
+        }
+    }
+  }
+  tc::cp_async_wait<0>();
+
+  float* yc = p.y + (((long long)b * p.S + (long long)c * Q) * p.H + h) * P;
+  const long long y_ss = (long long)p.H * P;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (mt[i] >= MT) continue;
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int row = 16 * mt[i] + g + 8 * h2;
+      if (row >= Q) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = wn0 + 8 * j + 2 * q;
+        if (col < P) yc[row * y_ss + col] = acc[i][j][2 * h2];
+        if (col + 1 < P) yc[row * y_ss + col + 1] = acc[i][j][2 * h2 + 1];
+      }
+    }
+  }
+}
+
+constexpr size_t kSmemCB = sizeof(float) * 2 * kMaxQ * kLdCB;
+constexpr size_t kSmemState =
+    sizeof(float) * (kMaxQ * kLdX + kMaxQ * kLdB + 3 * kMaxQ);
+constexpr size_t kSmemOut =
+    sizeof(float) * (kStages * (kSliceA + kSliceB) + 2 * kMaxQ);
+
+template <typename K>
+int launch(K kern, dim3 grid, size_t smem, cudaStream_t stream,
+           const Params& p) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, kThreads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+bool aligned16(const void* ptr) { return (uintptr_t)ptr % 16 == 0; }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  Strides are in elements:
 // x [batch, seq, head], dt [batch, seq, head], B [batch, seq],
-// C [batch, seq].  Returns the cudaGetLastError() code of the launch (or of
-// raising the dynamic shared-memory limit, or cudaErrorInvalidValue for a
-// shape the kernel does not take); the wrapper raises on non-zero.
+// C [batch, seq].  cb (B, nc, Q, round_up(Q, 4)), st (B, nc-1, H, P, N)
+// and decay (B, nc, H) are float32 scratch the caller allocates.  Launches
+// 1 to 4 in order on `stream` (2 only if nc > 1, 3 only if nc > 2) and
+// returns the first non-zero cudaGetLastError() code (or that of raising a
+// dynamic shared-memory limit, or cudaErrorInvalidValue for a shape the
+// kernels do not take); the wrapper raises on non-zero.
 extern "C" int ssd_scan_f32(const void* x, const void* dt, const void* A,
                             const void* Bm, const void* Cm, void* y,
+                            void* cb, void* st, void* decay,
                             const long long* strides, int B, int S, int H,
                             int P, int N, int Q, void* stream) {
   if (Q < 1 || Q > kMaxQ || P < 1 || P > kMaxP || N < 1 || N > kMaxN ||
-      S % Q != 0 || B < 1 || B > 65535 || H < 1)
+      S % Q != 0 || S / Q > 65535 || B < 1 || B > 65535 || H < 1)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.x = static_cast<const float*>(x);
@@ -303,21 +582,37 @@ extern "C" int ssd_scan_f32(const void* x, const void* dt, const void* A,
   p.Bm = static_cast<const float*>(Bm);
   p.Cm = static_cast<const float*>(Cm);
   p.y = static_cast<float*>(y);
+  p.cb = static_cast<float*>(cb);
+  p.st = static_cast<float*>(st);
+  p.decay = static_cast<float*>(decay);
   p.x_sb = strides[0]; p.x_ss = strides[1]; p.x_sh = strides[2];
   p.dt_sb = strides[3]; p.dt_ss = strides[4]; p.dt_sh = strides[5];
   p.b_sb = strides[6]; p.b_ss = strides[7];
   p.c_sb = strides[8]; p.c_ss = strides[9];
   p.S = S; p.H = H; p.P = P; p.N = N; p.Q = Q;
-  const size_t smem = sizeof(float) *
-      (2 * (size_t)Q * (N + 1) + (size_t)Q * P + (size_t)P * (N + 1) +
-       (size_t)Q * (kJT + 1) + 3 * (size_t)Q);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ssd_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
+  p.nc = S / Q;
+  p.LQ = round_up(Q, 4);
+  p.vec_x = aligned16(x) && p.x_sb % 4 == 0 && p.x_ss % 4 == 0 &&
+            p.x_sh % 4 == 0 && P % 4 == 0;
+  p.vec_b = aligned16(Bm) && p.b_sb % 4 == 0 && p.b_ss % 4 == 0 &&
+            N % 4 == 0;
+  p.vec_c = aligned16(Cm) && p.c_sb % 4 == 0 && p.c_ss % 4 == 0 &&
+            N % 4 == 0;
+  p.vec_s = aligned16(st) && N % 4 == 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err = launch(ssd_cb_kernel, dim3(p.nc, B), kSmemCB, s, p);
+  if (err) return err;
+  if (p.nc > 1) {
+    err = launch(ssd_chunk_state_kernel, dim3(H, p.nc - 1, B), kSmemState,
+                 s, p);
+    if (err) return err;
   }
-  const dim3 grid(H, B);
-  ssd_scan_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  if (p.nc > 2) {
+    const long long per = (long long)H * P * N;
+    err = launch(ssd_state_pass_kernel,
+                 dim3((unsigned)((per + kThreads - 1) / kThreads), B), 0, s,
+                 p);
+    if (err) return err;
+  }
+  return launch(ssd_chunk_out_kernel, dim3(H, p.nc, B), kSmemOut, s, p);
 }

@@ -20,7 +20,7 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128, 256)     # the kernel's compiled head dims
+HEAD_DIMS = (32, 48, 64, 128, 256)     # the kernel's compiled head dims
 
 # kernel launches since the last reset (ops.reset_launch_counts)
 launches = 0

@@ -6,9 +6,12 @@ pairwise_agreement`` together with the masked epilogue of
 ``redundancy_vote_masked(pub, active, atol)`` takes pub (E, M, T)
 float32 (expert e's result as published by edge m, flattened) and the
 (M,) electorate ``active``, and returns trusted (E, T), support (E,)
-int32 and flags (E, M) int32, equal exactly to the plain version.  It
-takes CUDA tensors only and launches the kernel or raises;
-``kernels.ops.redundancy_vote_masked`` is the device dispatch.
+int32 and flags (E, M) int32, equal exactly to the plain version.  Any
+M >= 1 is taken on the CPU route, as by the JAX reference; the kernel
+keeps ceil(M/32) disagreement words per copy in shared memory, which
+bounds it at ``MAX_EDGES_CUDA``.  It takes CUDA tensors only and launches
+the kernel or raises; ``kernels.ops.redundancy_vote_masked`` is the device
+dispatch.
 """
 from __future__ import annotations
 
@@ -16,7 +19,8 @@ import torch
 
 from repro_torch.kernels import build
 
-MAX_EDGES = 32          # disagreement bits per pair fit one 32-bit word
+# M * ceil(M / 32) disagreement words fit a block's 227 KB of shared memory
+MAX_EDGES_CUDA = 1351
 
 # kernel launches since the last reset (ops.reset_launch_counts)
 launches = 0
@@ -28,8 +32,8 @@ def check_operands(pub: torch.Tensor, active: torch.Tensor) -> None:
     if pub.dtype != torch.float32:
         raise TypeError(f"vote takes float32 copies, got {pub.dtype}")
     M = pub.shape[1]
-    if not 1 <= M <= MAX_EDGES:
-        raise ValueError(f"vote handles 1..{MAX_EDGES} copies, got {M}")
+    if M < 1:
+        raise ValueError(f"vote needs at least one copy, got {M}")
     if active.shape != (M,):
         raise ValueError(f"active must be ({M},), got {tuple(active.shape)}")
     if active.device != pub.device:
@@ -50,6 +54,9 @@ def redundancy_vote_masked(pub: torch.Tensor, active: torch.Tensor,
     if not pub.is_contiguous():
         raise ValueError("vote needs a contiguous pub")
     E, M, T = pub.shape
+    if M > MAX_EDGES_CUDA:
+        raise ValueError(f"the vote kernel handles 1..{MAX_EDGES_CUDA} "
+                         f"copies, got {M}")
     act = active.to(torch.int32).contiguous()   # as astype(int32)
     trusted = torch.empty((E, T), dtype=pub.dtype, device=pub.device)
     support = torch.empty((E,), dtype=torch.int32, device=pub.device)

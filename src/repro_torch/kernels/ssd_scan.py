@@ -7,8 +7,13 @@
 Q = min(chunk, S) steps; S must be a multiple of Q.  x and dt may be
 strided views of the model's tensors (x's last dimension contiguous), so
 nothing is transposed or copied.  It takes CUDA tensors only and launches
-the kernel or raises; ``kernels.ops.ssd_scan`` is the device dispatch that
+the kernels or raises; ``kernels.ops.ssd_scan`` is the device dispatch that
 gives CPU tensors the plain version.
+
+One call runs up to four CUDA launches on the current stream (C B^T per
+chunk, the chunk states with a second chunk, the state pass with a third,
+the outputs) over scratch this wrapper allocates with ``torch.empty``;
+``launches`` counts calls.
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ from repro_torch.kernels import build
 # the kernel's register tiles: head dim, state size and chunk length
 MAX_P, MAX_N, MAX_Q = 64, 128, 128
 
-# kernel launches since the last reset (ops.reset_launch_counts)
+# kernel calls since the last reset (ops.reset_launch_counts)
 launches = 0
 
 
@@ -57,7 +62,7 @@ def check_operands(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bmat: torch.Tensor, Cmat: torch.Tensor,
              chunk: int = 128) -> torch.Tensor:
-    """Launch the CUDA kernel on CUDA tensors."""
+    """Launch the CUDA kernels on CUDA tensors."""
     global launches
     Q = check_operands(x, dt, A, Bmat, Cmat, chunk)
     if x.device.type != "cuda":
@@ -75,13 +80,18 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if x.stride(3) != 1 or Bmat.stride(2) != 1 or Cmat.stride(2) != 1:
         raise ValueError("ssd_scan needs the last dimension of x, B and C "
                          "contiguous")
-    if B > 65535:
-        raise ValueError(f"ssd_scan: batch {B} exceeds the grid's y limit "
-                         f"of 65535")
     y = torch.empty((B, S, H, P), dtype=torch.float32, device=x.device)
     if y.numel() == 0 or N == 0:
         return y.zero_()
+    nc = S // Q
+    if B > 65535 or nc > 65535:
+        raise ValueError(f"ssd_scan: batch {B} or {nc} chunks exceed the "
+                         f"grid's limit of 65535")
     A = A.contiguous()
+    dev = dict(dtype=torch.float32, device=x.device)
+    cb = torch.empty((B, nc, Q, -(-Q // 4) * 4), **dev)
+    st = torch.empty((B, nc - 1, H, P, N), **dev)
+    decay = torch.empty((B, nc, H), **dev)
     strides = (ctypes.c_longlong * 10)(
         *x.stride()[:3], *dt.stride(), *Bmat.stride()[:2],
         *Cmat.stride()[:2])
@@ -90,7 +100,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.ssd_scan_f32(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                                 Bmat.data_ptr(), Cmat.data_ptr(),
-                                y.data_ptr(), strides, B, S, H, P, N, Q,
+                                y.data_ptr(), cb.data_ptr(), st.data_ptr(),
+                                decay.data_ptr(), strides, B, S, H, P, N, Q,
                                 stream)
     build.check(code, "ssd_scan")
     launches += 1

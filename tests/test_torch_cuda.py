@@ -74,7 +74,11 @@ def _pub(seed, E, M, T, n_bad, specials=False):
 @pytest.mark.parametrize("E,M,T,n_bad,inactive,specials", [
     (10, 10, 3760, 3, (), False), (10, 10, 3760, 6, (), False),
     (4, 10, 1500, 4, (0, 2), False), (4, 5, 1500, 1, (), True),
-    (3, 32, 300, 15, (), False), (2, 1, 7, 0, (), False)])
+    (3, 32, 300, 15, (), False), (2, 1, 7, 0, (), False),
+    # past one 32-bit disagreement word per copy: minorities, a majority,
+    # barred edges, NaN and +-inf
+    (3, 33, 300, 16, (), True), (4, 64, 500, 31, (5, 40), True),
+    (3, 100, 257, 51, (), True), (2, 100, 64, 30, (0, 99), False)])
 def test_vote_kernel_matches_plain(cuda, E, M, T, n_bad, inactive, specials):
     pub = _pub(E + T, E, M, T, n_bad, specials).to(cuda)
     active = torch.ones(M, device=cuda)
@@ -179,6 +183,9 @@ def test_optimistic_infer_and_flush_launch_audit_mlp(cuda):
     # q_offset with Sk no multiple of the key tile
     (2, 30, 173, 4, 2, 64, True, 0, 0.0, 143),
     (1, 70, 333, 2, 2, 256, True, 0, 0.0, 263),
+    # D 48 (smollm-360m's smoke config): causal, windowed
+    (1, 200, 200, 5, 5, 48, True, 0, 0.0, 0),
+    (2, 130, 130, 6, 2, 48, True, 40, 0.0, 0),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, H, KH, D,
@@ -200,11 +207,15 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, H, KH, D,
 
 
 @pytest.mark.parametrize("case", ["moe_gemm_layer1", "moe_gemm_layer2",
-                                  "flash_causal_gqa", "flash_window_d256"])
+                                  "flash_causal_gqa", "flash_window_d256",
+                                  "ssd_mamba2_chunks"])
 def test_kernels_are_bitwise_repeatable(cuda, case):
     """Two launches on the same inputs give the same bits: one fixed
     reduction order per output, no split-K, no atomics."""
-    if case.startswith("moe_gemm"):
+    if case.startswith("ssd"):
+        args = [t.to(cuda) for t in _ssd_inputs(8, 1, 1024, 16, 64, 128)]
+        run = lambda: ss.ssd_scan(*args)
+    elif case.startswith("moe_gemm"):
         E, C, d, f = (10, 376, 784, 256) if case.endswith("1") else (
             10, 376, 256, 10)
         args = (_randn(1, E, C, d).to(cuda), _randn(2, E, d, f).to(cuda))
@@ -228,7 +239,7 @@ def test_flash_attention_reads_strided_views(cuda):
     want = ref.attention_ref(q, k, v, causal=True, window=50)
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
     with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention(q[..., :48], k[..., :48], v[..., :48])
+        fa.flash_attention(q[..., :40], k[..., :40], v[..., :40])
 
 
 @pytest.mark.parametrize("B,S,C", [(1, 4096, 2560), (3, 1000, 300),
@@ -295,6 +306,9 @@ def _ssd_plain(x, dt, A, Bm, Cm):
     (1, 48, 16, 32, 32, 128),              # a single chunk of 48
     (1, 512, 4, 64, 128, 128),             # mamba2-2.7b's P and N
     (2, 96, 5, 24, 40, 96), (1, 21, 2, 7, 3, 7),    # off the 16-wide tiles
+    (1, 4096, 80, 64, 128, 128),           # mamba2-2.7b's layer: 32 chunks
+    (1, 200, 3, 64, 128, 100),             # two ragged chunks of 100
+    (3, 300, 4, 64, 128, 100),             # three of 100: the state pass
 ])
 def test_ssd_scan_kernel_matches_plain(cuda, B, S, H, P, N, chunk):
     x, dt, A, Bm, Cm = (t.to(cuda) for t in _ssd_inputs(S + P, B, S, H, P,
@@ -306,6 +320,74 @@ def test_ssd_scan_kernel_matches_plain(cuda, B, S, H, P, N, chunk):
     torch.cuda.synchronize()
     assert got.shape == (B, S, H, P) and got.dtype == torch.float32
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+def _bitwise(a, b):
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def test_ssd_scan_rows_do_not_depend_on_the_batch(cuda):
+    """Each row of a B = 3 call is, bit for bit, the same row run alone:
+    C B^T, the chunk states and the state pass of row b read row b only."""
+    x, dt, A, Bm, Cm = (t.to(cuda) for t in _ssd_inputs(6, 3, 512, 8, 64,
+                                                         128))
+    full = ss.ssd_scan(x, dt, A, Bm, Cm)
+    for b in range(3):
+        one = ss.ssd_scan(x[b:b + 1].contiguous(), dt[b:b + 1].contiguous(),
+                          A, Bm[b:b + 1].contiguous(),
+                          Cm[b:b + 1].contiguous())
+        assert _bitwise(one[0], full[b])
+
+
+@pytest.mark.parametrize("dt_scale,A_scale", [(4.0, 4.0), (50.0, 20.0)])
+def test_ssd_scan_strong_decay(cuda, dt_scale, A_scale):
+    """dt and A scaled by 4 (cum down to about -300 in a chunk): exp(cum)
+    underflows to 0 inside a chunk, and the masked exponent above the
+    diagonal (up to +300) overflows and must not reach the output as
+    inf * 0; the kernel stays within 2e-4 of the recurrence.  At dt x50
+    and A x20 (|cum| to 18,579) the chunked form itself loses fp32 digits
+    in cum_i - cum_j: the float32 chunk decomposition of
+    tests/test_torch_tf32x3.py misses the float64 recurrence by more than
+    2e-4 (1.6e-3), and the kernel, finite, stays within twice that miss."""
+    x, dt, A, Bm, Cm = _ssd_inputs(9, 2, 512, 4, 64, 128)
+    dt, A = dt * dt_scale, A * A_scale
+    got = ss.ssd_scan(*(t.to(cuda) for t in (x, dt, A, Bm, Cm))).cpu()
+    assert torch.isfinite(got).all()
+    if dt_scale == 4.0:
+        torch.testing.assert_close(got, _ssd_plain(x, dt, A, Bm, Cm),
+                                   rtol=2e-4, atol=2e-4)
+        return
+    from test_torch_tf32x3 import ssd_chunks, ssd_recurrence_f64
+    truth = ssd_recurrence_f64(x, dt, A, Bm, Cm)
+    limit = float((ssd_chunks(x, dt, A, Bm, Cm, 128, torch.matmul).double()
+                   - truth).abs().max())
+    assert limit > 2e-4
+    assert float((got.double() - truth).abs().max()) <= 2 * limit
+
+
+def test_ssd_scan_under_cuda_graph_capture(cuda):
+    """Captured into a CUDA graph (its scratch from the graph's pool, every
+    launch on the capturing stream) and replayed on new inputs copied in
+    place: the replay gives the eager call's bits."""
+    args = [t.to(cuda) for t in _ssd_inputs(10, 1, 1024, 8, 64, 128)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ss.ssd_scan(*args)                        # warm up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ss.ssd_scan(*args)
+    for seed in (11, 12):
+        for dst, src in zip(args, _ssd_inputs(seed, 1, 1024, 8, 64, 128)):
+            dst.copy_(src)
+        graph.replay()
+        want = ss.ssd_scan(*args)
+        torch.cuda.synchronize()
+        assert _bitwise(out, want)
+        torch.testing.assert_close(out, _ssd_plain(*args), rtol=2e-4,
+                                   atol=2e-4)
 
 
 def test_ssd_scan_reads_strided_views(cuda):
@@ -343,6 +425,24 @@ def test_ssd_scan_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         ss.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A,
                     Bm, Cm)
+
+
+def test_smollm_smoke_prefill_on_the_card(cuda):
+    """The smoke-width smollm-360m (head dim 48) on the card launches one
+    flash attention per layer and agrees with the port's CPU run at
+    1e-4."""
+    cfg = get_config("smollm-360m", smoke=True)
+    assert cfg.head_dim == 48
+    p_cpu = init_model(cfg, 0, "cpu")
+    p = _to(p_cpu, cuda)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 100)).astype(np.int32))
+    ops.reset_launch_counts()
+    got, _ = transformer.forward_train(p, toks, cfg)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == cfg.num_layers
+    want, _ = transformer.forward_train(p_cpu, toks, cfg)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
 
 
 def test_mamba2_smoke_prefill_on_the_card(cuda):

@@ -167,10 +167,37 @@ def test_redundancy_vote_plain_matches_jax_oracle():
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
 
 
+@pytest.mark.parametrize("n_bad,colluding,inactive", [
+    (19, True, ()),                 # a colluding minority of 40: filtered
+    (21, True, ()),                 # a colluding majority: elected
+    (13, False, (0, 33, 39)),       # independent corruption, barred edges
+])
+def test_masked_vote_past_32_edges_matches_jax(n_bad, colluding, inactive):
+    """M = 40 takes two disagreement words per copy in the CUDA kernel;
+    the plain route takes any M, as JAX's reference does."""
+    E, M, T = 3, 40, 50
+    pub = _vote_pub(M + n_bad, E, M, T, n_bad, colluding)
+    active = np.ones(M, np.float32)
+    active[list(inactive)] = 0.0
+    jt, js, jf = jref.redundancy_vote_masked_ref(jnp.asarray(pub),
+                                                 jnp.asarray(active))
+    tt, ts, tf = ops.redundancy_vote_masked(torch.from_numpy(pub),
+                                            torch.from_numpy(active))
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+    honest = M - n_bad - sum(i < M - n_bad for i in inactive)
+    if n_bad * 2 < M:
+        np.testing.assert_array_equal(tt.numpy(), pub[:, 0])
+        assert (ts.numpy() == honest).all()
+    else:
+        assert not np.allclose(tt.numpy(), pub[:, 0])
+        assert (ts.numpy() == n_bad).all()
+
+
 def test_vote_refuses_what_the_kernel_cannot_take():
-    pub = torch.zeros(2, rv.MAX_EDGES + 1, 8)
-    with pytest.raises(ValueError, match="copies"):
-        ops.redundancy_vote_masked(pub, torch.ones(rv.MAX_EDGES + 1))
+    with pytest.raises(ValueError, match="copy"):
+        ops.redundancy_vote_masked(torch.zeros(2, 0, 8), torch.ones(0))
     with pytest.raises(TypeError):
         ops.redundancy_vote_masked(torch.zeros(2, 3, 8, dtype=torch.float64),
                                    torch.ones(3))

@@ -1,7 +1,7 @@
 """The arithmetic of the port's tensor-core kernels, emulated on the CPU.
 
-``moe_gemm.cu`` and ``flash_attention.cu`` run their float32 products on
-the tensor cores as 3xTF32 (``csrc/tf32x3.cuh``): each operand is split as
+``moe_gemm.cu``, ``flash_attention.cu`` and ``ssd_scan.cu`` run their
+float32 products on the tensor cores as 3xTF32 (``csrc/tf32x3.cuh``): each operand is split as
 hi = tf32(x), rounded to nearest with ties away from zero onto 10 mantissa
 bits (the value ``cvt.rna.tf32.f32`` gives), and lo = x - hi, which the
 tensor core reads cut to TF32 (its low 13 bits dropped); a * b is taken as
@@ -18,6 +18,8 @@ themselves against their plain versions on the card."""
 import numpy as np
 import pytest
 import torch
+
+from repro_torch.kernels import ref
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -128,3 +130,93 @@ def test_attention_arithmetic(case, route, meets_bar):
                      causal=True, window=window)
     assert torch.allclose(got, want, rtol=2e-4, atol=2e-4) == meets_bar, \
         float((got - want).abs().max())
+
+
+def ssd_chunks(x, dt, A, Bm, Cm, Q, mm):
+    """The chunk-parallel SSD of ``ssd_scan.cu`` in x's dtype, from a zero
+    state, with its four products through ``mm``: C B^T once per chunk,
+    the chunk states (w o x)^T B, the state pass, then the outputs
+    (exp(cum) o C) s^T + (C B^T o L o dt_j) x.  x (B, S, H, P), dt (B, S,
+    H), A (H,), Bm / Cm (B, S, N) -> y (B, S, H, P)."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    nc = S // Q
+    xc = x.reshape(B, nc, Q, H, P).permute(0, 1, 3, 2, 4)    # (B,nc,H,Q,P)
+    dtc = dt.reshape(B, nc, Q, H).permute(0, 1, 3, 2)         # (B,nc,H,Q)
+    Bc, Cc = Bm.reshape(B, nc, Q, N), Cm.reshape(B, nc, Q, N)
+    cum = torch.cumsum(dtc * A[:, None], dim=-1)
+    cb = mm(Cc, Bc.transpose(-1, -2))[:, :, None]              # (B,nc,1,Q,Q)
+    w = torch.exp(cum[..., -1:] - cum) * dtc
+    ds = mm((w[..., None] * xc).transpose(-1, -2), Bc[:, :, None])
+    decay = torch.exp(cum[..., -1])[..., None, None]           # (B,nc,H,1,1)
+    states = [torch.zeros_like(ds[:, 0])]
+    for c in range(nc - 1):
+        states.append(decay[:, c] * states[-1] + ds[:, c])
+    s = torch.stack(states, 1)                                 # (B,nc,H,P,N)
+    pos = torch.arange(Q)
+    causal = pos[None, :] <= pos[:, None]
+    seg = torch.where(causal, cum[..., :, None] - cum[..., None, :], 0.0)
+    L = torch.where(causal, torch.exp(seg), 0.0)               # masked first
+    scores = cb * L * dtc[..., None, :]
+    y = (mm(torch.exp(cum)[..., None] * Cc[:, :, None], s.transpose(-1, -2))
+         + mm(scores, xc))
+    return y.permute(0, 1, 3, 2, 4).reshape(B, S, H, P)
+
+
+def ssd_recurrence_f64(x, dt, A, Bm, Cm):
+    """ref.ssd_scan_ref's sequential recurrence from zero, in float64."""
+    x, dt, A, Bm, Cm = (t.double() for t in (x, dt, A, Bm, Cm))
+    state = torch.zeros(x.shape[0], x.shape[2], x.shape[3], Bm.shape[-1],
+                        dtype=torch.float64)
+    ys = torch.empty_like(x)
+    for t in range(x.shape[1]):
+        decay = torch.exp(dt[:, t] * A)
+        ds = torch.einsum("bh,bhp,bn->bhpn", dt[:, t], x[:, t], Bm[:, t])
+        state = state * decay[:, :, None, None] + ds
+        ys[:, t] = torch.einsum("bn,bhpn->bhp", Cm[:, t], state)
+    return ys
+
+
+def _ssd_inputs(seed, B, S, H, P, N):
+    """As chip_smoke.py's check_ssd draws them: dt = 0.1 softplus(z), A =
+    -|z| - 0.1, B and C at scale 0.5."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, H, P))
+    dt = np.logaddexp(0.0, rng.standard_normal((B, S, H))) * 0.1
+    A = -np.abs(rng.standard_normal(H)) - 0.1
+    Bm = rng.standard_normal((B, S, N)) * 0.5
+    Cm = rng.standard_normal((B, S, N)) * 0.5
+    return [torch.from_numpy(a.astype(np.float32)) for a in (x, dt, A, Bm, Cm)]
+
+
+# (B, S, H, P, N, Q): mamba2-2.7b's chunk shape (P 64, N 128, Q 128) over
+# three chunks, heads cut from 80 to 2 and 4
+SSD_CASES = {"mamba2_h2": (1, 384, 2, 64, 128, 128),
+             "mamba2_h4_b2": (2, 384, 4, 64, 128, 128)}
+
+
+@pytest.mark.parametrize("route,meets_bar", [("3xtf32", True),
+                                             ("1xtf32", False)])
+@pytest.mark.parametrize("case", sorted(SSD_CASES))
+def test_ssd_arithmetic(case, route, meets_bar):
+    """Within the card test's fp32 bar (2e-4) of the float64 recurrence
+    with 3xTF32 in all four products, not with one TF32 product."""
+    B, S, H, P, N, Q = SSD_CASES[case]
+    x, dt, A, Bm, Cm = _ssd_inputs(S + H, B, S, H, P, N)
+    mm = mm_3xtf32 if route == "3xtf32" else mm_1xtf32
+    got = ssd_chunks(x, dt, A, Bm, Cm, Q, mm).double()
+    want = ssd_recurrence_f64(x, dt, A, Bm, Cm)
+    assert torch.allclose(got, want, rtol=2e-4, atol=2e-4) == meets_bar, \
+        float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("case", sorted(SSD_CASES))
+def test_ssd_chunk_state_algebra(case):
+    """The decomposition in float32 with float32 products is the plain
+    sequential recurrence (ref.ssd_scan_ref) within 1e-5."""
+    B, S, H, P, N, Q = SSD_CASES[case]
+    x, dt, A, Bm, Cm = _ssd_inputs(S + H, B, S, H, P, N)
+    got = ssd_chunks(x, dt, A, Bm, Cm, Q, torch.matmul)
+    state0 = torch.zeros(B, H, P, N)
+    want = ref.ssd_scan_ref(x, dt, A, Bm, Cm, state0)[0]
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
