@@ -28,8 +28,9 @@ after it.
 
 The second form builds, then checks and times only the named kernels'
 cases (``moe_gemm``, ``flash_attention``, ``ssd_scan``,
-``redundancy_vote``) and stops (no main path, no last line): run from two
-trees in one call, it compares two versions of a kernel on one card.
+``redundancy_vote``, ``rglru_scan``, ``audit_mlp``) and stops (no main
+path, no last line): run from two trees in one call, it compares two
+versions of a kernel on one card.
 
 Prints, in order: the card's name and power limit (nvidia-smi), the
 build time, one JSON line per kernel case, the main-path lines, one
@@ -200,6 +201,15 @@ def _audit_bank(torch, g, E, d, h, o):
             "b2": torch.randn(E, o, generator=g).cuda()}
 
 
+def audit_composition(torch, bank, x, gid):
+    """The audit MLP as four PyTorch calls (no single call computes it):
+    the bank gathered by gid, then baddbmm, ReLU and baddbmm (TF32 off).
+    A yardstick only: its bits depend on how cuBLAS tiles the batch."""
+    g = gid.long()
+    h = torch.relu(torch.baddbmm(bank["b1"][g][:, None], x, bank["w1"][g]))
+    return torch.baddbmm(bank["b2"][g][:, None], h, bank["w2"][g])
+
+
 def check_audit_mlp(torch, am, ref, seed: int, name: str, E: int, S: int,
                     C: int, d: int, h: int, o: int):
     g = torch.Generator().manual_seed(seed)
@@ -209,12 +219,15 @@ def check_audit_mlp(torch, am, ref, seed: int, name: str, E: int, S: int,
     gid = gid_host.cuda()
     got = am.audit_mlp(bank, x, gid)
     want = ref.audit_mlp_ref(bank, x, gid_host)   # host ids: no sync
+    comp = audit_composition(torch, bank, x, gid)
     torch.cuda.synchronize()
     ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5))
     # the work this call's data needs: the distinct experts it gathers
     used = len(set(gid_host.tolist()))
     nbytes = 4 * (S * C * d + S + used * (d * h + h + h * o + o) + S * C * o)
-    b_ms, b_by = bound(2.0 * S * C * (d * h + h * o), nbytes, FP32_PEAK)
+    flops = 2.0 * S * C * (d * h + h * o)
+    # both layers run as 3xTF32 on the tensor cores
+    b_ms, b_by = bound(flops, nbytes, TF32X3_PEAK)
     row = {"case": name, "kernel": "audit_mlp",
            "shape": f"x ({S},{C},{d}), bank E={E} {d}->{h}->{o}",
            "dtype": "float32",
@@ -222,11 +235,33 @@ def check_audit_mlp(torch, am, ref, seed: int, name: str, E: int, S: int,
            "atol": 1e-5, "ok": ok,
            "kernel_ms": time_ms(lambda: am.audit_mlp(bank, x, gid)),
            "plain_ms": time_ms(lambda: ref.audit_mlp_ref(bank, x, gid_host)),
-           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+           "library_ms": None,
+           "composition": "gather by gid + baddbmm + relu + baddbmm",
+           "composition_ms": time_ms(lambda: audit_composition(
+               torch, bank, x, gid)),
+           "composition_max_abs_err": float((comp - want).abs().max()),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "bound_fp32_cores_ms": bound(flops, nbytes, FP32_PEAK)[0]}
     emit(row)
     require(ok, f"audit_mlp {name} disagrees with its plain version "
                 f"(max abs err {row['max_abs_err']})")
     return row
+
+
+def audit_cases(torch, am, ref):
+    """The commitment build (returned first), a merged drain over a stacked
+    30-expert bank, a ragged shape and the widest hidden layer the wrapper
+    takes, then the invariance phase."""
+    audit = [check_audit_mlp(torch, am, ref, 12, "commit", 10, 40, 94,
+                             784, 256, 10),
+             check_audit_mlp(torch, am, ref, 13, "merged", 30, 8, 94, 784,
+                             256, 10),
+             check_audit_mlp(torch, am, ref, 14, "ragged", 3, 5, 93, 50, 70,
+                             3),
+             check_audit_mlp(torch, am, ref, 28, "h3072", 4, 6, 94, 784,
+                             3072, 10)]
+    check_audit_invariance(torch, am)
+    return audit
 
 
 def check_audit_invariance(torch, am):
@@ -355,16 +390,25 @@ def flash_cases(torch, np, fa, ref):
     return flash
 
 
-def check_rglru(torch, rg, ref, seed: int, name: str, B: int, S: int,
-                C: int):
+def _scan_inputs(torch, seed: int, B: int, S: int, C: int):
     g = torch.Generator().manual_seed(seed)
     a = (0.5 + 0.5 * torch.rand(B, S, C, generator=g)).cuda()
-    b = torch.randn(B, S, C, generator=g).cuda()
+    return a, torch.randn(B, S, C, generator=g).cuda()
+
+
+def check_rglru(torch, rg, ref, seed: int, name: str, B: int, S: int,
+                C: int, profiled: bool = False):
+    """The chunked scan against the sequential loop.  One call is one count
+    of ``rg.launches``; where ``profiled``, its CUDA launches and each
+    one's device time are read from torch.profiler."""
+    a, b = _scan_inputs(torch, seed, B, S, C)
     got = rg.rglru_scan(a, b)
     want = ref.rglru_scan_ref(a, b)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5))
+    # the function: a and b read once, h written once; the kernel reads a
+    # and b twice (the chunk summaries, then the scan): its own floor
     b_ms, b_by = bound(2.0 * B * S * C, 12.0 * B * S * C, FP32_PEAK)
     row = {"case": name, "kernel": "rglru_scan", "shape": f"({B},{S},{C})",
            "dtype": "float32", "max_abs_err": err, "rtol": 1e-5,
@@ -372,11 +416,45 @@ def check_rglru(torch, rg, ref, seed: int, name: str, B: int, S: int,
            "kernel_ms": time_ms(lambda: rg.rglru_scan(a, b)),
            "plain_ms": time_ms(lambda: ref.rglru_scan_ref(a, b), iters=1,
                                reps=2),
-           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "design_floor_ms": 20.0 * B * S * C / HBM_BYTES_PER_S * 1e3}
+    if profiled:
+        prof = profile_batch(torch, lambda: rg.rglru_scan(a, b))["rglru"]
+        row["cuda_launches_per_call"] = prof["cuda_launches"]
+        row["launch_profile"] = prof["by_kernel"]
     emit(row)
     require(ok, f"rglru_scan {name} disagrees with its plain version "
                 f"(max abs err {err})")
     return row
+
+
+def check_rglru_invariance(torch, rg):
+    """recurrentgemma-2b's scan width at B = 3: two runs bit for bit, and
+    each row run alone against the same row of the batch, bit for bit."""
+    a, b = _scan_inputs(torch, 29, 3, 4096, 2560)
+    first, second = rg.rglru_scan(a, b), rg.rglru_scan(a, b)
+    alone = [rg.rglru_scan(a[i:i + 1].contiguous(), b[i:i + 1].contiguous())
+             for i in range(3)]
+    torch.cuda.synchronize()
+    res = {"phase": "rglru_scan_invariance", "shape": "(3,4096,2560)",
+           "repeat_bitwise": _bitwise_equal(torch, first, second),
+           "rows_alone_bitwise": all(_bitwise_equal(torch, one[0], first[i])
+                                     for i, one in enumerate(alone))}
+    emit(res)
+    require(res["repeat_bitwise"] and res["rows_alone_bitwise"],
+            f"rglru_scan bits depend on the call: {res}")
+
+
+def rglru_cases(torch, rg, ref):
+    """A recurrentgemma-2b layer (returned first, profiled), ragged
+    lengths around the 64-step chunk, then the invariance phase."""
+    scan = [check_rglru(torch, rg, ref, 20, "rgemma_layer", 1, 4096, 2560,
+                        profiled=True),
+            check_rglru(torch, rg, ref, 21, "ragged", 3, 1000, 300),
+            check_rglru(torch, rg, ref, 30, "chunk_plus_one", 2, 65, 130),
+            check_rglru(torch, rg, ref, 31, "below_one_chunk", 2, 20, 33)]
+    check_rglru_invariance(torch, rg)
+    return scan
 
 
 def check_ssd(torch, ss, ref, seed: int, name: str, B: int, S: int, H: int,
@@ -473,6 +551,7 @@ def lm_prefill(torch, ops, cfg, params, tokens, want_counts):
     ops.reset_launch_counts()
     prof = profile_batch(torch, lambda: prefill(params, batch))
     ssd_calls = ops.launch_counts()["ssd_scan"]
+    scan_calls = ops.launch_counts()["rglru_scan"]
     wall_ms = sorted(walls)[1] * 1e3
     S = tokens.shape[1]
     row = {"phase": "lm_prefill", "model": cfg.name, "batch": 1, "seq": S,
@@ -489,6 +568,16 @@ def lm_prefill(torch, ops, cfg, params, tokens, want_counts):
                             "device_share": prof["ssd"]["device_us"]
                             / prof["device_busy_us"],
                             "by_kernel": prof["ssd"]["by_kernel"]},
+           # likewise the rglru_scan calls (summaries, then the scan)
+           "rglru_profiled": {"calls": scan_calls,
+                              "cuda_launches": prof["rglru"]["cuda_launches"],
+                              "cuda_launches_per_call": (
+                                  prof["rglru"]["cuda_launches"] / scan_calls
+                                  if scan_calls else None),
+                              "device_ms": prof["rglru"]["device_us"] / 1e3,
+                              "device_share": prof["rglru"]["device_us"]
+                              / prof["device_busy_us"],
+                              "by_kernel": prof["rglru"]["by_kernel"]},
            "wall_ms": [w * 1e3 for w in walls],
            "tokens_per_s": S / (wall_ms / 1e3),
            "peak_mem_gb": peak / 1e9, "next_token": nxt.tolist(),
@@ -909,9 +998,10 @@ def optimistic_batch_time(torch, xs):
 def profile_batch(torch, run):
     """Device time by kernel (and copy) over one warm call of ``run``,
     from torch.profiler's CUDA activities: the eight largest rows, and
-    the ``ssd_*`` kernels' launches and time summed (``ssd``).  A one-step
-    warm-up with a throwaway fill comes first: without it the first
-    kernel of ``run`` is missing from the trace."""
+    the ``ssd_*`` and ``rglru_*`` kernels' launches and time summed
+    (``ssd``, ``rglru``).  A one-step warm-up with a throwaway fill comes
+    first: without it the first kernel of ``run`` is missing from the
+    trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -933,15 +1023,18 @@ def profile_batch(torch, run):
                          getattr(ev, "self_cuda_time_total", 0))
         rows.append((float(dev_us), ev.key, ev.count))
     rows.sort(reverse=True)
-    ssd = [r for r in rows if re.search(r"\bssd_\w+_kernel\b", r[1])]
-    return {"device_busy_us": sum(r[0] for r in rows),
-            "top": [{"name": k[:70], "device_us": us, "count": c}
-                    for us, k, c in rows[:8]],
-            "ssd": {"cuda_launches": sum(r[2] for r in ssd),
-                    "device_us": sum(r[0] for r in ssd),
-                    "by_kernel": {re.search(r"ssd_\w+_kernel", k)[0]:
-                                  {"device_us": us, "count": c}
-                                  for us, k, c in ssd}}}
+    res = {"device_busy_us": sum(r[0] for r in rows),
+           "top": [{"name": k[:70], "device_us": us, "count": c}
+                   for us, k, c in rows[:8]]}
+    for group in ("ssd", "rglru"):
+        pat = group + r"_\w+_kernel"
+        mine = [r for r in rows if re.search(r"\b" + pat + r"\b", r[1])]
+        res[group] = {"cuda_launches": sum(r[2] for r in mine),
+                      "device_us": sum(r[0] for r in mine),
+                      "by_kernel": {re.search(pat, k)[0]:
+                                    {"device_us": us, "count": c}
+                                    for us, k, c in mine}}
+    return res
 
 
 def ptxas_report(log: str):
@@ -1017,9 +1110,10 @@ def main() -> int:
           flush=True)
     for fn in ptxas_report(log):
         emit({"ptxas": fn})
-        # the tensor-core kernels keep every instantiation out of local memory
+        # the tensor-core kernels keep every instantiation out of local
+        # memory, and so do the scan's
         if fn["source"] in ("moe_gemm.cu", "flash_attention.cu",
-                            "ssd_scan.cu"):
+                            "ssd_scan.cu", "audit_mlp.cu", "rglru_scan.cu"):
             require(fn["spill_stores"] == 0 and fn["spill_loads"] == 0,
                     f"ptxas spills in {fn['function']}")
 
@@ -1029,7 +1123,9 @@ def main() -> int:
                  "flash_attention": lambda: flash_cases(torch, np, fa, ref),
                  "ssd_scan": lambda: ssd_cases(torch, ss, ref),
                  "redundancy_vote": lambda: check_vote(
-                     torch, rv, ref, 6, "path", 10, 10, 3760, n_bad=3)}
+                     torch, rv, ref, 6, "path", 10, 10, 3760, n_bad=3),
+                 "rglru_scan": lambda: rglru_cases(torch, rg, ref),
+                 "audit_mlp": lambda: audit_cases(torch, am, ref)}
         for name in sys.argv[sys.argv.index("--kernels") + 1:]:
             cases[name]()
         return 0
@@ -1045,17 +1141,9 @@ def main() -> int:
     check_vote(torch, rv, ref, 26, "two_words", 3, 40, 300, n_bad=19,
                inactive=(0, 39), specials=True)
 
-    audit = [check_audit_mlp(torch, am, ref, 12, "commit", 10, 40, 94,
-                             784, 256, 10),
-             check_audit_mlp(torch, am, ref, 13, "merged", 30, 8, 94, 784,
-                             256, 10),
-             check_audit_mlp(torch, am, ref, 14, "ragged", 3, 5, 93, 50, 70,
-                             3)]
-    check_audit_invariance(torch, am)
-
+    audit = audit_cases(torch, am, ref)
     flash = flash_cases(torch, np, fa, ref)
-    scan = check_rglru(torch, rg, ref, 20, "rgemma_layer", 1, 4096, 2560)
-    check_rglru(torch, rg, ref, 21, "ragged", 3, 1000, 300)
+    scan = rglru_cases(torch, rg, ref)
     ssd = ssd_cases(torch, ss, ref)
 
     counts = main_path(torch, np, ops)
@@ -1081,7 +1169,7 @@ def main() -> int:
                            "ssd_scan": 0, "moe_gemm": 0,
                            "redundancy_vote": 0, "audit_mlp": 0},
                           decode_seq=256, serving=True, width1_tol=1e-4)
-    counts_d, _ = lm_path(torch, ops, "recurrentgemma-2b",
+    counts_d, row_d = lm_path(torch, ops, "recurrentgemma-2b",
                           {"flash_attention": 8, "rglru_scan": 18,
                            "ssd_scan": 0, "moe_gemm": 0,
                            "redundancy_vote": 0, "audit_mlp": 0},
@@ -1123,7 +1211,9 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in audit),
          "ms": audit[0]["kernel_ms"], "plain_ms": audit[0]["plain_ms"],
          "bound_ms": audit[0]["bound_ms"], "bound_by": audit[0]["bound_by"],
-         "library_ms": None},
+         "bound_fp32_cores_ms": audit[0]["bound_fp32_cores_ms"],
+         "library_ms": None, "composition": audit[0]["composition"],
+         "composition_ms": audit[0]["composition_ms"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:64",
@@ -1144,9 +1234,13 @@ def main() -> int:
          "launches": counts_d["rglru_scan"],
          "per": "one recurrentgemma-2b prefill at (1, 4096); times per "
                 "layer, (1,4096,2560)",
-         "max_abs_err": scan["max_abs_err"], "ms": scan["kernel_ms"],
-         "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
-         "bound_by": scan["bound_by"], "library_ms": None},
+         "max_abs_err": max(r["max_abs_err"] for r in scan),
+         "cuda_launches_per_call": scan[0]["cuda_launches_per_call"],
+         "path_cuda_launches": row_d["rglru_profiled"]["cuda_launches"],
+         "path_device_ms": row_d["rglru_profiled"]["device_ms"],
+         "ms": scan[0]["kernel_ms"], "plain_ms": scan[0]["plain_ms"],
+         "bound_ms": scan[0]["bound_ms"], "bound_by": scan[0]["bound_by"],
+         "design_floor_ms": scan[0]["design_floor_ms"], "library_ms": None},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:53",

@@ -7,43 +7,61 @@
 // is the associative scan in src/repro/models/rglru.py::rglru_scan.  Same
 // contract: a, b (B, S, C) float32 -> h (B, S, C) float32.
 //
-// What bounds it on the H100: it reads a and b once and writes h once,
-// 12*B*S*C bytes, with two flops per element: bound by bytes.  At
+// What bounds it on the H100: the function reads a and b once and writes h
+// once, 12*B*S*C bytes, with two flops per element: bound by bytes.  At
 // recurrentgemma-2b's prefill (B=1, S=4096, C=2560) that is 126 MB, 0.038
-// ms at 3.35 TB/s.
+// ms at 3.35 TB/s.  This design reads a and b twice (20 bytes an element),
+// a floor of 0.063 ms at that shape.
 //
-// Design (right and simple first): one thread per (b, c) channel walks S in
-// order.  Neighbouring threads take neighbouring channels, so every load
-// and store of a warp is one coalesced 128-byte row segment.  The loads of
-// the next kUnroll steps are issued before their products, so a thread has
-// that many loads in flight instead of one.  Each step rounds the product
-// and then the sum (__fmul_rn / __fadd_rn keep the compiler from fusing
-// them into an FMA), so the result equals the plain PyTorch loop
-// (kernels/ref.py::rglru_scan_ref) bit for bit.  At (1, 4096, 2560) there
-// are only 2,560 chains, 20 blocks of 128 threads on 132 SMs, each a
-// sequence of 4,096 dependent steps: the kernel sits far above its byte
-// bound.  A chunked two-pass scan (per-chunk products and offsets, then a
-// fix-up pass) is a perf PR's work.
+// Design: a chunked scan.  One thread per (b, c) walking all of S leaves
+// only B*C chains (2,560 at the prefill, 20 blocks on 132 SMs) of S
+// dependent steps each, with too few loads in flight to fill the card.  So
+// S is cut into chunks of kChunk = 64 steps (the last one ragged), and
+// every (b, chunk, c) is a thread of its own: 64 x 2,560 = 163,840 threads
+// at the prefill, 1,280 blocks.  Two launches:
+// 1. rglru_chunk_summary_kernel, chunks 0 .. nc-2: from h = 0, the chunk's
+//    product of a (P) and its local end state (H), into a (B, nc-1, C)
+//    scratch each;
+// 2. rglru_chunk_scan_kernel, every chunk: folds the summaries of the
+//    chunks before it, in chunk order, into its carried-in state
+//    (carry = H_0, then carry = P_j * carry + H_j for j = 1 .. k-1), then
+//    re-runs the chunk from that state and writes h.
+// The second launch reads what the first wrote, in stream order: nothing
+// races, and no block waits for another.  Neighbouring threads take
+// neighbouring channels, so every load and store of a warp is one
+// coalesced row segment; the loads of kUnroll steps are issued before
+// their products.  (Four channels a thread with 16-byte loads, a quarter of
+// the threads, measured 17% slower on the H100.)  The scan launch takes the
+// chunks in reverse block order, so its first blocks read what the summary
+// launch read last, while it may still be in L2.
+//
+// Bits: every step rounds the product and then the sum (__fmul_rn /
+// __fadd_rn: no fused multiply-add), and the association is fixed by
+// (S, kChunk) alone: not by B, C, timing or which block finishes first.
+// Two runs give the same bits; a row alone equals the same row inside a
+// batch.  Chunk 0 is the plain loop (kernels/ref.py::rglru_scan_ref) bit
+// for bit; later chunks differ from it by the rounding of the carried
+// state.  With a single chunk (S <= 64) only the scan launch runs, from
+// h = 0: the plain loop exactly.
 #include <cuda_runtime.h>
 
 namespace {
 
+constexpr int kChunk = 64;
 constexpr int kThreads = 128;
-constexpr int kUnroll = 8;
+constexpr int kUnroll = 16;
+static_assert(kChunk % kUnroll == 0, "a full chunk is whole unroll steps");
 
-__global__ void __launch_bounds__(kThreads)
-rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                  float* __restrict__ h, int S, int C) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  const int bi = blockIdx.y;
-  if (c >= C) return;
-  const size_t base = (size_t)bi * S * C + c;
-  const float* ap = a + base;
-  const float* bp = b + base;
-  float* hp = h + base;
-  float state = 0.f;
-  int t = 0;
-  for (; t + kUnroll <= S; t += kUnroll) {
+// h <- a_t * h + b_t over steps [t0, t1) of one channel (row stride C);
+// writes h_t where kWrite, multiplies the a_t into *prod where kProd.
+template <bool kWrite, bool kProd>
+__device__ __forceinline__ float run(const float* __restrict__ ap,
+                                     const float* __restrict__ bp,
+                                     float* __restrict__ hp, size_t C,
+                                     int t0, int t1, float h, float* prod) {
+  float p = 1.f;
+  int t = t0;
+  for (; t + kUnroll <= t1; t += kUnroll) {
     float av[kUnroll], bv[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -52,25 +70,100 @@ rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      state = __fadd_rn(__fmul_rn(av[u], state), bv[u]);
-      hp[(size_t)(t + u) * C] = state;
+      h = __fadd_rn(__fmul_rn(av[u], h), bv[u]);
+      if (kProd) p = __fmul_rn(p, av[u]);
+      if (kWrite) hp[(size_t)(t + u) * C] = h;
     }
   }
-  for (; t < S; ++t) {
-    state = __fadd_rn(__fmul_rn(ap[(size_t)t * C], state), bp[(size_t)t * C]);
-    hp[(size_t)t * C] = state;
+  for (; t < t1; ++t) {
+    const float av = ap[(size_t)t * C];
+    h = __fadd_rn(__fmul_rn(av, h), bp[(size_t)t * C]);
+    if (kProd) p = __fmul_rn(p, av);
+    if (kWrite) hp[(size_t)t * C] = h;
   }
+  if (kProd) *prod = p;
+  return h;
+}
+
+// grid (ceil(C / kThreads), nc - 1, B): chunk k = blockIdx.y, a full chunk
+__global__ void __launch_bounds__(kThreads)
+rglru_chunk_summary_kernel(const float* __restrict__ a,
+                           const float* __restrict__ b,
+                           float* __restrict__ P, float* __restrict__ H,
+                           int S, int C, int nc) {
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c >= C) return;
+  const int k = blockIdx.y, bi = blockIdx.z;
+  const size_t base = (size_t)bi * S * C + c;
+  float p;
+  const float h = run<false, true>(a + base, b + base, nullptr, C,
+                                   k * kChunk, (k + 1) * kChunk, 0.f, &p);
+  const size_t s = ((size_t)bi * (nc - 1) + k) * C + c;
+  P[s] = p;
+  H[s] = h;
+}
+
+// grid (ceil(C / kThreads), nc, B): chunk k = nc - 1 - blockIdx.y
+__global__ void __launch_bounds__(kThreads)
+rglru_chunk_scan_kernel(const float* __restrict__ a,
+                        const float* __restrict__ b,
+                        const float* __restrict__ P,
+                        const float* __restrict__ H, float* __restrict__ h,
+                        int S, int C, int nc) {
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c >= C) return;
+  const int k = nc - 1 - blockIdx.y, bi = blockIdx.z;
+  float carry = 0.f;
+  if (k > 0) {
+    // the carried-in state, folded in chunk order from the summaries
+    const float* Pp = P + (size_t)bi * (nc - 1) * C + c;
+    const float* Hp = H + (size_t)bi * (nc - 1) * C + c;
+    carry = Hp[0];
+    int j = 1;
+    for (; j + kUnroll <= k; j += kUnroll) {
+      float pv[kUnroll], hv[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        pv[u] = Pp[(size_t)(j + u) * C];
+        hv[u] = Hp[(size_t)(j + u) * C];
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        carry = __fadd_rn(__fmul_rn(pv[u], carry), hv[u]);
+    }
+    for (; j < k; ++j)
+      carry = __fadd_rn(__fmul_rn(Pp[(size_t)j * C], carry),
+                        Hp[(size_t)j * C]);
+  }
+  const size_t base = (size_t)bi * S * C + c;
+  run<true, false>(a + base, b + base, h + base, C, k * kChunk,
+                   min(S, (k + 1) * kChunk), carry, nullptr);
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  Returns the cudaGetLastError()
-// code of the launch; the wrapper raises on non-zero.
-extern "C" int rglru_scan_f32(const void* a, const void* b, void* h, int B,
-                              int S, int C, void* stream) {
-  const dim3 grid((C + kThreads - 1) / kThreads, B);
-  rglru_scan_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<float*>(h), S, C);
+// Plain C entry point (bound with ctypes).  P and H are the wrapper's
+// (B, nc-1, C) scratch (unused with one chunk); chunk must be kChunk (the
+// wrapper's CHUNK).  Returns the cudaGetLastError() code of the launches;
+// the wrapper raises on non-zero.
+extern "C" int rglru_scan_f32(const void* a, const void* b, void* h, void* P,
+                              void* H, int B, int S, int C, int chunk,
+                              void* stream) {
+  if (chunk != kChunk) return (int)cudaErrorInvalidValue;
+  const int nc = (S + kChunk - 1) / kChunk;
+  const int cb = (C + kThreads - 1) / kThreads;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const float* af = static_cast<const float*>(a);
+  const float* bf = static_cast<const float*>(b);
+  float* Pf = static_cast<float*>(P);
+  float* Hf = static_cast<float*>(H);
+  if (nc > 1) {
+    rglru_chunk_summary_kernel<<<dim3(cb, nc - 1, B), kThreads, 0, st>>>(
+        af, bf, Pf, Hf, S, C, nc);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  rglru_chunk_scan_kernel<<<dim3(cb, nc, B), kThreads, 0, st>>>(
+      af, bf, Pf, Hf, static_cast<float*>(h), S, C, nc);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-// Tensor-core building blocks shared by moe_gemm.cu and flash_attention.cu:
+// Tensor-core building blocks shared by moe_gemm.cu, flash_attention.cu,
+// ssd_scan.cu and audit_mlp.cu:
 // fp32-accurate products as three TF32 mma.sync (3xTF32), bf16 products as
 // one bf16 mma.sync, and the cp.async copies that stage their tiles.
 //

@@ -149,7 +149,9 @@ def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """h_t = a_t * h_{t-1} + b_t along axis 1 from h = 0, as a sequential
     loop.  a, b: (B, S, C) -> h (B, S, C) float32.  Each step rounds the
     product and then the sum (no fused multiply-add), as the CUDA kernel
-    does, so on the card the two agree bit for bit."""
+    does; the kernel's chunked association (``kernels/rglru_scan.py``)
+    agrees with this loop bit for bit over its first chunk and within
+    rounding after it."""
     a, b = a.float(), b.float()
     h = torch.zeros_like(a[:, 0])
     out = torch.empty_like(a)

@@ -7,6 +7,12 @@ from h = 0: a, b (B, S, C) float32 -> h (B, S, C) float32, each channel
 independent.  It takes CUDA tensors only and launches the kernel or
 raises; ``kernels.ops.rglru_scan`` is the device dispatch that gives CPU
 tensors the plain version.
+
+The kernel is a chunked scan over chunks of ``CHUNK`` steps: one call is
+two CUDA launches (the chunk summaries, then the scan that folds them in
+chunk order and re-runs each chunk), or one where S <= ``CHUNK``, over a
+``torch.empty`` scratch of 2 x (B, ceil(S / CHUNK) - 1, C) floats (1.3 MB
+at recurrentgemma-2b's prefill).  ``launches`` counts calls.
 """
 from __future__ import annotations
 
@@ -14,7 +20,12 @@ import torch
 
 from repro_torch.kernels import build
 
-# kernel launches since the last reset (ops.reset_launch_counts)
+# the kernel's chunk length (kChunk in csrc/rglru_scan.cu, which refuses
+# any other); with S it fixes the association of every product and sum
+CHUNK = 64
+
+# calls that launched the kernel since the last reset
+# (ops.reset_launch_counts)
 launches = 0
 
 
@@ -42,17 +53,22 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("rglru_scan needs contiguous a and b")
     B, S, C = a.shape
-    if B > 65535:
-        raise ValueError(f"rglru_scan: batch {B} exceeds the grid's y "
-                         f"limit of 65535")
+    nc = -(-S // CHUNK)
+    if B > 65535 or nc > 65535:
+        raise ValueError(f"rglru_scan: batch {B} or {nc} chunks of {CHUNK} "
+                         f"exceed the grid's limit of 65535")
     out = torch.empty_like(a)
     if out.numel() == 0:
         return out
+    # the chunk summaries: products of a and end states from h = 0
+    summ = torch.empty((2, B, nc - 1, C), dtype=torch.float32,
+                       device=a.device)
     lib = build.library()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         code = lib.rglru_scan_f32(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                  B, S, C, stream)
+                                  summ[0].data_ptr(), summ[1].data_ptr(),
+                                  B, S, C, CHUNK, stream)
     build.check(code, "rglru_scan")
     launches += 1
     return out

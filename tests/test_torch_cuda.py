@@ -110,7 +110,10 @@ def _bank(seed, E, d, h, o, device):
 
 @pytest.mark.parametrize("E,S,C,d,h,o", [
     (10, 40, 94, 784, 256, 10), (30, 8, 94, 784, 256, 10),
-    (3, 5, 93, 50, 70, 3), (2, 3, 17, 100, 300, 20), (1, 1, 1, 1, 1, 1)])
+    (3, 5, 93, 50, 70, 3), (2, 3, 17, 100, 300, 20), (1, 1, 1, 1, 1, 1),
+    # the widest hidden layer the wrapper takes (12 hidden slices of 256),
+    # and outputs past one 32-wide output group
+    (4, 6, 50, 784, 3072, 10), (2, 3, 40, 100, 300, 70)])
 def test_audit_mlp_kernel_matches_plain(cuda, E, S, C, d, h, o):
     bank = _bank(E + S, E, d, h, o, cuda)
     x = _randn(C, S, C, d).to(cuda)
@@ -145,6 +148,14 @@ def test_audit_mlp_rows_are_bitwise_invariant(cuda):
                            full[s, :n].view(torch.int32))
     with pytest.raises(IndexError):
         am.audit_mlp(bank, x, gid + 1)
+
+
+def test_audit_mlp_refuses_hidden_past_the_limit(cuda):
+    h = am.MAX_HIDDEN + 1
+    bank = _bank(2, 1, 8, h, 2, cuda)
+    with pytest.raises(ValueError, match="hidden width"):
+        am.audit_mlp(bank, _randn(3, 1, 4, 8).to(cuda),
+                     torch.zeros(1, dtype=torch.int32, device=cuda))
 
 
 def test_optimistic_infer_and_flush_launch_audit_mlp(cuda):
@@ -208,11 +219,20 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, H, KH, D,
 
 @pytest.mark.parametrize("case", ["moe_gemm_layer1", "moe_gemm_layer2",
                                   "flash_causal_gqa", "flash_window_d256",
-                                  "ssd_mamba2_chunks"])
+                                  "ssd_mamba2_chunks", "rglru_rgemma_layer",
+                                  "audit_mlp_commit"])
 def test_kernels_are_bitwise_repeatable(cuda, case):
     """Two launches on the same inputs give the same bits: one fixed
     reduction order per output, no split-K, no atomics."""
-    if case.startswith("ssd"):
+    if case.startswith("rglru"):
+        a, b = (t.to(cuda) for t in _scan_inputs(4, 1, 4096, 2560))
+        run = lambda: rg.rglru_scan(a, b)
+    elif case.startswith("audit"):
+        bank = _bank(5, 10, 784, 256, 10, cuda)
+        x = _randn(6, 40, 94, 784).to(cuda)
+        gid = torch.arange(40, device=cuda, dtype=torch.int32) % 10
+        run = lambda: am.audit_mlp(bank, x, gid)
+    elif case.startswith("ssd"):
         args = [t.to(cuda) for t in _ssd_inputs(8, 1, 1024, 16, 64, 128)]
         run = lambda: ss.ssd_scan(*args)
     elif case.startswith("moe_gemm"):
@@ -242,8 +262,17 @@ def test_flash_attention_reads_strided_views(cuda):
         fa.flash_attention(q[..., :40], k[..., :40], v[..., :40])
 
 
+def _scan_inputs(seed, B, S, C):
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.uniform(0.5, 1.0, (B, S, C)).astype(
+        np.float32)), _randn(seed + 1, B, S, C))
+
+
 @pytest.mark.parametrize("B,S,C", [(1, 4096, 2560), (3, 1000, 300),
-                                   (2, 7, 5), (1, 1, 1)])
+                                   (2, 7, 5), (1, 1, 1),
+                                   # at and around the 64-step chunk
+                                   (2, 63, 130), (2, 64, 130), (2, 65, 130),
+                                   (3, 129, 257), (2, 20, 33)])
 def test_rglru_scan_kernel_matches_plain(cuda, B, S, C):
     rng = np.random.default_rng(S + C)
     a = torch.from_numpy(rng.uniform(0.5, 1.0, (B, S, C)).astype(
@@ -253,6 +282,32 @@ def test_rglru_scan_kernel_matches_plain(cuda, B, S, C):
     want = ref.rglru_scan_ref(a, b)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,S,C", [(1, 4096, 2560), (2, 65, 130),
+                                   (2, 20, 33)])
+def test_rglru_scan_kernel_is_the_chunked_association(cuda, B, S, C):
+    """Bit for bit the chunked scan emulated in plain torch (each product
+    and sum its own rounded operation) in tests/test_torch_tf32x3.py."""
+    from test_torch_tf32x3 import rglru_chunked
+    a, b = (t.to(cuda) for t in _scan_inputs(S, B, S, C))
+    got = rg.rglru_scan(a, b)
+    want = rglru_chunked(a, b, rg.CHUNK)
+    torch.cuda.synchronize()
+    assert _bitwise(got, want)
+
+
+def test_rglru_scan_rows_do_not_depend_on_the_batch(cuda):
+    """Each row of a B = 3 call is, bit for bit, the same row run alone:
+    the association is fixed by (S, CHUNK), every (b, c) chain its own."""
+    a, b = (t.to(cuda) for t in _scan_inputs(7, 3, 1000, 300))
+    full = rg.rglru_scan(a, b)
+    for i in range(3):
+        one = rg.rglru_scan(a[i:i + 1].contiguous(), b[i:i + 1].contiguous())
+        assert _bitwise(one[0], full[i])
+    part = rg.rglru_scan(a[:, :, 100:200].contiguous(),
+                         b[:, :, 100:200].contiguous())
+    assert _bitwise(part, full[:, :, 100:200])
 
 
 def test_recurrentgemma_smoke_prefill_on_the_card(cuda):

@@ -325,6 +325,24 @@ def test_rglru_scan_plain_matches_jax(B, S, C):
                                atol=2e-4)
 
 
+@pytest.mark.parametrize("B,S,C", [(2, 128, 40), (2, 200, 33), (2, 20, 9),
+                                   (3, 1, 5), (1, 1000, 300)])
+def test_rglru_chunked_matches_jax(B, S, C):
+    """The CUDA kernel's chunked association (chunks of rg.CHUNK = 64,
+    emulated step for step in tests/test_torch_tf32x3.py) against JAX's
+    associative scan at 2e-4 and the sequential loop at 1e-5: whole
+    chunks, a ragged last chunk, S below one chunk, S = 1."""
+    from test_torch_tf32x3 import rglru_chunked
+    a, b = _ab(S + C + 1, B, S, C)
+    got = rglru_chunked(torch.from_numpy(a), torch.from_numpy(b), rg.CHUNK)
+    want = jax_rglru_scan(jnp.asarray(a), jnp.asarray(b))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
+    torch.testing.assert_close(got, ops.rglru_scan(torch.from_numpy(a),
+                                                   torch.from_numpy(b)),
+                               rtol=1e-5, atol=1e-5)
+
+
 def test_rglru_scan_dispatch_follows_device():
     a, b = (torch.from_numpy(x) for x in _ab(0, 1, 8, 4))
     before = ops.launch_counts()["rglru_scan"]

@@ -1,7 +1,8 @@
-"""The arithmetic of the port's tensor-core kernels, emulated on the CPU.
+"""The arithmetic of the port's kernels, emulated on the CPU.
 
-``moe_gemm.cu``, ``flash_attention.cu`` and ``ssd_scan.cu`` run their
-float32 products on the tensor cores as 3xTF32 (``csrc/tf32x3.cuh``): each operand is split as
+``moe_gemm.cu``, ``flash_attention.cu``, ``ssd_scan.cu`` and
+``audit_mlp.cu`` run their float32 products on the tensor cores as 3xTF32
+(``csrc/tf32x3.cuh``): each operand is split as
 hi = tf32(x), rounded to nearest with ties away from zero onto 10 mantissa
 bits (the value ``cvt.rna.tf32.f32`` gives), and lo = x - hi, which the
 tensor core reads cut to TF32 (its low 13 bits dropped); a * b is taken as
@@ -14,7 +15,13 @@ use: 3xTF32 meets them, one TF32 product per product does not.
 The tensor cores accumulate in their own order and may round their sums
 differently from a float32 matmul on the CPU, so this is the argument for
 the route, not the proof: ``tests/test_torch_cuda.py`` holds the kernels
-themselves against their plain versions on the card."""
+themselves against their plain versions on the card.
+
+``rglru_chunked`` is the chunked association of ``rglru_scan.cu`` in plain
+torch, step for step (each product and each sum rounded on its own), so
+the kernel gives its bits exactly; ``tests/test_torch_kernels.py`` holds it
+against JAX's associative scan, ``tests/test_torch_cuda.py`` the kernel
+against it on the card."""
 import numpy as np
 import pytest
 import torch
@@ -220,3 +227,115 @@ def test_ssd_chunk_state_algebra(case):
     state0 = torch.zeros(B, H, P, N)
     want = ref.ssd_scan_ref(x, dt, A, Bm, Cm, state0)[0]
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------------ audit_mlp
+def sliced_mm(a, b, mm, depth: int = 32):
+    """a (..., K) @ b (..., K, N) as audit_mlp.cu sums it: each ``depth``
+    deep K slice through ``mm`` from zero, the slices added in order."""
+    acc = None
+    for k0 in range(0, a.shape[-1], depth):
+        t = mm(a[..., k0:k0 + depth], b[..., k0:k0 + depth, :])
+        acc = t if acc is None else acc + t
+    return acc
+
+
+def audit_mlp_tc(params, x, gid, mm):
+    """``audit_mlp.cu``'s arithmetic: both layers over 32-deep K slices
+    through ``mm``, bias and ReLU between, then layer 2's bias.  params:
+    stacked {w1 (E, d, h), b1, w2 (E, h, o), b2}; x (S, C, d); gid (S,)."""
+    w1, b1, w2, b2 = (params[k][gid] for k in ("w1", "b1", "w2", "b2"))
+    h = torch.relu(sliced_mm(x, w1, mm) + b1[:, None])
+    return sliced_mm(h, w2, mm) + b2[:, None]
+
+
+def _audit_inputs(seed, E, S, C, d, h, o):
+    """As chip_smoke.py's check_audit_mlp draws them: w1 and w2 scaled by
+    their fan-in, unit biases and x."""
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32))
+    params = {"w1": f(E, d, h) / d ** 0.5, "b1": f(E, h),
+              "w2": f(E, h, o) / h ** 0.5, "b2": f(E, o)}
+    return params, f(S, C, d), torch.from_numpy(rng.integers(0, E, S))
+
+
+# (E, S, C, d, h, o): the commitment build and a merged drain over a
+# (window+1) N = 30 expert stacked bank, at the paper's 784 -> 256 -> 10
+AUDIT_CASES = {"commit": (10, 40, 94, 784, 256, 10),
+               "merged": (30, 8, 94, 784, 256, 10)}
+
+
+@pytest.mark.parametrize("route,meets_bar", [("3xtf32", True),
+                                             ("1xtf32", False)])
+@pytest.mark.parametrize("case", sorted(AUDIT_CASES))
+def test_audit_mlp_arithmetic(case, route, meets_bar):
+    """Within the card test's bar (1e-5) of float64 with 3xTF32 in both
+    layers, not with one TF32 product."""
+    params, x, gid = _audit_inputs(7, *AUDIT_CASES[case])
+    mm = mm_3xtf32 if route == "3xtf32" else mm_1xtf32
+    got = audit_mlp_tc(params, x, gid, mm).double()
+    want = audit_mlp_tc({k: v.double() for k, v in params.items()},
+                        x.double(), gid, torch.matmul)
+    assert torch.allclose(got, want, rtol=1e-5, atol=1e-5) == meets_bar, \
+        float((got - want).abs().max())
+
+
+# ------------------------------------------------------------ RG-LRU scan
+def rglru_chunked(a, b, L: int):
+    """``rglru_scan.cu``'s chunked scan of h_t = a_t h_{t-1} + b_t from
+    h = 0, in a's dtype and on its device: chunks of L steps; for chunks
+    0 .. nc-2 the product of a (P) and the end state from h = 0 (H); the
+    carried-in state of chunk k folded in chunk order (H_0, then
+    P_j carry + H_j); then each chunk re-run from its state.  Every product
+    and every sum is its own rounded operation, as in the kernel.  The
+    chunks step together, which changes no value: the last one is padded
+    with a = 1, b = 0 past S and cut off."""
+    B, S, C = a.shape
+    nc = -(-S // L)
+    pad = nc * L - S
+    ap = torch.cat([a, a.new_ones(B, pad, C)], 1).reshape(B, nc, L, C)
+    bp = torch.cat([b, b.new_zeros(B, pad, C)], 1).reshape(B, nc, L, C)
+    p = torch.ones_like(ap[:, :, 0])
+    h = torch.zeros_like(ap[:, :, 0])
+    for t in range(L):                     # summaries, every chunk at once
+        h = ap[:, :, t] * h + bp[:, :, t]
+        p = p * ap[:, :, t]
+    carry = [torch.zeros_like(h[:, 0])]
+    if nc > 1:
+        carry.append(h[:, 0])
+    for j in range(1, nc - 1):
+        carry.append(p[:, j] * carry[-1] + h[:, j])
+    h = torch.stack(carry, 1)
+    out = torch.empty_like(ap)
+    for t in range(L):
+        h = ap[:, :, t] * h + bp[:, :, t]
+        out[:, :, t] = h
+    return out.reshape(B, nc * L, C)[:, :S]
+
+
+def _ab(seed, B, S, C):
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.uniform(0.5, 1.0, (B, S, C)).astype(
+        np.float32)),
+            torch.from_numpy(rng.standard_normal((B, S, C)).astype(
+                np.float32)))
+
+
+# S at, around and below the kernel's chunk of 64, and a layer-like length
+RGLRU_LENGTHS = [(2, 128, 33), (2, 63, 33), (2, 65, 33), (3, 200, 17),
+                 (2, 20, 9), (2, 1, 5), (1, 4096, 64)]
+
+
+@pytest.mark.parametrize("B,S,C", RGLRU_LENGTHS)
+def test_rglru_chunked_association(B, S, C):
+    """The chunked association against the sequential loop
+    (ref.rglru_scan_ref) at the card test's 1e-5; over the first chunk it
+    is the loop bit for bit."""
+    a, b = _ab(S + C, B, S, C)
+    got = rglru_chunked(a, b, 64)
+    want = ref.rglru_scan_ref(a, b)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    n = min(S, 64)
+    assert torch.equal(got[:, :n].view(torch.int32),
+                       want[:, :n].view(torch.int32))
