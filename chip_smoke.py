@@ -18,7 +18,14 @@ capacity 376, edge cache on):
   at S=4096, teacher-forced decode past its 2048-token window) and
   mamba2-2.7b (path E: prefill at S=4096, 32 SSD chunks, teacher-forced
   decode over 384 tokens across two chunk boundaries, four requests
-  decoded in one batch against each alone).
+  decoded in one batch against each alone);
+- B-MoE training (path F): ``train_round`` under ``traditional`` and
+  ``bmoe``, 30 clean rounds each on tasks of 1000, then the paper's
+  claim under 3 of 10 colluding edges (bmoe holds its clean accuracy,
+  traditional loses more than 0.1); poisoned uploads outvoted; two runs
+  and edge cache on/off bitwise equal; one round against the CPU; a
+  profile of a warm round.  A round launches moe_gemm 5 times (2 forward,
+  3 backward) and, under bmoe, the vote once.
 
 Each path's launch counts are set to 0 just before it and read just
 after it.
@@ -136,19 +143,27 @@ def check_moe_gemm(torch, mg, ref, seed: int, name: str, E: int, C: int,
 
 
 def moe_gemm_cases(torch, mg, ref):
-    """The B-MoE path's two expert layers in fp32 (returned) and bf16, and
-    a ragged shape."""
+    """The B-MoE path's two expert layers in fp32 (returned first) and
+    bf16, a ragged shape, and the training round's three backward
+    products on contiguous transposed copies (returned second): dw2 =
+    h^T g, dh = g w2^T, dw1 = buf^T dh."""
     gemm = [check_moe_gemm(torch, mg, ref, 1, "layer1", 10, 376, 784, 256,
                            torch.float32),
             check_moe_gemm(torch, mg, ref, 2, "layer2", 10, 376, 256, 10,
                            torch.float32)]
+    bwd = [check_moe_gemm(torch, mg, ref, 35, "bwd_dw2", 10, 256, 376, 10,
+                          torch.float32),
+           check_moe_gemm(torch, mg, ref, 36, "bwd_dh", 10, 376, 10, 256,
+                          torch.float32),
+           check_moe_gemm(torch, mg, ref, 37, "bwd_dw1", 10, 784, 376, 256,
+                          torch.float32)]
     check_moe_gemm(torch, mg, ref, 3, "ragged", 2, 100, 50, 70,
                    torch.float32)
     check_moe_gemm(torch, mg, ref, 4, "layer1_bf16", 10, 376, 784, 256,
                    torch.bfloat16)
     check_moe_gemm(torch, mg, ref, 5, "layer2_bf16", 10, 376, 256, 10,
                    torch.bfloat16)
-    return gemm
+    return gemm, bwd
 
 
 def _bitwise_equal(torch, a, b) -> bool:
@@ -157,7 +172,12 @@ def _bitwise_equal(torch, a, b) -> bool:
 
 
 def check_vote(torch, rv, ref, seed: int, name: str, E: int, M: int, T: int,
-               n_bad: int = 0, inactive=(), specials: bool = False):
+               n_bad: int = 0, inactive=(), specials: bool = False,
+               timed: bool = True):
+    """The vote kernel against its plain version, bit for bit, the elected
+    copy included; where ``timed``, its time, the plain version's and the
+    launch floor (an empty kernel of the same grid, cluster shape and
+    shared memory), each by graph replay."""
     g = torch.Generator().manual_seed(seed)
     honest = torch.randn(E, 1, T, generator=g)
     pub = honest.expand(E, M, T).clone()
@@ -172,26 +192,52 @@ def check_vote(torch, rv, ref, seed: int, name: str, E: int, M: int, T: int,
     active[list(inactive)] = 0.0
     pub, active = pub.cuda(), active.cuda()
     got = rv.redundancy_vote_masked(pub, active)
-    want = ref.redundancy_vote_masked_ref(pub, active)
+    want = ref.redundancy_vote_winner_ref(pub, active)
     torch.cuda.synchronize()
     ok = (_bitwise_equal(torch, got[0], want[0])
-          and torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]))
-    nbytes = (E * M * T + M) * 4 + (E * T + E + E * M) * 4
+          and all(torch.equal(got[i], want[i]) for i in (1, 2, 3)))
+    nbytes = (E * M * T + M) * 4 + (E * T + E + E * M + E) * 4
     b_ms, b_by = bound(3.0 * E * T * M * (M + 1) / 2, nbytes, FP32_PEAK)
     row = {"case": name, "kernel": "redundancy_vote",
            "shape": f"pub ({E},{M},{T})", "dtype": "float32",
            "inactive": list(inactive), "colluding_bad": n_bad,
            "specials": specials, "max_abs_err": 0.0 if ok else None,
-           "exact": bool(ok),
+           "exact": bool(ok), "winner": got[3].tolist()[:4],
            "support": got[1].tolist()[:4],
-           "kernel_ms": time_ms(lambda: rv.redundancy_vote_masked(pub,
-                                                                  active)),
-           "plain_ms": time_ms(lambda: ref.redundancy_vote_masked_ref(
-               pub, active)),
+           "kernel_ms": (time_ms(lambda: rv.redundancy_vote_masked(
+               pub, active)) if timed else None),
+           "plain_ms": (time_ms(lambda: ref.redundancy_vote_masked_ref(
+               pub, active)) if timed else None),
+           "launch_floor_ms": (time_ms(lambda: rv.launch_floor(pub))
+                               if timed else None),
            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
     emit(row)
     require(ok, f"vote {name} differs from its plain version")
     return row
+
+
+def vote_cases(torch, rv, ref):
+    """The B-MoE path's vote (returned first) and the court's two-word
+    shape (returned second), timed; then a majority, barred edges, NaN
+    and +-inf, one word, T = 1, T across the blocks' slice edges, and the
+    widest electorate one block's shared memory holds, untimed."""
+    path = check_vote(torch, rv, ref, 6, "path", 10, 10, 3760, n_bad=3)
+    court = check_vote(torch, rv, ref, 26, "two_words", 3, 40, 300,
+                       n_bad=19, inactive=(0, 39), specials=True)
+    check_vote(torch, rv, ref, 7, "majority_flips", 10, 10, 3760, n_bad=6,
+               timed=False)
+    check_vote(torch, rv, ref, 8, "masked", 10, 10, 3760, n_bad=4,
+               inactive=(0, 2), timed=False)
+    check_vote(torch, rv, ref, 9, "nan_inf_tail", 4, 5, 1500, n_bad=1,
+               specials=True, timed=False)
+    check_vote(torch, rv, ref, 10, "one_word", 3, 32, 300, n_bad=15,
+               timed=False)
+    check_vote(torch, rv, ref, 32, "t_one", 2, 10, 1, n_bad=3, timed=False)
+    check_vote(torch, rv, ref, 33, "slice_edges", 3, 10, 257, n_bad=4,
+               inactive=(2,), specials=True, timed=False)
+    check_vote(torch, rv, ref, 34, "m1351", 3, 1351, 40, n_bad=600,
+               inactive=(0, 700, 1350), specials=True, timed=False)
+    return path, court
 
 
 def _audit_bank(torch, g, E, d, h, o):
@@ -995,6 +1041,261 @@ def optimistic_batch_time(torch, xs):
           "profile": prof["top"]})
 
 
+# ------------------------------------------ path F: B-MoE training
+def _want_round(framework):
+    """Launches of one training round: the forward's two moe_gemm, the
+    backward's three (dw2, dh, dw1; no dbuf), and under bmoe one vote."""
+    return {"moe_gemm": 5, "redundancy_vote": int(framework == "bmoe"),
+            "audit_mlp": 0, "flash_attention": 0, "rglru_scan": 0,
+            "ssd_scan": 0}
+
+
+def train_rounds(ops, sys_, xtr, ytr, rng, rounds: int, batch: int = 1000):
+    """``rounds`` train_round calls on tasks of ``batch`` rows drawn by
+    ``rng``; the launches of each round and the losses."""
+    per_round, losses = [], []
+    for _ in range(rounds):
+        idx = rng.integers(0, len(xtr), batch)
+        c0 = ops.launch_counts()
+        m = sys_.train_round(xtr[idx], ytr[idx])
+        c1 = ops.launch_counts()
+        per_round.append({k: c1[k] - c0[k] for k in c1})
+        losses.append(float(m["loss"]))
+    return per_round, losses
+
+
+def profile_round(torch, run):
+    """Device time of one warm call of ``run`` (a training round), from
+    torch.profiler: busy time, and the moe_gemm and vote launches in the
+    order they ran (the forward's two, the backward's three)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        prof.step()
+        run()
+        torch.cuda.synchronize()
+        prof.step()
+    kernels = sorted(
+        (ev.time_range.start, ev.time_range.elapsed_us(), ev.name)
+        for ev in prof.events()
+        if ev.device_type == DeviceType.CUDA
+        and not ev.name.startswith("ProfilerStep"))
+    busy = sum(k[1] for k in kernels)
+    mine = [(us, "moe_gemm" if "moe_gemm_kernel" in name else "vote")
+            for _, us, name in kernels
+            if "moe_gemm_kernel" in name or "vote_kernel" in name]
+    return busy, mine, kernels
+
+
+def train_claims(torch, np, ops, xtr, ytr, xte, yte):
+    """The paper's training claims at full width on the port's own init:
+    traditional and bmoe each trained 30 clean rounds on tasks of 1000,
+    then evaluated under 3 of 10 colluding edges (probability 1, sigma
+    5).  Each framework's launch counts are set to 0 before its rounds
+    and read after them and after every round."""
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.core.bmoe import BMoEConfig, BMoESystem
+    strong = AttackConfig(malicious_edges=(7, 8, 9), attack_prob=1.0,
+                          noise_std=5.0)
+    out = {}
+    for framework in ("traditional", "bmoe"):
+        sys_ = BMoESystem(BMoEConfig(framework=framework), device="cuda")
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        per_round, losses = train_rounds(ops, sys_, xtr, ytr,
+                                         np.random.default_rng(0), 30)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        acc_attacked = sys_.evaluate(xte, yte, attack=strong)
+        acc_clean = sys_.evaluate(xte, yte, attack=AttackConfig())
+        want = _want_round(framework)
+        row = {"phase": "train_claims", "framework": framework,
+               "rounds": 30, "task": 1000, "launches": counts,
+               "launches_per_round_all_equal": all(c == want
+                                                   for c in per_round),
+               "launches_per_round": per_round[0], "loss_first": losses[0],
+               "loss_last": losses[-1], "train_s": train_s,
+               "accuracy_clean": acc_clean,
+               "accuracy_3of10_colluding": acc_attacked,
+               "blocks": len(sys_.ledger.blocks),
+               "chain_verifies": sys_.ledger.verify_chain()}
+        emit(row)
+        require(all(np.isfinite(losses)), f"{framework}: loss {losses}")
+        require(all(c == want for c in per_round),
+                f"{framework} rounds launched {per_round}, wanted {want}")
+        require(counts == {k: 30 * v for k, v in want.items()},
+                f"{framework} 30 rounds launched {counts}")
+        require(len(sys_.ledger.blocks) ==
+                (31 if framework == "bmoe" else 1) and
+                sys_.ledger.verify_chain(), f"{framework} ledger")
+        out[framework] = (sys_, row)
+    acc_t = out["traditional"][1]["accuracy_3of10_colluding"]
+    acc_b = out["bmoe"][1]["accuracy_3of10_colluding"]
+    acc_c = out["bmoe"][1]["accuracy_clean"]
+    require(acc_b > acc_t + 0.1, f"bmoe {acc_b} not above traditional "
+                                 f"{acc_t} + 0.1 under attack")
+    require(abs(acc_b - acc_c) < 0.02, f"bmoe under attack {acc_b}, clean "
+                                       f"{acc_c}")
+    return out
+
+
+def train_poisoning(torch, np, xtr, ytr):
+    """3 rounds with 3 of 10 edges colluding to upload poisoned experts:
+    every block accepts the honest digest with support 7."""
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.core.bmoe import BMoEConfig, BMoESystem
+    atk = AttackConfig(malicious_edges=(7, 8, 9), attack_prob=1.0,
+                       noise_std=5.0, poison_params=True)
+    sys_ = BMoESystem(BMoEConfig(framework="bmoe", attack=atk),
+                      device="cuda")
+    rng = np.random.default_rng(2)
+    for _ in range(3):
+        idx = rng.integers(0, len(xtr), 1000)
+        sys_.train_round(xtr[idx], ytr[idx])
+    blocks = [b.payload for b in sys_.ledger.blocks[1:]]
+    emit({"phase": "train_poisoning", "rounds": 3,
+          "expert_hash_support": [b["expert_hash_support"] for b in blocks],
+          "accepted": [b["expert_hash_accepted"] for b in blocks],
+          "chain_misled": [bool(b.get("chain_misled")) for b in blocks],
+          "trusted_supports": [b["trusted_supports"] for b in blocks]})
+    require(len(blocks) == 3 and all(
+        b["expert_hash_accepted"] and b["expert_hash_support"] == 7
+        and "chain_misled" not in b for b in blocks),
+        f"poisoning: {blocks}")
+
+
+def train_repeatability(torch, np, xtr, ytr):
+    """Two systems from seed 0 after 3 rounds under 3 colluding edges hold
+    the same bits; so do edge cache on and off.  Plain torch (no
+    deterministic-algorithms switch): the path itself must be
+    repeatable."""
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.core.bmoe import BMoEConfig, BMoESystem
+    atk = AttackConfig(malicious_edges=(7, 8, 9), attack_prob=1.0,
+                       noise_std=5.0)
+    runs = []
+    for cache in ("on", "on", "off"):
+        sys_ = BMoESystem(BMoEConfig(framework="bmoe", attack=atk,
+                                     edge_cache=cache), device="cuda")
+        rng = np.random.default_rng(3)
+        for _ in range(3):
+            idx = rng.integers(0, len(xtr), 1000)
+            sys_.train_round(xtr[idx], ytr[idx])
+        runs.append({**sys_.experts,
+                     **{"gate_" + k: v for k, v in sys_.gate.items()}})
+    torch.cuda.synchronize()
+    same = [all(_bitwise_equal(torch, runs[0][k], other[k])
+                for k in runs[0]) for other in runs[1:]]
+    emit({"phase": "train_repeatability", "rounds": 3,
+          "seed0_twice_bitwise": same[0], "cache_on_off_bitwise": same[1]})
+    require(all(same), f"training bits depend on the run: {same}")
+
+
+def train_cpu_vs_card(torch, np, ops, xtr, ytr):
+    """One full-width bmoe round under 3 colluding edges on the card and
+    the same round on the CPU (same seeded init and attack draw):
+    autograd's gradients of the round's loss at rtol 1e-4 / atol 1e-6,
+    the parameters after the round at 1e-5, support, flags and activation
+    equal."""
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.core.bmoe import BMoEConfig, BMoESystem, _loss_and_grads
+    atk = AttackConfig(malicious_edges=(7, 8, 9), attack_prob=1.0,
+                       noise_std=5.0)
+    idx = np.random.default_rng(4).integers(0, len(xtr), 1000)
+    x, y = xtr[idx], ytr[idx]
+    res = {}
+    for dev in ("cpu", "cuda"):
+        sys_ = BMoESystem(BMoEConfig(framework="bmoe", attack=atk),
+                          device=dev)
+        mask_e, noise = sys_._draw_attack(atk, len(x), sys_.round)
+        gate_bias, active = sys_._controls()
+        g_gate, g_exp, _ = _loss_and_grads(
+            sys_.gate, sys_.experts, torch.from_numpy(x).to(dev),
+            torch.from_numpy(y).to(dev), mask_e.to(dev), noise.to(dev),
+            atk.noise_std, gate_bias, active, cfg=sys_.cfg)
+        m = sys_.train_round(x, y)
+        res[dev] = (m, {k: v.cpu() for k, v in {
+            **g_exp, **{"gate_" + k: v for k, v in g_gate.items()}}.items()},
+            {k: v.cpu() for k, v in {
+                **sys_.experts,
+                **{"gate_" + k: v for k, v in sys_.gate.items()}}.items()})
+    (mc, gc, pc), (mg, gg, pg) = res["cpu"], res["cuda"]
+    errs = {k: float((gg[k] - gc[k]).abs().max()) for k in gc}
+    close = {k: bool(torch.allclose(gg[k], gc[k], rtol=1e-4, atol=1e-6))
+             for k in gc}
+    params = {k: bool(torch.allclose(pg[k], pc[k], rtol=1e-5, atol=1e-5))
+              for k in pc}
+    equal = {k: bool(np.array_equal(mg[k], mc[k]))
+             for k in ("activation", "support", "flags", "dropped")}
+    emit({"phase": "train_cpu_vs_card", "framework": "bmoe", "task": 1000,
+          "grad_max_abs_err": errs, "grad_close": close,
+          "params_close": params, "equal": equal,
+          "loss": [float(mc["loss"]), float(mg["loss"])],
+          "support": mg["support"].tolist()})
+    require(all(close.values()) and all(params.values())
+            and all(equal.values()),
+            f"training round on the card differs from the CPU: {close} "
+            f"{params} {equal}")
+
+
+def train_profile(torch, np, sys_, xtr, ytr, framework):
+    """Median host wall of 5 warm rounds, then one more round profiled:
+    device busy, idle share, and the device time of the forward's
+    moe_gemm launches, the backward's and the vote."""
+    rng = np.random.default_rng(5)
+    walls = []
+    for _ in range(5):
+        idx = rng.integers(0, len(xtr), 1000)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sys_.train_round(xtr[idx], ytr[idx])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    idx = rng.integers(0, len(xtr), 1000)
+    busy, mine, kernels = profile_round(
+        torch, lambda: sys_.train_round(xtr[idx], ytr[idx]))
+    gemm = [us for us, kind in mine if kind == "moe_gemm"]
+    vote = [us for us, kind in mine if kind == "vote"]
+    wall_ms = sorted(walls)[2] * 1e3
+    top = {}
+    for _, us, name in kernels:
+        top[name[:70]] = top.get(name[:70], 0.0) + us
+    row = {"phase": "train_profile", "framework": framework, "task": 1000,
+           "wall_ms": [w * 1e3 for w in walls], "median_wall_ms": wall_ms,
+           "device_busy_ms": busy / 1e3,
+           "device_idle_share": 1.0 - busy / 1e3 / wall_ms,
+           "moe_gemm_forward_us": gemm[:2], "moe_gemm_backward_us": gemm[2:],
+           "vote_us": vote, "cuda_kernels": len(kernels),
+           "top": sorted(({"name": k, "device_us": v} for k, v in
+                          top.items()), key=lambda r: -r["device_us"])[:8]}
+    emit(row)
+    require(len(gemm) == 5 and len(vote) == int(framework == "bmoe"),
+            f"profiled {framework} round: {len(gemm)} moe_gemm, "
+            f"{len(vote)} vote launches")
+    return row
+
+
+def training_path(torch, np, ops):
+    """Path F: B-MoE training at the paper's full width on the card."""
+    from repro_torch.data.synthetic import FMNIST, make_image_dataset
+    xtr, ytr, xte, yte = make_image_dataset(FMNIST, n_train=10000,
+                                            n_test=2000, seed=0)
+    xtr, xte = xtr.reshape(len(xtr), -1), xte.reshape(len(xte), -1)
+    trained = train_claims(torch, np, ops, xtr, ytr, xte, yte)
+    train_poisoning(torch, np, xtr, ytr)
+    train_repeatability(torch, np, xtr, ytr)
+    train_cpu_vs_card(torch, np, ops, xtr, ytr)
+    profiles = {fw: train_profile(torch, np, trained[fw][0], xtr, ytr, fw)
+                for fw in ("traditional", "bmoe")}
+    return {fw: trained[fw][1] for fw in trained}, profiles
+
+
 def profile_batch(torch, run):
     """Device time by kernel (and copy) over one warm call of ``run``,
     from torch.profiler's CUDA activities: the eight largest rows, and
@@ -1122,24 +1423,15 @@ def main() -> int:
         cases = {"moe_gemm": lambda: moe_gemm_cases(torch, mg, ref),
                  "flash_attention": lambda: flash_cases(torch, np, fa, ref),
                  "ssd_scan": lambda: ssd_cases(torch, ss, ref),
-                 "redundancy_vote": lambda: check_vote(
-                     torch, rv, ref, 6, "path", 10, 10, 3760, n_bad=3),
+                 "redundancy_vote": lambda: vote_cases(torch, rv, ref),
                  "rglru_scan": lambda: rglru_cases(torch, rg, ref),
                  "audit_mlp": lambda: audit_cases(torch, am, ref)}
         for name in sys.argv[sys.argv.index("--kernels") + 1:]:
             cases[name]()
         return 0
 
-    gemm = moe_gemm_cases(torch, mg, ref)
-    vote = check_vote(torch, rv, ref, 6, "path", 10, 10, 3760, n_bad=3)
-    check_vote(torch, rv, ref, 7, "majority_flips", 10, 10, 3760, n_bad=6)
-    check_vote(torch, rv, ref, 8, "masked", 10, 10, 3760, n_bad=4,
-               inactive=(0, 2))
-    check_vote(torch, rv, ref, 9, "nan_inf_tail", 4, 5, 1500, n_bad=1,
-               specials=True)
-    check_vote(torch, rv, ref, 10, "one_word", 3, 32, 300, n_bad=15)
-    check_vote(torch, rv, ref, 26, "two_words", 3, 40, 300, n_bad=19,
-               inactive=(0, 39), specials=True)
+    gemm, gemm_bwd = moe_gemm_cases(torch, mg, ref)
+    vote, vote_court = vote_cases(torch, rv, ref)
 
     audit = audit_cases(torch, am, ref)
     flash = flash_cases(torch, np, fa, ref)
@@ -1180,6 +1472,10 @@ def main() -> int:
                            "rglru_scan": 0, "moe_gemm": 0,
                            "redundancy_vote": 0, "audit_mlp": 0},
                           decode_seq=384, serving=True, width1_tol=5e-4)
+    # path F: B-MoE training under traditional and bmoe
+    trained, train_prof = training_path(torch, np, ops)
+    counts_fb = trained["bmoe"]["launches"]
+    counts_ft = trained["traditional"]["launches"]
 
     emit({"kernels": [
         {"name": "moe_gemm", "route": "cuda",
@@ -1187,7 +1483,23 @@ def main() -> int:
          "replaces": "src/repro/kernels/moe_gemm.py:29",
          "launches": counts["moe_gemm"],
          "per": "one evaluate batch of 1000: layer 1 + layer 2 launch",
-         "max_abs_err": max(r["max_abs_err"] for r in gemm),
+         "launches_by_path": {
+             "evaluate (bmoe), 2 batches of 1000": counts["moe_gemm"],
+             "evaluate, per batch of 1000": counts["moe_gemm"] // 2,
+             "training round": trained["bmoe"]["launches_per_round"][
+                 "moe_gemm"],
+             "bmoe training, 30 rounds": counts_fb["moe_gemm"],
+             "traditional training, 30 rounds": counts_ft["moe_gemm"]},
+         "backward": [{k: r[k] for k in ("case", "shape", "max_abs_err",
+                                         "kernel_ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms")}
+                      for r in gemm_bwd],
+         "training_round_device_us": {
+             fw: {"forward": train_prof[fw]["moe_gemm_forward_us"],
+                  "backward": train_prof[fw]["moe_gemm_backward_us"]}
+             for fw in train_prof},
+         "max_abs_err": max(r["max_abs_err"] for r in gemm + gemm_bwd),
          "ms": sum(r["kernel_ms"] for r in gemm),
          "plain_ms": sum(r["plain_ms"] for r in gemm),
          "bound_ms": sum(r["bound_ms"] for r in gemm),
@@ -1199,9 +1511,22 @@ def main() -> int:
          "replaces": "src/repro/kernels/redundancy_vote.py:39",
          "launches": counts["redundancy_vote"],
          "per": "one evaluate batch of 1000: pub (10,10,3760)",
+         "launches_by_path": {
+             "evaluate (bmoe), 2 batches of 1000": counts["redundancy_vote"],
+             "bmoe training round": trained["bmoe"]["launches_per_round"][
+                 "redundancy_vote"],
+             "bmoe training, 30 rounds": counts_fb["redundancy_vote"],
+             "traditional training, 30 rounds": counts_ft[
+                 "redundancy_vote"],
+             "optimistic path A (court)": counts_a["redundancy_vote"]},
          "max_abs_err": vote["max_abs_err"], "ms": vote["kernel_ms"],
          "plain_ms": vote["plain_ms"], "bound_ms": vote["bound_ms"],
-         "bound_by": vote["bound_by"], "library_ms": None},
+         "bound_by": vote["bound_by"], "library_ms": None,
+         "launch_floor_ms": vote["launch_floor_ms"],
+         "training_round_device_us": train_prof["bmoe"]["vote_us"],
+         "court_shape": {k: vote_court[k] for k in (
+             "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+             "launch_floor_ms")}},
         {"name": "audit_mlp", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/audit_mlp.cu",
          "replaces": "src/repro/kernels/audit_gemm.py:58",

@@ -4,6 +4,9 @@ The paper's adversary: malicious edges "inject random Gaussian noise into
 the employed experts in each round", attacking with probability 0.2 per
 round; in B-MoE the malicious edges *collude* — they publish identical
 manipulated results to maximize their coalition's vote weight (§V-B).
+Two surfaces: the experts' computed results (``round_attack_mask``,
+``edge_noise``) and, in training, the updated parameters an edge uploads
+(``poison_tree``, caught by the hash vote).
 
 The port draws from seeded ``torch.Generator``s, not JAX's threefry keys,
 so its draws differ from the JAX package's for the same seed.  The draw
@@ -67,3 +70,17 @@ def edge_noise(atk: AttackConfig, num_edges: int, shape: tuple,
         return shared.expand((num_edges,) + shape).clone()
     return torch.stack([torch.randn(shape, generator=stream(*stream_parts, m))
                         for m in range(num_edges)])
+
+
+def poison_tree(tree, noise_std: float, *stream_parts):
+    """Parameter poisoning (paper Step 5's adversary): every leaf of the
+    dict ``tree`` plus ``noise_std`` times a standard normal draw of its
+    shape, leaf i (in sorted-key order, as the tree digest walks it) from
+    ``stream(*stream_parts, i)`` on the CPU, moved to the leaf's device.
+    The JAX package splits one threefry key per leaf instead, so the draws
+    differ; what the hash vote sees (a digest unlike the honest one,
+    shared by a colluding coalition) is the same."""
+    return {k: tree[k] + noise_std * torch.randn(
+        tuple(tree[k].shape), generator=stream(*stream_parts, i)).to(
+            tree[k].device, tree[k].dtype)
+        for i, k in enumerate(sorted(tree))}

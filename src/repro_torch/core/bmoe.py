@@ -1,9 +1,11 @@
-"""The B-MoE system (paper §IV), inference path: task publisher + edge
-layer + blockchain layer + storage layer, running the Step 1-3 (+6
-storage) workflow of Fig. 3 in PyTorch.
+"""The B-MoE system (paper §IV): task publisher + edge layer + blockchain
+layer + storage layer, running the Step 1-6 workflow of Fig. 3 for
+training and the Step 1-3 (+6 storage) workflow for inference, in
+PyTorch.
 
-The counterpart of ``repro.core.bmoe`` for ``BMoESystem.infer``,
-``evaluate`` and ``flush_trust`` under three frameworks:
+The counterpart of ``repro.core.bmoe`` for ``BMoESystem.train_round``
+(under ``bmoe`` and ``traditional``), ``infer``, ``evaluate`` and
+``flush_trust``, under three frameworks:
 
 - ``framework="traditional"``: the paper's baseline — edge i employs
   expert i; no redundancy, no consensus; a malicious edge corrupts its
@@ -11,7 +13,9 @@ The counterpart of ``repro.core.bmoe`` for ``BMoESystem.infer``,
 - ``framework="bmoe"``: every edge computes ALL activated experts
   (redundancy mechanism); the blockchain layer majority-votes the
   per-expert results (the fused vote kernel on the card) and the gate
-  combines the trusted ones.
+  combines the trusted ones.  In training, the edges then hash-vote the
+  updated experts (a poisoned upload is outvoted) and the round is mined
+  into a PoW block.
 - ``framework="optimistic"``: the commit-challenge-audit protocol of
   ``repro_torch.trust`` at batch granularity — a rotating executor's
   per-expert outputs are Merkle-committed (built by one ``audit_mlp``
@@ -22,19 +26,26 @@ The counterpart of ``repro.core.bmoe`` for ``BMoESystem.infer``,
 
 One forward: gate -> top-k softmax -> scatter into capacity buckets ->
 grouped expert MLP (two ``moe_gemm`` launches) -> trust step -> gate-
-weighted combine.  The bank is resolved through the chunked
-``ExpertStore`` and the edge ``ExpertCache`` first.
+weighted combine.  A training step differentiates through it
+(``torch.autograd``): the expert MLP's backward is three more
+``moe_gemm`` launches, the vote's sends each expert's gradient to its
+elected copy; then plain SGD.  The bank is resolved through the chunked
+``ExpertStore`` and the edge ``ExpertCache`` first, and a training round
+publishes the experts it changed as new versions.
 
 Randomness is split from the arithmetic: ``BMoESystem`` draws each
-round's attack mask and noise from seeded ``torch.Generator``s
-(``core.attacks``), and ``_moe_forward`` takes them as tensors.  The
-commitment noise of a cheating executor and the court's copies are
-numpy draws, byte for byte the JAX package's.
+round's attack mask and noise (and poisoned uploads) from seeded
+``torch.Generator``s (``core.attacks``), and ``_moe_forward`` and
+``_train_step`` take them as tensors.  The commitment noise of a
+cheating executor and the court's copies are numpy draws, byte for byte
+the JAX package's.
 
 Not in this slice (each raises ``NotImplementedError``; see ROADMAP.md
-queue A): training (``train_round``, with the training-domain optimistic
-round and its chained-rollback replay), ``dispatch="dense"``,
-``expert_kind="cnn"``, workload balance, and ``mesh="on"``.
+queue A): ``train_round`` under ``optimistic`` (the training-domain
+optimistic round with its per-round DA challenges and chained-rollback
+replay, and the ``audit_backend="eager"`` / ``scheduling="synchronous"``
+oracles: item 2), ``dispatch="dense"``, ``expert_kind="cnn"``, workload
+balance (item 3) and ``mesh="on"`` (item 7).
 """
 from __future__ import annotations
 
@@ -46,9 +57,10 @@ import torch
 
 from repro_torch.core import experts as ex
 from repro_torch.core.attacks import (AttackConfig, edge_noise,
-                                      round_attack_mask, stream)
+                                      poison_tree, round_attack_mask, stream)
 from repro_torch.core.consensus import ProofOfWork
-from repro_torch.core.ledger import Ledger, as_numpy, digest_array
+from repro_torch.core.ledger import (Ledger, as_numpy, digest_array,
+                                     digest_bytes, digest_tree)
 from repro_torch.core.reputation import ReputationConfig, ReputationLedger
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ops import resolve_device
@@ -139,12 +151,21 @@ def _check_slice(cfg: BMoEConfig) -> None:
 
 
 class BMoESystem:
-    """One instantiation of Fig. 3, inference only.  See module docstring.
+    """One instantiation of Fig. 3.  See module docstring.
 
     ``device=None`` runs on the CUDA device (raising where there is
     none); ``device="cpu"`` runs every kernel's plain version.
     ``params={"gate": ..., "experts": ...}`` (``convert.params_from_numpy``)
     replaces the seeded init, and is what the genesis bank publishes."""
+
+    # phase-seconds metrics behind the ``_timers`` keys (the JAX
+    # package's): every second the system books flows through a span
+    _TIMER_METRICS = {"compute": "bmoe.compute_s",
+                      "consensus": "bmoe.consensus_s",
+                      "chain": "bmoe.chain_s",
+                      "audit": "bmoe.audit_s",
+                      "audit_infer": "bmoe.audit_infer_s",
+                      "storage": "bmoe.storage_s"}
 
     def __init__(self, cfg: BMoEConfig, device=None,
                  obs: Optional[Observability] = None,
@@ -188,7 +209,12 @@ class BMoESystem:
         self._bank_version = -1
         self._resolved_bank = None      # device bank memo, keyed by the
         self._resolved_key = None       # resolved manifest cids
-        self.obs.metrics.counter("bmoe.storage_s")
+        # "audit_infer": verifier-pool drain seconds of the inference
+        # pipeline, off the critical path (an off_path span); "storage":
+        # version publication and bank resolution (host wall-clock)
+        for name in self._TIMER_METRICS.values():
+            self.obs.metrics.counter(name)
+        self.obs.metrics.counter("bmoe.round_s")
         with self.obs.span("publish", metric="bmoe.storage_s", round=0):
             self._publish_bank(None, 0)     # genesis bank: every expert, v0
         self.pow = ProofOfWork(cfg.num_chain_nodes,
@@ -260,11 +286,79 @@ class BMoESystem:
 
     # ------------------------------------------------------------ api
     def train_round(self, x, y, *, attack: Optional[AttackConfig] = None):
-        """Not ported yet, for any framework."""
-        raise NotImplementedError(
-            "train_round is not ported yet (ROADMAP.md queue A, item 2: "
-            "training, with the moe_gemm backward, the training-domain "
-            "optimistic round and its chained-rollback replay)")
+        """One full Step 1-6 round on one published task (batch) under
+        ``bmoe`` or ``traditional``: resolve the bank, one SGD step
+        through the (attacked) forward and its consensus, publish the
+        experts the round changed, and under ``bmoe`` hash-vote the
+        updated experts and mine the round's block.  Returns the round's
+        metrics as host numpy (loss, activation, support, flags,
+        dropped).  The attack draw depends on ``cfg.seed`` and the round
+        only."""
+        cfg = self.cfg
+        if cfg.framework == "optimistic":
+            raise NotImplementedError(
+                "train_round under framework='optimistic' is not ported yet "
+                "(ROADMAP.md queue A, item 2: the training-domain "
+                "optimistic round with its per-round DA challenges and "
+                "chained-rollback replay); bmoe and traditional train")
+        atk = attack if attack is not None else cfg.attack
+        xt = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+        yt = torch.as_tensor(np.asarray(y), device=self.device).long()
+        batch = int(xt.shape[0])
+        mask_e, noise = self._draw_attack(atk, batch, self.round)
+        gate_bias, active = self._controls()
+        # every phase is a child of the round span, so one traced round
+        # decomposes into fetch -> dispatch -> publish [-> consensus ->
+        # chain], whose metric sums are the latency_report components
+        with self.obs.span("round", metric="bmoe.round_s", round=self.round,
+                           kind="train", framework=cfg.framework,
+                           executor=0):
+            with self.obs.span("fetch", metric="bmoe.storage_s",
+                               round=self.round):
+                bank = self._resolve_bank(xt, gate_bias)
+            with self.obs.span("dispatch", metric="bmoe.compute_s",
+                               round=self.round):
+                self.gate, self.experts, metrics = _train_step(
+                    self.gate, bank, xt, yt, mask_e.to(self.device),
+                    noise.to(self.device), atk.noise_std, gate_bias, active,
+                    cfg=cfg)
+                metrics = {k: as_numpy(v) for k, v in metrics.items()}
+            self.gate_ema.update(metrics["activation"])
+            payload = {"round": self.round, "kind": "train",
+                       "task": digest_array(np.asarray(x)[:8]),
+                       "loss": float(metrics["loss"])}
+            # cost ledger in expert-evaluation units (one expert on one
+            # row of its capacity bucket)
+            self.verify_stats["rounds"] += 1
+            if cfg.framework == "traditional":
+                self.verify_stats["base_evals"] += cfg.top_k * batch
+            else:
+                self.verify_stats["base_evals"] += self._exec_evals(batch)
+            # Step 5, chunked: the routed experts as new manifest versions
+            with self.obs.span("publish", metric="bmoe.storage_s",
+                               round=self.round):
+                self._publish_bank(metrics["activation"], self.round + 1)
+            payload["bank_root"] = self._bank_root()[:16]
+            if cfg.framework == "bmoe":
+                # the redundancy mechanism IS the verification: M-1 extra
+                # copies of the same execution
+                self.verify_stats["verify_evals"] += \
+                    (cfg.num_edges - 1) * self._exec_evals(batch)
+                # Steps 4-5: edges vote on the updated experts' hashes
+                with self.obs.span("consensus", metric="bmoe.consensus_s",
+                                   round=self.round):
+                    payload["trusted_supports"] = \
+                        metrics["support"].tolist()
+                    self._expert_hash_vote(atk, payload)
+                # Step 6: block generation under PoW
+                with self.obs.span("chain", metric="bmoe.chain_s",
+                                   round=self.round):
+                    self._mine(payload)
+            self._update_controllers(metrics)
+            self.activation_counts += metrics["activation"]
+            self.activation_total += batch * cfg.top_k
+            self.round += 1
+        return metrics
 
     def infer(self, x, *, attack: Optional[AttackConfig] = None,
               commit: bool = True):
@@ -323,6 +417,49 @@ class BMoESystem:
         balancer in the port yet) and the reputation electorate."""
         return (torch.zeros(self.cfg.num_experts, device=self.device),
                 torch.from_numpy(self._active_host()).to(self.device))
+
+    def _update_controllers(self, metrics) -> None:
+        """Reputation from the round's agreement flags (§VI-B/D); the
+        workload balancer is refused by ``_check_slice``."""
+        if self.reputation is not None:
+            self.reputation.update_from_flags(metrics["flags"])
+
+    def _expert_hash_vote(self, atk: AttackConfig, payload) -> None:
+        """Paper Step 5: each edge uploads the updated experts' digest; the
+        chain accepts the majority, so a poisoned minority is rejected and
+        a poisoned majority misleads it (§IV-B).  A poisoning edge
+        uploads ``poison_tree`` of the bank, drawn from the round's
+        stream with its own fold id (0 for a colluding coalition, whose
+        uploads are then identical)."""
+        cfg = self.cfg
+        honest = digest_tree(self.experts)
+        poisoned: Dict[int, str] = {}
+        uploads = []
+        for m in range(cfg.num_edges):
+            if atk.poison_params and m in atk.malicious_edges:
+                fid = 0 if atk.colluding else m
+                if fid not in poisoned:
+                    poisoned[fid] = digest_tree(poison_tree(
+                        self.experts, atk.noise_std, cfg.seed + 17,
+                        self.round, "poison", fid))
+                uploads.append(poisoned[fid])
+            else:
+                uploads.append(honest)
+        counts: Dict[str, int] = {}
+        for d in uploads:
+            counts[d] = counts.get(d, 0) + 1
+        winner = max(counts, key=counts.get)
+        payload["expert_hash"] = winner[:16]
+        payload["expert_hash_support"] = counts[winner]
+        payload["expert_hash_accepted"] = counts[winner] * 2 > cfg.num_edges
+        if winner != honest and payload["expert_hash_accepted"]:
+            payload["chain_misled"] = True
+
+    def _exec_evals(self, batch: int) -> float:
+        """Expert-evaluation cost of one canonical execution: every
+        expert over its capacity bucket (the grouped GEMM's real row
+        count, padding included)."""
+        return self.cfg.num_experts * sparse_capacity(self.cfg, batch)
 
     def _draw_attack(self, atk: AttackConfig, batch: int, round_id: int,
                      sub: Optional[int] = None):
@@ -422,6 +559,15 @@ class BMoESystem:
                     version)
         self._bank_version = max(self._bank_version, version)
 
+    def _bank_root(self) -> str:
+        """One digest binding the current bank's per-expert manifest
+        roots: the storage commitment a round's block records."""
+        roots = "".join(
+            self.expert_store.manifest(self._object_id(e),
+                                       self._bank_version).root
+            for e in range(self.cfg.num_experts))
+        return digest_bytes(roots.encode())
+
     def _fetch_expert_manifest(self, manifest_cid: str):
         """Auditor-side fetch: the exact expert version a round committed
         against, named by its retained manifest CID.  Every chunk is
@@ -488,6 +634,71 @@ class BMoESystem:
             "verify_evals_per_round": verify / r,
             "escalate_evals_per_round": escalate / r,
             "total_verification_per_round": (verify + escalate) / r,
+        }
+
+    @property
+    def _timers(self) -> Dict[str, float]:
+        """The phase seconds by the JAX package's keys, read from the obs
+        registry (written only through spans)."""
+        m = self.obs.metrics
+        return {k: float(m.value(n)) for k, n in self._TIMER_METRICS.items()}
+
+    def obs_report(self, expert_bytes: Optional[int] = None,
+                   result_bytes: Optional[int] = None,
+                   rounds: Optional[int] = None) -> Dict:
+        """Every layer's numbers from the one metrics registry: the flat
+        snapshot, the phase timers, ``storage_report()``,
+        ``verification_report()`` and, given ``rounds``,
+        ``latency_report()``'s section."""
+        out: Dict = {"metrics": self.obs.metrics.snapshot(),
+                     "timers": dict(self._timers),
+                     "storage": self.storage_report(),
+                     "verification": self.verification_report()}
+        if rounds is not None:
+            out["latency"] = self._latency_section(
+                expert_bytes or 0, result_bytes or 0, rounds)
+        return out
+
+    def latency_report(self, expert_bytes: int, result_bytes: int,
+                       rounds: int) -> Dict[str, float]:
+        """Per-round latency decomposition (paper Fig. 4b is relative):
+        measured compute/consensus/chain wall-clock + modeled comms."""
+        return self.obs_report(expert_bytes, result_bytes,
+                               rounds)["latency"]
+
+    def _latency_section(self, expert_bytes: int, result_bytes: int,
+                         rounds: int) -> Dict[str, float]:
+        cfg = self.cfg
+        bw = cfg.bandwidth_bytes_per_s
+        if cfg.framework == "bmoe":
+            # every edge downloads all K activated experts + uploads K
+            # results
+            t_comm = (cfg.num_edges * cfg.top_k * expert_bytes
+                      + cfg.num_edges * cfg.top_k * result_bytes) / bw
+        elif cfg.framework == "optimistic":
+            tc = self.trust_cfg
+            # executor: K downloads + K uploads + a 32-byte root; auditors:
+            # audit_rate of the N experts re-fetched plus sampled chunks
+            audit_bytes = tc.audit_rate * (
+                cfg.num_experts * expert_bytes + result_bytes)
+            t_comm = (cfg.top_k * expert_bytes + cfg.top_k * result_bytes
+                      + 32 + audit_bytes) / bw
+        else:
+            t_comm = cfg.top_k * result_bytes / bw
+        r = max(rounds, 1)
+        timers = self._timers
+        return {
+            "compute_s": timers["compute"] / r,
+            "comm_s": t_comm,
+            "consensus_s": timers["consensus"] / r,
+            "chain_s": timers["chain"] / r,
+            # off the critical path, reported apart from total_s
+            "audit_offpath_s": timers["audit"] / r,
+            # host wall-clock of the storage simulation; the transfer it
+            # stands for is the modeled comm_s term
+            "storage_s": timers["storage"] / r,
+            "total_s": timers["compute"] / r + t_comm
+                       + timers["consensus"] / r + timers["chain"] / r,
         }
 
     # ------------------------------------------- optimistic verification
@@ -827,8 +1038,9 @@ class BMoESystem:
         court-resolve what they raise, close every open DA challenge, and
         advance both clocks past the last open window so every committed
         round reaches a terminal phase.  The training domain holds no
-        rounds in the port yet (``train_round`` raises), so it has nothing
-        to drain; its clock is advanced as in the JAX package."""
+        rounds in the port yet (``train_round`` under ``optimistic`` raises),
+        so it has nothing to drain; its clock is advanced as in the JAX
+        package."""
         out: Dict = {}
         if self.protocol is None:
             return out
@@ -987,6 +1199,47 @@ def _moe_forward(gate, experts, x, mask_e, noise, noise_std, cfg,
     y = (yk * wk[:, None]).reshape(B, cfg.top_k, -1).sum(dim=1)
     activation = (weights > 0).sum(dim=0).float()
     return y, weights, activation, support, flags, logits, dropped
+
+
+def _loss_and_grads(gate, experts, x, y, mask_e, noise, noise_std,
+                    gate_bias, active, *, cfg, executor=0):
+    """The training step's loss and gradients: the shared forward,
+    log-softmax, the mean NLL of the labels ``y`` (B,), and the gradient
+    over the gate and the bank by ``torch.autograd`` (the expert MLP's
+    backward through ``ops.moe_gemm``, the vote's to the elected copies).
+    Returns (gate grads, expert grads, metrics) with loss, activation,
+    support, flags and dropped on the device."""
+    params = {("gate", k): v.detach().requires_grad_()
+              for k, v in gate.items()}
+    params.update({("experts", k): v.detach().requires_grad_()
+                   for k, v in experts.items()})
+    with torch.enable_grad():
+        gp = {k: v for (tree, k), v in params.items() if tree == "gate"}
+        ep = {k: v for (tree, k), v in params.items() if tree == "experts"}
+        out, _, activation, support, flags, _, dropped = _moe_forward(
+            gp, ep, x, mask_e, noise, noise_std, cfg, gate_bias, active,
+            executor)
+        logp = torch.log_softmax(out, dim=-1)
+        loss = -logp.gather(1, y[:, None]).mean()
+        grads = dict(zip(params, torch.autograd.grad(loss,
+                                                     list(params.values()))))
+    metrics = {"loss": loss.detach(), "activation": activation,
+               "support": support, "flags": flags, "dropped": dropped}
+    return ({k: grads[("gate", k)] for k in gate},
+            {k: grads[("experts", k)] for k in experts}, metrics)
+
+
+def _train_step(gate, experts, x, y, mask_e, noise, noise_std, gate_bias,
+                active, *, cfg, executor=0):
+    """One SGD step (the counterpart of JAX's ``_train_step``):
+    ``_loss_and_grads``, then ``p - lr * g``.  The attack mask and noise
+    come in as tensors.  Returns (gate, experts, metrics)."""
+    g_gate, g_exp, metrics = _loss_and_grads(
+        gate, experts, x, y, mask_e, noise, noise_std, gate_bias, active,
+        cfg=cfg, executor=executor)
+    return ({k: v.detach() - cfg.lr * g_gate[k] for k, v in gate.items()},
+            {k: v.detach() - cfg.lr * g_exp[k] for k, v in experts.items()},
+            metrics)
 
 
 def _infer_step(gate, experts, x, mask_e, noise, noise_std, gate_bias,

@@ -73,15 +73,41 @@ def mlp_expert_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
     return h @ params["w2"] + params["b2"]
 
 
+class _GroupedMLP(torch.autograd.Function):
+    """The grouped expert MLP with the backward of JAX's ``custom_vjp``
+    (``repro.core.experts._mlp_grouped_bwd``): its four products are
+    ``ops.moe_gemm`` launches on contiguous transposed copies (the kernel
+    takes contiguous operands), the bias gradients plain sums over C."""
+
+    @staticmethod
+    def forward(ctx, w1, b1, w2, b2, buf):
+        h = torch.relu(kops.moe_gemm(buf, w1) + b1[:, None, :])
+        ctx.save_for_backward(w1, w2, buf)
+        ctx.h = h
+        return kops.moe_gemm(h, w2) + b2[:, None, :]
+
+    @staticmethod
+    def backward(ctx, g):
+        w1, w2, buf = ctx.saved_tensors
+        h, g = ctx.h, g.contiguous()
+        dw2 = kops.moe_gemm(h.transpose(1, 2).contiguous(), g)
+        dh = kops.moe_gemm(g, w2.transpose(1, 2).contiguous()) * (h > 0)
+        dw1 = kops.moe_gemm(buf.transpose(1, 2).contiguous(), dh)
+        # buf comes from the data on the B-MoE step: no product for it
+        dbuf = (kops.moe_gemm(dh, w1.transpose(1, 2).contiguous())
+                if ctx.needs_input_grad[4] else None)
+        return dw1, dh.sum(dim=1), dw2, g.sum(dim=1), dbuf
+
+
 def mlp_expert_apply_grouped(params: Params,
                              buf: torch.Tensor) -> torch.Tensor:
     """buf: (N, C, d) capacity buckets -> (N, C, out): every expert's
     2-layer MLP on its own bucket through the grouped GEMM (two
-    ``ops.moe_gemm`` launches on the card).  The bias add and ReLU stay
-    outside the kernel, as in the JAX package.  Forward only."""
-    h = torch.relu(kops.moe_gemm(buf, params["w1"])
-                   + params["b1"][:, None, :])
-    return kops.moe_gemm(h, params["w2"]) + params["b2"][:, None, :]
+    ``ops.moe_gemm`` launches on the card; three more in the backward,
+    four where buf needs a gradient).  The bias add and ReLU stay outside
+    the kernel, as in the JAX package."""
+    return _GroupedMLP.apply(params["w1"], params["b1"], params["w2"],
+                             params["b2"], buf)
 
 
 def sparse_gate_weights(logits: torch.Tensor, k: int):

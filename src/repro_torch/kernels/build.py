@@ -106,7 +106,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = [P, P, P, I, I, I, I, P]
         fn.restype = I
     fn = lib.redundancy_vote_masked_f32
-    fn.argtypes = [P, P, F, I, I, I, P, P, P, P]
+    fn.argtypes = [P, P, F, I, I, I, P, P, P, P, P]
+    fn.restype = I
+    fn = lib.vote_launch_floor
+    fn.argtypes = [I, I, P]
     fn.restype = I
     fn = lib.audit_mlp_f32
     fn.argtypes = [P] * 7 + [I] * 6 + [P]

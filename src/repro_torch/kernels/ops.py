@@ -58,17 +58,42 @@ def moe_gemm(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return ref.moe_gemm_ref(buf, w)
 
 
+class _Vote(torch.autograd.Function):
+    """The vote with the gradient of JAX's ``take_along_axis`` in
+    ``redundancy_vote_masked_ref``: the cotangent of trusted[e] lands on
+    pub[e, winner[e]], zeros elsewhere; support and flags carry none."""
+
+    @staticmethod
+    def forward(ctx, pub, active, atol):
+        route = kernel_route(pub)
+        with annotate(f"redundancy_vote[{route}]"):
+            if route == "cuda":
+                trusted, support, flags, winner = _rv.redundancy_vote_masked(
+                    pub, active, atol)
+            else:
+                trusted, support, flags, winner = \
+                    ref.redundancy_vote_winner_ref(pub, active, atol)
+        ctx.mark_non_differentiable(support, flags)
+        ctx.winner, ctx.pub_shape = winner, pub.shape
+        return trusted, support, flags
+
+    @staticmethod
+    def backward(ctx, g_trusted, _g_support, _g_flags):
+        winner = ctx.winner.long()
+        grad = g_trusted.new_zeros(ctx.pub_shape)
+        grad[torch.arange(len(winner), device=winner.device), winner] = \
+            g_trusted
+        return grad, None, None
+
+
 def redundancy_vote_masked(pub: torch.Tensor, active: torch.Tensor,
                            atol: float = 0.0):
     """Majority vote over M published copies restricted to the ``active``
     electorate (paper Step 3, §VI-D).  pub (E, M, T) -> (trusted (E, T),
-    support (E,) int32, flags (E, M) int32)."""
-    route = kernel_route(pub)
-    with annotate(f"redundancy_vote[{route}]"):
-        if route == "cuda":
-            return _rv.redundancy_vote_masked(pub, active, atol)
-        _rv.check_operands(pub, active)
-        return ref.redundancy_vote_masked_ref(pub, active, atol)
+    support (E,) int32, flags (E, M) int32).  Differentiable in pub:
+    trusted's gradient goes to the elected copies."""
+    _rv.check_operands(pub, active)
+    return _Vote.apply(pub, active, atol)
 
 
 def audit_mlp(params: Dict[str, torch.Tensor], x: torch.Tensor,

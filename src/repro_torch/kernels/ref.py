@@ -44,12 +44,14 @@ def redundancy_vote_ref(pub: torch.Tensor, atol: float = 0.0):
     return trusted.reshape((E,) + pub.shape[2:]), support
 
 
-def redundancy_vote_masked_ref(pub: torch.Tensor, active: torch.Tensor,
+def redundancy_vote_winner_ref(pub: torch.Tensor, active: torch.Tensor,
                                atol: float = 0.0):
     """Vote restricted to ``active`` copies (reputation exclusion,
     paper §VI-D): excluded edges neither count toward majorities nor can
     be elected.  active: (M,) {0,1}.  Returns (trusted (E, *tail),
-    support (E,) int32, flags (E, M) int32)."""
+    support (E,) int32, flags (E, M) int32, winner (E,) int32): winner[e]
+    is the elected copy, the first max of the masked score as
+    ``jnp.argmax`` takes it, and trusted[e] is pub[e, winner[e]]."""
     E, M = pub.shape[:2]
     flat = pub.reshape(E, M, -1)
     T = flat.shape[-1]
@@ -63,7 +65,16 @@ def redundancy_vote_masked_ref(pub: torch.Tensor, active: torch.Tensor,
     support = support_per.gather(1, winner[:, None])[:, 0]
     flags = full_agree.gather(
         1, winner[:, None, None].expand(-1, 1, M))[:, 0] * a[None, :]
-    return trusted.reshape((E,) + pub.shape[2:]), support, flags
+    return (trusted.reshape((E,) + pub.shape[2:]), support, flags,
+            winner.to(torch.int32))
+
+
+def redundancy_vote_masked_ref(pub: torch.Tensor, active: torch.Tensor,
+                               atol: float = 0.0):
+    """``redundancy_vote_winner_ref`` without the winner: (trusted (E,
+    *tail), support (E,) int32, flags (E, M) int32), the counterpart of
+    JAX's ``redundancy_vote_masked_ref``."""
+    return redundancy_vote_winner_ref(pub, active, atol)[:3]
 
 
 # ------------------------------------------------- grouped expert GEMM

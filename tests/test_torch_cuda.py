@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from repro_torch.core.attacks import AttackConfig
-from repro_torch.core.bmoe import BMoEConfig, BMoESystem
+from repro_torch.core.bmoe import BMoEConfig, BMoESystem, _loss_and_grads
 from repro_torch.configs import get_config
 from repro_torch.kernels import audit_mlp as am
 from repro_torch.kernels import flash_attention as fa
@@ -47,7 +47,10 @@ def _randn(seed, *shape):
     # ragged against the 64 x 64 and 32 x 16 tiles and the K steps
     (3, 129, 17, 33, torch.float32), (1, 1, 8, 1, torch.float32),
     (2, 65, 260, 16, torch.float32), (3, 129, 17, 33, torch.bfloat16),
-    (10, 376, 256, 10, torch.bfloat16), (1, 1, 8, 1, torch.bfloat16)])
+    (10, 376, 256, 10, torch.bfloat16), (1, 1, 8, 1, torch.bfloat16),
+    # the training round's backward: dw2 = h^T g, dh = g w2^T, dw1 = buf^T dh
+    (10, 256, 376, 10, torch.float32), (10, 376, 10, 256, torch.float32),
+    (10, 784, 376, 256, torch.float32)])
 def test_moe_gemm_kernel_matches_plain(cuda, E, C, d, f, dtype):
     buf = _randn(E + C, E, C, d).to(cuda, dtype)
     w = _randn(d + f, E, d, f).to(cuda, dtype)
@@ -78,16 +81,38 @@ def _pub(seed, E, M, T, n_bad, specials=False):
     # past one 32-bit disagreement word per copy: minorities, a majority,
     # barred edges, NaN and +-inf
     (3, 33, 300, 16, (), True), (4, 64, 500, 31, (5, 40), True),
-    (3, 100, 257, 51, (), True), (2, 100, 64, 30, (0, 99), False)])
+    (3, 100, 257, 51, (), True), (2, 100, 64, 30, (0, 99), False),
+    # T = 1, and T below, on and across the edges of the 8 blocks' slices
+    # (multiples of 32 elements): 31, 32, 33, 255, 256, 257, 4097
+    (2, 10, 1, 3, (), False), (3, 10, 31, 4, (1,), True),
+    (2, 10, 32, 3, (), False), (2, 10, 33, 6, (9,), False),
+    (3, 10, 255, 3, (), True), (2, 10, 256, 4, (), False),
+    (2, 10, 257, 3, (0,), False), (2, 10, 4097, 3, (), False),
+    (4, 1, 100, 0, (), False), (2, 1, 5, 0, (0,), False),
+    (3, 32, 1000, 16, (3, 31), True),
+    # the widest electorate one block's shared memory holds
+    (3, 1351, 40, 600, (0, 700, 1350), True),
+    (2, 1351, 3, 700, (), False)])
 def test_vote_kernel_matches_plain(cuda, E, M, T, n_bad, inactive, specials):
+    """Bitwise against the plain version, the elected copy included."""
     pub = _pub(E + T, E, M, T, n_bad, specials).to(cuda)
     active = torch.ones(M, device=cuda)
     active[list(inactive)] = 0.0
     got = rv.redundancy_vote_masked(pub, active)
-    want = ref.redundancy_vote_masked_ref(pub, active)
+    want = ref.redundancy_vote_winner_ref(pub, active)
     torch.cuda.synchronize()
     assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
     assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert torch.equal(got[3], want[3])
+
+
+def test_vote_launch_floor_launches_no_vote(cuda):
+    pub = _pub(0, 10, 10, 3760, 3).to(cuda)
+    ops.reset_launch_counts()
+    rv.launch_floor(pub)
+    rv.launch_floor(_pub(1, 1, 1351, 8, 0).to(cuda))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["redundancy_vote"] == 0
 
 
 def test_evaluate_launches_the_kernels(cuda):
@@ -99,6 +124,88 @@ def test_evaluate_launches_the_kernels(cuda):
     assert ops.launch_counts() == {"moe_gemm": 2, "redundancy_vote": 1,
                                    "audit_mlp": 0, "flash_attention": 0,
                                    "rglru_scan": 0, "ssd_scan": 0}
+
+
+def _train_system(framework, device, attack=None, **kw):
+    atk = attack or AttackConfig(malicious_edges=(7, 8, 9), attack_prob=1.0,
+                                 noise_std=5.0)
+    return BMoESystem(BMoEConfig(framework=framework, attack=atk, **kw),
+                      device=device)
+
+
+def _task(seed, n=1000):
+    rng = np.random.default_rng(seed)
+    return (rng.random((n, 784), dtype=np.float32),
+            rng.integers(0, 10, n))
+
+
+def _round_on(device, framework, x, y):
+    """autograd's gradients of the round's loss, then the round itself:
+    (gradients, the round's metrics, its launches, the parameters after
+    it), all on the host."""
+    sys_ = _train_system(framework, device)
+    atk = sys_.cfg.attack
+    mask_e, noise = sys_._draw_attack(atk, len(x), sys_.round)
+    gate_bias, active = sys_._controls()
+    g_gate, g_exp, _ = _loss_and_grads(
+        sys_.gate, sys_.experts, torch.from_numpy(x).to(device),
+        torch.from_numpy(y).to(device), mask_e.to(device), noise.to(device),
+        atk.noise_std, gate_bias, active, cfg=sys_.cfg)
+    grads = {**g_exp, **{"gate_" + k: v for k, v in g_gate.items()}}
+    ops.reset_launch_counts()
+    m = sys_.train_round(x, y)
+    counts = ops.launch_counts()
+    params = {**sys_.experts, **{"gate_" + k: v for k, v in sys_.gate.items()}}
+    return ({k: v.cpu() for k, v in grads.items()}, m, counts,
+            {k: v.cpu() for k, v in params.items()})
+
+
+@pytest.mark.parametrize("framework", ["bmoe", "traditional"])
+def test_training_round_on_the_card_matches_the_cpu(cuda, framework):
+    """One full-width training round (N=10, M=10, K=3, 784->256->10, a
+    task of 1000, capacity 376, 3 of 10 colluding) on the card against
+    the same round on the CPU: autograd's gradients at rtol 1e-4, the
+    round's support, flags and activation equal, its parameters within
+    1e-5; 5 moe_gemm launches, and 1 vote under bmoe."""
+    x, y = _task(0)
+    g_c, m_c, counts_c, p_c = _round_on("cpu", framework, x, y)
+    g_g, m_g, counts_g, p_g = _round_on(cuda, framework, x, y)
+    assert counts_c["moe_gemm"] == 0
+    assert counts_g == {"moe_gemm": 5,
+                        "redundancy_vote": int(framework == "bmoe"),
+                        "audit_mlp": 0, "flash_attention": 0,
+                        "rglru_scan": 0, "ssd_scan": 0}
+    for k in ("activation", "support", "flags", "dropped"):
+        np.testing.assert_array_equal(m_g[k], m_c[k], err_msg=k)
+    np.testing.assert_allclose(m_g["loss"], m_c["loss"], rtol=1e-5)
+    for k in g_c:
+        torch.testing.assert_close(g_g[k], g_c[k], rtol=1e-4, atol=1e-6,
+                                   msg=k)
+        torch.testing.assert_close(p_g[k], p_c[k], rtol=1e-5, atol=1e-5,
+                                   msg=k)
+
+
+def test_training_is_bitwise_repeatable_and_cache_blind(cuda, monkeypatch):
+    """Under torch.use_deterministic_algorithms(True): two systems from
+    seed 0 after 3 rounds each hold the same bits, and so do edge cache
+    on and off."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = []
+        for cache in ("on", "on", "off"):
+            sys_ = _train_system("bmoe", cuda, edge_cache=cache)
+            for r in range(3):
+                x, y = _task(10 + r)
+                sys_.train_round(x, y)
+            runs.append({**sys_.experts,
+                         **{"gate_" + k: v for k, v in sys_.gate.items()}})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for other in runs[1:]:
+        for k, v in runs[0].items():
+            assert torch.equal(v.view(torch.int32),
+                               other[k].view(torch.int32)), k
 
 
 def _bank(seed, E, d, h, o, device):
