@@ -25,7 +25,19 @@ capacity 376, edge cache on):
   traditional loses more than 0.1); poisoned uploads outvoted; two runs
   and edge cache on/off bitwise equal; one round against the CPU; a
   profile of a warm round.  A round launches moe_gemm 5 times (2 forward,
-  3 backward) and, under bmoe, the vote once.
+  3 backward) and, under bmoe, the vote once;
+- optimistic training and the CNN experts (path G): G1, three edges that
+  always cheat, slashed and excluded within 20 rounds of 1000, one
+  rollback per stake event, accuracy after 12 rounds within 0.02 of a
+  clean twin; G2, a fraud convicted after a descendant committed, the
+  chain replayed to the clean twin's bits, pipelined equal to
+  synchronous and batched equal to eager; G3, a withheld chunk caught by
+  the training rounds' DA challenges (one da_slash block); G4, the
+  CIFAR-10 CNN bank under bmoe and traditional (card against CPU,
+  repeatable, one dense-dispatch round's vote against its plain
+  version).  Launches are held against the run's own records: 5
+  moe_gemm a round and a replayed round, one audit_mlp a commitment and
+  a counted recompute call, one vote a court escalation.
 
 Each path's launch counts are set to 0 just before it and read just
 after it.
@@ -56,6 +68,7 @@ import shutil
 import subprocess
 import sys
 import time
+from typing import Optional
 
 FP32_PEAK = 67e12        # H100 SXM, fp32 outside the tensor cores
 TF32X3_PEAK = 495e12 / 3  # dense TF32 tensor cores, 3 products per fp32 one
@@ -220,7 +233,8 @@ def vote_cases(torch, rv, ref):
     """The B-MoE path's vote (returned first) and the court's two-word
     shape (returned second), timed; then a majority, barred edges, NaN
     and +-inf, one word, T = 1, T across the blocks' slice edges, and the
-    widest electorate one block's shared memory holds, untimed."""
+    widest electorate one block's shared memory holds, untimed; then the
+    dense-dispatch shape (10, 10, 10000), timed (returned third)."""
     path = check_vote(torch, rv, ref, 6, "path", 10, 10, 3760, n_bad=3)
     court = check_vote(torch, rv, ref, 26, "two_words", 3, 40, 300,
                        n_bad=19, inactive=(0, 39), specials=True)
@@ -237,7 +251,10 @@ def vote_cases(torch, rv, ref):
                inactive=(2,), specials=True, timed=False)
     check_vote(torch, rv, ref, 34, "m1351", 3, 1351, 40, n_bad=600,
                inactive=(0, 700, 1350), specials=True, timed=False)
-    return path, court
+    # a dense-dispatch bmoe batch of 1000: every expert's whole batch
+    dense = check_vote(torch, rv, ref, 38, "dense_path", 10, 10, 10000,
+                       n_bad=3)
+    return path, court, dense
 
 
 def _audit_bank(torch, g, E, d, h, o):
@@ -296,8 +313,9 @@ def check_audit_mlp(torch, am, ref, seed: int, name: str, E: int, S: int,
 
 def audit_cases(torch, am, ref):
     """The commitment build (returned first), a merged drain over a stacked
-    30-expert bank, a ragged shape and the widest hidden layer the wrapper
-    takes, then the invariance phase."""
+    30-expert bank, a ragged shape, the widest hidden layer the wrapper
+    takes and a training drain's merged shape, then the invariance
+    phase."""
     audit = [check_audit_mlp(torch, am, ref, 12, "commit", 10, 40, 94,
                              784, 256, 10),
              check_audit_mlp(torch, am, ref, 13, "merged", 30, 8, 94, 784,
@@ -305,7 +323,11 @@ def audit_cases(torch, am, ref):
              check_audit_mlp(torch, am, ref, 14, "ragged", 3, 5, 93, 50, 70,
                              3),
              check_audit_mlp(torch, am, ref, 28, "h3072", 4, 6, 94, 784,
-                             3072, 10)]
+                             3072, 10),
+             # a training drain: 3 rounds' banks stacked (window 2), the
+             # sampled leaves bucketed to 32
+             check_audit_mlp(torch, am, ref, 39, "train_merged", 30, 32, 94,
+                             784, 256, 10)]
     check_audit_invariance(torch, am)
     return audit
 
@@ -1244,10 +1266,13 @@ def train_cpu_vs_card(torch, np, ops, xtr, ytr):
             f"{params} {equal}")
 
 
-def train_profile(torch, np, sys_, xtr, ytr, framework):
+def train_profile(torch, np, sys_, xtr, ytr, framework, moe_gemm: int = 5,
+                  votes: Optional[int] = None):
     """Median host wall of 5 warm rounds, then one more round profiled:
     device busy, idle share, and the device time of the forward's
-    moe_gemm launches, the backward's and the vote."""
+    moe_gemm launches, the backward's and the vote.  The profiled round
+    must hold ``moe_gemm`` moe_gemm launches and ``votes`` votes (by
+    default one under bmoe)."""
     rng = np.random.default_rng(5)
     walls = []
     for _ in range(5):
@@ -1275,7 +1300,9 @@ def train_profile(torch, np, sys_, xtr, ytr, framework):
            "top": sorted(({"name": k, "device_us": v} for k, v in
                           top.items()), key=lambda r: -r["device_us"])[:8]}
     emit(row)
-    require(len(gemm) == 5 and len(vote) == int(framework == "bmoe"),
+    if votes is None:
+        votes = int(framework == "bmoe")
+    require(len(gemm) == moe_gemm and len(vote) == votes,
             f"profiled {framework} round: {len(gemm)} moe_gemm, "
             f"{len(vote)} vote launches")
     return row
@@ -1294,6 +1321,368 @@ def training_path(torch, np, ops):
     profiles = {fw: train_profile(torch, np, trained[fw][0], xtr, ytr, fw)
                 for fw in ("traditional", "bmoe")}
     return {fw: trained[fw][1] for fw in trained}, profiles
+
+
+# ------------------------- path G: optimistic training, DA, CNN experts
+REP_G = dict(init=0.5, gain=0.01, slash=0.4, exclusion_threshold=0.2)
+
+
+def _optimistic_trainer(attack, trust, device="cuda", **kw):
+    from repro_torch.core.bmoe import BMoEConfig, BMoESystem
+    from repro_torch.core.reputation import ReputationConfig
+    return BMoESystem(BMoEConfig(framework="optimistic", attack=attack,
+                                 reputation=ReputationConfig(**REP_G),
+                                 trust=trust, **kw), device=device)
+
+
+def _train_launches_expected(sys_, rounds: int):
+    """Launches an optimistic training run's own records call for: 5
+    moe_gemm per training round and per replayed round; one audit_mlp per
+    committed round plus every recompute call the closures counted; one
+    vote per court escalation."""
+    p, m = sys_.protocol, sys_.obs.metrics
+    calls = m.snapshot("bmoe.audit_calls")
+    replayed = int(m.value("bmoe.replayed_rounds"))
+    return ({"moe_gemm": 5 * (rounds + replayed),
+             "redundancy_vote": p.stats["escalations"],
+             "audit_mlp": p.stats["committed"] + int(sum(calls.values())),
+             "flash_attention": 0, "rglru_scan": 0, "ssd_scan": 0},
+            calls, replayed)
+
+
+def _counted_rounds(ops, sys_, tasks, xtr, ytr, acc, after=None):
+    """``train_round`` on each task, adding each round's launches to
+    ``acc``; ``after(r)`` runs between rounds, uncounted."""
+    for r, idx in enumerate(tasks):
+        c0 = ops.launch_counts()
+        sys_.train_round(xtr[idx], ytr[idx])
+        c1 = ops.launch_counts()
+        for k in c1:
+            acc[k] = acc.get(k, 0) + c1[k] - c0[k]
+        if after is not None:
+            after(r)
+    return acc
+
+
+def optimistic_training_g1(torch, np, ops, xtr, ytr, xte, yte):
+    """G1: edges 7, 8, 9 cheat whenever they execute (probability 1,
+    sigma 5), audit_rate 0.2, window 2: within 20 rounds of 1000 all
+    three are slashed and excluded and no honest edge is, one rollback
+    per stake event, and after 12 rounds the accuracy is within 0.02 of
+    a clean twin's (tests/test_trust.py:262, :310)."""
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.trust.protocol import TrustConfig
+    atk = AttackConfig(malicious_edges=(7, 8, 9), attack_prob=1.0,
+                       noise_std=5.0)
+    trust = TrustConfig(audit_rate=0.2, challenge_window=2)
+    sys_a = _optimistic_trainer(atk, trust)
+    clean = _optimistic_trainer(AttackConfig(), trust)
+    rng = np.random.default_rng(0)
+    tasks = [rng.integers(0, len(xtr), 1000) for _ in range(20)]
+    # the clean twin's first 12 rounds, evaluated (uncounted)
+    _counted_rounds(ops, clean, tasks[:12], xtr, ytr, {})
+    acc_c = clean.evaluate(xte, yte, attack=AttackConfig())
+    evals = {}
+
+    def after(r):
+        if r == 11:          # the attacked run at 12 rounds (uncounted)
+            evals["acc"] = sys_a.evaluate(xte, yte, attack=AttackConfig())
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    acc = {}
+    t0 = time.perf_counter()
+    _counted_rounds(ops, sys_a, tasks, xtr, ytr, acc, after)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    acc_a = evals["acc"]
+    p = sys_a.protocol
+    slashed = sorted({ev.edge for ev in p.stakes.events})
+    excluded = sys_a.reputation.excluded.tolist()
+    want, calls, replayed = _train_launches_expected(sys_a, 20)
+    last = max(ev.round_id for ev in p.stakes.events) if p.stakes.events \
+        else None
+    row = {"phase": "optimistic_training", "path": "G1", "rounds": 20,
+           "task": 1000, "launches": acc, "launches_expected": want,
+           "audit_calls": calls, "replayed_rounds": replayed,
+           "protocol": dict(p.stats), "verifiers": dict(p.verifiers.stats),
+           "executors": [p.rounds[r].executor for r in sorted(p.rounds)],
+           "phases": [p.rounds[r].phase.value for r in sorted(p.rounds)],
+           "stake_events": [(e.round_id, e.edge) for e in p.stakes.events],
+           "slashed": slashed, "excluded": excluded,
+           "rollback_chains": [b.payload["chain"]
+                               for b in sys_a.ledger.rollbacks()],
+           "accuracy_after_12": acc_a, "clean_twin_accuracy_after_12": acc_c,
+           "train_s_with_one_evaluate": train_s,
+           "verification": sys_a.verification_report(),
+           "chain_verifies": sys_a.ledger.verify_chain()}
+    emit(row)
+    require(slashed == [7, 8, 9], f"G1 slashed {slashed}")
+    require(all(excluded[7:]) and not any(excluded[:7]),
+            f"G1 excluded {excluded}")
+    require(p.stats["rolled_back"] == len(p.stakes.events),
+            f"G1 rolled back {p.stats['rolled_back']}, stake events "
+            f"{len(p.stakes.events)}")
+    require(last is not None and last < 16, f"G1 last slash at {last}")
+    require(abs(acc_a - acc_c) < 0.02, f"G1 accuracy {acc_a} against the "
+                                       f"clean twin's {acc_c}")
+    require(acc == want, f"G1 launched {acc}, the run's records call for "
+                         f"{want}")
+    require(all(acc[k] > 0 for k in ("moe_gemm", "audit_mlp",
+                                     "redundancy_vote")),
+            f"G1 left a kernel of its path unlaunched: {acc}")
+    require(sys_a.ledger.verify_chain(), "G1 ledger")
+    return acc, clean, tasks
+
+
+def optimistic_training_g2(torch, np, xtr, ytr):
+    """G2 (tests/test_pipeline.py:38, :117, :148 at full width): edge 2's
+    fraud, window 3, is convicted after round 3 committed on it and the
+    chain [2, 3] is replayed to the clean twin's bits; pipelined equals
+    synchronous and batched equals eager by digest."""
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.core.ledger import digest_tree
+    from repro_torch.trust.protocol import RoundPhase, TrustConfig
+    rng = np.random.default_rng(1)
+    tasks = [rng.integers(0, len(xtr), 1000) for _ in range(8)]
+
+    def run(atk, trust, rounds, flush=True):
+        s = _optimistic_trainer(atk, trust)
+        for idx in tasks[:rounds]:
+            s.train_round(xtr[idx], ytr[idx])
+        if flush:
+            s.flush_trust()
+        return s
+
+    t0 = time.perf_counter()
+    late = TrustConfig(audit_rate=1.0, num_verifiers=1, challenge_window=3)
+    s = run(AttackConfig(malicious_edges=(2,), attack_prob=1.0,
+                         noise_std=5.0), late, 4, flush=False)
+    twin = run(AttackConfig(), late, 4, flush=False)
+    chain = [b.payload["chain"] for b in s.ledger.rollbacks()]
+    chain_ok = (digest_tree(s.experts) == digest_tree(twin.experts)
+                and digest_tree(s.gate) == digest_tree(twin.gate))
+    one = AttackConfig(malicious_edges=(3,), attack_prob=1.0, noise_std=5.0)
+    pq = [run(one, TrustConfig(audit_rate=0.5, challenge_window=2,
+                               scheduling=sched), 6)
+          for sched in ("pipelined", "synchronous")]
+    three = AttackConfig(malicious_edges=(7, 8, 9), attack_prob=1.0,
+                         noise_std=5.0)
+    ab = [run(three, TrustConfig(audit_rate=0.3, challenge_window=2,
+                                 audit_backend=backend), 8)
+          for backend in ("batched", "eager")]
+    torch.cuda.synchronize()
+
+    def same(a, b):
+        return (digest_tree(a.experts) == digest_tree(b.experts)
+                and digest_tree(a.gate) == digest_tree(b.gate))
+
+    row = {"phase": "optimistic_training", "path": "G2", "task": 1000,
+           "late_fraud_chain": chain,
+           "late_fraud_phases": [s.protocol.rounds[r].phase.value
+                                 for r in range(4)],
+           "late_fraud_stake_events": [(e.round_id, e.edge)
+                                       for e in s.protocol.stakes.events],
+           "replay_bitwise_clean_twin": chain_ok,
+           "pipelined_vs_synchronous_bitwise": same(*pq),
+           "invalidated": [x.protocol.stats["invalidated"] for x in pq],
+           "batched_vs_eager_bitwise": same(*ab),
+           "rolled_back": [x.protocol.stats["rolled_back"] for x in ab],
+           "eager_calls": ab[1].obs.metrics.snapshot("bmoe.audit_calls"),
+           "honest_rounds_challenged": sum(
+               1 for x in (twin,) for st in x.protocol.rounds.values()
+               if st.proofs or st.verdict is not None),
+           "wall_s": time.perf_counter() - t0}
+    emit(row)
+    require(chain == [[2, 3]], f"G2 rollback chains {chain}")
+    require(s.protocol.rounds[3].phase is RoundPhase.INVALIDATED,
+            "G2 round 3 not invalidated")
+    require([(e.round_id, e.edge) for e in s.protocol.stakes.events]
+            == [(2, 2)], "G2 stake events")
+    require(chain_ok, "G2 replayed chain differs from the clean twin")
+    require(row["honest_rounds_challenged"] == 0,
+            "G2 an honest round was challenged")
+    require(row["pipelined_vs_synchronous_bitwise"],
+            "G2 pipelined and synchronous differ")
+    require(pq[0].protocol.stats["invalidated"] > 0
+            and pq[1].protocol.stats["invalidated"] == 0,
+            f"G2 invalidated {row['invalidated']}")
+    require(row["batched_vs_eager_bitwise"], "G2 batched and eager differ")
+    require(min(row["rolled_back"]) >= 1, "G2 no rollback under 3 cheats")
+
+
+def optimistic_training_g3(torch, np, xtr, ytr):
+    """G3 (tests/test_storage_faults.py:114 at full width): a replica node
+    withholds a committed genesis chunk; the training rounds' DA beats
+    challenge it and exactly one da_slash block names the node."""
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.trust.protocol import TrustConfig
+    s = _optimistic_trainer(AttackConfig(), TrustConfig(
+        audit_rate=0.1, challenge_window=2), da_rate=1.0)
+    cid = s.expert_store.manifest("expert/0", 0).chunk_cids[0]
+    node = s.storage.replicas(cid)[0]
+    s.storage.withhold(cid, node)
+    rng = np.random.default_rng(2)
+    t0 = time.perf_counter()
+    for _ in range(4):
+        idx = rng.integers(0, len(xtr), 1000)
+        s.train_round(xtr[idx], ytr[idx])
+    s.flush_trust()
+    blocks = s.ledger.find_all(kind="da_slash")
+    row = {"phase": "optimistic_training", "path": "G3", "rounds": 4,
+           "withheld_node": node, "da": dict(s.da.stats),
+           "faults": [(f.round_id, f.object_id, f.chunk_index, f.executor,
+                       f.kind) for f in s.da.faults],
+           "da_slash_blocks": [b.payload for b in blocks],
+           "node_stake": float(s.da.stakes.stake[node]),
+           "chain_verifies": s.ledger.verify_chain(),
+           "wall_s": time.perf_counter() - t0}
+    emit(row)
+    require(len(blocks) == 1 and blocks[0].payload["node"] == node
+            and blocks[0].payload["fault"] == "withheld",
+            f"G3 da_slash blocks {row['da_slash_blocks']}")
+    require(s.da.stakes.stake[node] < s.da.stakes.initial,
+            "G3 withholding node not slashed")
+    require(s.ledger.verify_chain(), "G3 ledger")
+
+
+def _cnn_round_grads(torch, sys_, x, y, dev):
+    from repro_torch.core.bmoe import _loss_and_grads
+    atk = sys_.cfg.attack
+    mask_e, noise = sys_._draw_attack(atk, len(x), sys_.round)
+    gate_bias, active = sys_._controls()
+    g_gate, g_exp, m = _loss_and_grads(
+        sys_.gate, sys_.experts, torch.from_numpy(x).to(dev),
+        torch.from_numpy(y).to(dev), mask_e.to(dev), noise.to(dev),
+        atk.noise_std, gate_bias, active, cfg=sys_.cfg)
+    return ({k: v.cpu() for k, v in
+             {**g_exp, **{"gate_" + k: v for k, v in g_gate.items()}}.items()},
+            {k: v.cpu() for k, v in m.items()})
+
+
+def cnn_path_g4(torch, np, ops, rv, ref):
+    """G4: the paper's CIFAR-10 setting (N=10, M=10, K=3, CNN experts,
+    lr 0.1, tasks of 1000) under bmoe and traditional, 3 rounds each,
+    3 of 10 edges colluding: one vote a bmoe round and no moe_gemm;
+    a second run bitwise equal; round 0's gradients on the card at rtol
+    1e-4 of the CPU's; and one dense-dispatch bmoe round, whose vote over
+    (10, 10, 10000) copies is held bitwise against its plain version on
+    the round's own copies."""
+    from repro_torch.core import experts as ex
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.core.bmoe import BMoEConfig, BMoESystem
+    from repro_torch.data.synthetic import CIFAR10, make_image_dataset
+    xtr, ytr, _, _ = make_image_dataset(CIFAR10, n_train=3000, n_test=10,
+                                        seed=0)
+    xtr = xtr.astype(np.float32)
+    atk = AttackConfig(malicious_edges=(7, 8, 9), attack_prob=1.0,
+                       noise_std=5.0)
+    rng = np.random.default_rng(6)
+    tasks = [rng.integers(0, len(xtr), 1000) for _ in range(3)]
+
+    def system(framework, device="cuda", **kw):
+        return BMoESystem(BMoEConfig(framework=framework, attack=atk,
+                                     expert_kind="cnn", in_ch=3, lr=0.1,
+                                     **kw), device=device)
+
+    out, per_fw = {}, {}
+    for framework in ("bmoe", "traditional"):
+        x0, y0 = xtr[tasks[0]], ytr[tasks[0]]
+        g_cpu, m_cpu = _cnn_round_grads(torch, system(framework, "cpu"), x0,
+                                        y0, "cpu")
+        runs = []
+        for rep in range(2):
+            s = system(framework)
+            if rep == 0:
+                g_card, m_card = _cnn_round_grads(torch, s, x0, y0, "cuda")
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            acc = _counted_rounds(ops, s, tasks, xtr, ytr, {})
+            torch.cuda.synchronize()
+            runs.append(({**s.experts,
+                          **{"gate_" + k: v for k, v in s.gate.items()}},
+                         acc, s))
+        errs = {k: float((g_card[k] - g_cpu[k]).abs().max()) for k in g_cpu}
+        close = {k: bool(torch.allclose(g_card[k], g_cpu[k], rtol=1e-4,
+                                        atol=1e-6)) for k in g_cpu}
+        equal = {k: bool(torch.equal(m_card[k], m_cpu[k]))
+                 for k in ("activation", "support", "flags", "dropped")}
+        bitwise = all(_bitwise_equal(torch, runs[0][0][k], runs[1][0][k])
+                      for k in runs[0][0])
+        acc = runs[0][1]
+        want = {"moe_gemm": 0, "redundancy_vote": 3 * (framework == "bmoe"),
+                "audit_mlp": 0, "flash_attention": 0, "rglru_scan": 0,
+                "ssd_scan": 0}
+        row = {"phase": "cnn_training", "path": "G4", "framework": framework,
+               "rounds": 3, "task": 1000, "launches": acc,
+               "grad_max_abs_err": errs, "grad_close": close,
+               "metrics_equal": equal, "repeat_bitwise": bitwise,
+               "loss_cpu_card": [float(m_cpu["loss"]),
+                                 float(m_card["loss"])]}
+        emit(row)
+        require(all(close.values()) and all(equal.values()),
+                f"G4 {framework}: card against CPU {close} {equal}")
+        require(bitwise, f"G4 {framework}: two runs differ")
+        require(acc == want, f"G4 {framework} launched {acc}, wanted {want}")
+        out[framework] = acc
+        per_fw[framework] = runs[0][2]
+
+    # one dense-dispatch bmoe round: its vote on the round's own copies
+    s = system("bmoe", dispatch="dense")
+    x, y = xtr[tasks[1]], ytr[tasks[1]]
+    xt = torch.from_numpy(x).cuda()
+    mask_e, noise = s._draw_attack(atk, len(x), s.round)
+    gate_bias, active = s._controls()
+    bank = s._resolve_bank(xt, gate_bias)
+    with ex.cnn_numerics():
+        outs = ex.cnn_apply_all(bank, xt)                  # (N, B, C)
+    pub = (outs[:, None] + atk.noise_std * noise.cuda().movedim(0, 1)
+           * mask_e.cuda().reshape(1, -1, 1, 1)).reshape(10, 10, -1)
+    pub = pub.contiguous()
+    got = rv.redundancy_vote_masked(pub, active)
+    want_v = ref.redundancy_vote_winner_ref(pub, active)
+    ops.reset_launch_counts()
+    m = s.train_round(x, y)
+    torch.cuda.synchronize()
+    dense_counts = ops.launch_counts()
+    exact = (_bitwise_equal(torch, got[0], want_v[0])
+             and all(torch.equal(got[i], want_v[i]) for i in (1, 2, 3)))
+    row = {"phase": "cnn_training", "path": "G4", "framework": "bmoe",
+           "dispatch": "dense", "pub": list(pub.shape), "launches":
+           dense_counts, "vote_exact": exact,
+           "support": m["support"].tolist(),
+           "round_support_equals_vote": bool(np.array_equal(
+               m["support"], got[1].cpu().numpy()))}
+    emit(row)
+    require(exact, "G4 dense round's vote differs from its plain version")
+    require(row["round_support_equals_vote"],
+            "G4 dense round's support is not its vote's")
+    require(dense_counts["redundancy_vote"] == 1
+            and dense_counts["moe_gemm"] == 0,
+            f"G4 dense round launched {dense_counts}")
+    out["dense_round"] = dense_counts
+    return out, per_fw, xtr
+
+
+def optimistic_training_path(torch, np, ops, rv, ref):
+    """Path G: optimistic training (G1-G3) and the CNN experts (G4) at
+    the paper's §V widths, seed 0, nothing cut."""
+    from repro_torch.data.synthetic import FMNIST, make_image_dataset
+    xtr, ytr, xte, yte = make_image_dataset(FMNIST, n_train=10000,
+                                            n_test=2000, seed=0)
+    xtr, xte = xtr.reshape(len(xtr), -1), xte.reshape(len(xte), -1)
+    counts_g1, clean, tasks = optimistic_training_g1(torch, np, ops, xtr,
+                                                     ytr, xte, yte)
+    optimistic_training_g2(torch, np, xtr, ytr)
+    optimistic_training_g3(torch, np, xtr, ytr)
+    counts_g4, cnn_systems, cifar_x = cnn_path_g4(torch, np, ops, rv, ref)
+    # profiled warm rounds: the clean optimistic twin, and the CNN bmoe
+    prof_opt = train_profile(torch, np, clean, xtr, ytr, "optimistic",
+                             moe_gemm=5, votes=0)
+    cifar_y = np.zeros(len(cifar_x), np.int64)
+    prof_cnn = train_profile(torch, np, cnn_systems["bmoe"], cifar_x,
+                             cifar_y, "bmoe (cnn)", moe_gemm=0, votes=1)
+    return counts_g1, counts_g4, prof_opt, prof_cnn
 
 
 def profile_batch(torch, run):
@@ -1431,7 +1820,7 @@ def main() -> int:
         return 0
 
     gemm, gemm_bwd = moe_gemm_cases(torch, mg, ref)
-    vote, vote_court = vote_cases(torch, rv, ref)
+    vote, vote_court, vote_dense = vote_cases(torch, rv, ref)
 
     audit = audit_cases(torch, am, ref)
     flash = flash_cases(torch, np, fa, ref)
@@ -1476,6 +1865,9 @@ def main() -> int:
     trained, train_prof = training_path(torch, np, ops)
     counts_fb = trained["bmoe"]["launches"]
     counts_ft = trained["traditional"]["launches"]
+    # path G: optimistic training, DA in training rounds, CNN experts
+    counts_g1, counts_g4, prof_g_opt, prof_g_cnn = optimistic_training_path(
+        torch, np, ops, rv, ref)
 
     emit({"kernels": [
         {"name": "moe_gemm", "route": "cuda",
@@ -1489,16 +1881,21 @@ def main() -> int:
              "training round": trained["bmoe"]["launches_per_round"][
                  "moe_gemm"],
              "bmoe training, 30 rounds": counts_fb["moe_gemm"],
-             "traditional training, 30 rounds": counts_ft["moe_gemm"]},
+             "traditional training, 30 rounds": counts_ft["moe_gemm"],
+             "optimistic training, 20 rounds + replays (G1)": counts_g1[
+                 "moe_gemm"],
+             "CNN training, 3 rounds (G4, bmoe)": counts_g4["bmoe"][
+                 "moe_gemm"]},
          "backward": [{k: r[k] for k in ("case", "shape", "max_abs_err",
                                          "kernel_ms", "plain_ms",
                                          "bound_ms", "bound_by",
                                          "library_ms")}
                       for r in gemm_bwd],
          "training_round_device_us": {
-             fw: {"forward": train_prof[fw]["moe_gemm_forward_us"],
-                  "backward": train_prof[fw]["moe_gemm_backward_us"]}
-             for fw in train_prof},
+             fw: {"forward": prof["moe_gemm_forward_us"],
+                  "backward": prof["moe_gemm_backward_us"]}
+             for fw, prof in [*train_prof.items(),
+                              ("optimistic", prof_g_opt)]},
          "max_abs_err": max(r["max_abs_err"] for r in gemm + gemm_bwd),
          "ms": sum(r["kernel_ms"] for r in gemm),
          "plain_ms": sum(r["plain_ms"] for r in gemm),
@@ -1518,21 +1915,39 @@ def main() -> int:
              "bmoe training, 30 rounds": counts_fb["redundancy_vote"],
              "traditional training, 30 rounds": counts_ft[
                  "redundancy_vote"],
-             "optimistic path A (court)": counts_a["redundancy_vote"]},
+             "optimistic path A (court)": counts_a["redundancy_vote"],
+             "optimistic training, 20 rounds (G1, courts)": counts_g1[
+                 "redundancy_vote"],
+             "CNN bmoe training, 3 rounds (G4)": counts_g4["bmoe"][
+                 "redundancy_vote"],
+             "CNN traditional training, 3 rounds (G4)": counts_g4[
+                 "traditional"]["redundancy_vote"],
+             "dense-dispatch CNN bmoe round (G4)": counts_g4["dense_round"][
+                 "redundancy_vote"]},
          "max_abs_err": vote["max_abs_err"], "ms": vote["kernel_ms"],
          "plain_ms": vote["plain_ms"], "bound_ms": vote["bound_ms"],
          "bound_by": vote["bound_by"], "library_ms": None,
          "launch_floor_ms": vote["launch_floor_ms"],
          "training_round_device_us": train_prof["bmoe"]["vote_us"],
+         "cnn_training_round_device_us": prof_g_cnn["vote_us"],
          "court_shape": {k: vote_court[k] for k in (
+             "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+             "launch_floor_ms")},
+         "dense_shape": {k: vote_dense[k] for k in (
              "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
              "launch_floor_ms")}},
         {"name": "audit_mlp", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/audit_mlp.cu",
          "replaces": "src/repro/kernels/audit_gemm.py:58",
          "launches": counts_a["audit_mlp"],
+         "launches_by_path": {
+             "optimistic path A, 6 batches + flush": counts_a["audit_mlp"],
+             "optimistic training, 20 rounds (G1)": counts_g1["audit_mlp"]},
          "per": "optimistic path A (6 batches of 1000 + flush); times at "
                 "the commit shape x (40,94,784), bank E=10",
+         "train_merged_shape": {k: audit[4][k] for k in (
+             "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+             "composition_ms")},
          "max_abs_err": max(r["max_abs_err"] for r in audit),
          "ms": audit[0]["kernel_ms"], "plain_ms": audit[0]["plain_ms"],
          "bound_ms": audit[0]["bound_ms"], "bound_by": audit[0]["bound_by"],

@@ -1,8 +1,9 @@
 """Carry weights across from the JAX package (or any numpy source).
 
 Both packages keep the same parameter names and layouts (``x @ w``;
-the expert bank and the LM's blocks stacked on a leading axis), so
-nothing is transposed: the arrays are copied onto the target device.
+conv kernels HWIO; the expert bank and the LM's blocks stacked on a
+leading axis), so nothing is transposed: the arrays are copied onto the
+target device.
 """
 from __future__ import annotations
 
@@ -14,20 +15,24 @@ import torch
 from repro_torch.kernels.ops import resolve_device
 
 GATE_KEYS = ("b", "w")
-EXPERT_KEYS = ("b1", "b2", "w1", "w2")
+# the MLP bank's and the CNN bank's leaves, sorted
+EXPERT_KEYS = (("b1", "b2", "w1", "w2"),
+               ("b1", "b2", "c1", "c2", "c3", "w1", "w2"))
 
 
 def params_from_numpy(gate: Dict[str, np.ndarray],
                       experts: Dict[str, np.ndarray],
                       device=None) -> Dict[str, Dict[str, torch.Tensor]]:
-    """``{"gate": {w, b}, "experts": {w1, b1, w2, b2}}`` as float32
-    tensors on ``device`` (``None``: the CUDA device) — what
-    ``BMoESystem(cfg, device, params=...)`` takes."""
+    """``{"gate": {w, b}, "experts": bank}`` as float32 tensors on
+    ``device`` (``None``: the CUDA device) — what ``BMoESystem(cfg,
+    device, params=...)`` takes.  The bank is the MLP's {w1, b1, w2, b2}
+    or the CNN's {c1, c2, c3, w1, b1, w2, b2} (kernels HWIO, unchanged)."""
     dev = resolve_device(device)
-    for name, tree, keys in (("gate", gate, GATE_KEYS),
-                             ("experts", experts, EXPERT_KEYS)):
-        if tuple(sorted(tree)) != keys:
-            raise ValueError(f"{name} must have keys {keys}, got "
+    for name, tree, allowed in (("gate", gate, (GATE_KEYS,)),
+                                ("experts", experts, EXPERT_KEYS)):
+        if tuple(sorted(tree)) not in allowed:
+            raise ValueError(f"{name} must have keys "
+                             f"{' or '.join(map(str, allowed))}, got "
                              f"{tuple(sorted(tree))}")
 
     def put(a):

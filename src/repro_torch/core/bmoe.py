@@ -3,9 +3,10 @@ layer + storage layer, running the Step 1-6 workflow of Fig. 3 for
 training and the Step 1-3 (+6 storage) workflow for inference, in
 PyTorch.
 
-The counterpart of ``repro.core.bmoe`` for ``BMoESystem.train_round``
-(under ``bmoe`` and ``traditional``), ``infer``, ``evaluate`` and
-``flush_trust``, under three frameworks:
+The counterpart of ``repro.core.bmoe`` on one device:
+``BMoESystem.train_round``, ``infer``, ``evaluate`` and ``flush_trust``
+under three frameworks, for the MLP bank (Fashion-MNIST) and the CNN bank
+(CIFAR-10), with sparse or dense dispatch:
 
 - ``framework="traditional"``: the paper's baseline — edge i employs
   expert i; no redundancy, no consensus; a malicious edge corrupts its
@@ -17,16 +18,27 @@ The counterpart of ``repro.core.bmoe`` for ``BMoESystem.train_round``
   updated experts (a poisoned upload is outvoted) and the round is mined
   into a PoW block.
 - ``framework="optimistic"``: the commit-challenge-audit protocol of
-  ``repro_torch.trust`` at batch granularity — a rotating executor's
-  per-expert outputs are Merkle-committed (built by one ``audit_mlp``
-  launch), the logits are served at once, a verifier pool recomputes
-  sampled leaves off the critical path (merged ``audit_mlp`` drains), and
-  a confirmed fraud proof slashes and excludes the executor, escalates to
-  the dispute court (one vote launch) and mines a rollback block.
+  ``repro_torch.trust`` — a rotating executor's per-expert outputs are
+  Merkle-committed (for the MLP bank built by one ``audit_mlp`` launch),
+  the round is accepted at once, a verifier pool recomputes sampled
+  leaves off the critical path (merged ``audit_mlp`` drains; per-leaf
+  recomputes under ``audit_backend="eager"``), and a confirmed fraud
+  proof slashes and excludes the executor, escalates to the dispute
+  court (one vote launch) and mines a rollback block.  In training, a
+  conviction confirmed after later rounds committed on the poisoned
+  state rolls the whole chain back and replays it honestly
+  (``_replay_chain``); every training round also runs one
+  data-availability beat over the expert versions it committed against.
+  ``scheduling="synchronous"`` settles each round's audit inside the
+  round (the reference oracle).  Batch inference runs the same pipeline
+  on its own round clock.
 
-One forward: gate -> top-k softmax -> scatter into capacity buckets ->
-grouped expert MLP (two ``moe_gemm`` launches) -> trust step -> gate-
-weighted combine.  A training step differentiates through it
+One forward: gate (+ the workload balancer's bias) -> top-k softmax ->
+scatter into capacity buckets -> grouped experts (the MLP bank: two
+``moe_gemm`` launches; the CNN bank: one grouped convolution a layer) ->
+trust step -> gate-weighted combine.  ``dispatch="dense"`` runs every
+expert on the whole batch instead (plain products) and combines with the
+dense gate weights.  A training step differentiates through it
 (``torch.autograd``): the expert MLP's backward is three more
 ``moe_gemm`` launches, the vote's sends each expert's gradient to its
 elected copy; then plain SGD.  The bank is resolved through the chunked
@@ -40,12 +52,8 @@ round's attack mask and noise (and poisoned uploads) from seeded
 cheating executor and the court's copies are numpy draws, byte for byte
 the JAX package's.
 
-Not in this slice (each raises ``NotImplementedError``; see ROADMAP.md
-queue A): ``train_round`` under ``optimistic`` (the training-domain
-optimistic round with its per-round DA challenges and chained-rollback
-replay, and the ``audit_backend="eager"`` / ``scheduling="synchronous"``
-oracles: item 2), ``dispatch="dense"``, ``expert_kind="cnn"``, workload
-balance (item 3) and ``mesh="on"`` (item 7).
+Not in this slice: ``mesh="on"`` raises ``NotImplementedError``
+(ROADMAP.md queue A, item 7).
 """
 from __future__ import annotations
 
@@ -61,7 +69,8 @@ from repro_torch.core.attacks import (AttackConfig, edge_noise,
 from repro_torch.core.consensus import ProofOfWork
 from repro_torch.core.ledger import (Ledger, as_numpy, digest_array,
                                      digest_bytes, digest_tree)
-from repro_torch.core.reputation import ReputationConfig, ReputationLedger
+from repro_torch.core.reputation import (ReputationConfig, ReputationLedger,
+                                         WorkloadBalancer)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models.moe import capacity_positions
@@ -89,7 +98,8 @@ class BMoEConfig:
     lr: float = 0.01
     framework: str = "bmoe"         # bmoe | traditional | optimistic
     # "sparse": top-k scatter-dispatch into per-expert capacity buckets +
-    # grouped GEMM + gather-combine; "dense": every expert on the batch
+    # grouped experts + gather-combine; "dense": every expert on the whole
+    # batch (the reference oracle; top-k only zeroes combine weights)
     dispatch: str = "sparse"
     capacity_factor: float = 1.25   # bucket slots per expert, as a
     #                                 multiple of the balanced share
@@ -114,7 +124,7 @@ class BMoEConfig:
     da_rate: float = 0.05
     seed: int = 0
     reputation: Optional[ReputationConfig] = None   # §VI-B/D
-    workload_balance: bool = False                  # §VI-C (not ported)
+    workload_balance: bool = False                  # §VI-C
     balance_eta: float = 0.5
     trust: Optional[TrustConfig] = None             # optimistic knobs
 
@@ -124,30 +134,19 @@ def _check_slice(cfg: BMoEConfig) -> None:
     queue item that brings it."""
     if cfg.framework not in ("bmoe", "traditional", "optimistic"):
         raise ValueError(f"unknown framework {cfg.framework!r}")
-    if cfg.dispatch != "sparse":
-        raise NotImplementedError(
-            f"dispatch={cfg.dispatch!r} is not ported yet (ROADMAP.md "
-            "queue A, item 3); the port runs dispatch='sparse'")
-    if cfg.expert_kind != "mlp":
-        raise NotImplementedError(
-            f"expert_kind={cfg.expert_kind!r} is not ported yet (ROADMAP.md"
-            " queue A, item 3); the port runs the MLP bank")
-    if cfg.workload_balance:
-        # the balancer's bias only moves in training
-        raise NotImplementedError(
-            "workload balance is not ported yet (ROADMAP.md queue A, "
-            "item 3)")
+    if cfg.dispatch not in ("sparse", "dense"):
+        raise ValueError(f"unknown dispatch {cfg.dispatch!r}")
+    if cfg.expert_kind not in ("mlp", "cnn"):
+        raise ValueError(f"unknown expert_kind {cfg.expert_kind!r}")
     if cfg.mesh == "on":
         raise NotImplementedError(
             "mesh='on' is not ported yet (ROADMAP.md queue A, item 7)")
-    tc = cfg.trust if cfg.trust is not None else TrustConfig()
-    if tc.audit_backend != "batched" or tc.scheduling != "pipelined":
-        # the reference's oracles (per-leaf audits, audits inside the
-        # commit round) come with training, whose tests drive them
-        raise NotImplementedError(
-            f"audit_backend={tc.audit_backend!r}, scheduling="
-            f"{tc.scheduling!r} is not ported yet (ROADMAP.md queue A, "
-            "item 2); the port runs 'batched' and 'pipelined'")
+
+
+def gate_in_dim(cfg: BMoEConfig) -> int:
+    """The gate's input width: the flattened task row (a 32x32 image of
+    ``in_ch`` channels for the CNN bank)."""
+    return cfg.in_dim if cfg.expert_kind == "mlp" else 32 * 32 * cfg.in_ch
 
 
 class BMoESystem:
@@ -177,12 +176,13 @@ class BMoESystem:
         # cache, trust protocols and DA auditor record into its registry
         self.obs = obs if obs is not None else Observability()
         if params is None:
-            self.gate = ex.init_gate(cfg.in_dim, cfg.num_experts, cfg.seed,
-                                     device=self.device)
-            self.experts = ex.init_mlp_bank(cfg.num_experts, cfg.seed,
-                                            in_dim=cfg.in_dim,
-                                            out=cfg.num_classes,
-                                            device=self.device)
+            self.gate = ex.init_gate(gate_in_dim(cfg), cfg.num_experts,
+                                     cfg.seed, device=self.device)
+            self.experts = ex.init_bank(cfg.expert_kind, cfg.num_experts,
+                                        cfg.seed, in_dim=cfg.in_dim,
+                                        in_ch=cfg.in_ch,
+                                        out=cfg.num_classes,
+                                        device=self.device)
         else:
             self.gate = {k: v.to(self.device) for k, v in params["gate"].items()}
             self.experts = {k: v.to(self.device)
@@ -209,12 +209,18 @@ class BMoESystem:
         self._bank_version = -1
         self._resolved_bank = None      # device bank memo, keyed by the
         self._resolved_key = None       # resolved manifest cids
-        # "audit_infer": verifier-pool drain seconds of the inference
-        # pipeline, off the critical path (an off_path span); "storage":
-        # version publication and bank resolution (host wall-clock)
+        # "audit" / "audit_infer": verifier-pool drain seconds of the
+        # training / inference pipeline under pipelined scheduling, off
+        # the critical path (an off_path span, so the enclosing consensus
+        # span excludes them; synchronous drains stay inside consensus);
+        # "storage": version publication and bank resolution (host
+        # wall-clock)
         for name in self._TIMER_METRICS.values():
             self.obs.metrics.counter(name)
         self.obs.metrics.counter("bmoe.round_s")
+        # training rounds re-executed by chained-rollback replays (each
+        # runs the forward and backward again)
+        self.obs.metrics.counter("bmoe.replayed_rounds")
         with self.obs.span("publish", metric="bmoe.storage_s", round=0):
             self._publish_bank(None, 0)     # genesis bank: every expert, v0
         self.pow = ProofOfWork(cfg.num_chain_nodes,
@@ -228,8 +234,16 @@ class BMoESystem:
         else:
             self.reputation = (ReputationLedger(cfg.num_edges, cfg.reputation)
                                if cfg.reputation else None)
+        self.balancer = (WorkloadBalancer(cfg.num_experts, cfg.balance_eta)
+                         if cfg.workload_balance else None)
         self.activation_counts = np.zeros(cfg.num_experts)
         self.activation_total = 0
+        # manifest CIDs of the expert versions each open optimistic
+        # training round committed against (retained while its window is
+        # open), and per-pending-round snapshots: the (gate, bank) the
+        # executor was handed, the task and what an honest replay needs
+        self._audit_cids: Dict[int, List[str]] = {}
+        self._round_ctx: Dict[int, Dict] = {}
         # batch-inference pipeline (created on the first optimistic
         # infer): its own round clock, with the training protocol's
         # stakes, court and reputation
@@ -238,9 +252,6 @@ class BMoESystem:
         self._infer_ctx: Dict[int, Dict] = {}
         self._infer_audit_cids: Dict[int, List[str]] = {}
         self.infer_log: List[Dict] = []
-        # "bmoe.audit_infer_s": verifier-pool drain seconds of the
-        # inference pipeline, off the critical path (an off_path span)
-        self.obs.metrics.counter("bmoe.audit_infer_s")
         # verification-compute ledger, in expert evaluations x rows:
         # verify = audit recompute, escalate = dispute-court full votes
         self.verify_stats = {"base_evals": 0.0, "verify_evals": 0.0,
@@ -268,17 +279,25 @@ class BMoESystem:
 
     def _check_params(self) -> None:
         cfg = self.cfg
-        want = {"w": (cfg.in_dim, cfg.num_experts), "b": (cfg.num_experts,)}
+        want = {"w": (gate_in_dim(cfg), cfg.num_experts),
+                "b": (cfg.num_experts,)}
         for k, shape in want.items():
             if tuple(self.gate[k].shape) != shape:
                 raise ValueError(f"gate[{k!r}] is {tuple(self.gate[k].shape)}"
                                  f", config wants {shape}")
-        hidden = self.experts["w1"].shape[-1]
-        want = {"w1": (cfg.num_experts, cfg.in_dim, hidden),
-                "b1": (cfg.num_experts, hidden),
-                "w2": (cfg.num_experts, hidden, cfg.num_classes),
-                "b2": (cfg.num_experts, cfg.num_classes)}
+        if cfg.expert_kind == "mlp":
+            hidden = self.experts["w1"].shape[-1]
+            want = {"w1": (cfg.in_dim, hidden), "b1": (hidden,),
+                    "w2": (hidden, cfg.num_classes),
+                    "b2": (cfg.num_classes,)}
+        else:
+            want = {k: leaf.shape for k, leaf in
+                    ex.cnn_expert_decl(cfg.in_ch, cfg.num_classes).items()}
+        if set(self.experts) != set(want):
+            raise ValueError(f"experts has keys {sorted(self.experts)}, a "
+                             f"{cfg.expert_kind} bank has {sorted(want)}")
         for k, shape in want.items():
+            shape = (cfg.num_experts,) + shape
             if tuple(self.experts[k].shape) != shape:
                 raise ValueError(f"experts[{k!r}] is "
                                  f"{tuple(self.experts[k].shape)}, config "
@@ -286,59 +305,65 @@ class BMoESystem:
 
     # ------------------------------------------------------------ api
     def train_round(self, x, y, *, attack: Optional[AttackConfig] = None):
-        """One full Step 1-6 round on one published task (batch) under
-        ``bmoe`` or ``traditional``: resolve the bank, one SGD step
-        through the (attacked) forward and its consensus, publish the
-        experts the round changed, and under ``bmoe`` hash-vote the
-        updated experts and mine the round's block.  Returns the round's
-        metrics as host numpy (loss, activation, support, flags,
-        dropped).  The attack draw depends on ``cfg.seed`` and the round
-        only."""
+        """One full Step 1-6 round on one published task (batch): resolve
+        the bank, one SGD step through the (attacked) forward and its
+        consensus, then per framework — ``traditional``: publish the
+        experts the round changed; ``bmoe``: publish, hash-vote the
+        updated experts and mine the round's block; ``optimistic``:
+        commit, queue the audit (draining a backlog whose window closes,
+        with court, slash and chained rollback), publish unless the round
+        was rolled back, and mine the round's block.  Returns the round's
+        metrics as host numpy (loss, activation, support, flags, dropped;
+        ``rolled_back`` under ``optimistic``: the honest replay's metrics
+        when the round was voided).  The attack draw depends on
+        ``cfg.seed`` and the round only."""
         cfg = self.cfg
-        if cfg.framework == "optimistic":
-            raise NotImplementedError(
-                "train_round under framework='optimistic' is not ported yet "
-                "(ROADMAP.md queue A, item 2: the training-domain "
-                "optimistic round with its per-round DA challenges and "
-                "chained-rollback replay); bmoe and traditional train")
         atk = attack if attack is not None else cfg.attack
         xt = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
         yt = torch.as_tensor(np.asarray(y), device=self.device).long()
         batch = int(xt.shape[0])
         mask_e, noise = self._draw_attack(atk, batch, self.round)
+        executor = (self.protocol.pick_executor(self.round)
+                    if cfg.framework == "optimistic" else 0)
         gate_bias, active = self._controls()
         # every phase is a child of the round span, so one traced round
-        # decomposes into fetch -> dispatch -> publish [-> consensus ->
+        # decomposes into fetch -> dispatch -> [consensus -> publish ->
         # chain], whose metric sums are the latency_report components
+        # (an off-path audit drain nested in consensus is excluded)
         with self.obs.span("round", metric="bmoe.round_s", round=self.round,
                            kind="train", framework=cfg.framework,
-                           executor=0):
+                           executor=executor):
             with self.obs.span("fetch", metric="bmoe.storage_s",
                                round=self.round):
                 bank = self._resolve_bank(xt, gate_bias)
+            prev = (self.gate, bank)
             with self.obs.span("dispatch", metric="bmoe.compute_s",
                                round=self.round):
                 self.gate, self.experts, metrics = _train_step(
                     self.gate, bank, xt, yt, mask_e.to(self.device),
                     noise.to(self.device), atk.noise_std, gate_bias, active,
-                    cfg=cfg)
+                    cfg=cfg, executor=executor)
                 metrics = {k: as_numpy(v) for k, v in metrics.items()}
             self.gate_ema.update(metrics["activation"])
             payload = {"round": self.round, "kind": "train",
                        "task": digest_array(np.asarray(x)[:8]),
                        "loss": float(metrics["loss"])}
             # cost ledger in expert-evaluation units (one expert on one
-            # row of its capacity bucket)
+            # row of what it computes: its capacity bucket under sparse
+            # dispatch, the whole batch under dense)
             self.verify_stats["rounds"] += 1
             if cfg.framework == "traditional":
                 self.verify_stats["base_evals"] += cfg.top_k * batch
             else:
                 self.verify_stats["base_evals"] += self._exec_evals(batch)
-            # Step 5, chunked: the routed experts as new manifest versions
-            with self.obs.span("publish", metric="bmoe.storage_s",
-                               round=self.round):
-                self._publish_bank(metrics["activation"], self.round + 1)
-            payload["bank_root"] = self._bank_root()[:16]
+            if cfg.framework != "optimistic":
+                # Step 5, chunked: the routed experts as new manifest
+                # versions (the optimistic round publishes after its
+                # commitment retained the version-r manifests)
+                with self.obs.span("publish", metric="bmoe.storage_s",
+                                   round=self.round):
+                    self._publish_bank(metrics["activation"], self.round + 1)
+                payload["bank_root"] = self._bank_root()[:16]
             if cfg.framework == "bmoe":
                 # the redundancy mechanism IS the verification: M-1 extra
                 # copies of the same execution
@@ -351,6 +376,28 @@ class BMoESystem:
                         metrics["support"].tolist()
                     self._expert_hash_vote(atk, payload)
                 # Step 6: block generation under PoW
+                with self.obs.span("chain", metric="bmoe.chain_s",
+                                   round=self.round):
+                    self._mine(payload)
+            elif cfg.framework == "optimistic":
+                # commit -> optimistic accept -> queued audit -> maybe
+                # rollback; a pipelined drain inside opens an off_path
+                # span, so its seconds land in bmoe.audit_s and not here
+                with self.obs.span("consensus", metric="bmoe.consensus_s",
+                                   round=self.round):
+                    metrics = self._optimistic_round(
+                        xt, yt, atk, mask_e, noise, executor, prev,
+                        metrics, payload, gate_bias, active)
+                payload["loss"] = float(metrics["loss"])
+                with self.obs.span("publish", metric="bmoe.storage_s",
+                                   round=self.round):
+                    if not payload.get("rolled_back"):
+                        # a rolled-back round's honest replay already
+                        # republished the voided versions (this round's
+                        # successor included)
+                        self._publish_bank(metrics["activation"],
+                                           self.round + 1)
+                payload["bank_root"] = self._bank_root()[:16]
                 with self.obs.span("chain", metric="bmoe.chain_s",
                                    round=self.round):
                     self._mine(payload)
@@ -382,7 +429,7 @@ class BMoESystem:
         if cfg.framework == "optimistic":
             mask_e = torch.zeros(cfg.num_edges)
             noise = torch.zeros(cfg.num_experts,
-                                sparse_capacity(cfg, xt.shape[0]),
+                                self._exec_rows(xt.shape[0]),
                                 cfg.num_classes)
         else:
             mask_e, noise = self._draw_attack(atk, xt.shape[0],
@@ -413,15 +460,23 @@ class BMoESystem:
         return (~self.reputation.excluded).astype(np.float32)
 
     def _controls(self):
-        """(gate_bias (N,), active (M,)) on the device: zero bias (no
-        balancer in the port yet) and the reputation electorate."""
-        return (torch.zeros(self.cfg.num_experts, device=self.device),
+        """(gate_bias (N,), active (M,)) on the device: the workload
+        balancer's bias (zero without one) and the reputation
+        electorate."""
+        bias = (torch.from_numpy(self.balancer.bias) if self.balancer
+                else torch.zeros(self.cfg.num_experts))
+        return (bias.to(self.device),
                 torch.from_numpy(self._active_host()).to(self.device))
 
     def _update_controllers(self, metrics) -> None:
-        """Reputation from the round's agreement flags (§VI-B/D); the
-        workload balancer is refused by ``_check_slice``."""
-        if self.reputation is not None:
+        """The workload balancer's bias from the round's activation
+        (§VI-C), and reputation from the round's agreement flags
+        (§VI-B/D) — except under ``optimistic``, whose rounds feed
+        reputation through confirmed fraud proofs (slashing)."""
+        if self.balancer is not None:
+            self.balancer.update(metrics["activation"])
+        if (self.reputation is not None
+                and self.cfg.framework != "optimistic"):
             self.reputation.update_from_flags(metrics["flags"])
 
     def _expert_hash_vote(self, atk: AttackConfig, payload) -> None:
@@ -455,24 +510,29 @@ class BMoESystem:
         if winner != honest and payload["expert_hash_accepted"]:
             payload["chain_misled"] = True
 
+    def _exec_rows(self, batch: int) -> int:
+        """Rows one expert computes: its capacity bucket under sparse
+        dispatch, the whole batch under dense."""
+        return (sparse_capacity(self.cfg, batch)
+                if self.cfg.dispatch == "sparse" else batch)
+
     def _exec_evals(self, batch: int) -> float:
         """Expert-evaluation cost of one canonical execution: every
-        expert over its capacity bucket (the grouped GEMM's real row
-        count, padding included)."""
-        return self.cfg.num_experts * sparse_capacity(self.cfg, batch)
+        expert over the rows it computes (padding included)."""
+        return self.cfg.num_experts * self._exec_rows(batch)
 
     def _draw_attack(self, atk: AttackConfig, batch: int, round_id: int,
                      sub: Optional[int] = None):
         """The round's attack mask (M,) and corruption noise, on the host:
-        (M, N, cap, C) per-edge copies under ``bmoe``, (N, cap, C)
-        otherwise.  Drawn from streams seeded by (cfg.seed, round[, sub],
-        tag[, fold id]); the optimistic inference pipeline passes its
-        round id as ``sub``, so back-to-back batches draw independently."""
+        (M, N, R, C) per-edge copies under ``bmoe``, (N, R, C) otherwise,
+        R being ``_exec_rows``.  Drawn from streams seeded by (cfg.seed,
+        round[, sub], tag[, fold id]); the optimistic inference pipeline
+        passes its round id as ``sub``, so back-to-back batches draw
+        independently."""
         cfg = self.cfg
         base = (cfg.seed + 91, round_id) + (() if sub is None else (sub,))
         mask_e = round_attack_mask(atk, cfg.num_edges, stream(*base, "mask"))
-        shape = (cfg.num_experts, sparse_capacity(cfg, batch),
-                 cfg.num_classes)
+        shape = (cfg.num_experts, self._exec_rows(batch), cfg.num_classes)
         if cfg.framework == "bmoe":
             noise = edge_noise(atk, cfg.num_edges, shape, *base, "noise")
         else:
@@ -705,12 +765,12 @@ class BMoESystem:
     def _optimistic_infer(self, xt, atk, gate_bias, active):
         """One optimistic inference round: the rotating executor serves
         its (possibly corrupted) aggregate at once, commits its per-expert
-        bucket outputs, and the round's audit is queued; the backlog
-        drains in one merged recompute when a window is about to close,
-        courts fire in round order, and closed windows finalize.  Rounds
-        are independent (``chained=False``): a conviction revokes only its
-        own round."""
-        cfg = self.cfg
+        outputs, and the round's audit is queued; the backlog drains in
+        one merged recompute when a window is about to close (at once
+        under synchronous scheduling), courts fire in round order, and
+        closed windows finalize.  Rounds are independent
+        (``chained=False``): a conviction revokes only its own round."""
+        cfg, tc = self.cfg, self.trust_cfg
         proto = self._ensure_infer_protocol()
         rid = self._infer_round
         self._infer_round += 1
@@ -733,11 +793,11 @@ class BMoESystem:
                     noise.to(self.device), atk.noise_std, gate_bias, active,
                     cfg=cfg, executor=executor))
             self.gate_ema.update(activation)
+            xin = self._task_rows(xt)          # the published task rows
             row_index, bounds = self._commitment_layout(
                 self.gate, xt, xt.shape[0], gate_bias)
             with self.obs.span("commit", round=rid,
                                executor=executor) as csp:
-                xin = _flatten_for_gate(xt)     # the published task rows
                 xd = self._pad_task(xin, row_index)
                 honest = self._eager_outputs(bank, xd, bounds, row_index)
                 attacked = bool(mask_e[executor] > 0)
@@ -754,20 +814,103 @@ class BMoESystem:
             "executor": executor, "mask_e": mask_e.numpy(), "atk": atk,
             "active": as_numpy(active), "manifests": manifests,
         }
+        batch_fn = (self._make_batched_recompute(bank, xd, manifests,
+                                                 row_index)
+                    if tc.audit_backend == "batched" else None)
         proto.schedule_audit(rid, self._make_recompute(xd, manifests,
-                                                       row_index))
+                                                       row_index), batch_fn)
         self.infer_log.append({"event": "commit", "round": rid,
                                "executor": executor,
                                "root": state.commitment.root[:16]})
 
+        drain_now = None if tc.scheduling == "synchronous" else rid
         summary = self._drain_trust(proto, self._infer_ctx,
-                                    self._infer_audit_cids, rid, "infer")
+                                    self._infer_audit_cids, drain_now,
+                                    "infer")
         self._record_infer_verdicts(summary)
         for frid in proto.advance(rid):
             self.infer_log.append({"event": "finalize", "round": frid})
         self._prune_closed_rounds(proto, self._infer_ctx,
                                   self._infer_audit_cids)
         return logits, activation, support
+
+    def _optimistic_round(self, xt, yt, atk, mask_e, noise, executor, prev,
+                          metrics, payload, gate_bias, active):
+        """Commit -> optimistic accept -> queued audit -> (challenge ->
+        court -> slash + chained rollback) for one training round.
+
+        The executor commits its outputs on the round's snapshot ``prev``
+        (the (gate, bank) it was handed), the round retains the expert
+        versions it committed against and runs one data-availability
+        beat over them, and its audit is queued.  Under
+        ``scheduling="pipelined"`` the system proceeds on the accepted
+        state and the backlog drains in one burst when the oldest window
+        is about to close; fraud confirmed after descendants committed
+        rolls the whole chain back (``_replay_chain``).
+        ``scheduling="synchronous"`` drains in the round itself.  Returns
+        the round's final metrics (the honest replay's, if rolled
+        back)."""
+        cfg, tc = self.cfg, self.trust_cfg
+        xin = self._task_rows(xt)
+        row_index, bounds = self._commitment_layout(prev[0], xt,
+                                                    xin.shape[0], gate_bias)
+        xd = self._pad_task(xin, row_index)
+        honest = self._eager_outputs(prev[1], xd, bounds, row_index)
+        attacked = bool(mask_e[executor] > 0)
+        state = self._commit_round(self.protocol, self.round, executor,
+                                   honest, attacked, atk, self.round,
+                                   payload["task"], row_index)
+        payload["commit_root"] = state.commitment.root[:16]
+        if state.commitment.routing_digest:
+            payload["routing"] = state.commitment.routing_digest[:16]
+        payload["executor"] = executor
+        # data-availability contract: retain the expert versions this
+        # round committed against until its window closes, and challenge
+        # replica nodes for sampled chunks of exactly those manifests
+        manifests = self._retain_round_manifests(self.round)
+        self._audit_cids[self.round] = manifests
+        self._round_ctx[self.round] = {
+            "prev": prev, "x": xt, "y": yt, "xd": xd, "honest": honest,
+            "executor": executor, "mask_e": mask_e.numpy(), "noise": noise,
+            "atk": atk, "gate_bias": gate_bias, "active": as_numpy(active),
+            "manifests": manifests,
+        }
+        self._run_da(self.round, manifests)
+        recompute_fn = self._make_recompute(xd, manifests, row_index)
+        batch_fn = (self._make_batched_recompute(prev[1], xd, manifests,
+                                                 row_index)
+                    if tc.audit_backend == "batched" else None)
+        self.protocol.schedule_audit(self.round, recompute_fn, batch_fn)
+
+        drain_now = None if tc.scheduling == "synchronous" else self.round
+        summary = self._drain_trust(self.protocol, self._round_ctx,
+                                    self._audit_cids, drain_now, "train")
+        payload["audited_leaves"] = summary["audited_leaves"]
+        if summary["drained"]:
+            payload["drained_rounds"] = summary["drained"]
+        if summary["fraud_proofs"]:
+            payload["fraud_proofs"] = summary["fraud_proofs"]
+            payload["slashed"] = summary["slashed"]
+        if summary["replayed_metrics"] is not None:
+            payload["rolled_back"] = True
+            metrics = summary["replayed_metrics"]
+
+        # close windows in deadline order (sequential finality: never past
+        # an unresolved dispute) and release closed rounds' evidence
+        finalized = self.protocol.advance(self.round)
+        if finalized:
+            payload["finalized_rounds"] = finalized
+        self._prune_closed_rounds(self.protocol, self._round_ctx,
+                                  self._audit_cids)
+        metrics = dict(metrics)
+        metrics["rolled_back"] = np.float32(
+            1.0 if payload.get("rolled_back") else 0.0)
+        return metrics
+
+    def _task_rows(self, xt: torch.Tensor) -> torch.Tensor:
+        """The published task as the experts read it: images (B, 32, 32,
+        C) for the CNN bank, flattened rows otherwise."""
+        return xt if self.cfg.expert_kind == "cnn" else _flatten_for_gate(xt)
 
     def _sparse_routing(self, gate, x, gate_bias):
         """Re-derive the round's routing and build the ``(N, capacity)``
@@ -795,25 +938,44 @@ class BMoESystem:
 
     def _commitment_layout(self, gate, x, batch: int, gate_bias):
         """(row_index, bounds) of the round's commitment: bucket-chunk
-        leaves of the capacity buckets (the port runs sparse dispatch)."""
-        row_index, capacity = self._sparse_routing(gate, x, gate_bias)
-        return row_index, chunk_bounds(capacity,
-                                       self.trust_cfg.chunks_per_expert)
+        leaves under sparse dispatch, batch-chunk leaves under dense."""
+        tc = self.trust_cfg
+        if self.cfg.dispatch == "sparse":
+            row_index, capacity = self._sparse_routing(gate, x, gate_bias)
+            return row_index, chunk_bounds(capacity, tc.chunks_per_expert)
+        return None, chunk_bounds(batch, tc.chunks_per_expert)
 
-    def _batched_recompute_call(self, bank, xd, idx, gid) -> torch.Tensor:
-        """One grouped recompute: ``audit_mlp(bank, xd[idx], gid)`` on the
-        task's device (one kernel launch on the card)."""
+    def _batched_recompute_call(self, bank, xd, idx, gid,
+                                lens) -> torch.Tensor:
+        """One grouped recompute of ``len(lens)`` packed samples (``idx``
+        / ``gid`` from ``pack_audit_batch``; sample s is ``lens[s]`` real
+        rows): for the MLP bank ``audit_mlp(bank, xd[idx], gid)``, one
+        kernel launch on the card; for the CNN bank a gather and apply,
+        one per-expert call per sample on exactly its real rows — the
+        call shape the commitment and the eager recompute use, so a
+        leaf's bytes match theirs bit for bit.  (S, Cmax, C) on the
+        device."""
         dev = xd.device
-        return kops.audit_mlp(bank, xd[torch.from_numpy(idx).long().to(dev)],
-                              torch.from_numpy(gid).to(dev))
+        if self.cfg.expert_kind == "mlp":
+            return kops.audit_mlp(
+                bank, xd[torch.from_numpy(idx).long().to(dev)],
+                torch.from_numpy(gid).to(dev))[:len(lens)]
+        out = xd.new_zeros((len(lens), idx.shape[1], self.cfg.num_classes))
+        for s, n in enumerate(lens):
+            p = {k: v[int(gid[s])] for k, v in bank.items()}
+            rows = torch.from_numpy(idx[s, :n]).long().to(dev)
+            out[s, :n] = ex.cnn_expert_apply(p, xd[rows])
+        return out
 
     def _eager_outputs(self, experts, xd, bounds, row_index=None):
-        """The executor's commitment-building pass: every (expert, chunk)
-        leaf through ONE grouped ``audit_mlp`` call — the auditors' own
-        kernel, so honest leaves recompute bit-identically.  With
-        ``row_index`` the chunks tile each expert's capacity bucket and
-        the task rows come from the committed routing.  Host numpy
-        (N, capacity, C)."""
+        """The executor's commitment-building pass: every expert's output
+        through the recompute path the auditors use, so honest leaves
+        recompute bit-identically.  For the MLP bank every (expert,
+        chunk) leaf goes through ONE grouped ``audit_mlp`` call; the CNN
+        bank applies each expert to each chunk's rows (one call shape per
+        leaf).  With ``row_index`` the chunks tile each expert's capacity
+        bucket and the task rows come from the committed routing.  Host
+        numpy (N, R, C)."""
         cfg = self.cfg
         n_chunks = len(bounds) - 1
         slices = [slice(bounds[c], bounds[c + 1]) for c in range(n_chunks)]
@@ -822,8 +984,8 @@ class BMoESystem:
         idx, gid, n = pack_audit_batch([e for e, _ in work],
                                        [sl for _, sl in work],
                                        row_map=row_index)
-        out = as_numpy(self._batched_recompute_call(experts, xd, idx,
-                                                    gid)[:n])
+        out = as_numpy(self._batched_recompute_call(
+            experts, xd, idx, gid, [sl.stop - sl.start for _, sl in work]))
         parts = [np.concatenate(
             [out[e * n_chunks + c][:bounds[c + 1] - bounds[c]]
              for c in range(n_chunks)], axis=0)
@@ -833,42 +995,76 @@ class BMoESystem:
     def _count_audit_call(self, kind: str) -> None:
         """Host-side count of recompute calls, by kind ("drain": one
         grouped call per drain with sampled leaves, "eager": one S=1 call
-        per fraud-proof check or re-audit recompute) — what the launch
-        counters are held against."""
+        per eager-backend leaf, fraud-proof check or re-audit recompute)
+        — what the MLP bank's ``audit_mlp`` launches are held against."""
         self.obs.metrics.counter("bmoe.audit_calls", kind=kind).add(1)
 
     def _make_recompute(self, xd, manifests: List[str], row_index=None):
         """Auditor-side eager recompute of one leaf: fetch the sampled
         expert from the storage layer by the manifest the round committed
         against (every chunk CID-verified) and recompute the chunk on the
-        task rows the committed routing names.  It goes through
+        task rows the committed routing names.  The MLP bank goes through
         ``ops.audit_mlp`` with S=1 — on the card the same kernel as the
         batched audits, so a leaf's bytes match theirs bit for bit (a
         cuBLAS product could differ in the last bit and slash honest
-        verifiers under re-audit)."""
+        verifiers under re-audit); the CNN bank through the per-expert
+        apply on the chunk's rows, as the commitment did."""
         cache: Dict[int, Dict[str, torch.Tensor]] = {}
         dev = xd.device
         one = torch.zeros(1, dtype=torch.int32, device=dev)
+        mlp = self.cfg.expert_kind == "mlp"
 
         def recompute(e: int, sl: slice):
             if e not in cache:
                 tree = self._fetch_expert_manifest(manifests[e])
-                cache[e] = {k: torch.tensor(v)[None].to(dev)
+                cache[e] = {k: torch.tensor(v).to(dev)
                             for k, v in tree.items()}
             rows = (np.arange(sl.start, sl.stop) if row_index is None
                     else row_index[e, sl])
             self._count_audit_call("eager")
-            x1 = xd[torch.from_numpy(rows).long().to(dev)][None]
-            return as_numpy(kops.audit_mlp(cache[e], x1, one))[0]
+            x = xd[torch.from_numpy(rows).long().to(dev)]
+            if not mlp:
+                return as_numpy(ex.cnn_expert_apply(cache[e], x))
+            bank1 = {k: v[None] for k, v in cache[e].items()}
+            return as_numpy(kops.audit_mlp(bank1, x[None], one))[0]
 
         return recompute
+
+    def _make_batched_recompute(self, experts, xd, manifests: List[str],
+                                row_index=None):
+        """Batched auditor recompute of one round (``BatchRecomputeFn``):
+        the fetch-by-manifest semantics of ``_make_recompute`` — one
+        chunk-verified storage fetch per sampled expert, so the round's
+        device bank ``experts`` is known to be byte-identical to what the
+        round committed against (a withheld chunk raises
+        ``ChunkUnavailableError``) — then every sampled chunk in ONE
+        grouped call on the device task ``xd`` the commitment was built
+        from.  The host's own drains merge rounds instead
+        (``_audit_jobs_merged``); ``OptimisticProtocol.run_audits`` takes
+        this closure."""
+        fetched: set = set()
+
+        def batch_recompute(expert_ids, slices):
+            for e in sorted({int(e) for e in expert_ids}):
+                if e not in fetched:
+                    self._fetch_expert_manifest(manifests[e])
+                    fetched.add(e)
+            idx, gid, n = pack_audit_batch(expert_ids, slices,
+                                           row_map=row_index)
+            self._count_audit_call("drain")
+            return as_numpy(self._batched_recompute_call(
+                experts, xd, idx, gid,
+                [sl.stop - sl.start for sl in slices]))
+
+        return batch_recompute
 
     def _commit_round(self, protocol, rid, executor, honest, attacked, atk,
                       seed_salt, task_digest, row_index=None):
         """Build the executor's claimed tensor (corrupted iff it attacks,
         with the JAX package's numpy draw) and publish the round
-        commitment over the capacity-bucketed buffers plus the routing
-        indices auditors re-derive the buckets from."""
+        commitment — over the dense ``(N, B, C)`` outputs, or (sparse
+        dispatch) the capacity-bucketed buffers plus the routing indices
+        auditors re-derive the buckets from."""
         claimed = honest
         if attacked:
             rng = np.random.default_rng(self.cfg.seed * 7919 + seed_salt)
@@ -904,14 +1100,14 @@ class BMoESystem:
         the per-round bank snapshots stack to ``(slots*N, ...)`` (one
         ``torch.cat`` per leaf on the device), the per-round padded tasks
         concatenate row-wise, and ``VerifierPool.audit_rounds`` fuses
-        every sampled leaf of every drained round into one ``audit_mlp``
-        call + one hash pass.  Fetch-by-manifest is kept per (round,
-        sampled expert)."""
+        every sampled leaf of every drained round into one recompute
+        (one ``audit_mlp`` launch for the MLP bank) + one hash pass.
+        Fetch-by-manifest is kept per (round, sampled expert)."""
         cfg = self.cfg
         ctxs = [ctx_store[j.round_id] for j in jobs]
         coms = [protocol.rounds[j.round_id].commitment for j in jobs]
         banks = [c["prev"][1] for c in ctxs]
-        xds = [c["xd"] for c in ctxs]          # each ends in its zero row
+        xds = [c["xd"] for c in ctxs]    # a sparse task ends in its zero row
         # a multi-round drain pads to a FIXED (window+1)-slot layout, as
         # the JAX package does (padding slots repeat round 0's bank and
         # hold zero task rows; no sample indexes them)
@@ -945,32 +1141,49 @@ class BMoESystem:
                                                  row_maps=row_maps)
             self._count_audit_call("drain")
             return as_numpy(self._batched_recompute_call(
-                stacked_bank, xcat, idx, gid)[:n])
+                stacked_bank, xcat, idx, gid,
+                [sl.stop - sl.start for sl in slices]))
 
         return protocol.verifiers.audit_rounds(coms, multi_fn)
 
     def _drain_trust(self, protocol, ctx_store, cid_store, now,
                      domain: str) -> Dict:
         """Drain the deferred-audit backlog: run every queued audit (one
-        merged grouped call under the batched backend), court-resolve the
-        challenged rounds in round order, and mine one rollback block per
-        conviction.  Only the inference domain drains in the port: the
-        training domain, with its chained-rollback replay, comes with
-        training (ROADMAP.md queue A, item 2)."""
-        cfg = self.cfg
+        merged grouped call under the batched backend, one recompute per
+        sampled leaf under the eager one), court-resolve the challenged
+        rounds in round order, and — for the training domain — roll back
+        the whole optimistic chain built on a convicted round (restore the
+        pre-fraud snapshot, re-execute every voided round honestly).
+        Mines one rollback block per conviction."""
+        cfg, tc = self.cfg, self.trust_cfg
         jobs = protocol.pop_audit_jobs(now)
         summary: Dict = {"drained": [j.round_id for j in jobs],
                          "audited_leaves": 0, "fraud_proofs": 0,
-                         "convicted": [], "slashed": []}
+                         "convicted": [], "slashed": [],
+                         "replayed_metrics": None}
         if not jobs:
             return summary
         # verifier-pool work, concurrent with later rounds in deployment:
-        # off the critical path (the port schedules pipelined only)
-        with self.obs.span("audit-drain", metric="bmoe.audit_infer_s",
-                           off_path=True, domain=domain,
+        # off the critical path under pipelined scheduling, so the
+        # off_path span's seconds land in its own metric and the
+        # enclosing consensus span excludes them.  Synchronous drains stay
+        # on the path (no metric: their time belongs to consensus).
+        # Courts and the chain replay below settle state: on the path.
+        off = tc.scheduling == "pipelined"
+        metric = (("bmoe.audit_s" if domain == "train"
+                   else "bmoe.audit_infer_s") if off else None)
+        with self.obs.span("audit-drain", metric=metric, off_path=off,
+                           domain=domain,
                            drained=[j.round_id for j in jobs]):
-            reports_by_rid = self._audit_jobs_merged(protocol, ctx_store,
-                                                     jobs)
+            if tc.audit_backend == "batched":
+                reports_by_rid = self._audit_jobs_merged(protocol,
+                                                         ctx_store, jobs)
+            else:
+                reports_by_rid = {
+                    j.round_id: protocol.verifiers.audit(
+                        protocol.rounds[j.round_id].commitment,
+                        j.recompute_fn)
+                    for j in jobs}
             for job in jobs:
                 reports = reports_by_rid[job.round_id]
                 protocol.apply_reports(job.round_id, reports,
@@ -982,10 +1195,13 @@ class BMoESystem:
                     audited * com.rows_per_expert \
                     / max(com.chunks_per_expert, 1)
 
-        # courts fire in round order
+        # courts fire in round order, so an early conviction invalidates
+        # ACCEPTED descendants before their (clean) audits can finalize
+        # them, while CHALLENGED descendants still get their own verdict
         n_rollbacks = len(protocol.rollbacks)
-        # the stake book is shared across the train/infer protocols:
-        # attribute slashes by the events this drain books
+        # the stake book is shared across the train/infer protocols and
+        # their round ids overlap: attribute slashes by the events this
+        # drain books
         n_events = len(protocol.stakes.events)
         challenged = sorted(
             j.round_id for j in jobs
@@ -1014,6 +1230,11 @@ class BMoESystem:
 
         summary["slashed"] = sorted(
             {ev.edge for ev in protocol.stakes.events[n_events:]})
+        if summary["convicted"] and domain == "train":
+            with self.obs.span("rollback-replay",
+                               convicted=summary["convicted"]):
+                summary["replayed_metrics"] = self._replay_chain(
+                    min(summary["convicted"]))
         for rec in protocol.rollbacks[n_rollbacks:]:
             self._mine({"kind": "rollback", "domain": domain,
                         "rollback_of": rec.round_id,
@@ -1024,9 +1245,46 @@ class BMoESystem:
                         "at_round": self.round})
         return summary
 
+    def _replay_chain(self, first: int):
+        """Chained rollback: restore the (gate, experts) snapshot the
+        convicted round started from and re-execute every voided round —
+        the convicted one plus its INVALIDATED descendants — honestly
+        (zero attack mask; the round's own task, executor, gate bias and
+        electorate) and in order, republishing the full bank at each
+        replayed round's successor version.  Returns the replayed
+        metrics of the newest round when it is the host's current round,
+        else None."""
+        chain = [rid for rid in sorted(self._round_ctx)
+                 if rid >= first and self.protocol.rounds[rid].phase in
+                 (RoundPhase.ROLLED_BACK, RoundPhase.INVALIDATED)]
+        self.gate, self.experts = self._round_ctx[first]["prev"]
+        metrics = None
+        for rid in chain:
+            ctx = self._round_ctx[rid]
+            self.gate, self.experts, metrics = _train_step(
+                self.gate, self.experts, ctx["x"], ctx["y"],
+                torch.zeros(self.cfg.num_edges, device=self.device),
+                ctx["noise"].to(self.device), ctx["atk"].noise_std,
+                ctx["gate_bias"],
+                torch.from_numpy(ctx["active"]).to(self.device),
+                cfg=self.cfg, executor=ctx["executor"])
+            metrics = {k: as_numpy(v) for k, v in metrics.items()}
+            self.obs.metrics.counter("bmoe.replayed_rounds").add(1)
+            self.verify_stats["base_evals"] += \
+                self._exec_evals(len(ctx["x"]))
+            # the voided versions were built on revoked state: republish
+            # the replayed round's honest successor in place (the same
+            # (object, version) tag).  The full bank, not the replay's
+            # routed experts: the voided lineage may have published
+            # DIFFERENT experts at this tag; chunk dedup keeps the upload
+            # at the bytes that changed.
+            self._publish_bank(None, rid + 1)
+        return metrics if chain and chain[-1] == self.round else None
+
     def _prune_closed_rounds(self, protocol, ctx_store, cid_store):
         """Release snapshots and retained version manifests of rounds
-        that hit a terminal phase."""
+        that hit a terminal phase (a superseded version nobody retains
+        is then garbage collected)."""
         for rid in list(ctx_store):
             if protocol.rounds[rid].phase in TERMINAL_PHASES:
                 del ctx_store[rid]
@@ -1034,18 +1292,23 @@ class BMoESystem:
                     self.expert_store.release(cid)
 
     def flush_trust(self) -> Dict:
-        """Close out the optimistic pipeline: run every still-queued audit,
-        court-resolve what they raise, close every open DA challenge, and
-        advance both clocks past the last open window so every committed
-        round reaches a terminal phase.  The training domain holds no
-        rounds in the port yet (``train_round`` under ``optimistic`` raises),
-        so it has nothing to drain; its clock is advanced as in the JAX
-        package."""
+        """Close out the optimistic pipeline: run every still-queued audit
+        (training and inference domains), court-resolve what they raise
+        (a training conviction replays its chain), close every open DA
+        challenge, and advance both clocks past the last open window so
+        every committed round reaches a terminal phase — the pipelined
+        equivalent of the synchronous scheduler's per-round settlement."""
         out: Dict = {}
         if self.protocol is None:
             return out
+        summary = self._drain_trust(self.protocol, self._round_ctx,
+                                    self._audit_cids, None, "train")
+        if summary["convicted"]:
+            out["rolled_back"] = summary["convicted"]
         horizon = self.protocol.clock + self.trust_cfg.challenge_window
         out["finalized"] = self.protocol.advance(horizon)
+        self._prune_closed_rounds(self.protocol, self._round_ctx,
+                                  self._audit_cids)
         self._run_da(None)               # close every open DA challenge
         if self._infer_protocol is not None:
             isummary = self._drain_trust(self._infer_protocol,
@@ -1139,18 +1402,19 @@ def _route_for_commit(gate, x, gate_bias, *, cfg):
 def _trust_outputs(outs, mask_e, noise, noise_std, cfg, active,
                    executor=0):
     """Framework-specific corruption + consensus over the per-expert
-    output buckets ``outs`` (N, cap, C).
+    outputs ``outs`` (N, R, C): R is the capacity bucket under sparse
+    dispatch, the whole batch under dense.
 
     ``optimistic``: the round's result is whatever the rotating
-    ``executor`` published — corrupted with ``noise`` (N, cap, C) iff
+    ``executor`` published — corrupted with ``noise`` (N, R, C) iff
     ``mask_e[executor]``; verification happens off this path (commit,
     audit, court).  ``traditional``: edge i employs expert i, so
-    ``mask_e[i]`` corrupts expert i with ``noise`` (N, cap, C).  ``bmoe``:
-    every edge publishes
-    every expert's result; edge m's copy is corrupted with ``noise[m]``
-    (``noise`` is (M, N, cap, C)), so an honest edge's copy is bitwise
-    ``outs``, and the vote over the M copies (one kernel launch on the
-    card) picks the trusted one.  Returns (trusted, support, flags)."""
+    ``mask_e[i]`` corrupts expert i with ``noise`` (N, R, C).  ``bmoe``:
+    every edge publishes every expert's result; edge m's copy is
+    corrupted with ``noise[m]`` (``noise`` is (M, N, R, C)), so an honest
+    edge's copy is bitwise ``outs``, and the vote over the M copies (one
+    kernel launch on the card) picks the trusted one.  Returns (trusted,
+    support, flags)."""
     N, M = cfg.num_experts, cfg.num_edges
     if cfg.framework == "optimistic":
         trusted = outs + noise_std * noise * mask_e[executor]
@@ -1176,27 +1440,41 @@ def _moe_forward(gate, experts, x, mask_e, noise, noise_std, cfg,
                  gate_bias=None, active=None, executor=0):
     """Shared forward: returns (trusted_out (B,C), weights (B,N),
     activation (N,), support (N,), flags (N,M), logits (B,N),
-    dropped ())."""
+    dropped ()).  The gate reads the flattened task; the experts read
+    flattened rows (MLP bank) or NHWC images (CNN bank)."""
     flat = _flatten_for_gate(x)
+    xin = x if cfg.expert_kind == "cnn" else flat
     logits = ex.gate_apply(gate, flat)
     if gate_bias is not None:
-        logits = logits + gate_bias[None, :]
+        # §VI-C workload-balance bias: steers routing, carries no gradient
+        logits = logits + gate_bias.detach()[None, :]
     weights, topi = ex.sparse_gate_weights(logits, cfg.top_k)
     B = flat.shape[0]
-    capacity = sparse_capacity(cfg, B)
-    # top-k scatter-dispatch: only routed tokens reach an expert
-    buf, eid, posc, keep = _sparse_dispatch(flat, topi, cfg, capacity)
-    outs = ex.mlp_expert_apply_grouped(experts, buf)    # (N, cap, C)
-    dropped = (B * cfg.top_k) - keep.sum().float()
     if active is None:
         active = torch.ones(cfg.num_edges, device=flat.device)
-    trusted, support, flags = _trust_outputs(outs, mask_e, noise, noise_std,
-                                             cfg, active, executor)
-    # aggregate with gate weights (paper: weighted sum over top-K)
-    yk = trusted[eid, posc]                             # (B*k, C)
-    wk = weights.gather(1, topi).reshape(-1)
-    wk = wk * keep.to(wk.dtype)                         # drops contribute 0
-    y = (yk * wk[:, None]).reshape(B, cfg.top_k, -1).sum(dim=1)
+    if cfg.dispatch == "sparse":
+        capacity = sparse_capacity(cfg, B)
+        # top-k scatter-dispatch: only routed tokens reach an expert
+        buf, eid, posc, keep = _sparse_dispatch(xin, topi, cfg, capacity)
+        outs = ex.grouped_apply_fn(cfg.expert_kind)(experts, buf)
+        dropped = (B * cfg.top_k) - keep.sum().float()
+        trusted, support, flags = _trust_outputs(outs, mask_e, noise,
+                                                 noise_std, cfg, active,
+                                                 executor)
+        # aggregate with gate weights (paper: weighted sum over top-K)
+        yk = trusted[eid, posc]                         # (B*k, C)
+        wk = weights.gather(1, topi).reshape(-1)
+        wk = wk * keep.to(wk.dtype)                     # drops contribute 0
+        y = (yk * wk[:, None]).reshape(B, cfg.top_k, -1).sum(dim=1)
+    else:
+        # dense dispatch: every expert on the whole batch; the top-k
+        # weights zero the unrouted experts' share of the combine
+        outs = ex.apply_all_fn(cfg.expert_kind)(experts, xin)  # (N, B, C)
+        dropped = torch.zeros((), device=flat.device)
+        trusted, support, flags = _trust_outputs(outs, mask_e, noise,
+                                                 noise_std, cfg, active,
+                                                 executor)
+        y = torch.einsum("bn,nbc->bc", weights, trusted)
     activation = (weights > 0).sum(dim=0).float()
     return y, weights, activation, support, flags, logits, dropped
 
@@ -1206,14 +1484,16 @@ def _loss_and_grads(gate, experts, x, y, mask_e, noise, noise_std,
     """The training step's loss and gradients: the shared forward,
     log-softmax, the mean NLL of the labels ``y`` (B,), and the gradient
     over the gate and the bank by ``torch.autograd`` (the expert MLP's
-    backward through ``ops.moe_gemm``, the vote's to the elected copies).
+    backward through ``ops.moe_gemm`` under sparse dispatch, the vote's
+    to the elected copies).
     Returns (gate grads, expert grads, metrics) with loss, activation,
     support, flags and dropped on the device."""
     params = {("gate", k): v.detach().requires_grad_()
               for k, v in gate.items()}
     params.update({("experts", k): v.detach().requires_grad_()
                    for k, v in experts.items()})
-    with torch.enable_grad():
+    # the CNN's cuDNN flags cover its backward too
+    with torch.enable_grad(), ex.cnn_numerics():
         gp = {k: v for (tree, k), v in params.items() if tree == "gate"}
         ep = {k: v for (tree, k), v in params.items() if tree == "experts"}
         out, _, activation, support, flags, _, dropped = _moe_forward(
@@ -1244,7 +1524,8 @@ def _train_step(gate, experts, x, y, mask_e, noise, noise_std, gate_bias,
 
 def _infer_step(gate, experts, x, mask_e, noise, noise_std, gate_bias,
                 active, *, cfg, executor=0):
-    out, _, activation, support, _, _, _ = _moe_forward(
-        gate, experts, x, mask_e, noise, noise_std, cfg, gate_bias, active,
-        executor)
+    with ex.cnn_numerics():
+        out, _, activation, support, _, _, _ = _moe_forward(
+            gate, experts, x, mask_e, noise, noise_std, cfg, gate_bias,
+            active, executor)
     return out, activation, support

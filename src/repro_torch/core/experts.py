@@ -1,21 +1,28 @@
-"""The paper's expert/gate models (§V-A(5)), MLP bank only.
+"""The paper's expert/gate models (§V-A(5)).
 
 - Gating network: linear (flattened input -> N expert logits).
 - MLP expert (Fashion-MNIST): two fully-connected layers, hidden 256,
   ReLU.
+- CNN expert (CIFAR-10): three 3x3 stride-2 convs + two fully-connected
+  layers.
 
 Parameters are plain dicts of tensors with the JAX package's names and
-layouts (``x @ w``); the expert bank is stacked on a leading N axis.
-The CNN expert waits for a later slice.
+layouts (``x @ w``; conv kernels HWIO, images NHWC), because digests,
+chunk CIDs and bank roots hash these bytes: a convolution permutes to
+PyTorch's NCHW/OIHW inside the apply, never in storage.  The expert
+bank is stacked on a leading N axis.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
-from typing import Dict
+from typing import Callable, Dict
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from repro_torch.models.builder import Leaf
 
 Params = Dict[str, torch.Tensor]
 
@@ -62,6 +69,47 @@ def init_mlp_bank(num_experts: int, seed: int, *, in_dim: int = 784,
             "b2": torch.zeros((num_experts, out), device=device)}
 
 
+def cnn_expert_decl(in_ch: int = 3, out: int = 10) -> dict:
+    """One CNN expert's declaration, the JAX package's: three 3x3 stride-2
+    convs + two FC layers (widths unspecified in the paper)."""
+    return {
+        "c1": Leaf((3, 3, in_ch, 16), (None,) * 4),
+        "c2": Leaf((3, 3, 16, 32), (None,) * 4),
+        "c3": Leaf((3, 3, 32, 32), (None,) * 4),
+        "w1": Leaf((4 * 4 * 32, 128), (None, None)),
+        "b1": Leaf((128,), (None,), "zeros"),
+        "w2": Leaf((128, out), (None, None)),
+        "b2": Leaf((out,), (None,), "zeros"),
+    }
+
+
+def init_cnn_bank(num_experts: int, seed: int, *, in_ch: int = 3,
+                  out: int = 10, device=None) -> Params:
+    """Stacked CNN bank (``cnn_expert_decl`` behind a leading N axis):
+    kernels and weights normal with std 1/sqrt(fan_in) on the
+    second-to-last dim (a conv's input channels), zero biases, on
+    ``device`` (``None``: the CUDA device)."""
+    device = kops.resolve_device(device)
+    bank = {}
+    for k, leaf in cnn_expert_decl(in_ch, out).items():
+        s = (num_experts,) + leaf.shape
+        bank[k] = (torch.zeros(s) if leaf.init == "zeros" else
+                   _normal(s, _fan_in_std(s), seed, f"experts/{k}"))
+    return {k: v.to(device) for k, v in bank.items()}
+
+
+def init_bank(kind: str, num_experts: int, seed: int, *, in_dim: int = 784,
+              in_ch: int = 3, out: int = 10, device=None) -> Params:
+    """The seeded stacked bank of ``kind`` ("mlp" | "cnn")."""
+    if kind == "mlp":
+        return init_mlp_bank(num_experts, seed, in_dim=in_dim, out=out,
+                             device=device)
+    if kind == "cnn":
+        return init_cnn_bank(num_experts, seed, in_ch=in_ch, out=out,
+                             device=device)
+    raise ValueError(kind)
+
+
 def gate_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
     """x: (B, in_dim) -> logits (B, N)."""
     return x @ params["w"] + params["b"]
@@ -71,6 +119,91 @@ def mlp_expert_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
     """One expert's params, x: (B, in_dim) -> logits (B, out)."""
     h = torch.relu(x @ params["w1"] + params["b1"])
     return h @ params["w2"] + params["b2"]
+
+
+def cnn_numerics():
+    """The CNN's convolutions in fp32 with a fixed algorithm: cuDNN's TF32
+    off, no autotuning, deterministic kernels.  So a call of one shape
+    gives the same bits every time (the commitment and the auditors'
+    recompute hash the same leaves) and weight gradients are repeatable.
+    The flags are read when a convolution (or its backward) runs: wrap
+    the backward too."""
+    if not torch.backends.cudnn.is_available():
+        return contextlib.nullcontext()
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                      deterministic=True, allow_tf32=False)
+
+
+def _same_pad(size: int, k: int = 3, stride: int = 2):
+    """XLA's ``padding="SAME"``: (before, after) for one spatial dim —
+    at stride 2 on an even size, nothing before and one after."""
+    total = max((-(-size // stride) - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def _conv_same(h: torch.Tensor, w: torch.Tensor, groups: int = 1):
+    """A 3x3 stride-2 SAME conv on NCHW ``h`` with an OIHW kernel."""
+    (t, b), (lft, r) = _same_pad(h.shape[2]), _same_pad(h.shape[3])
+    return F.conv2d(F.pad(h, (lft, r, t, b)), w, stride=2, groups=groups)
+
+
+def cnn_expert_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """One expert's params, x: (B, 32, 32, C) NHWC -> logits (B, out).
+    The activations flatten in NHWC order (h, w, c) before ``w1``, as
+    in the JAX package."""
+    with cnn_numerics():
+        h = x.permute(0, 3, 1, 2)
+        for k in ("c1", "c2", "c3"):
+            h = torch.relu(_conv_same(h, params[k].permute(3, 2, 0, 1)))
+        h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
+        h = torch.relu(h @ params["w1"] + params["b1"])
+        return h @ params["w2"] + params["b2"]
+
+
+def cnn_expert_apply_grouped(params: Params,
+                             buf: torch.Tensor) -> torch.Tensor:
+    """buf: (N, C, 32, 32, ch) -> (N, C, out): every expert's CNN on its
+    own rows — the JAX package's ``vmap(cnn_expert_apply)`` — as one
+    grouped ``conv2d`` a layer (groups=N over the experts' stacked
+    channels) and batched products for the two dense layers."""
+    n, c = buf.shape[:2]
+    with cnn_numerics():
+        # (N, C, H, W, ch) -> (C, N*ch, H, W): expert e owns channel group e
+        h = buf.permute(1, 0, 4, 2, 3).reshape(c, -1, *buf.shape[2:4])
+        for k in ("c1", "c2", "c3"):
+            w = params[k]                                # (N, 3, 3, i, o)
+            w = w.permute(0, 4, 3, 1, 2).reshape(-1, w.shape[3], 3, 3)
+            h = torch.relu(_conv_same(h, w, groups=n))
+        hh, ww = h.shape[2:]
+        h = h.reshape(c, n, -1, hh, ww).permute(1, 0, 3, 4, 2) \
+            .reshape(n, c, -1)                           # NHWC flatten
+        h = torch.relu(torch.bmm(h, params["w1"]) + params["b1"][:, None])
+        return torch.bmm(h, params["w2"]) + params["b2"][:, None]
+
+
+def mlp_apply_all(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Dense dispatch: every expert on the whole batch, x (B, d) -> (N, B,
+    out) (the JAX package's ``vmap(mlp_expert_apply)``; plain products,
+    no kernel)."""
+    h = torch.relu(torch.matmul(x, params["w1"]) + params["b1"][:, None])
+    return torch.matmul(h, params["w2"]) + params["b2"][:, None]
+
+
+def cnn_apply_all(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Dense dispatch for the CNN bank: x (B, 32, 32, C) -> (N, B, out)."""
+    n = params["c1"].shape[0]
+    return cnn_expert_apply_grouped(params, x.expand(n, *x.shape))
+
+
+def apply_all_fn(kind: str) -> Callable[[Params, torch.Tensor],
+                                        torch.Tensor]:
+    """apply(stacked_params, x (B, ...)) -> (N, B, out): every expert on
+    the same batch (dense dispatch)."""
+    if kind == "mlp":
+        return mlp_apply_all
+    if kind == "cnn":
+        return cnn_apply_all
+    raise ValueError(kind)
 
 
 class _GroupedMLP(torch.autograd.Function):
@@ -108,6 +241,19 @@ def mlp_expert_apply_grouped(params: Params,
     the kernel, as in the JAX package."""
     return _GroupedMLP.apply(params["w1"], params["b1"], params["w2"],
                              params["b2"], buf)
+
+
+def grouped_apply_fn(kind: str) -> Callable[[Params, torch.Tensor],
+                                            torch.Tensor]:
+    """apply(stacked_params, buf (N, C, ...)) -> (N, C, out): each expert
+    on its own capacity bucket, the sparse-dispatch counterpart of
+    ``apply_all_fn``.  The MLP bank runs the grouped GEMM kernel; the CNN
+    bank one grouped convolution a layer."""
+    if kind == "mlp":
+        return mlp_expert_apply_grouped
+    if kind == "cnn":
+        return cnn_expert_apply_grouped
+    raise ValueError(kind)
 
 
 def sparse_gate_weights(logits: torch.Tensor, k: int):

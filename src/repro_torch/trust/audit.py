@@ -164,6 +164,10 @@ class FraudProof:
     recomputed_digest: str
     verifier: int = -1
 
+    def compact_size_bytes(self) -> int:
+        """On-wire size: one chunk + log2(leaves) siblings (32B each)."""
+        return self.claimed_chunk.nbytes + 32 * len(self.path.siblings)
+
 
 @dataclasses.dataclass(frozen=True)
 class AuditPlan:
@@ -180,6 +184,10 @@ class AuditPlan:
     lazy: Dict[int, bool]
     unique_leaves: List[int]               # deduped, ascending
     owner: Dict[int, int]                  # leaf -> crediting verifier
+
+    @property
+    def num_recomputes(self) -> int:
+        return len(self.unique_leaves)
 
 
 @dataclasses.dataclass
@@ -542,3 +550,24 @@ class VerifierPool:
                     caught.append(report.verifier)
                     break                  # one slash per (round, verifier)
         return caught
+
+    def detection_probability(self, corrupted_leaves: int,
+                              honest_verifiers: Optional[int] = None) -> float:
+        """Analytic bound: P[>=1 corrupted leaf sampled by an honest
+        verifier].
+
+        Uniform pool: ``1 - (1-audit_rate)^(k*v)``.  Stake-weighted
+        pool: each verifier's per-leaf rate is its ``rate_of``, so the
+        bound is ``1 - prod_v (1-rate_v)^k`` over the honest verifiers —
+        and with only a *count* of honest verifiers given, the v
+        LOWEST-rate verifiers are assumed honest (the conservative
+        bound: any other honest set detects at least as well)."""
+        v = (self.num_verifiers if honest_verifiers is None
+             else honest_verifiers)
+        if self.stakes is None:
+            return 1.0 - (1.0 - self.audit_rate) ** (corrupted_leaves * v)
+        rates = sorted(self.rate_of(i) for i in range(self.num_verifiers))
+        miss = 1.0
+        for r in rates[:v]:
+            miss *= (1.0 - r) ** corrupted_leaves
+        return 1.0 - miss

@@ -46,8 +46,9 @@ from typing import Dict, List, Optional, Tuple
 
 from repro_torch.core.reputation import ReputationLedger
 from repro_torch.obs.metrics import CounterGroup, MetricsRegistry
-from repro_torch.trust.audit import (AuditReport, FraudProof, RecomputeFn,
-                                     VerifierPool, verify_fraud_proof)
+from repro_torch.trust.audit import (AuditReport, BatchRecomputeFn,
+                                     FraudProof, RecomputeFn, VerifierPool,
+                                     verify_fraud_proof)
 from repro_torch.trust.commitments import RoundCommitment, commit_outputs
 from repro_torch.trust.slashing import (DisputeCourt, StakeBook, Verdict,
                                         reputation_fraud_update)
@@ -140,6 +141,7 @@ class AuditJob:
     round_id: int
     deadline: int
     recompute_fn: RecomputeFn
+    batch_recompute_fn: Optional[BatchRecomputeFn] = None
 
 
 class OptimisticProtocol:
@@ -236,7 +238,8 @@ class OptimisticProtocol:
         return state
 
     # ------------------------------------------------------- audit queue
-    def schedule_audit(self, round_id: int, recompute_fn: RecomputeFn
+    def schedule_audit(self, round_id: int, recompute_fn: RecomputeFn,
+                       batch_recompute_fn: Optional[BatchRecomputeFn] = None
                        ) -> None:
         """Queue round ``round_id``'s audit to run off the critical path
         (any time before its finalization deadline).  The recompute
@@ -245,8 +248,14 @@ class OptimisticProtocol:
         state = self.rounds[round_id]
         self._audit_jobs[round_id] = AuditJob(
             round_id=round_id, deadline=state.deadline,
-            recompute_fn=recompute_fn)
+            recompute_fn=recompute_fn,
+            batch_recompute_fn=batch_recompute_fn)
         heapq.heappush(self._audit_heap, (state.deadline, round_id))
+
+    def audit_backlog(self) -> List[int]:
+        """Queued-but-unaudited rounds, deadline-ordered."""
+        return [rid for _, rid in sorted(self._audit_heap)
+                if rid in self._audit_jobs]
 
     def pop_audit_jobs(self, now: Optional[int] = None) -> List[AuditJob]:
         """Claim the audit backlog for a drain.
@@ -283,17 +292,26 @@ class OptimisticProtocol:
         return jobs
 
     # ------------------------------------------------------------- audit
-    def run_audits(self, round_id: int, recompute_fn: RecomputeFn
+    def run_audits(self, round_id: int, recompute_fn: RecomputeFn,
+                   batch_recompute_fn: Optional[BatchRecomputeFn] = None
                    ) -> List[FraudProof]:
-        """All verifiers audit the round, one eager recompute per sampled
-        leaf; raised proofs are court-checked against the committed root
-        before they count (so a lying verifier cannot grief with a
-        fabricated proof).  ``BMoESystem`` instead pops the jobs itself
-        and merges every drained round into one grouped recompute."""
+        """All verifiers audit the round; raised proofs are court-checked
+        against the committed root before they count (so a lying verifier
+        cannot grief with a fabricated proof).  With
+        ``batch_recompute_fn`` the pool audits through one grouped
+        recompute (``VerifierPool.audit_batched``), else one eager
+        recompute per sampled leaf; the court confirms raised proofs with
+        ``recompute_fn`` either way.  ``BMoESystem`` instead pops the jobs
+        itself and merges every drained round into one grouped
+        recompute."""
         state = self.rounds[round_id]
         if state.phase is not RoundPhase.ACCEPTED:
             return []                  # window already closed or resolved
-        reports = self.verifiers.audit(state.commitment, recompute_fn)
+        if batch_recompute_fn is not None:
+            reports = self.verifiers.audit_batched(state.commitment,
+                                                   batch_recompute_fn)
+        else:
+            reports = self.verifiers.audit(state.commitment, recompute_fn)
         return self.apply_reports(round_id, reports, recompute_fn)
 
     def apply_reports(self, round_id: int, reports: List[AuditReport],

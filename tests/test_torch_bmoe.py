@@ -275,30 +275,9 @@ def test_plain_path_launches_no_kernel(data, port_systems):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (None, "item 2"),                     # train_round under optimistic
-    (dict(dispatch="dense"), "item 3"),
-    (dict(expert_kind="cnn"), "item 3"),
-    (dict(workload_balance=True), "item 3"),
     (dict(mesh="on"), "item 7"),
-    (dict(framework="optimistic",
-          trust=TrustConfig(audit_backend="eager")), "item 2"),
-    (dict(framework="optimistic",
-          trust=TrustConfig(scheduling="synchronous")), "item 2"),
 ])
 def test_unported_options_raise(kw, match):
-    if kw is None:
-        # bmoe and traditional train; optimistic still raises
-        sys_ = bmoe.BMoESystem(bmoe.BMoEConfig(framework="optimistic"),
-                               device="cpu")
-        with pytest.raises(NotImplementedError, match=match):
-            sys_.train_round(np.zeros((8, 784), np.float32), np.zeros(8))
-        for framework in ("bmoe", "traditional"):
-            sys_ = bmoe.BMoESystem(bmoe.BMoEConfig(framework=framework),
-                                   device="cpu")
-            sys_.train_round(np.zeros((8, 784), np.float32),
-                             np.zeros(8, np.int64))
-            assert sys_.round == 1
-        return
     with pytest.raises(NotImplementedError, match=match):
         bmoe.BMoESystem(bmoe.BMoEConfig(**kw), device="cpu")
 

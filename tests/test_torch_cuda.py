@@ -12,6 +12,8 @@ import torch
 
 from repro_torch.core.attacks import AttackConfig
 from repro_torch.core.bmoe import BMoEConfig, BMoESystem, _loss_and_grads
+from repro_torch.core.ledger import digest_tree
+from repro_torch.core.reputation import ReputationConfig
 from repro_torch.configs import get_config
 from repro_torch.kernels import audit_mlp as am
 from repro_torch.kernels import flash_attention as fa
@@ -23,6 +25,7 @@ from repro_torch.kernels import ssd_scan as ss
 from repro_torch.models import transformer
 from repro_torch.models.builder import materialize
 from repro_torch.train.loop import init_model
+from repro_torch.trust.protocol import RoundPhase, TrustConfig
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
@@ -90,6 +93,8 @@ def _pub(seed, E, M, T, n_bad, specials=False):
     (2, 10, 257, 3, (0,), False), (2, 10, 4097, 3, (), False),
     (4, 1, 100, 0, (), False), (2, 1, 5, 0, (0,), False),
     (3, 32, 1000, 16, (3, 31), True),
+    # a dense-dispatch bmoe batch of 1000: every expert's whole batch
+    (10, 10, 10000, 3, (), False),
     # the widest electorate one block's shared memory holds
     (3, 1351, 40, 600, (0, 700, 1350), True),
     (2, 1351, 3, 700, (), False)])
@@ -206,6 +211,142 @@ def test_training_is_bitwise_repeatable_and_cache_blind(cuda, monkeypatch):
         for k, v in runs[0].items():
             assert torch.equal(v.view(torch.int32),
                                other[k].view(torch.int32)), k
+
+
+REP = dict(init=0.5, gain=0.01, slash=0.4, exclusion_threshold=0.2)
+
+
+def _optimistic(device, attack, trust, **kw):
+    return BMoESystem(BMoEConfig(framework="optimistic", attack=attack,
+                                 reputation=ReputationConfig(**REP),
+                                 trust=trust, **kw), device=device)
+
+
+def _decisions(s):
+    p = s.protocol
+    return ({r: (st.executor, st.phase.value,
+                 [(q.leaf_index, q.expert) for q in st.proofs],
+                 [(x.verifier, x.sampled_leaves) for x in st.reports])
+             for r, st in p.rounds.items()},
+            [(e.round_id, e.edge, e.amount) for e in p.stakes.events],
+            [(r.round_id, r.invalidated) for r in p.rollbacks],
+            dict(p.stats), s.verification_report())
+
+
+def test_optimistic_training_on_the_card_matches_the_cpu(cuda):
+    """Full-width optimistic training (N=10, M=10, K=3, tasks of 1000):
+    round 0's gradients on the card at rtol 1e-4 of the CPU's; then three
+    rounds with executor 1 cheating, audited in full: every decision is
+    the CPU's, and the launches are the host's records — 5 moe_gemm a
+    round and a replayed round, one audit_mlp a commitment and a counted
+    recompute call, one vote a court escalation."""
+    atk = AttackConfig(malicious_edges=(1,), attack_prob=1.0, noise_std=5.0)
+    trust = TrustConfig(audit_rate=1.0, num_verifiers=1, challenge_window=1)
+    x, y = _task(0)
+    runs = {}
+    for dev in ("cpu", cuda):
+        s = _optimistic(dev, atk, trust)
+        mask_e, noise = s._draw_attack(atk, len(x), 0)
+        gate_bias, active = s._controls()
+        g_gate, g_exp, _ = _loss_and_grads(
+            s.gate, s.experts, torch.from_numpy(x).to(dev),
+            torch.from_numpy(y).to(dev), mask_e.to(dev), noise.to(dev),
+            atk.noise_std, gate_bias, active, cfg=s.cfg,
+            executor=s.protocol.pick_executor(0))
+        grads = {k: v.cpu() for k, v in
+                 {**g_exp, **{"gate_" + k: v for k, v in g_gate.items()}}
+                 .items()}
+        ops.reset_launch_counts()
+        for r in range(3):
+            xr, yr = _task(20 + r)
+            s.train_round(xr, yr)
+        s.flush_trust()
+        torch.cuda.synchronize()
+        runs[str(dev)] = (s, grads, ops.launch_counts())
+    (sc, gc, cc), (sg, gg, cg) = runs["cpu"], runs["cuda"]
+    for k in gc:
+        torch.testing.assert_close(gg[k], gc[k], rtol=1e-4, atol=1e-6,
+                                   msg=k)
+    assert _decisions(sg) == _decisions(sc)
+    assert [(e.round_id, e.edge) for e in sg.protocol.stakes.events] == \
+        [(1, 1)]
+    calls = sg.obs.metrics.snapshot("bmoe.audit_calls")
+    replayed = int(sg.obs.metrics.value("bmoe.replayed_rounds"))
+    assert replayed >= 1
+    assert cc == dict.fromkeys(cc, 0)
+    assert cg == {"moe_gemm": 5 * (3 + replayed),
+                  "audit_mlp": sg.protocol.stats["committed"]
+                  + int(sum(calls.values())),
+                  "redundancy_vote": sg.protocol.stats["escalations"],
+                  "flash_attention": 0, "rglru_scan": 0, "ssd_scan": 0}
+
+
+def test_chain_rollback_on_the_card_is_bitwise_the_clean_twin(cuda):
+    """tests/test_pipeline.py:38 on the card at full width: round 2's
+    fraud drains at round 3; the replayed chain [2, 3] holds the clean
+    twin's bits."""
+    atk = AttackConfig(malicious_edges=(2,), attack_prob=1.0, noise_std=5.0)
+    trust = TrustConfig(audit_rate=1.0, num_verifiers=1, challenge_window=3)
+    s = _optimistic(cuda, atk, trust)
+    clean = _optimistic(cuda, AttackConfig(), trust)
+    for r in range(4):
+        x, y = _task(30 + r)
+        s.train_round(x, y)
+        clean.train_round(x, y)
+    assert [(q.round_id, q.invalidated) for q in s.protocol.rollbacks] == \
+        [(2, [3])]
+    assert s.ledger.rollbacks()[0].payload["chain"] == [2, 3]
+    assert digest_tree(s.experts) == digest_tree(clean.experts)
+    assert digest_tree(s.gate) == digest_tree(clean.gate)
+
+
+def _cifar_task(seed, n=256):
+    rng = np.random.default_rng(seed)
+    return (rng.random((n, 32, 32, 3), dtype=np.float32),
+            rng.integers(0, 10, n))
+
+
+@pytest.mark.parametrize("dispatch", ["sparse", "dense"])
+def test_cnn_training_is_bitwise_repeatable(cuda, dispatch):
+    """The CNN bank (lr 0.1) trained 3 rounds under bmoe twice from seed
+    0: the same bits, without the deterministic-algorithms switch (the
+    CNN's cuDNN flags fix its algorithms); one vote a round, no
+    moe_gemm."""
+    runs = []
+    for _ in range(2):
+        s = _train_system("bmoe", cuda, expert_kind="cnn", in_ch=3, lr=0.1,
+                          dispatch=dispatch)
+        ops.reset_launch_counts()
+        for r in range(3):
+            s.train_round(*_cifar_task(40 + r))
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["redundancy_vote"] == 3
+        assert ops.launch_counts()["moe_gemm"] == 0
+        runs.append({**s.experts,
+                     **{"gate_" + k: v for k, v in s.gate.items()}})
+    for k, v in runs[0].items():
+        assert torch.equal(v.view(torch.int32),
+                           runs[1][k].view(torch.int32)), k
+
+
+def test_honest_cnn_optimistic_rounds_are_never_challenged(cuda):
+    """Every leaf of three honest CNN rounds audited on the card: the
+    commitment's bytes and the auditors' recompute agree bit for bit, so
+    no round is challenged; batched and eager audits agree."""
+    trust = dict(audit_rate=1.0, num_verifiers=2, challenge_window=1)
+    runs = []
+    for backend in ("batched", "eager"):
+        s = _optimistic(cuda, AttackConfig(),
+                        TrustConfig(audit_backend=backend, **trust),
+                        expert_kind="cnn", in_ch=3, lr=0.1)
+        for r in range(3):
+            s.train_round(*_cifar_task(50 + r))
+        s.flush_trust()
+        assert all(st.phase is RoundPhase.FINALIZED and not st.proofs
+                   and st.verdict is None
+                   for st in s.protocol.rounds.values())
+        runs.append(s)
+    assert digest_tree(runs[0].experts) == digest_tree(runs[1].experts)
 
 
 def _bank(seed, E, d, h, o, device):

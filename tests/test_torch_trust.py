@@ -473,5 +473,11 @@ def test_optimistic_probe_and_train_round(data):
     assert (support == 1.0).all() and tsys._infer_protocol is None
     served, _, _ = tsys.infer(x)                        # executor 0 cheats
     assert not np.allclose(served, honest)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        tsys.train_round(x, np.zeros(B, np.int64))
+    # a training round: executor 0 commits its poisoned update, accepted
+    # optimistically with its audit queued; flush settles it
+    m = tsys.train_round(x, np.zeros(B, np.int64))
+    assert tsys.round == 1 and m["rolled_back"] == 0
+    assert tsys.protocol.rounds[0].executor == 0
+    assert tsys.protocol.audit_backlog() == [0]
+    tsys.flush_trust()
+    assert tsys.protocol.rounds[0].phase in protocol.TERMINAL_PHASES
