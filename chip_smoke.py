@@ -19,6 +19,17 @@ capacity 376, edge cache on):
   mamba2-2.7b (path E: prefill at S=4096, 32 SSD chunks, teacher-forced
   decode over 384 tokens across two chunk boundaries, four requests
   decoded in one batch against each alone);
+- the rest of the LM configs (paths H, I and J), prefill at 4,096
+  positions and decode against the forward: the MoE models bmoe-paper
+  and qwen2-moe-a2.7b at full width and llama4-maverick-400b-a17b at
+  its smoke width (path H: 3 moe_gemm launches a MoE layer; decode with
+  expert counts held to a recount of the routing, against the forward
+  at the config's capacity and at one that drops nothing, every routing
+  difference explained by a near-tie or an earlier drop; batched decode
+  equal to each request alone bit for bit); qwen3-32b and gemma3-27b
+  cut in depth to fit the card and pixtral-12b with its 1,024 patch
+  embeddings (path I); seamless-m4t-medium over 4,096 frames, decoded
+  against cross K/V built from its encoder's memory (path J);
 - B-MoE training (path F): ``train_round`` under ``traditional`` and
   ``bmoe``, 30 clean rounds each on tasks of 1000, then the paper's
   claim under 3 of 10 colluding edges (bmoe holds its clean accuracy,
@@ -122,10 +133,13 @@ def bound(flops: float, nbytes: float, peak: float):
 
 # ------------------------------------------------------------ kernels
 def check_moe_gemm(torch, mg, ref, seed: int, name: str, E: int, C: int,
-                   d: int, f: int, dtype):
+                   d: int, f: int, dtype, w_scale: float = 1.0):
+    """The kernel against its plain version (fp32 cuBLAS, TF32 off) on
+    unit normal rows and weights drawn at ``w_scale`` (an LM layer's
+    fan-in init is 1/sqrt(d))."""
     g = torch.Generator().manual_seed(seed)
     buf = torch.randn(E, C, d, generator=g).to("cuda", dtype)
-    w = torch.randn(E, d, f, generator=g).to("cuda", dtype)
+    w = (torch.randn(E, d, f, generator=g) * w_scale).to("cuda", dtype)
     got = mg.moe_gemm(buf, w)
     want = ref.moe_gemm_ref(buf, w)
     torch.cuda.synchronize()
@@ -157,9 +171,10 @@ def check_moe_gemm(torch, mg, ref, seed: int, name: str, E: int, C: int,
 
 def moe_gemm_cases(torch, mg, ref):
     """The B-MoE path's two expert layers in fp32 (returned first) and
-    bf16, a ragged shape, and the training round's three backward
-    products on contiguous transposed copies (returned second): dw2 =
-    h^T g, dh = g w2^T, dw1 = buf^T dh."""
+    bf16, a ragged shape, the training round's three backward products
+    on contiguous transposed copies (returned second): dw2 = h^T g, dh =
+    g w2^T, dw1 = buf^T dh, and the LM MoE layers' products (returned
+    third)."""
     gemm = [check_moe_gemm(torch, mg, ref, 1, "layer1", 10, 376, 784, 256,
                            torch.float32),
             check_moe_gemm(torch, mg, ref, 2, "layer2", 10, 376, 256, 10,
@@ -176,7 +191,64 @@ def moe_gemm_cases(torch, mg, ref):
                    torch.bfloat16)
     check_moe_gemm(torch, mg, ref, 5, "layer2_bf16", 10, 376, 256, 10,
                    torch.bfloat16)
-    return gemm, bwd
+    # the LM MoE layers of path H at a prefill of 4096 (gate and up share
+    # a shape, then down), the decode fold of 4 slots at capacity k = 4,
+    # one slot, and the fold's rows against each slot alone; weights at
+    # the layers' fan-in scale, as the model draws them
+    lm = [check_moe_gemm(torch, mg, ref, seed, name, E, C, d, f,
+                         torch.float32, w_scale=d ** -0.5)
+          for seed, name, E, C, d, f in (
+              (40, "bmoe_lm_gate_up", 10, 1536, 1024, 2816),
+              (41, "bmoe_lm_down", 10, 1536, 2816, 1024),
+              (42, "qwen2_moe_gate_up", 64, 344, 2048, 1408),
+              (43, "qwen2_moe_down", 64, 344, 1408, 2048),
+              (44, "qwen2_moe_decode_fold_b4", 64, 16, 2048, 1408))]
+    check_moe_gemm(torch, mg, ref, 45, "qwen2_moe_decode_b1", 64, 4, 2048,
+                   1408, torch.float32, w_scale=2048 ** -0.5)
+    check_moe_gemm_fp64(torch, mg, ref)
+    check_moe_gemm_fold(torch, mg)
+    return gemm, bwd, lm
+
+
+def check_moe_gemm_fp64(torch, mg, ref):
+    """At K = 1024 on unit weights (outputs of about 32) two fp32
+    reduction orders differ by more than the 8e-5 absolute bar where an
+    output cancels to near zero; so the kernel and its plain version are
+    both held against the float64 product: the kernel's largest error
+    may not exceed twice the plain version's."""
+    g = torch.Generator().manual_seed(49)
+    buf = torch.randn(10, 1536, 1024, generator=g).cuda()
+    w = torch.randn(10, 1024, 2816, generator=g).cuda()
+    exact = torch.bmm(buf.double(), w.double())
+    err_k = float((mg.moe_gemm(buf, w).double() - exact).abs().max())
+    err_p = float((ref.moe_gemm_ref(buf, w).double() - exact).abs().max())
+    res = {"phase": "moe_gemm_vs_fp64", "shape":
+           "(10,1536,1024)x(10,1024,2816), unit normal",
+           "kernel_max_abs_err": err_k, "plain_max_abs_err": err_p,
+           "ok": err_k <= 2.0 * err_p}
+    emit(res)
+    require(res["ok"], f"moe_gemm less accurate than fp32: {res}")
+
+
+def check_moe_gemm_fold(torch, mg):
+    """The decode fold (E, B*C, d) with B = 4 slots of C = 4 rows, against
+    each slot's (E, C, d) call alone, bit for bit: a request's expert
+    rows do not depend on the other requests of its batch."""
+    g = torch.Generator().manual_seed(46)
+    buf = torch.randn(4, 64, 4, 2048, generator=g).cuda()
+    w = torch.randn(64, 2048, 1408, generator=g).cuda()
+    fold = mg.moe_gemm(buf.transpose(0, 1).reshape(64, 16, 2048)
+                       .contiguous(), w).reshape(64, 4, 4, 1408)
+    alone = [mg.moe_gemm(buf[b].contiguous(), w) for b in range(4)]
+    torch.cuda.synchronize()
+    res = {"phase": "moe_gemm_fold_invariance",
+           "shape": "(64,4x4,2048)x(64,2048,1408)",
+           "slots_alone_bitwise": all(_bitwise_equal(torch, alone[b],
+                                                     fold[:, b])
+                                      for b in range(4))}
+    emit(res)
+    require(res["slots_alone_bitwise"],
+            f"moe_gemm rows depend on the other slots of the fold: {res}")
 
 
 def _bitwise_equal(torch, a, b) -> bool:
@@ -382,13 +454,16 @@ def top_kernel(torch, run) -> str:
 
 def check_flash(torch, np, fa, ref, seed: int, name: str, B: int, S: int,
                 H: int, KH: int, D: int, causal: bool, window: int = 0,
-                softcap: float = 0.0, dtype=None, iters: int = 20):
+                softcap: float = 0.0, dtype=None, iters: int = 20,
+                Sk: Optional[int] = None):
+    """Sq = S queries against Sk keys (default S)."""
     import torch.nn.functional as F
     dtype = dtype or torch.float32
+    Sk = Sk or S
     g = torch.Generator().manual_seed(seed)
     q = torch.randn(B, S, H, D, generator=g).to("cuda", dtype)
-    k = torch.randn(B, S, KH, D, generator=g).to("cuda", dtype)
-    v = torch.randn(B, S, KH, D, generator=g).to("cuda", dtype)
+    k = torch.randn(B, Sk, KH, D, generator=g).to("cuda", dtype)
+    v = torch.randn(B, Sk, KH, D, generator=g).to("cuda", dtype)
     kw = dict(causal=causal, window=window, softcap=softcap)
     got = fa.flash_attention(q, k, v, **kw)
     want = ref.attention_ref(q, k, v, **kw)
@@ -396,10 +471,10 @@ def check_flash(torch, np, fa, ref, seed: int, name: str, B: int, S: int,
     tol = 2e-4 if dtype == torch.float32 else 2e-2
     err = float((got.float() - want.float()).abs().max())
     ok = bool(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol))
-    pairs = attention_pairs(np, S, S, causal, window)
+    pairs = attention_pairs(np, S, Sk, causal, window)
     size = q.element_size()
     flops = 4.0 * B * H * D * pairs
-    nbytes = size * (2 * B * S * H * D + 2 * B * S * KH * D)
+    nbytes = size * (2 * B * S * H * D + 2 * B * Sk * KH * D)
     fp32 = dtype == torch.float32
     b_ms, b_by = bound(flops, nbytes, TF32X3_PEAK if fp32 else BF16_PEAK)
     # the yardstick: one scaled_dot_product_attention call on the same
@@ -413,7 +488,7 @@ def check_flash(torch, np, fa, ref, seed: int, name: str, B: int, S: int,
         vt = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
         mask = None
         if window:
-            pos = torch.arange(S, device="cuda")
+            pos = torch.arange(S, device="cuda")      # Sq = Sk here
             mask = pos[None, :] > pos[:, None] - window
             if causal:
                 mask &= pos[None, :] <= pos[:, None]
@@ -422,7 +497,7 @@ def check_flash(torch, np, fa, ref, seed: int, name: str, B: int, S: int,
         library_ms = time_ms(sdpa, iters=iters)
         backend = top_kernel(torch, sdpa)
     row = {"case": name, "kernel": "flash_attention",
-           "shape": f"q ({B},{S},{H},{D}), kv heads {KH}",
+           "shape": f"q ({B},{S},{H},{D}), kv ({B},{Sk},{KH},{D})",
            "causal": causal, "window": window, "softcap": softcap,
            "dtype": str(dtype).replace("torch.", ""), "pairs": pairs,
            "max_abs_err": err, "rtol": tol, "atol": tol, "ok": ok,
@@ -443,7 +518,7 @@ def check_flash(torch, np, fa, ref, seed: int, name: str, B: int, S: int,
 def flash_cases(torch, np, fa, ref):
     """A qwen2.5-3b and a recurrentgemma-2b layer in fp32 (returned), the
     qwen layer in bf16, a ragged, a softcapped and a windowed D = 48
-    case."""
+    case, then the non-causal cross-attention shapes."""
     flash = [check_flash(torch, np, fa, ref, 15, "qwen_layer", 1, 4096, 16,
                          2, 128, True, iters=5),
              check_flash(torch, np, fa, ref, 16, "rgemma_layer", 1, 4096, 10,
@@ -455,6 +530,12 @@ def flash_cases(torch, np, fa, ref):
                 128, True, dtype=torch.bfloat16, iters=5)
     check_flash(torch, np, fa, ref, 27, "d48_window", 2, 512, 6, 2, 48,
                 True, window=100)
+    # seamless-m4t-medium's cross-attention (and encoder) at 4096: non-
+    # causal, returned third; then a ragged non-causal Sq != Sk
+    flash.append(check_flash(torch, np, fa, ref, 47, "seamless_cross", 1,
+                             4096, 16, 16, 64, False, iters=5))
+    check_flash(torch, np, fa, ref, 48, "cross_ragged", 2, 1000, 8, 4, 64,
+                False, Sk=1500)
     return flash
 
 
@@ -594,14 +675,53 @@ def ssd_cases(torch, ss, ref):
                       128, 100)]
 
 
-# --------------------------------------- LM stack: paths C, D and E
-def lm_prefill(torch, ops, cfg, params, tokens, want_counts):
-    """The prefill step at (1, 4096): one warm-up, then the main path's
-    run with the launch counts set to 0 around it, two more timed runs
-    (median of 3), peak memory, and one profiled warm run."""
+# --------------------------- LM stack: paths C, D, E, H, I and J
+def lm_counts(**n):
+    """A launch-count dict: the named kernels' counts, every other 0."""
+    return {k: n.get(k, 0) for k in ("moe_gemm", "redundancy_vote",
+                                     "audit_mlp", "flash_attention",
+                                     "rglru_scan", "ssd_scan")}
+
+
+def prefill_batch(torch, cfg, S: int):
+    """The prefill's inputs at a sequence of S, on the card, from seed 0:
+    S tokens; for a VLM the patch prefix (``frontend_tokens``, at most
+    S/2, as ``src/repro/launch/shapes.py`` shapes it) and S - P tokens;
+    for the encoder-decoder S frames and S tokens."""
+    from repro_torch.data.synthetic import lm_batches, stub_embeddings
+    batch, text = {}, S
+    if cfg.is_encoder_decoder:
+        batch["frames"] = stub_embeddings(1, S, cfg.d_model, seed=0)
+    elif cfg.frontend == "vision":
+        P = min(cfg.frontend_tokens, S // 2)
+        batch["patches"] = stub_embeddings(1, P, cfg.d_model, seed=0)
+        text = S - P
+    batch["tokens"] = next(lm_batches(cfg.vocab_size, 1, text,
+                                      seed=0))["tokens"].cuda()
+    return batch
+
+
+def _profiled(prof, group: str, calls: int):
+    """One kernel group of a profiled run: its wrapper calls, CUDA
+    launches, device time and share of the run's device time."""
+    g = prof[group]
+    return {"calls": calls, "cuda_launches": g["cuda_launches"],
+            "cuda_launches_per_call": (g["cuda_launches"] / calls
+                                       if calls else None),
+            "device_ms": g["device_us"] / 1e3,
+            "device_share": g["device_us"] / prof["device_busy_us"],
+            "by_kernel": g["by_kernel"]}
+
+
+def lm_prefill(torch, ops, cfg, params, batch, want_counts, reduced=None):
+    """The prefill step on ``batch`` (1 x 4096 positions): one warm-up,
+    then the main path's run with the launch counts set to 0 around it,
+    two more timed runs (median of 3), peak memory, and one profiled warm
+    run.  Each kernel group's calls, CUDA launches (one ssd_scan call is
+    four, one rglru_scan call two) and device time come from the
+    profiled run."""
     from repro_torch.train.step import make_prefill_step
     prefill = make_prefill_step(cfg)
-    batch = {"tokens": tokens.cuda()}
     nxt = prefill(params, batch)                 # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -618,34 +738,18 @@ def lm_prefill(torch, ops, cfg, params, tokens, want_counts):
     peak = torch.cuda.max_memory_allocated()
     ops.reset_launch_counts()
     prof = profile_batch(torch, lambda: prefill(params, batch))
-    ssd_calls = ops.launch_counts()["ssd_scan"]
-    scan_calls = ops.launch_counts()["rglru_scan"]
+    calls = ops.launch_counts()
     wall_ms = sorted(walls)[1] * 1e3
-    S = tokens.shape[1]
+    S = sum(batch[k].shape[1] for k in ("tokens", "patches") if k in batch)
     row = {"phase": "lm_prefill", "model": cfg.name, "batch": 1, "seq": S,
-           "launches": counts,
-           # one ssd_scan call runs several CUDA launches (C B^T, chunk
-           # states, state pass, outputs): the profiled run's calls, its
-           # ssd_* CUDA launches and their device time
-           "ssd_profiled": {"calls": ssd_calls,
-                            "cuda_launches": prof["ssd"]["cuda_launches"],
-                            "cuda_launches_per_call": (
-                                prof["ssd"]["cuda_launches"] / ssd_calls
-                                if ssd_calls else None),
-                            "device_ms": prof["ssd"]["device_us"] / 1e3,
-                            "device_share": prof["ssd"]["device_us"]
-                            / prof["device_busy_us"],
-                            "by_kernel": prof["ssd"]["by_kernel"]},
-           # likewise the rglru_scan calls (summaries, then the scan)
-           "rglru_profiled": {"calls": scan_calls,
-                              "cuda_launches": prof["rglru"]["cuda_launches"],
-                              "cuda_launches_per_call": (
-                                  prof["rglru"]["cuda_launches"] / scan_calls
-                                  if scan_calls else None),
-                              "device_ms": prof["rglru"]["device_us"] / 1e3,
-                              "device_share": prof["rglru"]["device_us"]
-                              / prof["device_busy_us"],
-                              "by_kernel": prof["rglru"]["by_kernel"]},
+           "inputs": {k: list(v.shape) for k, v in batch.items()},
+           "reduced": reduced, "launches": counts,
+           "ssd_profiled": _profiled(prof, "ssd", calls["ssd_scan"]),
+           "rglru_profiled": _profiled(prof, "rglru", calls["rglru_scan"]),
+           "moe_gemm_profiled": _profiled(prof, "moe_gemm",
+                                          calls["moe_gemm"]),
+           "flash_profiled": _profiled(prof, "flash",
+                                       calls["flash_attention"]),
            "wall_ms": [w * 1e3 for w in walls],
            "tokens_per_s": S / (wall_ms / 1e3),
            "peak_mem_gb": peak / 1e9, "next_token": nxt.tolist(),
@@ -655,16 +759,32 @@ def lm_prefill(torch, ops, cfg, params, tokens, want_counts):
     emit(row)
     require(nxt.shape == (1, 1) and 0 <= int(nxt) < cfg.padded_vocab,
             f"{cfg.name} prefill gave {nxt.tolist()}")
-    for k, n in want_counts.items():
-        require(counts[k] == n, f"{cfg.name} prefill launched {counts[k]} "
-                                f"{k}, wanted {n}")
+    require(counts == want_counts, f"{cfg.name} prefill launched {counts}, "
+                                   f"wanted {want_counts}")
     return counts, row
+
+
+def _decode_line(torch, name, cfg, S, dec, full, step_ms, prof, extra):
+    """Emit a decode-against-forward line; return the error and whether
+    it holds the 2e-3 bar."""
+    err = float((dec - full).abs().max())
+    finite = bool(torch.isfinite(full).all())
+    emit({"phase": name, "model": cfg.name, "seq": S, **extra,
+          "max_abs_err": err, "rtol": 2e-3, "atol": 2e-3,
+          "logits_finite": finite, "logit_abs_max": float(full.abs().max()),
+          "decode_step_ms": step_ms,
+          "step_device_busy_ms": prof["device_busy_us"] / 1e3,
+          "step_device_idle_share": 1.0 - prof["device_busy_us"] / 1e3
+          / step_ms, "step_profile": prof["top"]})
+    require(finite and full.shape == (1, S, cfg.padded_vocab),
+            f"{cfg.name} forward logits shape {tuple(full.shape)} / finite")
 
 
 def decode_vs_train(torch, cfg, params, tokens, S: int):
     """Teacher-forced decode of ``tokens[:, :S]`` through the caches
     against the full forward's logits, at the 2e-3 bar of the JAX
-    package's tests/test_consistency.py."""
+    package's tests/test_consistency.py.  A VLM decodes its text alone
+    (decode embeds tokens, not patches)."""
     from repro_torch.models import transformer as tfm
     from repro_torch.models.builder import materialize
     toks = tokens[:, :S].cuda()
@@ -680,21 +800,208 @@ def decode_vs_train(torch, cfg, params, tokens, S: int):
     step_ms = (time.perf_counter() - t0) / S * 1e3
     prof = profile_batch(torch, lambda: tfm.forward_decode(
         params, caches, toks[:, S - 1:], S - 1, cfg))
-    err = float((dec - full).abs().max())
     ok = bool(torch.allclose(dec, full, rtol=2e-3, atol=2e-3))
-    finite = bool(torch.isfinite(full).all())
-    emit({"phase": "decode_vs_train", "model": cfg.name, "seq": S,
-          "window": cfg.sliding_window if any(
-              s.kind == "local_attn" for s in cfg.block_pattern) else None,
-          "max_abs_err": err, "rtol": 2e-3, "atol": 2e-3, "ok": ok,
-          "logits_finite": finite, "logit_abs_max": float(full.abs().max()),
-          "decode_step_ms": step_ms,
-          "step_device_busy_ms": prof["device_busy_us"] / 1e3,
-          "step_device_idle_share": 1.0 - prof["device_busy_us"] / 1e3
-          / step_ms, "step_profile": prof["top"]})
-    require(finite and full.shape == (1, S, cfg.padded_vocab),
-            f"{cfg.name} forward logits shape {tuple(full.shape)} / finite")
-    require(ok, f"{cfg.name} decode differs from the forward by {err}")
+    _decode_line(torch, "decode_vs_train", cfg, S, dec, full, step_ms, prof,
+                 {"window": cfg.sliding_window if any(
+                     s.kind == "local_attn" for s in cfg.block_pattern)
+                  else None, "ok": ok})
+    require(ok, f"{cfg.name} decode differs from the forward by "
+                f"{float((dec - full).abs().max())}")
+
+
+class RouteRecorder:
+    """``repro_torch.models.moe.route`` wrapped inside a ``with`` block:
+    each call's router logits, expert ids and keep flags, in call order,
+    left on the card."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.inner, self.calls = moe, moe.route, []
+
+        def route(logits, k, capacity, num_real=0):
+            out = self.inner(logits, k, capacity, num_real)
+            self.calls.append((logits, out[1], out[3]))
+            return out
+        moe.route = route
+        return self.calls
+
+    def __exit__(self, *exc):
+        self.moe.route = self.inner
+
+
+def routing_check(torch, cfg, fwd, dec, full, dec_logits, S: int):
+    """Decode's routing against one forward's, token by token over the L
+    MoE layers.  ``fwd``: L recorded calls over the sequence; ``dec``:
+    S * L one-token calls, step by step.  A disagreement is a (token,
+    layer) whose expert set differs; a drop, an assignment the forward's
+    capacity dropped.  Either changes the token's residual from that
+    layer on, and every later token reads it through attention, so:
+    every disagreement must have a top-k router margin under 1e-4 (a
+    near-tie, either run's margin) or follow a drop or disagreement at
+    an earlier layer of this or an earlier token; the 2e-3 bar is held
+    on every token before the first drop or disagreement, and every
+    other token is counted."""
+    L, k, n = len(fwd), cfg.num_experts_per_tok, cfg.num_experts
+    f_eid = torch.stack([c[1][0] for c in fwd], 1)          # (S, L, k)
+    f_keep = torch.stack([c[2][0] for c in fwd], 1)
+    d_eid = torch.stack([c[1][0, 0] for c in dec]).reshape(S, L, k)
+
+    def margin(lg):                                        # (S, L)
+        top = lg[..., :n].float().sort(-1, descending=True)[0]
+        return top[..., k - 1] - top[..., k]
+
+    m = torch.minimum(
+        margin(torch.stack([c[0][0] for c in fwd], 1)),
+        margin(torch.stack([c[0][0, 0] for c in dec]).reshape(S, L, -1)))
+    disagree = (f_eid.sort(-1)[0] != d_eid.sort(-1)[0]).any(-1)
+    dropped = ~f_keep.all(-1)
+    event = disagree | dropped
+    # an event at (s <= t, l' < l) may explain a disagreement at (t, l)
+    seen = event.int().cummax(0)[0].cummax(1)[0]
+    prior = torch.zeros_like(event)
+    prior[:, 1:] = seen[:, :-1].bool()
+    unexplained = disagree & ~prior & (m >= 1e-4)
+    clean = ~event.any(1).int().cummax(0)[0].bool()       # (S,)
+    err = (dec_logits - full).abs().amax(-1)[0]            # (S,)
+    where = disagree.nonzero().tolist()
+    res = {"moe_layers": L, "dropped_assignments": int((~f_keep).sum()),
+           "tokens_with_a_drop": int(dropped.any(1).sum()),
+           "disagreements": len(where),
+           "disagreement_at": [{"token": t, "layer": l,
+                                "topk_margin": float(m[t, l])}
+                               for t, l in where[:16]],
+           "unexplained_disagreements": int(unexplained.sum()),
+           "min_topk_margin": float(m.min()),
+           "checked_tokens": int(clean.sum()),
+           "unchecked_tokens": int((~clean).sum()),
+           "max_abs_err_checked": (float(err[clean].max())
+                                   if clean.any() else None),
+           "max_abs_err_unchecked": (float(err[~clean].max())
+                                     if (~clean).any() else None)}
+    res["ok"] = (res["unexplained_disagreements"] == 0
+                 and (res["max_abs_err_checked"] or 0.0) <= 2e-3)
+    return res
+
+
+def moe_decode_vs_train(torch, cfg, params, tokens, S: int):
+    """Teacher-forced decode with ``expert_stats`` against two forwards:
+    at the config's capacity (its drops reported) and at a capacity that
+    drops nothing (capacity factor E / k, as the JAX package's own
+    tests/test_consistency.py raises it), each under ``routing_check``.
+    Every step's counts equal a recount of its routing, each layer's
+    summing to k."""
+    import dataclasses
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.builder import materialize
+    from repro_torch.models.moe import capacity_for
+    toks = tokens[:, :S].cuda()
+    nodrop = dataclasses.replace(
+        cfg, capacity_factor=cfg.num_experts / cfg.num_experts_per_tok)
+    E, k = cfg.resolved_padded_experts, cfg.num_experts_per_tok
+    with RouteRecorder() as rec:
+        full, _ = tfm.forward_train(params, toks, cfg)
+        fwd = rec[:]
+        full_nd, _ = tfm.forward_train(params, toks, nodrop)
+        fwd_nd = rec[len(fwd):]
+        del rec[:]
+        caches = materialize(tfm.cache_decl(cfg, 1, S), 0, "cuda")
+        dec = torch.empty_like(full)
+        stats_exact = True
+        t0 = time.perf_counter()
+        for t in range(S):
+            logits, caches, stats = tfm.forward_decode(
+                params, caches, toks[:, t:t + 1], t, cfg, expert_stats=True)
+            dec[:, t] = logits[:, 0]
+            recount = torch.stack([torch.bincount(c[1].reshape(-1),
+                                                  minlength=E)
+                                   for c in rec[-len(fwd):]])
+            stats_exact &= bool(torch.equal(stats.long(), recount)
+                                and (stats.sum(-1) == k).all())
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / S * 1e3
+        dec_calls = rec[:]
+    prof = profile_batch(torch, lambda: tfm.forward_decode(
+        params, caches, toks[:, S - 1:], S - 1, cfg, expert_stats=True))
+    at_cap = routing_check(torch, cfg, fwd, dec_calls, full, dec, S)
+    no_drop = routing_check(torch, cfg, fwd_nd, dec_calls, full_nd, dec, S)
+    _decode_line(torch, "moe_decode_vs_train", cfg, S, dec, full_nd,
+                 step_ms, prof,
+                 {"capacity": capacity_for(cfg, S),
+                  "no_drop_capacity": capacity_for(nodrop, S),
+                  "stats_exact": stats_exact, "at_capacity": at_cap,
+                  "no_drop": no_drop})
+    require(stats_exact, f"{cfg.name}: decode expert counts differ from "
+                         f"the routing's recount")
+    require(at_cap["ok"] and no_drop["ok"],
+            f"{cfg.name} decode against the forward: {at_cap}, {no_drop}")
+
+
+def moe_decode_step_stats(torch, cfg, params):
+    """``make_decode_step(expert_stats=True)`` on a 4-row batch (per-row
+    positions, one inactive row) after a 4-token prefix: per MoE layer
+    the counts of all 4 rows, the inactive one included, sum to 4 k and
+    equal a recount of the step's routing."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.builder import materialize
+    from repro_torch.train.step import make_decode_step
+    g = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (4, 5), generator=g).cuda()
+    caches = materialize(tfm.cache_decl(cfg, 4, 8), 0, "cuda")
+    for t in range(4):
+        _, caches = tfm.forward_decode(params, caches, toks[:, t:t + 1], t,
+                                       cfg)
+    step = make_decode_step(cfg, expert_stats=True)
+    batch = {"tokens": toks[:, 4:], "pos": torch.tensor([4, 4, 3, 4]).cuda(),
+             "active": torch.tensor([True, True, False, True]).cuda()}
+    with RouteRecorder() as rec:
+        nxt, _, stats = step(params, caches, batch)
+    E, k = cfg.resolved_padded_experts, cfg.num_experts_per_tok
+    recount = torch.stack([torch.bincount(c[1].reshape(-1), minlength=E)
+                           for c in rec])
+    res = {"phase": "moe_decode_step_stats", "model": cfg.name,
+           "rows": 4, "stats_shape": list(stats.shape),
+           "layer_sums": stats.sum(-1).tolist(),
+           "equal_recount": bool(torch.equal(stats.long(), recount)),
+           "next_tokens": nxt.tolist()}
+    emit(res)
+    require(res["equal_recount"] and res["layer_sums"] == [4 * k] * len(rec)
+            and stats.dtype == torch.int32,
+            f"{cfg.name} decode step's expert stats: {res}")
+
+
+def encdec_decode_vs_train(torch, cfg, params, batch, S: int):
+    """The encoder-decoder's teacher-forced decode of ``S`` tokens through
+    the self K/V cache, against the cross K/V built here from ``encode``
+    over all the frames (each decoder layer's ``xattn.wk``/``wv``, no
+    rope), held to the full forward's logits at 2e-3."""
+    from repro_torch.models import encdec
+    from repro_torch.models.builder import materialize
+    frames, toks = batch["frames"], batch["tokens"][:, :S]
+    full, _ = encdec.forward_train(params, frames, toks, cfg)
+    memory = encdec.encode(params, frames, cfg)
+    M = memory.shape[1]
+    shape = (1, M, cfg.num_kv_heads, cfg.resolved_head_dim)
+    x = params["dec_blocks"]["xattn"]
+    caches = materialize(encdec.encdec_cache_decl(cfg, 1, S, M), 0, "cuda")
+    caches["cross_k"] = torch.stack([(memory @ w).reshape(shape)
+                                     for w in x["wk"]])
+    caches["cross_v"] = torch.stack([(memory @ w).reshape(shape)
+                                     for w in x["wv"]])
+    dec = torch.empty_like(full)
+    t0 = time.perf_counter()
+    for t in range(S):
+        logits, caches = encdec.forward_decode(params, caches,
+                                               toks[:, t:t + 1], t, cfg)
+        dec[:, t] = logits[:, 0]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / S * 1e3
+    prof = profile_batch(torch, lambda: encdec.forward_decode(
+        params, caches, toks[:, S - 1:], S - 1, cfg))
+    ok = bool(torch.allclose(dec, full, rtol=2e-3, atol=2e-3))
+    _decode_line(torch, "encdec_decode_vs_train", cfg, S, dec, full, step_ms,
+                 prof, {"memory": M, "ok": ok})
+    require(ok, f"{cfg.name} decode differs from the forward by "
+                f"{float((dec - full).abs().max())}")
 
 
 def serve_greedy(torch, cfg, params, requests, start, cache_len: int):
@@ -738,15 +1045,18 @@ def serve_greedy(torch, cfg, params, requests, start, cache_len: int):
     return [torch.stack(x) if x else None for x in logits_out], gen
 
 
-def batched_vs_alone(torch, cfg, params, width1_tol):
+def batched_vs_alone(torch, cfg, params, width1_tol=None, bitwise=False):
     """Four requests decoded in one 4-slot batch (admitted at steps 0-3)
     against each one alone: in the same 4-slot batch with the other slots
-    empty (the serving engine's fixed width: bar 1e-4 and the same
-    tokens), and in a batch of width 1 (the same tokens, the logits
-    within ``width1_tol``).  Across widths the library products round
+    empty (the serving engine's fixed width: bar 1e-4, or bit for bit
+    where ``bitwise``, and the same tokens), and, where ``width1_tol`` is
+    given, in a batch of width 1 (the same tokens, the logits within
+    ``width1_tol``).  Across widths the library products round
     differently (cuBLAS picks its kernel by the row count), so the
     width-1 error grows with how far the model amplifies rounding, as
-    its decode-against-forward error does."""
+    its decode-against-forward error does.  An MoE model is held bit for
+    bit at the same width: each slot is its own dispatch group and
+    ``moe_gemm``'s rows do not depend on the other rows of the fold."""
     from repro_torch.data.synthetic import serving_requests
     reqs = list(serving_requests(cfg.vocab_size, 4, max_prompt=64,
                                  max_new=16, seed=0))
@@ -764,17 +1074,19 @@ def batched_vs_alone(torch, cfg, params, width1_tol):
                                     cache_len)
         errs.append(float((batched[r] - alone[r]).abs().max()))
         same.append(gen_b[r] == gen_a[r])
-        alone1, gen_1 = serve_greedy(torch, cfg, params, [req], [0],
-                                     cache_len)
-        errs1.append(float((batched[r] - alone1[0]).abs().max()))
-        same1.append(gen_b[r] == gen_1[0])
-    ok = (max(errs) <= 1e-4 and all(same) and all(same1)
-          and max(errs1) <= width1_tol)
+        if width1_tol is not None:
+            alone1, gen_1 = serve_greedy(torch, cfg, params, [req], [0],
+                                         cache_len)
+            errs1.append(float((batched[r] - alone1[0]).abs().max()))
+            same1.append(gen_b[r] == gen_1[0])
+    ok = (max(errs) <= (0.0 if bitwise else 1e-4) and all(same)
+          and all(same1) and max(errs1, default=0.0) <= (width1_tol or 0.0))
     emit({"phase": "batched_decode", "model": cfg.name, "slots": 4,
           "prompts": [len(r["prompt"]) for r in reqs],
           "max_new_tokens": [r["max_new_tokens"] for r in reqs],
           "admitted_at_step": [0, 1, 2, 3], "max_abs_err": errs,
-          "tol": 1e-4, "tokens_equal": same,
+          "tol": 0.0 if bitwise else 1e-4, "bitwise": bitwise,
+          "tokens_equal": same,
           "width1_max_abs_err": errs1, "width1_tol": width1_tol,
           "width1_tokens_equal": same1, "ok": ok,
           "generated": gen_b, "batched_s": batched_s})
@@ -784,27 +1096,46 @@ def batched_vs_alone(torch, cfg, params, width1_tol):
 
 
 def lm_path(torch, ops, arch: str, want_counts, decode_seq: int,
-            serving: bool, width1_tol=None):
-    """One model at full width: init from seed 0 on the card, prefill at
-    S=4096 (the main path's launch counts), decode against the forward,
-    and where ``serving`` is set the batched-serving check.  The model is
-    freed before returning, so the next path's peak does not stack on it."""
+            serving: bool = False, width1_tol=None, smoke: bool = False,
+            depth=None):
+    """One model: init from seed 0 on the card at full width (``smoke``:
+    the config's smoke width; ``depth``: (layers, blocks) kept of a model
+    that does not fit the card, widths untouched), prefill at 4096
+    positions (the main path's launch counts), decode against the
+    forward (the MoE and encoder-decoder forms where they apply), and
+    where ``serving`` is set the batched-serving check.  The model is
+    freed before returning, so the next path's peak does not stack on
+    it."""
+    import dataclasses
     from repro_torch.configs import get_config
-    from repro_torch.data.synthetic import lm_batches
     from repro_torch.train.loop import init_model
-    cfg = get_config(arch)
+    cfg = get_config(arch, smoke)
+    reduced = "smoke width" if smoke else None
+    if depth:
+        full = cfg.num_layers
+        cfg = dataclasses.replace(cfg, num_layers=depth[0],
+                                  num_blocks=depth[1]).validate()
+        reduced = f"depth {cfg.num_layers} of {full} layers"
     t0 = time.perf_counter()
     params = init_model(cfg, 0)
     torch.cuda.synchronize()
-    emit({"phase": "lm_init", "model": cfg.name,
+    emit({"phase": "lm_init", "model": cfg.name, "reduced": reduced,
           "init_s": time.perf_counter() - t0,
           "params_gb": torch.cuda.memory_allocated() / 1e9})
-    tokens = next(lm_batches(cfg.vocab_size, 1, 4096, seed=0))["tokens"]
-    counts, row = lm_prefill(torch, ops, cfg, params, tokens, want_counts)
-    decode_vs_train(torch, cfg, params, tokens, decode_seq)
+    batch = prefill_batch(torch, cfg, 4096)
+    counts, row = lm_prefill(torch, ops, cfg, params, batch, want_counts,
+                             reduced)
+    if cfg.is_encoder_decoder:
+        encdec_decode_vs_train(torch, cfg, params, batch, decode_seq)
+    elif cfg.num_experts:
+        moe_decode_vs_train(torch, cfg, params, batch["tokens"], decode_seq)
+        moe_decode_step_stats(torch, cfg, params)
+    else:
+        decode_vs_train(torch, cfg, params, batch["tokens"], decode_seq)
     if serving:
-        batched_vs_alone(torch, cfg, params, width1_tol)
-    del params
+        batched_vs_alone(torch, cfg, params, width1_tol,
+                         bitwise=bool(cfg.num_experts))
+    del params, batch
     gc.collect()
     torch.cuda.empty_cache()
     return counts, row
@@ -1688,8 +2019,8 @@ def optimistic_training_path(torch, np, ops, rv, ref):
 def profile_batch(torch, run):
     """Device time by kernel (and copy) over one warm call of ``run``,
     from torch.profiler's CUDA activities: the eight largest rows, and
-    the ``ssd_*`` and ``rglru_*`` kernels' launches and time summed
-    (``ssd``, ``rglru``).  A one-step warm-up with a throwaway fill comes
+    the ``ssd_*``, ``rglru_*``, ``moe_gemm`` and flash kernels' launches
+    and time summed (``ssd``, ``rglru``, ``moe_gemm``, ``flash``).  A one-step warm-up with a throwaway fill comes
     first: without it the first kernel of ``run`` is missing from the
     trace."""
     from torch.autograd import DeviceType
@@ -1716,14 +2047,19 @@ def profile_batch(torch, run):
     res = {"device_busy_us": sum(r[0] for r in rows),
            "top": [{"name": k[:70], "device_us": us, "count": c}
                    for us, k, c in rows[:8]]}
-    for group in ("ssd", "rglru"):
-        pat = group + r"_\w+_kernel"
+    for group, pat in (("ssd", r"ssd_\w+_kernel"),
+                       ("rglru", r"rglru_\w+_kernel"),
+                       ("moe_gemm", r"moe_gemm_kernel"),
+                       ("flash", r"flash_fwd_kernel")):
         mine = [r for r in rows if re.search(r"\b" + pat + r"\b", r[1])]
+        by = {}
+        for us, k, c in mine:       # template instances summed by name
+            one = by.setdefault(re.search(pat, k)[0],
+                                {"device_us": 0.0, "count": 0})
+            one["device_us"] += us
+            one["count"] += c
         res[group] = {"cuda_launches": sum(r[2] for r in mine),
-                      "device_us": sum(r[0] for r in mine),
-                      "by_kernel": {re.search(pat, k)[0]:
-                                    {"device_us": us, "count": c}
-                                    for us, k, c in mine}}
+                      "device_us": sum(r[0] for r in mine), "by_kernel": by}
     return res
 
 
@@ -1819,7 +2155,7 @@ def main() -> int:
             cases[name]()
         return 0
 
-    gemm, gemm_bwd = moe_gemm_cases(torch, mg, ref)
+    gemm, gemm_bwd, gemm_lm = moe_gemm_cases(torch, mg, ref)
     vote, vote_court, vote_dense = vote_cases(torch, rv, ref)
 
     audit = audit_cases(torch, am, ref)
@@ -1846,21 +2182,37 @@ def main() -> int:
     optimistic_batch_time(torch, xs)
 
     counts_c, _ = lm_path(torch, ops, "qwen2.5-3b",
-                          {"flash_attention": 36, "rglru_scan": 0,
-                           "ssd_scan": 0, "moe_gemm": 0,
-                           "redundancy_vote": 0, "audit_mlp": 0},
-                          decode_seq=256, serving=True, width1_tol=1e-4)
+                          lm_counts(flash_attention=36), decode_seq=256,
+                          serving=True, width1_tol=1e-4)
     counts_d, row_d = lm_path(torch, ops, "recurrentgemma-2b",
-                          {"flash_attention": 8, "rglru_scan": 18,
-                           "ssd_scan": 0, "moe_gemm": 0,
-                           "redundancy_vote": 0, "audit_mlp": 0},
-                          decode_seq=2112, serving=False)
+                              lm_counts(flash_attention=8, rglru_scan=18),
+                              decode_seq=2112)
     # path E: 384 decode steps cross two chunk boundaries of the forward
-    counts_e, _ = lm_path(torch, ops, "mamba2-2.7b",
-                          {"ssd_scan": 64, "flash_attention": 0,
-                           "rglru_scan": 0, "moe_gemm": 0,
-                           "redundancy_vote": 0, "audit_mlp": 0},
+    counts_e, _ = lm_path(torch, ops, "mamba2-2.7b", lm_counts(ssd_scan=64),
                           decode_seq=384, serving=True, width1_tol=5e-4)
+    # path H: the MoE LMs, 3 moe_gemm launches a MoE layer
+    counts_h = {
+        arch: lm_path(torch, ops, arch, lm_counts(moe_gemm=3 * n_moe,
+                                                  flash_attention=n_attn),
+                      decode_seq=seq, serving=True, smoke=smoke)[0]
+        for arch, n_moe, n_attn, seq, smoke in (
+            ("bmoe-paper", 12, 12, 128, False),
+            ("qwen2-moe-a2.7b", 24, 24, 64, False),
+            # one MoE layer of 128 experts is 64 GB in fp32
+            ("llama4-maverick-400b-a17b", 1, 2, 128, True))}
+    # path I: the attention configs; qwen3-32b and gemma3-27b cut in
+    # depth to fit the card (gemma3: 3 of 10 blocks of 5 local : 1
+    # global, and the 2-layer remainder)
+    counts_i = {
+        arch: lm_path(torch, ops, arch, lm_counts(flash_attention=n_attn),
+                      decode_seq=64, depth=depth)[0]
+        for arch, n_attn, depth in (("qwen3-32b", 24, (24, 24)),
+                                    ("gemma3-27b", 20, (20, 3)),
+                                    ("pixtral-12b", 40, None))}
+    # path J: the encoder-decoder: 12 encoder, 12 decoder self- and 12
+    # cross-attention launches
+    counts_j, _ = lm_path(torch, ops, "seamless-m4t-medium",
+                          lm_counts(flash_attention=36), decode_seq=128)
     # path F: B-MoE training under traditional and bmoe
     trained, train_prof = training_path(torch, np, ops)
     counts_fb = trained["bmoe"]["launches"]
@@ -1891,12 +2243,20 @@ def main() -> int:
                                          "bound_ms", "bound_by",
                                          "library_ms")}
                       for r in gemm_bwd],
+         "lm_shapes": [{k: r[k] for k in ("case", "shape", "max_abs_err",
+                                          "kernel_ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms")}
+                       for r in gemm_lm],
+         "lm_prefill_launches": {a: c["moe_gemm"]
+                                 for a, c in counts_h.items()},
          "training_round_device_us": {
              fw: {"forward": prof["moe_gemm_forward_us"],
                   "backward": prof["moe_gemm_backward_us"]}
              for fw, prof in [*train_prof.items(),
                               ("optimistic", prof_g_opt)]},
-         "max_abs_err": max(r["max_abs_err"] for r in gemm + gemm_bwd),
+         "max_abs_err": max(r["max_abs_err"]
+                            for r in gemm + gemm_bwd + gemm_lm),
          "ms": sum(r["kernel_ms"] for r in gemm),
          "plain_ms": sum(r["plain_ms"] for r in gemm),
          "bound_ms": sum(r["bound_ms"] for r in gemm),
@@ -1958,9 +2318,16 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:64",
          "launches": counts_c["flash_attention"],
-         "launches_by_path": {"qwen2.5-3b prefill": counts_c[
-             "flash_attention"], "recurrentgemma-2b prefill": counts_d[
-             "flash_attention"]},
+         "launches_by_path": {
+             "qwen2.5-3b prefill": counts_c["flash_attention"],
+             "recurrentgemma-2b prefill": counts_d["flash_attention"],
+             **{f"{a} prefill": c["flash_attention"]
+                for a, c in {**counts_h, **counts_i}.items()},
+             "seamless-m4t-medium prefill (12 encoder, 12 self, 12 "
+             "cross)": counts_j["flash_attention"]},
+         "non_causal_shape": {k: flash[2][k] for k in (
+             "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "library_backend")},
          "per": "one qwen2.5-3b prefill at (1, 4096); times per layer, "
                 "q (1,4096,16,128), kv heads 2, causal, fp32",
          "max_abs_err": max(r["max_abs_err"] for r in flash),

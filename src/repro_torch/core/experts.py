@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.builder import Leaf
+from repro_torch.models.moe import top_k
 
 Params = Dict[str, torch.Tensor]
 
@@ -260,8 +261,7 @@ def sparse_gate_weights(logits: torch.Tensor, k: int):
     """Paper's sparse top-K activation: softmax renormalized over the
     selected experts.  Returns dense weights (B, N) (zero off the top-K)
     and the top-K indices (B, k).  Ties break like ``jax.lax.top_k``,
-    lower index first: a stable descending sort, first k."""
-    topv, topi = torch.sort(logits, dim=-1, descending=True, stable=True)
-    topv, topi = topv[:, :k], topi[:, :k]
+    lower index first (``models.moe.top_k``)."""
+    topv, topi = top_k(logits, k)
     w = torch.softmax(topv, dim=-1)
     return torch.zeros_like(logits).scatter(1, topi, w), topi

@@ -7,6 +7,9 @@ smoothed templates + per-sample noise + random per-sample contrast.
 ``serving_requests``: prompts and generation budgets.  Numpy copies of
 ``repro.data.synthetic``: the same seed gives the same values in both
 packages (LM tokens as int32 torch tensors on the CPU).
+``stub_embeddings``: the stubbed frontends' inputs (an audio model's
+``frames``, a VLM's ``patches``), drawn on the device; parity tests give
+both packages the same numpy arrays instead.
 """
 from __future__ import annotations
 
@@ -15,6 +18,8 @@ from typing import Iterator
 
 import numpy as np
 import torch
+
+from repro_torch.kernels.ops import resolve_device
 
 @dataclasses.dataclass(frozen=True)
 class ImageSpec:
@@ -86,3 +91,17 @@ def serving_requests(vocab_size: int, num_requests: int, *,
         yield {"id": rid,
                "prompt": rng.integers(0, vocab_size, size=plen).astype(np.int32),
                "max_new_tokens": int(rng.integers(1, max_new))}
+
+
+def stub_embeddings(batch: int, length: int, d_model: int, *, seed: int = 0,
+                    device=None) -> torch.Tensor:
+    """(batch, length, d_model) float32 standard-normal embeddings from a
+    ``torch.Generator`` seeded with ``seed``, drawn on ``device``
+    (``None``: the CUDA device): the encoder-decoder's ``frames`` or a
+    VLM's ``patches`` prefix, which stand in for the stubbed audio and
+    vision frontends."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return torch.randn((batch, length, d_model), generator=gen,
+                       dtype=torch.float32, device=dev)

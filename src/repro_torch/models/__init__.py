@@ -1,1 +1,3 @@
-"""Model pieces shared with the LM stack (only the dispatch so far)."""
+"""The LM stack's models: the decoder-only transformer, its MoE layer
+(whose capacity dispatch the B-MoE system shares), the encoder-decoder,
+and their layers, configs and declarations."""

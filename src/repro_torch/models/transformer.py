@@ -1,18 +1,20 @@
-"""Decoder-only model over the layer kinds the port runs so far (the
-counterpart of ``repro.models.transformer``): ``attn``, ``local_attn``,
-``rglru`` and ``ssm`` layers, with dense SwiGLU MLPs or none.
+"""Decoder-only model (the counterpart of ``repro.models.transformer``):
+``attn``, ``local_attn``, ``rglru`` and ``ssm`` layers, each with a dense
+SwiGLU MLP, an MoE MLP (``models.moe``) or none.
 
 Parameters and KV-caches are declared with ``repro_torch.models.builder``
 exactly as the JAX package declares them (blocks stacked on a leading
 axis), so a JAX tree carried across by ``convert.lm_params_from_numpy``
 drops in.  Where JAX scans over the stacked blocks, the port loops in
-Python over views of the leading axis.  The ``moe`` MLP raises
-``NotImplementedError`` naming its ROADMAP item.
+Python over views of the leading axis.  ``moe_impl="ep"`` (expert
+parallelism) needs a mesh, as in the JAX package: on one device every
+MoE layer runs ``moe.moe_mlp``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.builder import Leaf, stack
@@ -21,27 +23,21 @@ from repro_torch.models.layers import (attn_decl, attn_decode, attn_train,
                                        mlp_decl, rmsnorm, swiglu)
 
 
-def _refuse(spec: LayerSpec) -> None:
-    if spec.mlp == "moe":
-        raise NotImplementedError("moe MLPs are not ported yet: ROADMAP "
-                                  "A4.2 (LM MoE layers)")
-    if spec.kind not in ("attn", "local_attn", "rglru", "ssm"):
-        raise ValueError(spec.kind)
-
-
 # ------------------------------------------------------------- decls
 def layer_decl(spec: LayerSpec, cfg: ModelConfig) -> dict:
-    _refuse(spec)
     decl = {"norm1": Leaf((cfg.d_model,), ("embed",), "zeros")}
     if spec.kind in ("attn", "local_attn"):
         decl["attn"] = attn_decl(cfg)
     elif spec.kind == "rglru":
         decl["rglru"] = rglru_lib.rglru_decl(cfg)
-    else:
+    elif spec.kind == "ssm":
         decl["ssm"] = ssm_lib.ssm_decl(cfg)
+    else:
+        raise ValueError(spec.kind)
     if spec.mlp != "none":
         decl["norm2"] = Leaf((cfg.d_model,), ("embed",), "zeros")
-        decl["mlp"] = mlp_decl(cfg)
+        decl["moe" if spec.mlp == "moe" else "mlp"] = (
+            moe_lib.moe_decl(cfg) if spec.mlp == "moe" else mlp_decl(cfg))
     return decl
 
 
@@ -81,7 +77,6 @@ def _attn_cache_decl(cfg: ModelConfig, batch: int, cache_len: int,
 
 def _layer_cache_decl(spec: LayerSpec, cfg: ModelConfig, batch: int,
                       cache_len: int) -> dict:
-    _refuse(spec)
     if spec.kind == "attn":
         return _attn_cache_decl(cfg, batch, cache_len, 0)
     if spec.kind == "local_attn":
@@ -95,12 +90,14 @@ def _layer_cache_decl(spec: LayerSpec, cfg: ModelConfig, batch: int,
             "conv": Leaf((batch, cfg.ssm_conv_width - 1, convdim),
                          ("batch", "conv", None), "zeros"),
         }
-    inner = cfg.rglru_expand * cfg.d_model
-    return {
-        "h": Leaf((batch, inner), ("batch", "rglru_inner"), "zeros"),
-        "conv": Leaf((batch, cfg.ssm_conv_width - 1, inner),
-                     ("batch", "conv", "rglru_inner"), "zeros"),
-    }
+    if spec.kind == "rglru":
+        inner = cfg.rglru_expand * cfg.d_model
+        return {
+            "h": Leaf((batch, inner), ("batch", "rglru_inner"), "zeros"),
+            "conv": Leaf((batch, cfg.ssm_conv_width - 1, inner),
+                         ("batch", "conv", "rglru_inner"), "zeros"),
+        }
+    raise ValueError(spec.kind)
 
 
 def cache_decl(cfg: ModelConfig, batch: int, cache_len: int) -> dict:
@@ -144,8 +141,32 @@ def _head(params, x, cfg: ModelConfig):
     return x @ head
 
 
+def _layers(cfg: ModelConfig):
+    """(spec, block key or None, index) of every layer in order: the
+    stacked blocks, then the remainder."""
+    out = [(spec, str(i), b) for b in range(cfg.resolved_num_blocks)
+           for i, spec in enumerate(cfg.block_pattern)]
+    return out + [(spec, None, i) for i, spec in enumerate(cfg.remainder)]
+
+
+def _layer_params(tree, key, i):
+    return tree["remainder"][i] if key is None else _index(
+        tree["blocks"][key], i)
+
+
+def _mlp(spec: LayerSpec, p, x, cfg, expert_stats=False):
+    """The layer's MLP on the normed residual: (y, aux, counts); aux and
+    counts are None where no MoE layer gives them."""
+    h = rmsnorm(x, p["norm2"], cfg.norm_eps)
+    if spec.mlp == "moe":
+        if expert_stats:
+            return moe_lib.moe_mlp(p["moe"], h, cfg, return_stats=True)
+        return (*moe_lib.moe_mlp(p["moe"], h, cfg), None)
+    y = swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+    return y, None, None
+
+
 def _layer_train(spec: LayerSpec, p, x, cfg, chunks):
-    _refuse(spec)
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
     if spec.kind in ("attn", "local_attn"):
         window = cfg.sliding_window if spec.kind == "local_attn" else 0
@@ -153,33 +174,35 @@ def _layer_train(spec: LayerSpec, p, x, cfg, chunks):
                        q_chunk=chunks[0], kv_chunk=chunks[1])
     elif spec.kind == "rglru":
         y = rglru_lib.rglru_train(p["rglru"], h, cfg)
-    else:
+    elif spec.kind == "ssm":
         y = ssm_lib.ssm_train(p["ssm"], h, cfg)
+    else:
+        raise ValueError(spec.kind)
     x = x + y
+    aux = None
     if spec.mlp != "none":
-        h = rmsnorm(x, p["norm2"], cfg.norm_eps)
-        x = x + swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"],
-                       p["mlp"]["w_down"])
-    return x
+        y, aux, _ = _mlp(spec, p, x, cfg)
+        x = x + y
+    return x, aux
 
 
 def forward_train(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
                   q_chunk=512, kv_chunk=512):
     """tokens: (B, S_text) integer; prefix_embeds: optional (B, P, d)
-    stub modality embeddings prepended to the sequence.  Returns (logits
-    (B, S, padded_vocab), aux_loss): aux is a zero scalar, as no MoE layer
-    runs yet."""
+    stub modality embeddings prepended to the sequence (VLM early
+    fusion).  Returns (logits (B, S, padded_vocab), aux_loss): aux is the
+    sum of the MoE layers' weighted load-balance losses, a zero scalar
+    without MoE layers."""
     x = _embed(params, tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     chunks = (q_chunk, kv_chunk)
-    for b in range(cfg.resolved_num_blocks):
-        for i, spec in enumerate(cfg.block_pattern):
-            x = _layer_train(spec, _index(params["blocks"][str(i)], b), x,
-                             cfg, chunks)
-    for i, spec in enumerate(cfg.remainder):
-        x = _layer_train(spec, params["remainder"][i], x, cfg, chunks)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for spec, key, i in _layers(cfg):
+        x, a = _layer_train(spec, _layer_params(params, key, i), x, cfg,
+                            chunks)
+        if a is not None:
+            aux = aux + a
     return _head(params, x, cfg), aux
 
 
@@ -190,8 +213,8 @@ def _mask_rows(mask, new, old):
     return torch.where(m, new, old)
 
 
-def _layer_decode(spec: LayerSpec, p, cache, x, pos, cfg, write_mask=None):
-    _refuse(spec)
+def _layer_decode(spec: LayerSpec, p, cache, x, pos, cfg, expert_stats=False,
+                  write_mask=None):
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
     if spec.kind in ("attn", "local_attn"):
         window = cfg.sliding_window if spec.kind == "local_attn" else 0
@@ -199,46 +222,53 @@ def _layer_decode(spec: LayerSpec, p, cache, x, pos, cfg, write_mask=None):
                                    window=window)
     elif spec.kind == "rglru":
         y, new_cache = rglru_lib.rglru_decode(p["rglru"], h, cache, cfg)
-    else:
+    elif spec.kind == "ssm":
         y, new_cache = ssm_lib.ssm_decode(p["ssm"], h, cache, cfg)
+    else:
+        raise ValueError(spec.kind)
     if write_mask is not None:
         # inactive slots must not advance KV rows or recurrent state
         new_cache = _map2(lambda n, o: _mask_rows(write_mask, n, o),
                           new_cache, cache)
     x = x + y
+    counts = None
     if spec.mlp != "none":
-        h = rmsnorm(x, p["norm2"], cfg.norm_eps)
-        x = x + swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"],
-                       p["mlp"]["w_down"])
-    return x, new_cache
+        y, _, counts = _mlp(spec, p, x, cfg, expert_stats)
+        x = x + y
+    return x, new_cache, counts
 
 
 def forward_decode(params, caches, tokens, pos, cfg: ModelConfig, *,
-                   write_mask=None):
+                   expert_stats=False, write_mask=None):
     """One decode step.  tokens: (B, 1); pos: int scalar (all rows at the
     same absolute position) or (B,) integer tensor (per-slot positions).
     Returns (logits (B, 1, padded_vocab), new_caches); the caches passed
-    in are not modified.
+    in are not modified.  With ``expert_stats`` it also returns the
+    per-MoE-layer routed-token counts (num_moe_layers, E) int32 in layer
+    order (the blocks first, then the remainder; every row counted, the
+    inactive ones too): what a serving edge's expert cache is fed with.
 
     ``write_mask`` (B,) bool: rows where it is False run the (padded)
     compute but leave their KV rows and recurrent state untouched."""
     x = _embed(params, tokens)
     if write_mask is not None:
         write_mask = torch.as_tensor(write_mask, device=x.device).bool()
-    nb = cfg.resolved_num_blocks
-    per_layer = {str(i): [] for i in range(len(cfg.block_pattern))}
-    for b in range(nb):
-        for i, spec in enumerate(cfg.block_pattern):
-            x, nc = _layer_decode(spec, _index(params["blocks"][str(i)], b),
-                                  _index(caches["blocks"][str(i)], b), x,
-                                  pos, cfg, write_mask)
-            per_layer[str(i)].append(nc)
-    new_caches = {"blocks": {k: _stack(v) for k, v in per_layer.items()}}
+    new_blocks = {str(i): [] for i in range(len(cfg.block_pattern))}
+    new_rem, counts = [], []
+    for spec, key, i in _layers(cfg):
+        x, nc, c = _layer_decode(spec, _layer_params(params, key, i),
+                                 _layer_params(caches, key, i), x, pos, cfg,
+                                 expert_stats, write_mask)
+        (new_rem if key is None else new_blocks[key]).append(nc)
+        if c is not None:
+            counts.append(c)
+    new_caches = {"blocks": {k: _stack(v) for k, v in new_blocks.items()}}
     if cfg.remainder:
-        new_caches["remainder"] = []
-        for i, spec in enumerate(cfg.remainder):
-            x, nc = _layer_decode(spec, params["remainder"][i],
-                                  caches["remainder"][i], x, pos, cfg,
-                                  write_mask)
-            new_caches["remainder"].append(nc)
-    return _head(params, x, cfg), new_caches
+        new_caches["remainder"] = new_rem
+    logits = _head(params, x, cfg)
+    if not expert_stats:
+        return logits, new_caches
+    stats = (torch.stack(counts) if counts else torch.zeros(
+        (0, max(cfg.resolved_padded_experts, 1)), dtype=torch.int32,
+        device=x.device))
+    return logits, new_caches, stats

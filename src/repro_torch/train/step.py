@@ -3,27 +3,40 @@
 
 - ``make_prefill_step(cfg)``: ``(params, batch) -> next token (B, 1)``,
   the full-sequence forward and the argmax of the last position;
-- ``make_decode_step(cfg)``: ``(params, caches, batch) -> (next token
-  (B,), caches)``, one token through the caches.
+- ``make_decode_step(cfg, expert_stats=False)``: ``(params, caches,
+  batch) -> (next token (B,), caches)``, one token through the caches,
+  and with ``expert_stats`` also the per-MoE-layer routed-token counts.
 
 Training steps wait for an attention backward kernel (ROADMAP A4.4);
 the federated local step waits for federated training (A6).
 """
 from __future__ import annotations
 
+import torch
+
+from repro_torch.models import encdec
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 
 
 def model_forward(params, batch, cfg: ModelConfig):
-    """Dispatch on architecture family.  Returns (logits, aux, labels)."""
+    """Dispatch on architecture family: the encoder-decoder takes
+    ``frames``, a VLM the ``patches`` prefix.  Returns (logits, aux,
+    labels); a VLM's labels gain -1 (no loss) over the prefix."""
     if cfg.is_encoder_decoder:
-        raise NotImplementedError("encoder-decoder models are not ported "
-                                  "yet: ROADMAP A4.3")
+        logits, aux = encdec.forward_train(params, batch["frames"],
+                                           batch["tokens"], cfg)
+        return logits, aux, batch.get("labels")
     prefix = batch.get("patches")
     logits, aux = tfm.forward_train(params, batch["tokens"], cfg,
                                     prefix_embeds=prefix)
-    return logits, aux, batch.get("labels")
+    labels = batch.get("labels")
+    if prefix is not None and labels is not None:
+        labels = torch.as_tensor(labels)
+        ignore = torch.full(prefix.shape[:2], -1, dtype=labels.dtype,
+                            device=labels.device)
+        labels = torch.cat([ignore, labels], dim=1)
+    return logits, aux, labels
 
 
 def make_prefill_step(cfg: ModelConfig):
@@ -38,18 +51,29 @@ def make_decode_step(cfg: ModelConfig, expert_stats: bool = False):
     """The batch carries ``tokens`` (B, 1), ``pos`` as an int (every row
     at the same depth) or a (B,) integer tensor, and an optional (B,)
     bool ``active`` mask: inactive rows run the padded compute but leave
-    their caches untouched."""
-    if expert_stats:
-        raise NotImplementedError("expert_stats needs LM MoE layers: "
-                                  "ROADMAP A4.2")
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError("encoder-decoder models are not ported "
-                                  "yet: ROADMAP A4.3")
+    their caches untouched (decoder-only models; the encoder-decoder
+    refuses it).  ``expert_stats=True`` (decoder-only models) makes the
+    step return ``(next token, caches, counts (num_moe_layers, E))``:
+    what a serving edge's expert cache resolves activated experts
+    from."""
 
     def decode_step(params, caches, batch):
-        logits, caches = tfm.forward_decode(
-            params, caches, batch["tokens"], batch["pos"], cfg,
-            write_mask=batch.get("active"))
+        tokens, pos = batch["tokens"], batch["pos"]
+        active = batch.get("active")
+        if cfg.is_encoder_decoder:
+            if active is not None:
+                raise NotImplementedError(
+                    "active-slot masking targets decoder-only archs")
+            logits, caches = encdec.forward_decode(params, caches, tokens,
+                                                   pos, cfg)
+        elif expert_stats:
+            logits, caches, stats = tfm.forward_decode(
+                params, caches, tokens, pos, cfg, expert_stats=True,
+                write_mask=active)
+            return logits[:, -1].argmax(dim=-1), caches, stats
+        else:
+            logits, caches = tfm.forward_decode(params, caches, tokens, pos,
+                                                cfg, write_mask=active)
         return logits[:, -1].argmax(dim=-1), caches
 
     return decode_step

@@ -22,7 +22,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels import redundancy_vote as rv
 from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import ssd_scan as ss
-from repro_torch.models import transformer
+from repro_torch.models import encdec, moe, transformer
 from repro_torch.models.builder import materialize
 from repro_torch.train.loop import init_model
 from repro_torch.trust.protocol import RoundPhase, TrustConfig
@@ -64,6 +64,35 @@ def test_moe_gemm_kernel_matches_plain(cuda, E, C, d, f, dtype):
     tol = TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                atol=tol * 8)
+
+
+# the LM MoE layers at a prefill of 4096: bmoe-paper's gate/up and down,
+# qwen2-moe-a2.7b's (K = 2048, then K = 1408), and its decode at C = k =
+# 4 rows per expert, one slot and the fold of four
+@pytest.mark.parametrize("E,C,d,f", [
+    (10, 1536, 1024, 2816), (10, 1536, 2816, 1024), (64, 344, 2048, 1408),
+    (64, 344, 1408, 2048), (64, 4, 2048, 1408), (64, 16, 2048, 1408)])
+def test_moe_gemm_lm_shapes_match_plain(cuda, E, C, d, f):
+    """Weights at the layers' fan-in scale 1/sqrt(d), as the model draws
+    them, held to the fp32 bar of the B-MoE shapes."""
+    buf = _randn(E + C, E, C, d).to(cuda)
+    w = (_randn(d + f, E, d, f) * d ** -0.5).to(cuda)
+    got = mg.moe_gemm(buf, w)
+    want = ref.moe_gemm_ref(buf, w)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=8e-5)
+
+
+def test_moe_gemm_is_as_accurate_as_fp32_at_k1024(cuda):
+    """On unit weights at K = 1024 (outputs of about 32) two fp32
+    reduction orders differ by more than the absolute bar where an output
+    cancels to near zero: both are held against the float64 product, the
+    kernel's largest error at most twice the plain version's."""
+    buf = _randn(50, 10, 1536, 1024).to(cuda)
+    w = _randn(51, 10, 1024, 2816).to(cuda)
+    exact = torch.bmm(buf.double(), w.double())
+    err_k = (mg.moe_gemm(buf, w).double() - exact).abs().max()
+    err_p = (ref.moe_gemm_ref(buf, w).double() - exact).abs().max()
+    assert float(err_k) <= 2.0 * float(err_p)
 
 
 def _pub(seed, E, M, T, n_bad, specials=False):
@@ -445,6 +474,11 @@ def test_optimistic_infer_and_flush_launch_audit_mlp(cuda):
     # D 48 (smollm-360m's smoke config): causal, windowed
     (1, 200, 200, 5, 5, 48, True, 0, 0.0, 0),
     (2, 130, 130, 6, 2, 48, True, 40, 0.0, 0),
+    # non-causal: seamless-m4t-medium's encoder and cross-attention at
+    # 4096, and a ragged cross-attention with Sq != Sk both ways
+    (1, 4096, 4096, 16, 16, 64, False, 0, 0.0, 0),
+    (2, 1000, 1500, 8, 4, 64, False, 0, 0.0, 0),
+    (1, 300, 77, 4, 4, 128, False, 0, 0.0, 0),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, H, KH, D,
@@ -782,3 +816,109 @@ def _to(tree, device):
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     return tree.to(device)
+
+
+@pytest.mark.parametrize("B", [2, 4, 8])
+def test_moe_gemm_decode_fold_rows_do_not_depend_on_the_batch(cuda, B):
+    """The decode fold (E, B*C, d) at C = 4: each slot's rows equal, bit
+    for bit, the same slot's (E, C, d) call alone."""
+    buf = _randn(30 + B, B, 64, 4, 2048).to(cuda)
+    w = _randn(31, 64, 2048, 1408).to(cuda)
+    fold = mg.moe_gemm(buf.transpose(0, 1).reshape(64, 4 * B, 2048)
+                       .contiguous(), w).reshape(64, B, 4, 1408)
+    for b in range(B):
+        assert _bitwise(mg.moe_gemm(buf[b].contiguous(), w), fold[:, b])
+
+
+NEW_ARCHS = ("bmoe-paper", "qwen2-moe-a2.7b", "llama4-maverick-400b-a17b",
+             "qwen3-32b", "gemma3-27b", "pixtral-12b")
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_smoke_models_on_the_card_match_the_cpu(cuda, arch):
+    """Each smoke model's prefill on the card launches one flash attention
+    per attention layer and three moe_gemm per MoE layer, agrees with the
+    port's CPU run at 1e-4 (prefill token equal), and 40 decode steps
+    (with expert counts for MoE models) agree with the CPU's at 1e-4
+    (counts equal).  The CPU run's router margins are asserted above
+    1e-4 first, so a near-tie is reported as one."""
+    cfg = get_config(arch, smoke=True)
+    p_cpu = init_model(cfg, 0, "cpu")
+    p = _to(p_cpu, cuda)
+    rng = np.random.default_rng(11)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 40))
+                            .astype(np.int32))
+    patches = None
+    if cfg.frontend == "vision":
+        patches = torch.from_numpy(rng.standard_normal(
+            (2, cfg.frontend_tokens, cfg.d_model)).astype(np.float32))
+    if cfg.num_experts:
+        logits = []
+        inner = moe.route
+        moe.route = lambda lg, *a: (logits.append(lg), inner(lg, *a))[1]
+        try:
+            transformer.forward_train(p_cpu, toks, cfg)
+        finally:
+            moe.route = inner
+        for lg in logits:
+            top = lg[..., :cfg.num_experts].sort(-1, descending=True)[0]
+            k = cfg.num_experts_per_tok
+            if cfg.num_experts > k:
+                assert float((top[..., k - 1] - top[..., k]).min()) > 1e-4
+    ops.reset_launch_counts()
+    got, aux = transformer.forward_train(
+        p, toks, cfg, prefix_embeds=None if patches is None
+        else patches.to(cuda))
+    torch.cuda.synchronize()
+    specs = list(cfg.block_pattern) * cfg.num_blocks + list(cfg.remainder)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == len(specs)
+    assert counts["moe_gemm"] == 3 * sum(s.mlp == "moe" for s in specs)
+    want, waux = transformer.forward_train(p_cpu, toks, cfg,
+                                           prefix_embeds=patches)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(aux.cpu(), waux, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got[:, -1].argmax(-1).cpu(), want[:, -1].argmax(-1))
+    stats = bool(cfg.num_experts)
+    caches = {d: materialize(transformer.cache_decl(cfg, 2, 40), 0, d)
+              for d in (cuda, "cpu")}
+    for t in range(40):
+        out = {d: transformer.forward_decode(
+            pp, caches[d], toks[:, t:t + 1], t, cfg, expert_stats=stats)
+            for d, pp in ((cuda, p), ("cpu", p_cpu))}
+        caches = {d: o[1] for d, o in out.items()}
+        torch.testing.assert_close(out[cuda][0].cpu(), out["cpu"][0],
+                                   rtol=1e-4, atol=1e-4)
+        if stats:
+            assert torch.equal(out[cuda][2].cpu(), out["cpu"][2])
+
+
+def test_seamless_smoke_on_the_card_matches_the_cpu(cuda):
+    """The smoke encoder-decoder on the card: 3 flash launches a layer
+    pair (encoder, decoder self, cross), forward at 1e-4 against the CPU
+    (prefill token equal), and decode steps against the same cross K/V
+    at 1e-4."""
+    cfg = get_config("seamless-m4t-medium", smoke=True)
+    p_cpu = init_model(cfg, 0, "cpu")
+    p = _to(p_cpu, cuda)
+    rng = np.random.default_rng(12)
+    frames = torch.from_numpy(rng.standard_normal(
+        (2, 70, cfg.d_model)).astype(np.float32))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 30))
+                            .astype(np.int32))
+    ops.reset_launch_counts()
+    got, _ = encdec.forward_train(p, frames.to(cuda), toks, cfg)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == (
+        cfg.num_encoder_layers + 2 * cfg.num_layers)
+    want, _ = encdec.forward_train(p_cpu, frames, toks, cfg)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got[:, -1].argmax(-1).cpu(), want[:, -1].argmax(-1))
+    cpu = materialize(encdec.encdec_cache_decl(cfg, 2, 30, 70), 0, "cpu")
+    cpu["cross_k"] = _randn(13, *cpu["cross_k"].shape)
+    cpu["cross_v"] = _randn(14, *cpu["cross_v"].shape)
+    card = _to(cpu, cuda)
+    for t in range(30):
+        lg, card = encdec.forward_decode(p, card, toks[:, t:t + 1], t, cfg)
+        wl, cpu = encdec.forward_decode(p_cpu, cpu, toks[:, t:t + 1], t, cfg)
+        torch.testing.assert_close(lg.cpu(), wl, rtol=1e-4, atol=1e-4)

@@ -33,8 +33,10 @@ from repro_torch.models import builder, layers, rglru, ssm, transformer
 from repro_torch.train import step
 from repro_torch.train.loop import init_model
 
-ARCHS = ("qwen2.5-3b", "recurrentgemma-2b", "smollm-360m", "mamba2-2.7b")
-PORTED = set(ARCHS)
+ARCHS = ARCH_IDS                      # every config the JAX package declares
+# the models this file drives (tests/test_torch_lm_moe.py and
+# tests/test_torch_encdec.py drive the others)
+MODELS = ("qwen2.5-3b", "recurrentgemma-2b", "smollm-360m", "mamba2-2.7b")
 
 
 def _np(tree):
@@ -73,7 +75,7 @@ def _assert_trees_close(got, want, tol, path=""):
 def models():
     """Per arch: (cfg, JAX params, the port's params on the CPU)."""
     out = {}
-    for arch in ARCHS:
+    for arch in MODELS:
         cfg = get_config(arch, smoke=True)
         jp = jbuilder.materialize(jtfm.model_decl(jget_config(arch, True)),
                                   jax.random.PRNGKey(3))
@@ -87,12 +89,6 @@ def models():
 def test_config_matches_jax(arch, smoke):
     assert (dataclasses.asdict(get_config(arch, smoke))
             == dataclasses.asdict(jget_config(arch, smoke)))
-
-
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a not in PORTED])
-def test_unported_archs_name_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        get_config(arch, smoke=True)
 
 
 def test_unknown_arch_raises_keyerror():
@@ -113,9 +109,11 @@ def _leaves(tree, prefix=""):
 
 
 @pytest.mark.parametrize("kv", ["default", "int8"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", [a for a in ARCHS
+                                  if not get_config(a).is_encoder_decoder])
 def test_decls_match_jax_at_full_width(arch, kv):
-    """Declarations only: nothing is allocated at full width."""
+    """Declarations only: nothing is allocated at full width.  The
+    encoder-decoder's are in tests/test_torch_encdec.py."""
     cfg = dataclasses.replace(get_config(arch), kv_cache_dtype=kv)
     jcfg = dataclasses.replace(jget_config(arch), kv_cache_dtype=kv)
     assert (list(_leaves(transformer.model_decl(cfg)))
@@ -131,7 +129,7 @@ def test_full_width_param_counts():
     (recurrentgemma-2b) and 2.83 B (mamba2-2.7b) parameters, padded vocab
     included."""
     n = {a: builder.count_params(transformer.model_decl(get_config(a)))
-         for a in ARCHS}
+         for a in MODELS}
     assert 3.3e9 < n["qwen2.5-3b"] < 3.5e9
     assert 3.5e9 < n["recurrentgemma-2b"] < 3.6e9
     assert 2.8e9 < n["mamba2-2.7b"] < 2.9e9
@@ -301,7 +299,7 @@ def _tokens(cfg, B, S, seed):
         0, cfg.vocab_size, (B, S)).astype(np.int32)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", MODELS)
 def test_forward_train_and_prefill_match_jax(models, arch):
     """S=40 is ragged against the port's kernel tiles and longer than
     recurrentgemma's smoke window of 32."""
@@ -398,11 +396,13 @@ def test_decode_step_matches_jax(models):
     np.testing.assert_array_equal(n.numpy(), np.asarray(jn))
     _assert_trees_close(c, jc, 1e-4)
     assert not c["blocks"]["0"]["k"][:, 1].any()      # inactive: untouched
-    with pytest.raises(NotImplementedError, match="A4.2"):
-        step.make_decode_step(cfg, expert_stats=True)
+    # no MoE layer: expert_stats gives (0, 1) counts, as in JAX
+    _, _, stats = step.make_decode_step(cfg, expert_stats=True)(
+        p, c, {"tokens": _t(toks), "pos": _t(pos)})
+    assert tuple(stats.shape) == (0, 1) and stats.dtype == torch.int32
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", MODELS)
 def test_teacher_forced_decode_matches_forward(arch):
     """Inside the port: decode-with-cache reproduces the full forward
     (cache semantics, rope positions, ring buffers, recurrent state), the
@@ -419,16 +419,6 @@ def test_teacher_forced_decode_matches_forward(arch):
                                                     toks[:, t:t + 1], t, cfg)
         outs.append(logits[:, 0])
     _close(torch.stack(outs, 1), full, 2e-3)
-
-
-def test_unported_layer_kinds_raise():
-    cfg = get_config("qwen2.5-3b", smoke=True)
-    from repro_torch.models.config import LayerSpec
-    with pytest.raises(NotImplementedError, match="A4.2"):
-        transformer.layer_decl(LayerSpec("attn", "moe"), cfg)
-    enc = dataclasses.replace(cfg, num_encoder_layers=2)
-    with pytest.raises(NotImplementedError, match="A4.3"):
-        step.model_forward({}, {"tokens": None}, enc)
 
 
 def test_ssm_write_mask_keeps_an_inactive_rows_state_and_conv(models):
