@@ -30,6 +30,17 @@ capacity 376, edge cache on):
   cut in depth to fit the card and pixtral-12b with its 1,024 patch
   embeddings (path I); seamless-m4t-medium over 4,096 frames, decoded
   against cross K/V built from its encoder's memory (path J);
+- the serving engine (path K, on the weights of paths C and H while
+  they are on the card): K1, qwen2-moe-a2.7b at full width, twelve
+  requests through continuous batching with verified sessions (4 slots,
+  cache 512, chunks up to 16; moe_gemm launched 3 times a MoE layer for
+  each micro-step the engine counts; the fixed policy, each request
+  alone and a tampered session checked; one decode and one prefill chunk
+  profiled; the cache update's cost and a micro-step's host syncs); K2,
+  bmoe-paper with its 120 expert units in the chunked store and KV
+  blocks under one cache budget of half the experts' bytes, against a
+  plain engine bit for bit; K3, qwen2.5-3b with KV paging (warm prefix,
+  page-out and resume, tick roots against paging off, DA challenges);
 - B-MoE training (path F): ``train_round`` under ``traditional`` and
   ``bmoe``, 30 clean rounds each on tasks of 1000, then the paper's
   claim under 3 of 10 colluding edges (bmoe holds its clean accuracy,
@@ -55,12 +66,15 @@ after it.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels moe_gemm flash_attention ssd_scan
+    python3 chip_smoke.py --serving
 
 The second form builds, then checks and times only the named kernels'
 cases (``moe_gemm``, ``flash_attention``, ``ssd_scan``,
 ``redundancy_vote``, ``rglru_scan``, ``audit_mlp``) and stops (no main
 path, no last line): run from two trees in one call, it compares two
-versions of a kernel on one card.
+versions of a kernel on one card.  The third runs path K alone (its
+models initialised from seed 0 as paths C and H do) and stops the same
+way.
 
 Prints, in order: the card's name and power limit (nvidia-smi), the
 build time, one JSON line per kernel case, the main-path lines, one
@@ -85,6 +99,7 @@ FP32_PEAK = 67e12        # H100 SXM, fp32 outside the tensor cores
 TF32X3_PEAK = 495e12 / 3  # dense TF32 tensor cores, 3 products per fp32 one
 BF16_PEAK = 989e12       # H100 SXM, dense bf16 tensor cores
 HBM_BYTES_PER_S = 3.35e12
+STARTED = time.perf_counter()
 
 
 def require(cond: bool, what: str) -> None:
@@ -93,6 +108,11 @@ def require(cond: bool, what: str) -> None:
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's or a case's line also carries ``t_s``,
+    the seconds since the script started, so a run shows where its time
+    went."""
+    if isinstance(obj, dict) and ("phase" in obj or "case" in obj):
+        obj = {**obj, "t_s": time.perf_counter() - STARTED}
     print(json.dumps(obj), flush=True)
 
 
@@ -192,9 +212,11 @@ def moe_gemm_cases(torch, mg, ref):
     check_moe_gemm(torch, mg, ref, 5, "layer2_bf16", 10, 376, 256, 10,
                    torch.bfloat16)
     # the LM MoE layers of path H at a prefill of 4096 (gate and up share
-    # a shape, then down), the decode fold of 4 slots at capacity k = 4,
-    # one slot, and the fold's rows against each slot alone; weights at
-    # the layers' fan-in scale, as the model draws them
+    # a shape, then down); the decode folds of 4 slots that paths H and K
+    # run every micro-step (qwen2-moe at capacity k = 4, 16 rows; bmoe-
+    # paper at k = 3, 12 rows); one slot, and the fold's rows against
+    # each slot alone; weights at the layers' fan-in scale, as the model
+    # draws them
     lm = [check_moe_gemm(torch, mg, ref, seed, name, E, C, d, f,
                          torch.float32, w_scale=d ** -0.5)
           for seed, name, E, C, d, f in (
@@ -202,7 +224,10 @@ def moe_gemm_cases(torch, mg, ref):
               (41, "bmoe_lm_down", 10, 1536, 2816, 1024),
               (42, "qwen2_moe_gate_up", 64, 344, 2048, 1408),
               (43, "qwen2_moe_down", 64, 344, 1408, 2048),
-              (44, "qwen2_moe_decode_fold_b4", 64, 16, 2048, 1408))]
+              (44, "qwen2_moe_decode_fold_b4", 64, 16, 2048, 1408),
+              (47, "qwen2_moe_decode_fold_b4_down", 64, 16, 1408, 2048),
+              (50, "bmoe_lm_decode_fold_b4_gate_up", 10, 12, 1024, 2816),
+              (51, "bmoe_lm_decode_fold_b4_down", 10, 12, 2816, 1024))]
     check_moe_gemm(torch, mg, ref, 45, "qwen2_moe_decode_b1", 64, 4, 2048,
                    1408, torch.float32, w_scale=2048 ** -0.5)
     check_moe_gemm_fp64(torch, mg, ref)
@@ -738,7 +763,7 @@ def lm_prefill(torch, ops, cfg, params, batch, want_counts, reduced=None):
     peak = torch.cuda.max_memory_allocated()
     ops.reset_launch_counts()
     prof = profile_batch(torch, lambda: prefill(params, batch))
-    calls = ops.launch_counts()
+    calls = {k: n // prof["takes"] for k, n in ops.launch_counts().items()}
     wall_ms = sorted(walls)[1] * 1e3
     S = sum(batch[k].shape[1] for k in ("tokens", "patches") if k in batch)
     row = {"phase": "lm_prefill", "model": cfg.name, "batch": 1, "seq": S,
@@ -1097,15 +1122,17 @@ def batched_vs_alone(torch, cfg, params, width1_tol=None, bitwise=False):
 
 def lm_path(torch, ops, arch: str, want_counts, decode_seq: int,
             serving: bool = False, width1_tol=None, smoke: bool = False,
-            depth=None):
+            depth=None, then=None):
     """One model: init from seed 0 on the card at full width (``smoke``:
     the config's smoke width; ``depth``: (layers, blocks) kept of a model
     that does not fit the card, widths untouched), prefill at 4096
     positions (the main path's launch counts), decode against the
-    forward (the MoE and encoder-decoder forms where they apply), and
-    where ``serving`` is set the batched-serving check.  The model is
-    freed before returning, so the next path's peak does not stack on
-    it."""
+    forward (the MoE and encoder-decoder forms where they apply), where
+    ``serving`` is set the batched-serving check, and ``then(cfg,
+    params)`` (a part of path K) while the weights are on the card.  The
+    model is freed before returning, so the next path's peak does not
+    stack on it.  Returns (prefill counts, prefill line, ``then``'s
+    result)."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.train.loop import init_model
@@ -1135,10 +1162,444 @@ def lm_path(torch, ops, arch: str, want_counts, decode_seq: int,
     if serving:
         batched_vs_alone(torch, cfg, params, width1_tol,
                          bitwise=bool(cfg.num_experts))
+    after = then(cfg, params) if then is not None else None
     del params, batch
     gc.collect()
     torch.cuda.empty_cache()
-    return counts, row
+    return counts, row, after
+
+
+# ---------------------------------------- path K: the serving engine
+def _k_copies(reqs):
+    return [dict(r, prompt=r["prompt"].copy()) for r in reqs]
+
+
+def _k_serve(torch, cfg, params, reqs, **kw):
+    """A fresh ``ServingEngine`` serving ``reqs`` to the end: (engine,
+    completed, wall seconds of ``run`` ended by a synchronise)."""
+    from repro_torch.serve.engine import ServingEngine
+    eng = ServingEngine(cfg, params, **kw)
+    eng.submit(_k_copies(reqs))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    return eng, done, time.perf_counter() - t0
+
+
+def _k_verdicts(eng, done):
+    return {rid: ("revoked" if rec.revoked else "finalized" if rid in done
+                  else "open") for rid, rec in eng.records.items()}
+
+
+def _k_trust(window: int):
+    from repro_torch.trust.protocol import TrustConfig
+    return TrustConfig(audit_rate=1.0, num_verifiers=2,
+                       challenge_window=window)
+
+
+def _k_moe_layers(cfg) -> int:
+    specs = list(cfg.block_pattern) * cfg.resolved_num_blocks + list(
+        cfg.remainder)
+    return sum(s.mlp == "moe" for s in specs)
+
+
+def _k_chunk_batch(torch, cfg, B: int, C: int, prefill: bool):
+    """A serve-step batch of width C in which every slot advances C
+    micro-steps from position 64: a prefill chunk feeds C prompt tokens
+    a slot, a decode chunk the carried greedy token."""
+    g = torch.Generator().manual_seed(C)
+    full = torch.full((B,), C, dtype=torch.int32)
+    return {k: v.cuda() for k, v in {
+        "tokens": torch.randint(0, cfg.vocab_size, (B, C), generator=g,
+                                dtype=torch.int32),
+        "start": torch.zeros(B, dtype=torch.int32),
+        "pos": torch.full((B,), 64, dtype=torch.int32),
+        "lengths": full if prefill else torch.zeros(B, dtype=torch.int32),
+        "adv": full}.items()}
+
+
+def _k_syncs(torch, run):
+    """The synchronising calls ``run`` makes, by torch's sync debug mode
+    (one warning each), with the source lines that made them.  The count
+    comes from the second of two calls: the first call of a process under
+    the mode records one synchronise of torch's own."""
+    import warnings
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                run()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    hits = [w for w in seen if "synchroniz" in str(w.message)]
+    where = {}
+    for w in hits:
+        key = f"{os.path.relpath(w.filename)}:{w.lineno}"
+        where[key] = where.get(key, 0) + 1
+    return len(hits), where
+
+
+def serve_chunk_profile(torch, cfg, params, caches, C: int, prefill: bool,
+                        expert_stats: bool = False, reps: int = 3,
+                        syncs: bool = True):
+    """One chunk of width C through ``make_serve_chunk_step`` on the
+    engine's caches (the outputs are dropped, so no state changes): the
+    synchronising calls the chunk makes before its tokens are read
+    (where ``syncs``); wall (host clock around a call ended by reading
+    the tokens, median of ``reps``); device busy, kernel launches and
+    ``moe_gemm``'s share of busy (``torch.profiler``, device only).
+
+    ``cache_update``: the functional cache update of forward_decode read
+    from the same trace.  Each layer's K/V leaf is cloned for its row
+    write (``Memcpy DtoD``), row-selected by ``_mask_rows`` (the
+    ``where`` kernel) and re-stacked by ``_stack`` (``CatArrayBatchedCopy``),
+    so a micro-step moves 7 x the cache's bytes (read and write, two
+    reads and a write, read and write).  The three rows also hold the
+    model's few small copies, ``where``s and stacks of (B, ...) tensors."""
+    from repro_torch.train.step import make_serve_chunk_step
+    step = make_serve_chunk_step(cfg, expert_stats=expert_stats)
+    B = next(iter(caches["blocks"].values()))["k"].shape[1]
+    batch = _k_chunk_batch(torch, cfg, B, C, prefill)
+
+    def run():
+        return step(params, caches, batch)[0].cpu()
+
+    n_syncs, where = (_k_syncs(torch, lambda: step(params, caches, batch))
+                      if syncs else (None, None))
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        run()
+        walls.append(time.perf_counter() - t0)
+    prof = profile_batch(torch, run, cpu=False)
+    wall_ms = sorted(walls)[len(walls) // 2] * 1e3
+    busy_ms = prof["device_busy_us"] / 1e3
+    update = {}
+    for us, key, n in prof["rows"]:
+        for part, pat in (("clone", "Memcpy DtoD"), ("where", "where_kernel"),
+                          ("stack", "CatArrayBatchedCopy")):
+            if pat in key:
+                one = update.setdefault(part, {"device_us": 0.0,
+                                               "launches": 0})
+                one["device_us"] += us
+                one["launches"] += n
+    cache_bytes = sum(a.numel() * a.element_size()
+                      for layer in caches["blocks"].values()
+                      for a in layer.values())
+    return {"width": C, "kind": "prefill" if prefill else "decode",
+            "slots": B, "expert_stats": expert_stats,
+            "wall_ms": [w * 1e3 for w in walls],
+            "busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "device_launches": prof["device_launches"],
+            "device_launches_per_micro_step": prof["device_launches"] / C,
+            "moe_gemm_cuda_launches": prof["moe_gemm"]["cuda_launches"],
+            "moe_gemm_ms": prof["moe_gemm"]["device_us"] / 1e3,
+            "moe_gemm_share_of_busy": prof["moe_gemm"]["device_us"] / 1e3
+            / busy_ms,
+            "host_syncs": n_syncs,
+            "host_syncs_per_micro_step": n_syncs / C if syncs else None,
+            "host_syncs_at": where, "profile": prof["top"],
+            "cache_update": {
+                "cache_bytes": cache_bytes,
+                "bytes_per_micro_step": 7 * cache_bytes,
+                "bound_ms_per_micro_step": 7 * cache_bytes
+                / HBM_BYTES_PER_S * 1e3,
+                "device_ms_per_micro_step": sum(
+                    u["device_us"] for u in update.values()) / 1e3 / C,
+                "by_kernel": update}}
+
+
+def _k_tamper(torch, cfg, params, scheduling: str):
+    """Three requests (a long one beside two short ones) under a window
+    wide enough that nothing finalizes before all are served; the long
+    stream's served tokens are then rewritten and ``audit_session``
+    revokes it and its tick-overlapping open neighbours."""
+    import numpy as np
+    from repro_torch.serve.engine import ServingEngine
+    rng = np.random.default_rng(4)
+    reqs = [{"id": i, "prompt": rng.integers(0, cfg.vocab_size, 4).astype(
+        np.int32), "max_new_tokens": n} for i, n in enumerate((20, 2, 2))]
+    eng = ServingEngine(cfg, params, batch_slots=2, cache_len=64,
+                        scheduling=scheduling, trust=_k_trust(200))
+    eng.submit(_k_copies(reqs))
+    while len(eng.pending_finalization) < 3 and eng.step():
+        pass
+    rec = eng.records[0]
+    rec.tokens = [t ^ 1 for t in rec.tokens]
+    rep = eng.audit_session(0)
+    done = eng.run()
+    return {"revoked_by_audit": rep["revoked"],
+            "mismatched_leaves": len(rep["mismatches"]),
+            "verdicts": _k_verdicts(eng, done),
+            "dependents": [e["request"] for e in eng.session_log
+                           if e["event"] == "revoke_dependent"]}
+
+
+def serving_k1(torch, ops, cfg, params):
+    """K1: qwen2-moe-a2.7b at full width on path H's weights.  Twelve
+    requests through a continuous-batching engine with verified
+    sessions (4 slots, cache 512, chunks up to 16), warmed first; the
+    launch counts are set to 0 just before ``run`` and read just after,
+    and moe_gemm must have launched 3 times a MoE layer for each micro-
+    step the engine ran.  Then: the fixed policy gives the same streams
+    and verdicts; each request served alone in a fresh engine gives its
+    stream; a rewritten session is revoked with its neighbours; one
+    decode and one prefill chunk profiled, with the cache update's bytes
+    and device time and the synchronising calls a micro-step makes."""
+    from repro_torch.data.synthetic import serving_requests
+    from repro_torch.serve.engine import ServingEngine
+    start = time.perf_counter()
+    n_moe = _k_moe_layers(cfg)
+    reqs = list(serving_requests(cfg.vocab_size, 12, max_prompt=64,
+                                 max_new=16, seed=0))
+    kw = dict(batch_slots=4, cache_len=512, prefill_chunk=16)
+    eng = ServingEngine(cfg, params, scheduling="continuous",
+                        trust=_k_trust(8), **kw)
+    t0 = time.perf_counter()
+    buckets = eng.warmup()
+    warmup_s = time.perf_counter() - t0
+    eng.submit(_k_copies(reqs))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    rep = eng.obs_report()
+    tokens = sum(len(v) for v in done.values())
+    verdicts = _k_verdicts(eng, done)
+    lat = rep["token_latency"]
+    fixed, fdone, fwall = _k_serve(torch, cfg, params, reqs,
+                                   scheduling="fixed", trust=_k_trust(8),
+                                   **kw)
+    t0 = time.perf_counter()
+    alone_equal, alone_micro_steps = [], 0
+    for r in reqs:
+        one_eng, one, _ = _k_serve(torch, cfg, params, [r], **kw)
+        alone_equal.append(one.get(r["id"]) == done.get(r["id"]))
+        alone_micro_steps += one_eng.micro_steps
+    alone_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tamper = {s: _k_tamper(torch, cfg, params, s)
+              for s in ("continuous", "fixed")}
+    tamper_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decode = serve_chunk_profile(torch, cfg, params, eng.caches, 1, False)
+    decode_profile_s = time.perf_counter() - t0
+    prefill = serve_chunk_profile(torch, cfg, params, eng.caches, 16, True,
+                                  reps=1, syncs=False)
+    profile_s = time.perf_counter() - t0
+    row = {"phase": "K1_serving", "model": cfg.name, "slots": 4,
+           "cache_len": 512, "prefill_chunk": 16, "requests": len(reqs),
+           "prompts": [len(r["prompt"]) for r in reqs],
+           "max_new_tokens": [r["max_new_tokens"] for r in reqs],
+           "warmup_buckets": buckets, "warmup_s": warmup_s,
+           "launches": counts, "micro_steps": eng.micro_steps,
+           "macro_steps": eng.steps, "ticks": eng.tick,
+           "moe_layers": n_moe, "tokens": tokens, "wall_s": wall,
+           "tokens_per_s": tokens / wall,
+           "token_latency_p50_s": lat["p50"],
+           "token_latency_p99_s": lat["p99"],
+           "prefill_s": rep["prefill_s"], "decode_s": rep["decode_s"],
+           "commit_s": rep["commit_s"], "audit_offpath_s":
+           rep["audit_offpath_s"], "commit_appends": rep["commit_appends"],
+           "verdicts": sorted(set(verdicts.values())),
+           "fixed_equal": fdone == done,
+           "fixed_verdicts_equal": _k_verdicts(fixed, fdone) == verdicts,
+           "fixed_micro_steps": fixed.micro_steps, "fixed_wall_s": fwall,
+           "alone_equal": alone_equal, "alone_s": alone_s,
+           "alone_micro_steps": alone_micro_steps,
+           "tamper": tamper, "tamper_s": tamper_s, "profile_s": profile_s,
+           "decode_profile_s": decode_profile_s,
+           "path_s": time.perf_counter() - start, "decode_chunk": decode,
+           "prefill_chunk_profile": prefill}
+    emit(row)
+    require(buckets == 5, f"K1 warmup ran {buckets} buckets, wanted 5")
+    require(len(done) == 12 and set(verdicts.values()) == {"finalized"}
+            and len(verdicts) == 12,
+            f"K1: {len(done)} of 12 completed, verdicts {verdicts}")
+    require(all(len(done[r["id"]]) == r["max_new_tokens"] for r in reqs)
+            and all(0 <= t < cfg.padded_vocab for v in done.values()
+                    for t in v), "K1 streams' lengths or token range")
+    require(counts == lm_counts(moe_gemm=3 * n_moe * eng.micro_steps),
+            f"K1 launched {counts} over {eng.micro_steps} micro-steps")
+    require(row["fixed_equal"] and row["fixed_verdicts_equal"],
+            "K1: the fixed policy's streams or verdicts differ")
+    require(all(alone_equal), f"K1: batched differs from alone: "
+                              f"{alone_equal}")
+    require(all(t["revoked_by_audit"] and t["verdicts"][0] == "revoked"
+                for t in tamper.values())
+            and tamper["continuous"]["verdicts"] == {
+                0: "revoked", 1: "revoked", 2: "revoked"}
+            and tamper["fixed"]["verdicts"][1] == "revoked",
+            f"K1 tampered sessions: {tamper}")
+    require(decode["moe_gemm_cuda_launches"] == 3 * n_moe
+            and prefill["moe_gemm_cuda_launches"] == 3 * n_moe * 16,
+            "K1 profiled chunks' moe_gemm launches")
+    return counts, eng.micro_steps
+
+
+def _rss_bytes() -> int:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def serving_k2(torch, ops, cfg, params):
+    """K2: bmoe-paper at full width on path H's weights, with the edge
+    expert runtime and KV paging on one store and one byte budget (half
+    the routed expert bytes).  Its streams must equal a plain engine's
+    bit for bit; its report must show every unit registered, hits,
+    misses and fetched bytes."""
+    from repro_torch.data.synthetic import serving_requests
+    from repro_torch.serve.engine import EdgeStorageConfig, ServingEngine
+    from repro_torch.storage.kv import KVStorageConfig
+    start = time.perf_counter()
+    n_moe = _k_moe_layers(cfg)
+    reqs = list(serving_requests(cfg.vocab_size, 4, max_prompt=32,
+                                 max_new=6, seed=1))
+    kw = dict(batch_slots=4, cache_len=128, prefill_chunk=16)
+    plain, pdone, pwall = _k_serve(torch, cfg, params, reqs, **kw)
+    unit_bytes = 3 * cfg.d_model * cfg.moe_d_ff * 4
+    routed = n_moe * cfg.num_experts * unit_bytes
+    chunk_bytes = 1 << 22
+    gc.collect()
+    rss0 = _rss_bytes()
+    t0 = time.perf_counter()
+    eng = ServingEngine(cfg, params, expert_storage=EdgeStorageConfig(
+        cache_bytes=routed // 2, chunk_bytes=chunk_bytes, prefetch_topk=4),
+        kv_storage=KVStorageConfig(block_tokens=16), **kw)
+    register_s = time.perf_counter() - t0
+    rss1 = _rss_bytes()
+    eng.submit(_k_copies(reqs))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    rep = eng.obs_report()
+    edge, kv = rep["edge"], rep["kv"]
+    decode = serve_chunk_profile(torch, cfg, params, eng.caches, 1, False,
+                                 expert_stats=True)
+    import hashlib
+    block = bytes(1 << 26)
+    t0 = time.perf_counter()
+    hashlib.sha256(block).hexdigest()
+    sha_gb_s = len(block) / (time.perf_counter() - t0) / 1e9
+    row = {"phase": "K2_edge_storage", "model": cfg.name, "slots": 4,
+           "requests": len(reqs), "launches": counts,
+           "micro_steps": eng.micro_steps, "macro_steps": eng.steps,
+           "units": edge["units"], "unit_bytes": unit_bytes,
+           "routed_bytes": routed, "cache_bytes": routed // 2,
+           "chunk_bytes": chunk_bytes, "register_s": register_s,
+           "register_host_bytes": rss1 - rss0,
+           "store_bytes": eng.edge.store.total_bytes(),
+           "cache": edge["cache"], "store": edge["store"],
+           "kv": {k: kv[k] for k in ("sealed_blocks", "sealed_tokens",
+                                     "sealed_bytes", "dedup_blocks")},
+           "wall_s": wall, "plain_wall_s": pwall,
+           "tokens_per_s": sum(len(v) for v in done.values()) / wall,
+           "equal_plain": done == pdone, "host_sha256_gb_per_s": sha_gb_s,
+           "decode_chunk_with_expert_counts": decode,
+           "path_s": time.perf_counter() - start}
+    emit(row)
+    require(done == pdone and len(done) == len(reqs),
+            "K2: the storage engine's streams differ from the plain one's")
+    require(edge["units"] == n_moe * cfg.num_experts
+            and edge["cache"]["misses"] > 0 and edge["cache"]["hits"] > 0
+            and edge["cache"]["fetched_bytes"] > 0
+            and edge["cache"]["evictions"] > 0 and kv["sealed_blocks"] > 0,
+            f"K2 report: {edge}, {kv}")
+    require(counts == lm_counts(moe_gemm=3 * n_moe * eng.micro_steps)
+            and decode["moe_gemm_cuda_launches"] == 3 * n_moe,
+            f"K2 launched {counts} over {eng.micro_steps} micro-steps")
+    return counts, eng.micro_steps
+
+
+def serving_k3(torch, ops, cfg, params):
+    """K3: qwen2.5-3b at full width on path C's weights with KV paging in
+    16-token blocks and DA challenges over the sealed chunks.  Two
+    disjoint prompts, verified, paging on against off: the same streams,
+    token tick roots and verdicts, and no DA slash.  A third request with
+    the first one's prompt restores its sealed prefix blocks and decodes
+    the stream the paging-off engine computes cold.  A fourth, paged out
+    mid-decode and readmitted, resumes its never-paged stream."""
+    import numpy as np
+    from repro_torch.serve.engine import ServingEngine
+    from repro_torch.storage.kv import KVStorageConfig
+    start = time.perf_counter()
+    rng = np.random.default_rng(7)
+
+    def request(rid, plen, new):
+        return {"id": rid, "prompt": rng.integers(
+            0, cfg.vocab_size, plen).astype(np.int32), "max_new_tokens": new}
+
+    a, c = request(0, 70, 8), request(1, 50, 8)
+    b = dict(a, id=2)                   # the first request's prompt again
+    kw = dict(batch_slots=2, cache_len=256, prefill_chunk=16)
+    kvc = KVStorageConfig(block_tokens=16, da_rate=0.5)
+    engines, ticks = {}, []
+    for name, kv in (("on", kvc), ("off", None)):
+        eng = ServingEngine(cfg, params, trust=_k_trust(4), kv_storage=kv,
+                            **kw)
+        eng.submit(_k_copies([a, c]))
+        first = eng.run()
+        # the token tick roots of the disjoint prompts
+        ticks.append([(t.tick, t.root, t.request_ids)
+                      for t in eng.tick_commitments])
+        eng.submit(_k_copies([b]))
+        engines[name] = (eng, first, eng.run())
+    on, first_on, all_on = engines["on"]
+    off, first_off, all_off = engines["off"]
+    kv = on.obs_report()["kv"]
+    d = request(3, 20, 24)
+    ref_eng, ref, _ = _k_serve(torch, cfg, params, [d], **kw)
+    paged = ServingEngine(cfg, params, kv_storage=KVStorageConfig(
+        block_tokens=16), **kw)
+    paged.submit(_k_copies([d]))
+    while not paged.slots[0].decoding or len(paged.slots[0].generated) < 4:
+        paged.step()
+    paged.page_out(0)
+    resumed = paged.run()
+    pkv = paged.obs_report()["kv"]
+    row = {"phase": "K3_kv_paging", "model": cfg.name,
+           "block_tokens": 16, "prompts": [len(a["prompt"]),
+                                           len(c["prompt"])],
+           "streams_equal": first_on == first_off,
+           "tick_roots_equal": ticks[0] == ticks[1],
+           "commit_appends": len(ticks[0]),
+           "kv_roots": sum(bool(t.kv_root) for t in on.tick_commitments),
+           "verdicts_on": _k_verdicts(on, all_on),
+           "verdicts_off": _k_verdicts(off, all_off),
+           "warm_equal_cold": all_on.get(2) == all_off.get(2),
+           "kv": {k: v for k, v in kv.items() if k not in ("cache",
+                                                           "store")},
+           "block_bytes": kv["sealed_bytes"] / max(kv["sealed_blocks"], 1),
+           "page_out": {k: pkv[k] for k in ("pageouts", "resumes",
+                                            "restored_tokens")},
+           "resumed_equal": resumed == ref,
+           "path_s": time.perf_counter() - start}
+    emit(row)
+    require(row["streams_equal"] and row["tick_roots_equal"]
+            and row["kv_roots"] > 0, f"K3 paging on against off: {row}")
+    require(set(row["verdicts_on"].values()) == {"finalized"}
+            and row["verdicts_on"] == row["verdicts_off"],
+            f"K3 verdicts {row['verdicts_on']}, {row['verdicts_off']}")
+    require(kv["restored_tokens"] >= 64 and row["warm_equal_cold"],
+            f"K3 warm prefix: {kv}")
+    require(kv["da"]["probed"] > 0 and kv["da"]["slashed"] == 0
+            and kv["da"]["opened"] == 0, f"K3 DA: {kv['da']}")
+    require(row["resumed_equal"] and pkv["pageouts"] == 1
+            and pkv["resumes"] == 1, f"K3 page-out: {row['page_out']}")
+    return row
 
 
 # ----------------------------------------------------------- main path
@@ -2016,35 +2477,80 @@ def optimistic_training_path(torch, np, ops, rv, ref):
     return counts_g1, counts_g4, prof_opt, prof_cnn
 
 
-def profile_batch(torch, run):
+def profile_batch(torch, run, cpu: bool = True):
     """Device time by kernel (and copy) over one warm call of ``run``,
-    from torch.profiler's CUDA activities: the eight largest rows, and
-    the ``ssd_*``, ``rglru_*``, ``moe_gemm`` and flash kernels' launches
-    and time summed (``ssd``, ``rglru``, ``moe_gemm``, ``flash``).  A one-step warm-up with a throwaway fill comes
-    first: without it the first kernel of ``run`` is missing from the
-    trace."""
+    from torch.profiler's CUDA activities: the eight largest rows, the
+    device launches, and the ``ssd_*``, ``rglru_*``, ``moe_gemm`` and
+    flash kernels' launches and time summed (``ssd``, ``rglru``,
+    ``moe_gemm``, ``flash``), ``rows``, every (device us, kernel,
+    launches), and ``takes``, the calls of ``run`` made.
+
+    A trace can lose records at its edges: the first kernels of a call
+    (once 3 of a 16-wide serving chunk's 1,152 ``moe_gemm``), a marker
+    launched just after the window opened, the last records before it
+    closed.  So the call is fenced, by construction: after a one-step
+    warm-up, the active step runs 50 ms of settle, 256 one-element fills
+    (padding for any loss at the edge), a marker kernel (torch's
+    ``spin_kernel``, waited for), ``run``, a second marker, 256 more
+    fills and 50 ms of settle.  Only the kernels between the two markers
+    count, and a trace without both markers is taken again, three takes
+    at most.  ``cpu=False`` traces the device only (a serving chunk's
+    tens of thousands of host ops take the profiler tens of seconds to
+    sort)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        torch.zeros(1, device="cuda")
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
+    pad = torch.zeros(1, device="cuda")
+
+    def fence():
         torch.cuda.synchronize()
-        prof.step()
-        run()
+        time.sleep(0.05)
+        for _ in range(256):
+            pad.add_(1)
+
+    def marker():
+        torch.cuda._sleep(100_000)          # about 50 us
         torch.cuda.synchronize()
-        prof.step()
-    rows = []
-    for ev in prof.key_averages():
-        # the schedule's step annotation spans the whole step on the device
-        if (ev.device_type != DeviceType.CUDA
-                or ev.key.startswith(("Activity", "ProfilerStep"))):
-            continue
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-        rows.append((float(dev_us), ev.key, ev.count))
-    rows.sort(reverse=True)
+
+    for take in range(1, 4):
+        with profile(activities=activities,
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            pad.add_(1)
+            torch.cuda.synchronize()
+            prof.step()
+            fence()
+            marker()
+            run()
+            torch.cuda.synchronize()
+            marker()
+            fence()
+            torch.cuda.synchronize()
+            prof.step()
+        # the schedule's step annotation spans the whole step on the
+        # device
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("Activity", "ProfilerStep"))]
+        marks = sorted((e.time_range.start, e.time_range.end) for e in dev
+                       if "spin_kernel" in e.name)
+        if len(marks) == 2:
+            break
+        emit({"phase": "profile_retake", "take": take,
+              "markers": len(marks)})
+    require(len(marks) == 2, "no device trace held both marker kernels")
+    by = {}
+    for e in dev:
+        if marks[0][1] <= e.time_range.start and e.time_range.end \
+                <= marks[1][0] and "spin_kernel" not in e.name:
+            one = by.setdefault(e.name, [0.0, 0])
+            one[0] += e.time_range.elapsed_us()
+            one[1] += 1
+    rows = sorted(((us, k, c) for k, (us, c) in by.items()), reverse=True)
     res = {"device_busy_us": sum(r[0] for r in rows),
+           "device_launches": sum(r[2] for r in rows), "rows": rows,
+           "takes": take,
            "top": [{"name": k[:70], "device_us": us, "count": c}
                    for us, k, c in rows[:8]]}
     for group, pat in (("ssd", r"ssd_\w+_kernel"),
@@ -2143,6 +2649,21 @@ def main() -> int:
             require(fn["spill_stores"] == 0 and fn["spill_loads"] == 0,
                     f"ptxas spills in {fn['function']}")
 
+    if "--serving" in sys.argv:
+        # path K alone (K3, K2, K1), each model initialised here
+        from repro_torch.configs import get_config
+        from repro_torch.train.loop import init_model
+        for arch, k in (("qwen2.5-3b", serving_k3),
+                        ("bmoe-paper", serving_k2),
+                        ("qwen2-moe-a2.7b", serving_k1)):
+            cfg = get_config(arch)
+            params = init_model(cfg, 0)
+            k(torch, ops, cfg, params)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        return 0
+
     if "--kernels" in sys.argv:
         # only the named kernels' cases, e.g. to time two trees in one call
         cases = {"moe_gemm": lambda: moe_gemm_cases(torch, mg, ref),
@@ -2181,25 +2702,36 @@ def main() -> int:
     optimistic_path_b(torch, ops, xs[:3])
     optimistic_batch_time(torch, xs)
 
-    counts_c, _ = lm_path(torch, ops, "qwen2.5-3b",
-                          lm_counts(flash_attention=36), decode_seq=256,
-                          serving=True, width1_tol=1e-4)
-    counts_d, row_d = lm_path(torch, ops, "recurrentgemma-2b",
-                              lm_counts(flash_attention=8, rglru_scan=18),
-                              decode_seq=2112)
+    # path K3 (serving with KV paging) runs on path C's weights; its
+    # decode check runs 128 steps (256 before path K)
+    counts_c, _, _ = lm_path(torch, ops, "qwen2.5-3b",
+                             lm_counts(flash_attention=36), decode_seq=128,
+                             serving=True, width1_tol=1e-4, then=lambda
+                             cfg, p: serving_k3(torch, ops, cfg, p))
+    counts_d, row_d, _ = lm_path(torch, ops, "recurrentgemma-2b",
+                                 lm_counts(flash_attention=8,
+                                           rglru_scan=18), decode_seq=2112)
     # path E: 384 decode steps cross two chunk boundaries of the forward
-    counts_e, _ = lm_path(torch, ops, "mamba2-2.7b", lm_counts(ssd_scan=64),
-                          decode_seq=384, serving=True, width1_tol=5e-4)
-    # path H: the MoE LMs, 3 moe_gemm launches a MoE layer
-    counts_h = {
-        arch: lm_path(torch, ops, arch, lm_counts(moe_gemm=3 * n_moe,
-                                                  flash_attention=n_attn),
-                      decode_seq=seq, serving=True, smoke=smoke)[0]
-        for arch, n_moe, n_attn, seq, smoke in (
-            ("bmoe-paper", 12, 12, 128, False),
-            ("qwen2-moe-a2.7b", 24, 24, 64, False),
+    counts_e, _, _ = lm_path(torch, ops, "mamba2-2.7b",
+                             lm_counts(ssd_scan=64), decode_seq=384,
+                             serving=True, width1_tol=5e-4)
+    # path H: the MoE LMs, 3 moe_gemm launches a MoE layer; paths K2
+    # (edge storage) and K1 (the serving engine at full width) run on
+    # its bmoe-paper and qwen2-moe-a2.7b weights
+    counts_h, serving = {}, {}
+    for arch, n_moe, n_attn, seq, smoke, k in (
+            # bmoe-paper decodes 64 steps (128 before path K)
+            ("bmoe-paper", 12, 12, 64, False, serving_k2),
+            ("qwen2-moe-a2.7b", 24, 24, 64, False, serving_k1),
             # one MoE layer of 128 experts is 64 GB in fp32
-            ("llama4-maverick-400b-a17b", 1, 2, 128, True))}
+            ("llama4-maverick-400b-a17b", 1, 2, 128, True, None)):
+        counts_h[arch], _, after = lm_path(
+            torch, ops, arch, lm_counts(moe_gemm=3 * n_moe,
+                                        flash_attention=n_attn),
+            decode_seq=seq, serving=True, smoke=smoke,
+            then=k and (lambda cfg, p, k=k: k(torch, ops, cfg, p)))
+        if after is not None:
+            serving[arch] = after
     # path I: the attention configs; qwen3-32b and gemma3-27b cut in
     # depth to fit the card (gemma3: 3 of 10 blocks of 5 local : 1
     # global, and the 2-layer remainder)
@@ -2211,8 +2743,8 @@ def main() -> int:
                                     ("pixtral-12b", 40, None))}
     # path J: the encoder-decoder: 12 encoder, 12 decoder self- and 12
     # cross-attention launches
-    counts_j, _ = lm_path(torch, ops, "seamless-m4t-medium",
-                          lm_counts(flash_attention=36), decode_seq=128)
+    counts_j, _, _ = lm_path(torch, ops, "seamless-m4t-medium",
+                             lm_counts(flash_attention=36), decode_seq=128)
     # path F: B-MoE training under traditional and bmoe
     trained, train_prof = training_path(torch, np, ops)
     counts_fb = trained["bmoe"]["launches"]
@@ -2250,6 +2782,10 @@ def main() -> int:
                        for r in gemm_lm],
          "lm_prefill_launches": {a: c["moe_gemm"]
                                  for a, c in counts_h.items()},
+         "serving_launches": {
+             f"{a} ({'K1' if a.startswith('qwen') else 'K2'}), {m} "
+             f"micro-steps": c["moe_gemm"]
+             for a, (c, m) in serving.items()},
          "training_round_device_us": {
              fw: {"forward": prof["moe_gemm_forward_us"],
                   "backward": prof["moe_gemm_backward_us"]}

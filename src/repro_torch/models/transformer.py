@@ -12,6 +12,7 @@ MoE layer runs ``moe.moe_mlp``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.models import moe as moe_lib
@@ -109,6 +110,63 @@ def cache_decl(cfg: ModelConfig, batch: int, cache_len: int) -> dict:
         decl["remainder"] = [_layer_cache_decl(s, cfg, batch, cache_len)
                              for s in cfg.remainder]
     return decl
+
+
+# ------------------------------------------- block-granular KV paging
+def check_kv_pageable(cfg: ModelConfig) -> None:
+    """KV paging (``storage.kv``) addresses cache ROWS by absolute
+    position, which only the full-attention cache layout guarantees:
+    local_attn caches are capped ring windows and rglru/ssm carry
+    recurrent state that is not row-addressable.  Raises for those."""
+    for spec in list(cfg.block_pattern) + list(cfg.remainder):
+        if spec.kind != "attn":
+            raise ValueError(
+                f"kv_storage needs all-'attn' layers (row-addressable "
+                f"caches); config has a {spec.kind!r} layer")
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def slice_kv_block(caches, slot: int, start: int, end: int) -> dict:
+    """Copy one slot's cache rows [start, end) out of every layer's KV
+    leaves (the int8 ``k_scale``/``v_scale`` leaves included) as host
+    numpy arrays: the tree a sealed KV block stores.  Stacked block
+    caches carry a leading layer axis (batch is axis 1); remainder
+    caches lead with batch."""
+    block = {"blocks": _tree_map(
+        lambda a: a[:, slot, start:end].cpu().numpy(), caches["blocks"])}
+    if "remainder" in caches:
+        block["remainder"] = _tree_map(
+            lambda a: a[slot, start:end].cpu().numpy(), caches["remainder"])
+    return block
+
+
+def restore_kv_block(caches, slot: int, start: int, block: dict) -> dict:
+    """Functional inverse of ``slice_kv_block``: a copy of ``caches``
+    with a fetched block's numpy rows written into one slot at
+    ``start``, on the caches' device.  ``caches`` is left as it was."""
+    def put(stacked):
+        def f(a, b):
+            out = a.clone()
+            rows = torch.from_numpy(np.array(b)).to(a.device, a.dtype)
+            if stacked:              # (layers, batch, seq, ...)
+                out[:, slot, start:start + rows.shape[1]] = rows
+            else:                    # (batch, seq, ...)
+                out[slot, start:start + rows.shape[0]] = rows
+            return out
+        return f
+
+    new = {"blocks": _map2(put(True), caches["blocks"], block["blocks"])}
+    if "remainder" in caches:
+        new["remainder"] = [_map2(put(False), a, b) for a, b in
+                            zip(caches["remainder"], block["remainder"])]
+    return new
 
 
 # ------------------------------------------------------------- apply
@@ -272,3 +330,51 @@ def forward_decode(params, caches, tokens, pos, cfg: ModelConfig, *,
         (0, max(cfg.resolved_padded_experts, 1)), dtype=torch.int32,
         device=x.device))
     return logits, new_caches, stats
+
+
+def forward_serve_chunk(params, caches, tokens, start, pos, lengths, adv,
+                        cfg: ModelConfig, *, expert_stats=False):
+    """Fused serving macro-step: ``C`` engine ticks in one call, a loop of
+    masked greedy ``forward_decode`` micro-steps advancing every batch
+    slot one position each.  Prefilling slots consume prompt tokens
+    while decoding slots keep generating, and the greedy token is carried
+    from step to step on the device, so nothing is read back to the host
+    inside the chunk.
+
+    tokens: (B, C) integer, slot b's next prompt tokens, left-aligned and
+    zero-padded past ``lengths[b]``; start: (B,), the last token slot b
+    generated (fed at the first micro-step past its prompt; 0 if none);
+    pos: (B,), slot b's absolute position at micro-step 0; lengths: (B,)
+    in [0, C], the prompt columns slot b consumes; adv: (B,) in [0, C],
+    the micro-steps slot b advances at all (its cache writes are masked
+    from step ``adv[b]`` on; 0: an idle slot, pure padding).  Host arrays
+    or tensors; they are moved to the parameters' device.
+
+    Micro-step t feeds ``tokens[:, t]`` where ``t < lengths``, else each
+    slot's previous greedy output, and writes where ``t < adv``.
+    Returns ``(out_tokens (C, B) int32, new_caches[, stats])`` on the
+    device: ``out_tokens[t, b]`` is slot b's greedy next token after
+    micro-step t.  ``stats`` (with ``expert_stats``) sums the per-MoE-
+    layer routed-token counts (num_moe_layers, E) int32 over the chunk's
+    micro-steps.  The caches passed in are not modified."""
+    dev = params["embed"].device
+
+    def on_dev(a):
+        return torch.as_tensor(a).to(dev, torch.long)
+
+    tokens, pos, lengths, adv = map(on_dev, (tokens, pos, lengths, adv))
+    cur = on_dev(start)
+    outs, total = [], None
+    for t in range(tokens.shape[1]):
+        feed = torch.where(t < lengths, tokens[:, t], cur)
+        out = forward_decode(params, caches, feed[:, None], pos + t, cfg,
+                             expert_stats=expert_stats, write_mask=t < adv)
+        logits, caches = out[0], out[1]
+        if expert_stats:
+            total = out[2] if total is None else total + out[2]
+        cur = logits[:, -1].argmax(dim=-1)
+        outs.append(cur)
+    outs = torch.stack(outs).to(torch.int32)
+    if expert_stats:
+        return outs, caches, total
+    return outs, caches

@@ -5,7 +5,9 @@
   the full-sequence forward and the argmax of the last position;
 - ``make_decode_step(cfg, expert_stats=False)``: ``(params, caches,
   batch) -> (next token (B,), caches)``, one token through the caches,
-  and with ``expert_stats`` also the per-MoE-layer routed-token counts.
+  and with ``expert_stats`` also the per-MoE-layer routed-token counts;
+- ``make_serve_chunk_step(cfg, expert_stats=False)``: the serving
+  engine's fused macro-step, C masked greedy decode micro-steps.
 
 Training steps wait for an attention backward kernel (ROADMAP A4.4);
 the federated local step waits for federated training (A6).
@@ -77,3 +79,24 @@ def make_decode_step(cfg: ModelConfig, expert_stats: bool = False):
         return logits[:, -1].argmax(dim=-1), caches
 
     return decode_step
+
+
+def make_serve_chunk_step(cfg: ModelConfig, expert_stats: bool = False):
+    """The serving engine's fused macro-step (``tfm.forward_serve_chunk``):
+    one call runs C engine ticks, prefilling slots chunk-consuming their
+    prompts while decoding slots keep generating.
+
+    batch: ``tokens`` (B, C), ``start`` (B,) (last generated token per
+    slot), ``pos`` (B,), ``lengths`` (B,) (prompt columns consumed),
+    ``adv`` (B,) (micro-steps the slot advances at all; 0 = idle
+    padding), integer arrays or tensors.  Returns (out_tokens (C, B)
+    int32, caches[, stats]) on the parameters' device."""
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError("serve chunk drives decoder-only archs")
+
+    def serve_chunk_step(params, caches, batch):
+        return tfm.forward_serve_chunk(
+            params, caches, batch["tokens"], batch["start"], batch["pos"],
+            batch["lengths"], batch["adv"], cfg, expert_stats=expert_stats)
+
+    return serve_chunk_step

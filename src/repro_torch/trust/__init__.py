@@ -20,9 +20,9 @@ Modules
   async challenge window -> finalize/rollback).
 - ``da`` (import directly, as in the JAX package): data-availability
   challenges holding storage replica nodes to the chunks they store.
-
-The JAX package's ``session`` (per-tick serving commitments) comes with
-the serving engine (ROADMAP.md queue A, item 5).
+- ``session``: the serving engine's batched per-tick commitments (one
+  Merkle root over every token a tick emits) and each session's
+  inclusion paths into them.
 """
 from repro_torch.trust.audit import (AuditPlan, AuditReport,
                                      BatchRecomputeFn, FraudProof,
@@ -34,6 +34,8 @@ from repro_torch.trust.commitments import (MerklePath, MerkleTree,
 from repro_torch.trust.protocol import (AuditJob, ChallengeWindow,
                                         OptimisticProtocol, RollbackRecord,
                                         RoundPhase, RoundState, TrustConfig)
+from repro_torch.trust.session import (SessionLeafRef, TickCommitment,
+                                       commit_tick, verify_session_inclusion)
 from repro_torch.trust.slashing import DisputeCourt, StakeBook
 
 __all__ = [
@@ -42,5 +44,7 @@ __all__ = [
     "MerklePath", "MerkleTree", "RoundCommitment", "commit_outputs",
     "leaf_digest", "leaf_digest_batch",
     "AuditJob", "ChallengeWindow", "OptimisticProtocol", "RollbackRecord",
-    "RoundPhase", "RoundState", "TrustConfig", "DisputeCourt", "StakeBook",
+    "RoundPhase", "RoundState", "TrustConfig", "SessionLeafRef",
+    "TickCommitment", "commit_tick", "verify_session_inclusion",
+    "DisputeCourt", "StakeBook",
 ]

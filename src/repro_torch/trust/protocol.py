@@ -291,6 +291,18 @@ class OptimisticProtocol:
                 ).observe(len(jobs))
         return jobs
 
+    def drain_audits(self, now: Optional[int] = None
+                     ) -> Dict[int, List[FraudProof]]:
+        """Run every queued audit that ``pop_audit_jobs`` releases, one
+        round at a time (hosts with a cross-round batched recompute — see
+        ``BMoESystem`` — pop the jobs themselves and merge the work).
+        Returns the confirmed proofs per drained round."""
+        out: Dict[int, List[FraudProof]] = {}
+        for job in self.pop_audit_jobs(now):
+            out[job.round_id] = self.run_audits(
+                job.round_id, job.recompute_fn, job.batch_recompute_fn)
+        return out
+
     # ------------------------------------------------------------- audit
     def run_audits(self, round_id: int, recompute_fn: RecomputeFn,
                    batch_recompute_fn: Optional[BatchRecomputeFn] = None

@@ -308,8 +308,9 @@ def test_params_from_numpy_checks_keys():
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """Every repro_torch module, and chip_smoke.py, imported in a fresh
-    interpreter, leaves jax and repro out of sys.modules."""
+    """Every repro_torch module (the serving engine and its launcher
+    among them), and chip_smoke.py, imported in a fresh interpreter,
+    leaves jax and repro out of sys.modules."""
     code = textwrap.dedent(f"""
         import importlib, importlib.util, pkgutil, sys
         sys.path.insert(0, {os.path.join(ROOT, 'src')!r})
@@ -328,7 +329,10 @@ def test_port_imports_neither_jax_nor_repro():
               "repro_torch.models.ssm", "repro_torch.models.transformer",
               "repro_torch.train.step", "repro_torch.train.loop",
               "repro_torch.kernels.flash_attention",
-              "repro_torch.kernels.rglru_scan"}}
+              "repro_torch.kernels.rglru_scan",
+              "repro_torch.serve", "repro_torch.serve.engine",
+              "repro_torch.serve.scheduler", "repro_torch.trust.session",
+              "repro_torch.storage.kv", "repro_torch.launch.serve"}}
         missing = sorted(lm - set(names))
         print(len(names), bad, missing)
         sys.exit(1 if bad or missing or len(names) < 25 else 0)

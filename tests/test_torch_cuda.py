@@ -68,10 +68,12 @@ def test_moe_gemm_kernel_matches_plain(cuda, E, C, d, f, dtype):
 
 # the LM MoE layers at a prefill of 4096: bmoe-paper's gate/up and down,
 # qwen2-moe-a2.7b's (K = 2048, then K = 1408), and its decode at C = k =
-# 4 rows per expert, one slot and the fold of four
+# 4 rows per expert, one slot and the fold of four (gate/up and down);
+# bmoe-paper's decode fold of four slots at C = k = 3 (gate/up and down)
 @pytest.mark.parametrize("E,C,d,f", [
     (10, 1536, 1024, 2816), (10, 1536, 2816, 1024), (64, 344, 2048, 1408),
-    (64, 344, 1408, 2048), (64, 4, 2048, 1408), (64, 16, 2048, 1408)])
+    (64, 344, 1408, 2048), (64, 4, 2048, 1408), (64, 16, 2048, 1408),
+    (64, 16, 1408, 2048), (10, 12, 1024, 2816), (10, 12, 2816, 1024)])
 def test_moe_gemm_lm_shapes_match_plain(cuda, E, C, d, f):
     """Weights at the layers' fan-in scale 1/sqrt(d), as the model draws
     them, held to the fp32 bar of the B-MoE shapes."""
@@ -922,3 +924,109 @@ def test_seamless_smoke_on_the_card_matches_the_cpu(cuda):
         lg, card = encdec.forward_decode(p, card, toks[:, t:t + 1], t, cfg)
         wl, cpu = encdec.forward_decode(p_cpu, cpu, toks[:, t:t + 1], t, cfg)
         torch.testing.assert_close(lg.cpu(), wl, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------------ serving
+SERVE_ARCHS = ("smollm-360m", "qwen2-moe-a2.7b", "bmoe-paper")
+
+
+def _emitted_margins(cfg, params, reqs, done):
+    """The smallest top-1/top-2 logit margin over every token ``done``
+    emitted, by a teacher-forced decode of prompt and stream on the
+    CPU: a greedy near-tie between the card and the CPU is reported as
+    one."""
+    margins = []
+    for r in reqs:
+        gen = done[r["id"]]
+        seq = list(r["prompt"]) + gen[:-1]
+        caches = materialize(transformer.cache_decl(cfg, 1, len(seq)), 0,
+                             "cpu")
+        for t, tok in enumerate(seq):
+            lg, caches = transformer.forward_decode(
+                params, caches, torch.tensor([[int(tok)]]), t, cfg)
+            if t >= len(r["prompt"]) - 1 and gen:
+                top = lg[0, -1].topk(2)[0]
+                margins.append(float(top[0] - top[1]))
+    return min(margins)
+
+
+def _serve(cfg, params, reqs, **kw):
+    from repro_torch.serve.engine import ServingEngine
+    eng = ServingEngine(cfg, params, **kw)
+    eng.submit([dict(r, prompt=np.array(r["prompt"])) for r in reqs])
+    return eng, eng.run()
+
+
+def _serve_reqs(cfg, n, seed=3):
+    from repro_torch.data.synthetic import serving_requests
+    return list(serving_requests(cfg.vocab_size, n, max_prompt=20,
+                                 max_new=8, seed=seed))
+
+
+@pytest.mark.parametrize("scheduling", ["continuous", "fixed"])
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_serving_engine_on_the_card_matches_the_cpu(cuda, arch, scheduling,
+                                                     monkeypatch):
+    """The smoke engine (verified sessions) on the card serves the CPU's
+    streams, tick roots and session log; every micro-step of a MoE model
+    launches moe_gemm three times a MoE layer and never runs the plain
+    version."""
+    cfg = get_config(arch, smoke=True)
+    p_cpu = init_model(cfg, 0, "cpu")
+    reqs = _serve_reqs(cfg, 6)
+    kw = dict(batch_slots=4, cache_len=64, scheduling=scheduling,
+              trust=TrustConfig(audit_rate=1.0, num_verifiers=2,
+                                challenge_window=3))
+    cpu, want = _serve(cfg, p_cpu, reqs, **kw)
+    assert _emitted_margins(cfg, p_cpu, reqs, want) > 1e-4, \
+        "a greedy near-tie on the CPU"
+
+    def plain(*a):
+        raise AssertionError("the plain moe_gemm ran on the card's path")
+    monkeypatch.setattr(ref, "moe_gemm_ref", plain)
+    ops.reset_launch_counts()
+    card, got = _serve(cfg, _to(p_cpu, cuda), reqs, **kw)
+    counts = ops.launch_counts()
+    assert got == want and len(got) == 6
+    assert [(t.tick, t.root) for t in card.tick_commitments] == \
+        [(t.tick, t.root) for t in cpu.tick_commitments]
+    assert card.session_log == cpu.session_log
+    n_moe = sum(s.mlp == "moe" for s in list(cfg.block_pattern)
+                * cfg.num_blocks + list(cfg.remainder))
+    assert card.micro_steps == cpu.micro_steps > 0
+    assert counts == {"moe_gemm": 3 * n_moe * card.micro_steps,
+                      "redundancy_vote": 0, "audit_mlp": 0,
+                      "flash_attention": 0, "rglru_scan": 0, "ssd_scan": 0}
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "bmoe-paper"])
+def test_serving_batched_equals_alone_on_the_card(cuda, arch):
+    """Four requests served together in a 4-slot engine against each one
+    alone in a fresh 4-slot engine: the same tokens, and each request's
+    cache rows bit for bit (a row is its own dispatch group, and
+    moe_gemm's rows do not depend on the other rows of the fold)."""
+    cfg = get_config(arch, smoke=True)
+    p = init_model(cfg, 0, cuda)
+    reqs = _serve_reqs(cfg, 4, seed=5)
+    kw = dict(batch_slots=4, cache_len=64, prefill_chunk=8)
+    batched, done = _serve(cfg, p, reqs, **kw)
+    assert len(done) == 4
+    for slot, r in enumerate(reqs):
+        alone, one = _serve(cfg, p, [r], **kw)
+        assert one[r["id"]] == done[r["id"]]
+        fed = len(r["prompt"]) + len(done[r["id"]]) - 1
+        for a, b in zip(_leaves(batched.caches), _leaves(alone.caches)):
+            assert _bitwise(a[:, slot, :fed], b[:, 0, :fed])
+
+
+def _leaves(tree):
+    from repro_torch.core.ledger import tree_flatten
+    return tree_flatten(tree)[0]
+
+
+def test_serve_launcher_runs_on_the_card(cuda, capsys):
+    from repro_torch.launch import serve
+    done = serve.main(["--arch", "qwen2-moe-a2.7b", "--requests", "3",
+                       "--slots", "2", "--cache-len", "64"])
+    assert len(done) == 3
+    assert "device=cuda" in capsys.readouterr().out
