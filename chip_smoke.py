@@ -41,6 +41,14 @@ capacity 376, edge cache on):
   blocks under one cache budget of half the experts' bytes, against a
   plain engine bit for bit; K3, qwen2.5-3b with KV paging (warm prefix,
   page-out and resume, tick roots against paging off, DA challenges);
+- LM training (path L, through ``train`` and ``make_train_step``, the
+  attention, RG-LRU and MoE products forward and backward through their
+  kernels): L1, bmoe-paper at full width and depth from seed 0, 4 steps
+  of (2, 2048) with the loss falling, two steps from one state bitwise
+  equal, one layer against the CPU by gradients and one step profiled;
+  L2, recurrentgemma-2b at full width, 2 steps of (2, 4096) over its 2
+  microbatches with remat; L3, seamless-m4t-medium over 4,096 frames and
+  512 tokens, 2 steps; each path's launches held to the config's count;
 - B-MoE training (path F): ``train_round`` under ``traditional`` and
   ``bmoe``, 30 clean rounds each on tasks of 1000, then the paper's
   claim under 3 of 10 colluding edges (bmoe holds its clean accuracy,
@@ -67,14 +75,15 @@ after it.
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels moe_gemm flash_attention ssd_scan
     python3 chip_smoke.py --serving
+    python3 chip_smoke.py --training
 
 The second form builds, then checks and times only the named kernels'
-cases (``moe_gemm``, ``flash_attention``, ``ssd_scan``,
-``redundancy_vote``, ``rglru_scan``, ``audit_mlp``) and stops (no main
-path, no last line): run from two trees in one call, it compares two
-versions of a kernel on one card.  The third runs path K alone (its
-models initialised from seed 0 as paths C and H do) and stops the same
-way.
+cases (``moe_gemm``, ``flash_attention``, ``flash_attention_bwd``,
+``ssd_scan``, ``redundancy_vote``, ``rglru_scan``, ``rglru_scan_bwd``,
+``audit_mlp``) and stops (no main path, no last line): run from two
+trees in one call, it compares two versions of a kernel on one card.
+The third runs path K alone and the fourth path L alone (their models
+initialised from seed 0 as the main run's are) and stop the same way.
 
 Prints, in order: the card's name and power limit (nvidia-smi), the
 build time, one JSON line per kernel case, the main-path lines, one
@@ -87,6 +96,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -156,10 +166,12 @@ def check_moe_gemm(torch, mg, ref, seed: int, name: str, E: int, C: int,
                    d: int, f: int, dtype, w_scale: float = 1.0):
     """The kernel against its plain version (fp32 cuBLAS, TF32 off) on
     unit normal rows and weights drawn at ``w_scale`` (an LM layer's
-    fan-in init is 1/sqrt(d))."""
-    g = torch.Generator().manual_seed(seed)
-    buf = torch.randn(E, C, d, generator=g).to("cuda", dtype)
-    w = (torch.randn(E, d, f, generator=g) * w_scale).to("cuda", dtype)
+    fan-in init is 1/sqrt(d)), drawn on the card (the LM layers' weights
+    are about 10^8 numbers a case)."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    buf = torch.randn(E, C, d, generator=g, device="cuda").to(dtype)
+    w = (torch.randn(E, d, f, generator=g, device="cuda")
+         * w_scale).to(dtype)
     got = mg.moe_gemm(buf, w)
     want = ref.moe_gemm_ref(buf, w)
     torch.cuda.synchronize()
@@ -230,9 +242,18 @@ def moe_gemm_cases(torch, mg, ref):
               (51, "bmoe_lm_decode_fold_b4_down", 10, 12, 2816, 1024))]
     check_moe_gemm(torch, mg, ref, 45, "qwen2_moe_decode_b1", 64, 4, 2048,
                    1408, torch.float32, w_scale=2048 ** -0.5)
+    # the LM MoE layer's backward on path L1 (bmoe-paper at (2, 2048), the
+    # fold of 1,536 rows): d_buf = g w^T has the forward's shapes above
+    # (gate/up's g (E, 1536, 2816) x w^T (E, 2816, 1024) is bmoe_lm_down's,
+    # down's is bmoe_lm_gate_up's); d_w = buf^T g contracts the rows
+    lm_bwd = [check_moe_gemm(torch, mg, ref, seed, name, E, C, d, f,
+                             torch.float32, w_scale=d ** -0.5)
+              for seed, name, E, C, d, f in (
+                  (52, "bmoe_lm_bwd_dw_gate_up", 10, 1024, 1536, 2816),
+                  (53, "bmoe_lm_bwd_dw_down", 10, 2816, 1536, 1024))]
     check_moe_gemm_fp64(torch, mg, ref)
     check_moe_gemm_fold(torch, mg)
-    return gemm, bwd, lm
+    return gemm, bwd, lm, lm_bwd
 
 
 def check_moe_gemm_fp64(torch, mg, ref):
@@ -631,6 +652,218 @@ def rglru_cases(torch, rg, ref):
     return scan
 
 
+def time_events(fn, iters: int = 5) -> float:
+    """Device time per call of ``fn`` between two CUDA events over
+    ``iters`` calls after two warm-up calls: for calls (an autograd
+    backward) that a CUDA graph would not capture, and long enough that
+    the host's launch overhead does not count."""
+    import torch
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def attention_grad_fp64(torch, ref, q, k, v, do, causal, window, softcap,
+                        q_offset):
+    """dq, dk, dv of attention in float64 by autograd: the yardstick the
+    backward kernel and its plain version are both held to."""
+    q, k, v = (t.double().requires_grad_(True) for t in (q, k, v))
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    s = torch.einsum("bqhgd,bkhd->bhgqk",
+                     q.reshape(B, Sq, KH, H // KH, D), k) * D ** -0.5
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    mask = ref.attention_mask(Sq, Sk, q.device, causal=causal,
+                              window=window, q_offset=q_offset)
+    s = torch.where(mask, s, torch.full((), -1e30, dtype=s.dtype,
+                                        device=s.device))
+    o = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(s, -1), v)
+    return torch.autograd.grad(o.reshape(B, Sq, H, D), (q, k, v),
+                               do.double())
+
+
+def check_flash_bwd(torch, np, fa, ref, seed: int, name: str, B: int,
+                    S: int, H: int, KH: int, D: int, causal: bool,
+                    window: int = 0, softcap: float = 0.0,
+                    Sk: Optional[int] = None):
+    """The backward kernel against ``attention_bwd_ref`` on the same o and lse,
+    both held against a float64 backward: the kernel's error on each of dq, dk,
+    dv may not exceed twice the plain version's.  Also: the forward's o bitwise
+    equal with and without the lse written.  Timed: the kernel, its plain
+    version and the library's backward (SDPA in fp32 on the same inputs, heads
+    first and GQA expanded, by ``torch.autograd.grad``; its largest kernel
+    named).  The bound: five products of the forward's size (S, dP, dV, dK, dQ)
+    at the 3xTF32 rate, against q, k, v, o, dO, lse read once and dq, dk, dv
+    written once."""
+    import torch.nn.functional as F
+    Sk = Sk or S
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(B, S, H, D, generator=g).cuda()
+    k = torch.randn(B, Sk, KH, D, generator=g).cuda()
+    v = torch.randn(B, Sk, KH, D, generator=g).cuda()
+    do = torch.randn(B, S, H, D, generator=g).cuda()
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    o_bitwise = _bitwise_equal(torch, o, fa.flash_attention(q, k, v, **kw))
+    got = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    want = ref.attention_bwd_ref(q, k, v, o, do, lse, **kw)
+    exact = attention_grad_fp64(torch, ref, q, k, v, do, q_offset=0, **kw)
+    torch.cuda.synchronize()
+    err_k = {n: float((a.double() - x).abs().max())
+             for n, a, x in zip(("dq", "dk", "dv"), got, exact)}
+    err_p = {n: float((a.double() - x).abs().max())
+             for n, a, x in zip(("dq", "dk", "dv"), want, exact)}
+    vs_plain = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    del exact
+    ok = all(err_k[n] <= 2.0 * err_p[n] for n in err_k)
+    pairs = attention_pairs(np, S, Sk, causal, window)
+    flops = 10.0 * B * H * D * pairs
+    nbytes = 4.0 * (4 * B * S * H * D + 4 * B * Sk * KH * D + B * H * S)
+    b_ms, b_by = bound(flops, nbytes, TF32X3_PEAK)
+    library_ms, backend = None, None
+    if not softcap:
+        G = H // KH
+        qt, kt, vt = (t.repeat_interleave(G if t is not q else 1, dim=2)
+                      .transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        mask = None
+        if window:
+            pos = torch.arange(S, device="cuda")
+            mask = pos[None, :] > pos[:, None] - window
+            if causal:
+                mask &= pos[None, :] <= pos[:, None]
+        dot = do.transpose(1, 2).contiguous()
+        out = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and not window)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+        library_ms = time_events(sdpa_bwd, iters=3)
+        backend = top_kernel(torch, sdpa_bwd)
+        del out, qt, kt, vt, dot
+    row = {"case": name, "kernel": "flash_attention_bwd",
+           "shape": f"q ({B},{S},{H},{D}), kv ({B},{Sk},{KH},{D})",
+           "causal": causal, "window": window, "softcap": softcap,
+           "dtype": "float32", "pairs": pairs,
+           "max_abs_err": vs_plain, "fp64_err_kernel": err_k,
+           "fp64_err_plain": err_p, "ok": ok,
+           "o_bitwise_with_lse": o_bitwise,
+           "kernel_ms": time_ms(lambda: fa.flash_attention_bwd(
+               q, k, v, o, do, lse, **kw), iters=3, reps=2),
+           "plain_ms": time_ms(lambda: ref.attention_bwd_ref(
+               q, k, v, o, do, lse, **kw), iters=1, reps=2),
+           "library_ms": library_ms, "library_backend": backend,
+           "bound_ms": b_ms, "bound_by": b_by,
+           "bound_fp32_cores_ms": bound(flops, nbytes, FP32_PEAK)[0]}
+    emit(row)
+    require(ok and o_bitwise, f"flash_attention_bwd {name}: kernel error "
+                              f"{err_k} against plain {err_p} (float64), "
+                              f"o bitwise with lse {o_bitwise}")
+    return row
+
+
+def flash_bwd_cases(torch, np, fa, ref):
+    """The attention backward at every shape path L launches it at:
+    bmoe-paper's layer at L1's (2, 2048) (GQA 16/8), recurrentgemma-2b's
+    windowed D = 256 layer (L2), seamless-m4t-medium's encoder (non-
+    causal, 4,096 frames), its decoder's self-attention over 512 tokens
+    and its cross-attention from 512 tokens to 4,096 frames (L3); then a
+    qwen2.5-3b layer at 4096 (the kernel's headline time, returned
+    first) and a ragged cross-attention with Sq != Sk."""
+    qwen = check_flash_bwd(torch, np, fa, ref, 60, "qwen_layer", 1, 4096,
+                           16, 2, 128, True)
+    return [qwen,
+            check_flash_bwd(torch, np, fa, ref, 64, "bmoe_lm_layer", 2, 2048,
+                            16, 8, 64, True),
+            check_flash_bwd(torch, np, fa, ref, 61, "rgemma_layer", 1, 4096,
+                            10, 1, 256, True, window=2048),
+            check_flash_bwd(torch, np, fa, ref, 62, "seamless_encoder", 1,
+                            4096, 16, 16, 64, False),
+            check_flash_bwd(torch, np, fa, ref, 65, "seamless_decoder_self",
+                            1, 512, 16, 16, 64, True),
+            check_flash_bwd(torch, np, fa, ref, 66, "seamless_cross", 1, 512,
+                            16, 16, 64, False, Sk=4096),
+            check_flash_bwd(torch, np, fa, ref, 63, "cross_ragged", 2, 1000,
+                            8, 4, 64, False, Sk=1500)]
+
+
+def rglru_bwd_fp64(torch, a, h, dh):
+    """The reverse loop of ``rglru_scan_bwd_ref`` in float64."""
+    a, h, dh = a.double(), h.double(), dh.double()
+    S = a.shape[1]
+    c = torch.zeros_like(a[:, 0])
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    for t in range(S - 1, -1, -1):
+        c = (a[:, t + 1] * c if t + 1 < S else 0.0) + dh[:, t]
+        db[:, t] = c
+        da[:, t] = c * h[:, t - 1] if t > 0 else 0.0
+    return da, db
+
+
+def check_rglru_bwd(torch, rg, ref, seed: int, name: str, B: int, S: int,
+                    C: int):
+    """The reverse chunked scan against the reverse loop at 1e-5, and
+    both against the loop in float64: the kernel's error may not exceed
+    twice the plain loop's.  The bound: a, h and dh read once, da and db
+    written once, 20 bytes an element."""
+    a, b = _scan_inputs(torch, seed, B, S, C)
+    dh = torch.randn(B, S, C, generator=torch.Generator().manual_seed(
+        seed + 1)).cuda()
+    h = rg.rglru_scan(a, b)
+    got = rg.rglru_scan_bwd(a, h, dh)
+    want = ref.rglru_scan_bwd_ref(a, h, dh)
+    exact = rglru_bwd_fp64(torch, a, h, dh)
+    torch.cuda.synchronize()
+    err = max(float((x - y).abs().max()) for x, y in zip(got, want))
+    err_k = max(float((x.double() - y).abs().max())
+                for x, y in zip(got, exact))
+    err_p = max(float((x.double() - y).abs().max())
+                for x, y in zip(want, exact))
+    ok = all(bool(torch.allclose(x, y, rtol=1e-5, atol=1e-5))
+             for x, y in zip(got, want)) and err_k <= 2.0 * err_p
+    b_ms, b_by = bound(3.0 * B * S * C, 20.0 * B * S * C, FP32_PEAK)
+    row = {"case": name, "kernel": "rglru_scan_bwd",
+           "shape": f"({B},{S},{C})", "dtype": "float32",
+           "max_abs_err": err, "rtol": 1e-5, "atol": 1e-5,
+           "fp64_err_kernel": err_k, "fp64_err_plain": err_p, "ok": ok,
+           "bitwise": all(_bitwise_equal(torch, x, y)
+                          for x, y in zip(got, want)),
+           "kernel_ms": time_ms(lambda: rg.rglru_scan_bwd(a, h, dh)),
+           "plain_ms": time_ms(lambda: ref.rglru_scan_bwd_ref(a, h, dh),
+                               iters=1, reps=2),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "design_floor_ms": 28.0 * B * S * C / HBM_BYTES_PER_S * 1e3}
+    emit(row)
+    require(ok, f"rglru_scan_bwd {name}: max abs err {err}, float64 error "
+                f"{err_k} against the plain loop's {err_p}")
+    return row
+
+
+def rglru_bwd_cases(torch, rg, ref):
+    """recurrentgemma-2b's layer (returned first), then two chunks plus
+    one step and a single chunk, where the kernel is the loop bit for
+    bit."""
+    rows = [check_rglru_bwd(torch, rg, ref, 70, "rgemma_layer", 1, 4096,
+                            2560),
+            check_rglru_bwd(torch, rg, ref, 71, "chunk_plus_one", 2, 65,
+                            130),
+            check_rglru_bwd(torch, rg, ref, 72, "below_one_chunk", 2, 20,
+                            33)]
+    require(rows[1]["bitwise"] and rows[2]["bitwise"],
+            "rglru_scan_bwd over at most two chunks is not the loop's bits")
+    return rows
+
+
 def check_ssd(torch, ss, ref, seed: int, name: str, B: int, S: int, H: int,
               P: int, N: int, chunk: int, iters: int = 20,
               profiled: bool = False):
@@ -705,7 +938,8 @@ def lm_counts(**n):
     """A launch-count dict: the named kernels' counts, every other 0."""
     return {k: n.get(k, 0) for k in ("moe_gemm", "redundancy_vote",
                                      "audit_mlp", "flash_attention",
-                                     "rglru_scan", "ssd_scan")}
+                                     "flash_attention_bwd", "rglru_scan",
+                                     "rglru_scan_bwd", "ssd_scan")}
 
 
 def prefill_batch(torch, cfg, S: int):
@@ -739,32 +973,25 @@ def _profiled(prof, group: str, calls: int):
 
 
 def lm_prefill(torch, ops, cfg, params, batch, want_counts, reduced=None):
-    """The prefill step on ``batch`` (1 x 4096 positions): one warm-up,
-    then the main path's run with the launch counts set to 0 around it,
-    two more timed runs (median of 3), peak memory, and one profiled warm
-    run.  Each kernel group's calls, CUDA launches (one ssd_scan call is
-    four, one rglru_scan call two) and device time come from the
-    profiled run."""
+    """The prefill step on ``batch`` (1 x 4096 positions): the main path's
+    run with the launch counts set to 0 around it, its peak memory, then
+    one profiled warm run (device only).  The wall (the run's span on the
+    device clock), busy, idle, each kernel group's calls, CUDA launches
+    (one ssd_scan call is four, one rglru_scan call two) and device time
+    come from the profiled run."""
     from repro_torch.train.step import make_prefill_step
     prefill = make_prefill_step(cfg)
-    nxt = prefill(params, batch)                 # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    walls, counts = [], None
-    for i in range(3):
-        if i == 0:
-            ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        nxt = prefill(params, batch)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        if i == 0:
-            counts = ops.launch_counts()
+    ops.reset_launch_counts()
+    nxt = prefill(params, batch)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     ops.reset_launch_counts()
-    prof = profile_batch(torch, lambda: prefill(params, batch))
+    prof = profile_batch(torch, lambda: prefill(params, batch), cpu=False)
     calls = {k: n // prof["takes"] for k, n in ops.launch_counts().items()}
-    wall_ms = sorted(walls)[1] * 1e3
+    wall_ms = prof["span_us"] / 1e3
     S = sum(batch[k].shape[1] for k in ("tokens", "patches") if k in batch)
     row = {"phase": "lm_prefill", "model": cfg.name, "batch": 1, "seq": S,
            "inputs": {k: list(v.shape) for k, v in batch.items()},
@@ -775,7 +1002,7 @@ def lm_prefill(torch, ops, cfg, params, batch, want_counts, reduced=None):
                                           calls["moe_gemm"]),
            "flash_profiled": _profiled(prof, "flash",
                                        calls["flash_attention"]),
-           "wall_ms": [w * 1e3 for w in walls],
+           "wall_ms": wall_ms,
            "tokens_per_s": S / (wall_ms / 1e3),
            "peak_mem_gb": peak / 1e9, "next_token": nxt.tolist(),
            "device_busy_ms": prof["device_busy_us"] / 1e3,
@@ -1169,6 +1396,311 @@ def lm_path(torch, ops, arch: str, want_counts, decode_seq: int,
     return counts, row, after
 
 
+# ---------------------------------------- path L: LM training
+def _lm_train_batch(torch, cfg, B: int, S: int, seed: int = 0):
+    """(B, S) tokens and labels from ``lm_batches``, on the card."""
+    from repro_torch.data.synthetic import lm_batches
+    return {k: v.cuda() for k, v in next(lm_batches(
+        cfg.vocab_size, B, S, seed=seed)).items()}
+
+
+def _layer_counts(cfg):
+    """Per layer kind, (layers in the stacked blocks, in the remainder)."""
+    blocks = list(cfg.block_pattern) * cfg.resolved_num_blocks
+    out = {}
+    for what, hit in (("attn", lambda s: s.kind in ("attn", "local_attn")),
+                      ("rglru", lambda s: s.kind == "rglru"),
+                      ("moe", lambda s: s.mlp == "moe")):
+        out[what] = (sum(map(hit, blocks)), sum(map(hit, cfg.remainder)))
+    return out
+
+
+def train_step_counts(cfg, remat: bool):
+    """The launches one microbatch of a train step makes: each MoE layer 3
+    moe_gemm forward and 6 backward, each attention layer one flash
+    forward and one backward, each RG-LRU layer one scan and one reverse
+    scan; with remat a checkpointed block's forwards run twice."""
+    n = _layer_counts(cfg)
+    if cfg.is_encoder_decoder:
+        n["attn"] = (cfg.num_encoder_layers + 2 * cfg.num_layers, 0)
+    twice = 2 if remat else 1
+    return lm_counts(
+        moe_gemm=3 * (twice * n["moe"][0] + n["moe"][1]) + 6 * sum(n["moe"]),
+        flash_attention=twice * n["attn"][0] + n["attn"][1],
+        flash_attention_bwd=sum(n["attn"]),
+        rglru_scan=twice * n["rglru"][0] + n["rglru"][1],
+        rglru_scan_bwd=sum(n["rglru"]))
+
+
+def _clone_tree(torch, tree):
+    from repro_torch.core.ledger import tree_flatten, tree_unflatten
+    leaves, _ = tree_flatten(tree)
+    return tree_unflatten(tree, [t.clone() for t in leaves])
+
+
+def _train_profile(torch, step_fn, params, state, batch, n_fwd_gemm: int):
+    """One profiled train step (fenced, ``profile_batch``), every number
+    from that step's own trace: device busy, its wall time on the device
+    and idle share, and the device time of the flash forward and backward
+    kernels, the moe_gemm launches of the forward (the first
+    ``n_fwd_gemm`` in time) and of the backward, the library's GEMMs
+    (cuBLAS) and the AdamW update (the kernels inside the step's
+    ``adamw.update`` region); the shares are of the busy time."""
+    prof = profile_batch(torch, lambda: step_fn(params, state, batch),
+                         spans=("adamw.update",))
+    ev = prof["events"]
+    gemm = [us for _, us, name in ev if re.search(r"\bmoe_gemm_kernel\b",
+                                                   name)]
+    lib = sum(us for _, us, name in ev
+              if re.search(r"gemm|xmma|cutlass|splitK", name, re.I)
+              and "moe_gemm_kernel" not in name)
+    upd = prof["spans"]["adamw.update"]
+    require(len(upd) == 1, f"profiled train step: {len(upd)} adamw.update "
+                           f"regions on the device, wanted 1")
+    adamw = [us for t, us, _ in ev if upd[0][0] <= t < upd[0][1]]
+    require(adamw, "profiled train step: no kernel in adamw.update")
+    busy = prof["device_busy_us"]
+    out = {"device_busy_ms": busy / 1e3,
+           "device_wall_ms": prof["span_us"] / 1e3,
+           "device_idle_share": 1.0 - busy / prof["span_us"],
+           "device_launches": prof["device_launches"],
+           "flash_forward_ms": prof["flash"]["device_us"] / 1e3,
+           "flash_backward_ms": prof["flash_bwd"]["device_us"] / 1e3,
+           "moe_gemm_forward_ms": sum(gemm[:n_fwd_gemm]) / 1e3,
+           "moe_gemm_backward_ms": sum(gemm[n_fwd_gemm:]) / 1e3,
+           "moe_gemm_launches": len(gemm),
+           "rglru_ms": prof["rglru"]["device_us"] / 1e3,
+           "rglru_bwd_ms": prof["rglru_bwd"]["device_us"] / 1e3,
+           "library_gemm_ms": lib / 1e3,
+           "adamw_update_ms": sum(adamw) / 1e3,
+           "adamw_update_launches": len(adamw), "top": prof["top"],
+           "takes": prof["takes"]}
+    out["shares"] = {k[:-3]: out[k] / out["device_busy_ms"] for k in (
+        "flash_forward_ms", "flash_backward_ms", "moe_gemm_forward_ms",
+        "moe_gemm_backward_ms", "rglru_ms", "rglru_bwd_ms",
+        "library_gemm_ms", "adamw_update_ms")}
+    return out
+
+
+def train_l1(torch, ops, cfg):
+    """L1: bmoe-paper at full width and depth, ``train`` (remat off) from
+    seed 0 (path H's weights, drawn again) for 4 steps on one fixed batch
+    of (2, 2048) at lr 1e-3, constant: the loss falls from step 1 to 4
+    and every step launches 36 moe_gemm forward + 72 backward and 12
+    flash forward + 12 backward (counts set to 0 just before ``train``,
+    read just after).  Then, on the trained weights: two steps from one
+    state are bitwise equal; one step profiled (busy, idle, shares,
+    AdamW's device time, all from that step's trace); one layer at full
+    width (1, 512) against the CPU by gradients at rtol 1e-4."""
+    import itertools
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import train
+    from repro_torch.train.step import make_train_step
+    start = time.perf_counter()
+    batch = _lm_train_batch(torch, cfg, 2, 2048)
+    opt = adamw.AdamWConfig(lr=1e-3, schedule="constant", warmup_steps=1)
+    per_step = train_step_counts(cfg, remat=False)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    params, hist = train(cfg, itertools.repeat(batch), 4, opt_cfg=opt,
+                         log_every=1, remat=False, seed=0)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    walls = [hist[0]["wall_s"]] + [b["wall_s"] - a["wall_s"]
+                                   for a, b in zip(hist, hist[1:])]
+    step_ms = sorted(walls[1:])[1] * 1e3
+    # two steps from one state
+    step_fn = make_train_step(cfg, opt, remat=False)
+    snap = _clone_tree(torch, params)
+    ends = []
+    for _ in range(2):
+        p = _clone_tree(torch, snap)
+        st = adamw.init(p)
+        step_fn(p, st, batch)
+        ends.append((p, st))
+    torch.cuda.synchronize()
+    from repro_torch.core.ledger import tree_flatten
+    bitwise = all(_bitwise_equal(torch, a, b) for a, b in zip(
+        tree_flatten((ends[0][0], ends[0][1].m, ends[0][1].v))[0],
+        tree_flatten((ends[1][0], ends[1][1].m, ends[1][1].v))[0]))
+    del ends, snap
+    gc.collect()
+    torch.cuda.empty_cache()
+    st = adamw.init(params)
+    step_fn(params, st, batch)          # warm: the cache emptied above
+    prof = _train_profile(torch, step_fn, params, st, batch,
+                          n_fwd_gemm=36)
+    del params, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    layer = train_layer_vs_cpu(torch, cfg)
+    losses = [h["loss"] for h in hist]
+    row = {"phase": "L1_train", "model": cfg.name, "batch": [2, 2048],
+           "steps": 4, "remat": False, "lr": opt.lr, "schedule": "constant",
+           "losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
+           "aux_losses": [h["aux_loss"] for h in hist],
+           "launches": counts, "launches_per_step": per_step,
+           "step_walls_ms": [w * 1e3 for w in walls],
+           "median_step_ms": step_ms,
+           "tokens_per_s": 2 * 2048 / (step_ms / 1e3),
+           "device_idle_share": prof["device_idle_share"],
+           "two_steps_bitwise": bitwise, "profile": prof,
+           "one_layer_vs_cpu": layer,
+           "path_s": time.perf_counter() - start}
+    emit(row)
+    require(all(map(math.isfinite, losses)) and losses[3] < losses[0],
+            f"L1 loss did not fall: {losses}")
+    require(counts == {k: 4 * v for k, v in per_step.items()},
+            f"L1 launched {counts} in 4 steps, wanted 4 x {per_step}")
+    require(per_step["moe_gemm"] == 36 + 72 and
+            per_step["flash_attention"] == 12 and
+            per_step["flash_attention_bwd"] == 12,
+            f"L1 per-step counts {per_step}")
+    require(prof["moe_gemm_launches"] == 108,
+            f"L1 profiled step: {prof['moe_gemm_launches']} moe_gemm")
+    require(bitwise, "L1: two steps from one state differ")
+    require(layer["ok"], f"L1 one layer against the CPU: {layer}")
+    return counts, row
+
+
+def train_layer_vs_cpu(torch, cfg):
+    """bmoe-paper cut to one layer at full width, (1, 512): the loss and
+    every gradient on the card against the CPU's from the same weights
+    (drawn on the CPU from seed 0) at rtol 1e-4 / atol 1e-5, with the
+    routing recorded on both and held equal."""
+    import dataclasses
+    from repro_torch.core.ledger import tree_flatten, tree_unflatten
+    from repro_torch.train.loop import init_model
+    from repro_torch.train.step import make_loss_and_grads
+    cfg1 = dataclasses.replace(cfg, num_layers=1, num_blocks=1).validate()
+    p_cpu = init_model(cfg1, 0, device="cpu")
+    p = tree_unflatten(p_cpu, [t.cuda() for t in tree_flatten(p_cpu)[0]])
+    batch = _lm_train_batch(torch, cfg1, 1, 512, seed=1)
+    lg = make_loss_and_grads(cfg1, remat=False)
+    with RouteRecorder() as rc:
+        got = lg(p, batch)
+    with RouteRecorder() as rp:
+        want = lg(p_cpu, {k: v.cpu() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    same_route = all(torch.equal(a[1].cpu(), b[1]) for a, b in zip(rc, rp))
+    top = rp[0][0].detach()[..., :cfg.num_experts].sort(
+        -1, descending=True)[0]
+    k = cfg.num_experts_per_tok
+    margin = float((top[..., k - 1] - top[..., k]).min())
+    g_card, _ = tree_flatten(got[2])
+    g_cpu, _ = tree_flatten(want[2])
+    errs = [float((a.cpu() - b).abs().max()) for a, b in zip(g_card, g_cpu)]
+    close = [bool(torch.allclose(a.cpu(), b, rtol=1e-4, atol=1e-5))
+             for a, b in zip(g_card, g_cpu)]
+    res = {"layers": 1, "batch": [1, 512], "routing_equal": same_route,
+           "router_margin_min": margin,
+           "loss": [float(want[0]), float(got[0])],
+           "grad_max_abs_err": max(errs), "leaves": len(errs),
+           "leaves_close": sum(close),
+           "ok": same_route and all(close) and abs(
+               float(got[0]) - float(want[0])) <= 1e-5}
+    return res
+
+
+def train_l2(torch, ops, cfg, params):
+    """L2: recurrentgemma-2b at full width on path D's weights:
+    ``make_train_step(remat=True)``, 2 steps on a batch of (2, 4096) cut
+    into its 2 microbatches of (1, 4096), so the 2048-key window masks
+    keys: finite losses and gradient norms, launches per microbatch held
+    to the config (rglru_scan 18 + 16 recomputed, 18 reverse; flash 8 + 8
+    recomputed, 8 backward), the peak memory printed."""
+    from repro_torch.core.ledger import tree_flatten
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+    start = time.perf_counter()
+    K = cfg.train_microbatches
+    batch = _lm_train_batch(torch, cfg, 2, 4096)
+    opt = adamw.AdamWConfig(lr=1e-4, schedule="constant", warmup_steps=1)
+    step_fn = make_train_step(cfg, opt, remat=True)
+    st = adamw.init(params)
+    per_mb = train_step_counts(cfg, remat=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    metrics, walls = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        _, st, m = step_fn(params, st, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+        walls.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    del st
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = {"phase": "L2_train", "model": cfg.name, "batch": [2, 4096],
+           "microbatches": K, "remat": True, "steps": 2,
+           "metrics": metrics, "launches": counts,
+           "launches_per_microbatch": per_mb,
+           "step_walls_ms": [w * 1e3 for w in walls],
+           "tokens_per_s": 2 * 4096 / walls[-1],
+           "peak_mem_gb": peak / 1e9,
+           "params_gb": sum(t.numel() for t in tree_flatten(params)[0])
+           * 4 / 1e9,
+           "path_s": time.perf_counter() - start}
+    emit(row)
+    require(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                for m in metrics), f"L2 metrics {metrics}")
+    require(per_mb["rglru_scan"] == 34 and per_mb["rglru_scan_bwd"] == 18
+            and per_mb["flash_attention"] == 16
+            and per_mb["flash_attention_bwd"] == 8,
+            f"L2 per-microbatch counts {per_mb}")
+    require(counts == {k: 2 * K * v for k, v in per_mb.items()},
+            f"L2 launched {counts}, wanted {2 * K} x {per_mb}")
+    return counts, row
+
+
+def train_l3(torch, ops, cfg, params):
+    """L3: seamless-m4t-medium at full width on path J's weights, 2 steps
+    (remat off) on 4,096 stub frames and 512 tokens: finite losses, 36
+    flash forward launches (12 encoder, 12 decoder self, 12 cross) and 36
+    backward a step."""
+    from repro_torch.data.synthetic import stub_embeddings
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+    start = time.perf_counter()
+    batch = _lm_train_batch(torch, cfg, 1, 512)
+    batch["frames"] = stub_embeddings(1, 4096, cfg.d_model, seed=0)
+    opt = adamw.AdamWConfig(lr=1e-4, schedule="constant", warmup_steps=1)
+    step_fn = make_train_step(cfg, opt, remat=False)
+    st = adamw.init(params)
+    per_step = train_step_counts(cfg, remat=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    metrics, walls = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        _, st, m = step_fn(params, st, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+        walls.append(time.perf_counter() - t0)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    del st
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = {"phase": "L3_train", "model": cfg.name, "frames": 4096,
+           "tokens": 512, "steps": 2, "remat": False, "metrics": metrics,
+           "launches": counts, "launches_per_step": per_step,
+           "step_walls_ms": [w * 1e3 for w in walls],
+           "peak_mem_gb": peak / 1e9, "path_s": time.perf_counter() - start}
+    emit(row)
+    require(all(math.isfinite(m["loss"]) for m in metrics),
+            f"L3 metrics {metrics}")
+    require(per_step["flash_attention"] == 36
+            and per_step["flash_attention_bwd"] == 36,
+            f"L3 per-step counts {per_step}")
+    require(counts == {k: 2 * v for k, v in per_step.items()},
+            f"L3 launched {counts}, wanted 2 x {per_step}")
+    return counts, row
+
+
 # ---------------------------------------- path K: the serving engine
 def _k_copies(reqs):
     return [dict(r, prompt=r["prompt"].copy()) for r in reqs]
@@ -1339,16 +1871,16 @@ def _k_tamper(torch, cfg, params, scheduling: str):
 
 
 def serving_k1(torch, ops, cfg, params):
-    """K1: qwen2-moe-a2.7b at full width on path H's weights.  Twelve
-    requests through a continuous-batching engine with verified
-    sessions (4 slots, cache 512, chunks up to 16), warmed first; the
-    launch counts are set to 0 just before ``run`` and read just after,
-    and moe_gemm must have launched 3 times a MoE layer for each micro-
-    step the engine ran.  Then: the fixed policy gives the same streams
-    and verdicts; each request served alone in a fresh engine gives its
-    stream; a rewritten session is revoked with its neighbours; one
-    decode and one prefill chunk profiled, with the cache update's bytes
-    and device time and the synchronising calls a micro-step makes."""
+    """K1: qwen2-moe-a2.7b at full width on path H's weights.  Twelve requests
+    through a continuous-batching engine with verified sessions (4 slots, cache
+    512, chunks up to 16), warmed first; the launch counts are set to 0 just
+    before ``run`` and read just after, and moe_gemm must have launched 3 times
+    a MoE layer for each micro-step the engine ran.  Then: the fixed policy
+    gives the same streams and verdicts; each of the first four requests served
+    alone in a fresh engine gives its stream; a rewritten session is revoked
+    with its neighbours; one decode and one prefill chunk profiled, with the
+    cache update's bytes and device time and the synchronising calls a
+    micro-step makes."""
     from repro_torch.data.synthetic import serving_requests
     from repro_torch.serve.engine import ServingEngine
     start = time.perf_counter()
@@ -1378,7 +1910,7 @@ def serving_k1(torch, ops, cfg, params):
                                    **kw)
     t0 = time.perf_counter()
     alone_equal, alone_micro_steps = [], 0
-    for r in reqs:
+    for r in reqs[:4]:
         one_eng, one, _ = _k_serve(torch, cfg, params, [r], **kw)
         alone_equal.append(one.get(r["id"]) == done.get(r["id"]))
         alone_micro_steps += one_eng.micro_steps
@@ -1628,9 +2160,7 @@ def main_path(torch, np, ops):
     emit({"phase": "main_path", "framework": "bmoe", "batches": 2,
           "batch": 1000, "launches": counts, "accuracy": acc,
           "init_s": init_s, "evaluate_s": first_s})
-    require(counts == {"moe_gemm": 4, "redundancy_vote": 2,
-                       "audit_mlp": 0, "flash_attention": 0,
-                       "rglru_scan": 0, "ssd_scan": 0},
+    require(counts == lm_counts(moe_gemm=4, redundancy_vote=2),
             f"evaluate of 2 batches launched {counts}, wanted 4 moe_gemm "
             f"and 2 vote launches")
     require(0.0 <= acc <= 1.0, f"accuracy {acc}")
@@ -1679,9 +2209,7 @@ def main_path(torch, np, ops):
     counts_t = ops.launch_counts()
     emit({"phase": "traditional", "launches": counts_t,
           "max_abs_diff_3of10": float(np.abs(lt3 - lt_clean).max())})
-    require(counts_t == {"moe_gemm": 2, "redundancy_vote": 0,
-                         "audit_mlp": 0, "flash_attention": 0,
-                         "rglru_scan": 0, "ssd_scan": 0},
+    require(counts_t == lm_counts(moe_gemm=2),
             f"traditional batch launched {counts_t}")
     require(not np.array_equal(lt3, lt_clean),
             "traditional under 3 of 10 equals clean")
@@ -1859,9 +2387,7 @@ def optimistic_batch_time(torch, xs):
 def _want_round(framework):
     """Launches of one training round: the forward's two moe_gemm, the
     backward's three (dw2, dh, dw1; no dbuf), and under bmoe one vote."""
-    return {"moe_gemm": 5, "redundancy_vote": int(framework == "bmoe"),
-            "audit_mlp": 0, "flash_attention": 0, "rglru_scan": 0,
-            "ssd_scan": 0}
+    return lm_counts(moe_gemm=5, redundancy_vote=int(framework == "bmoe"))
 
 
 def train_rounds(ops, sys_, xtr, ytr, rng, rounds: int, batch: int = 1000):
@@ -2135,10 +2661,10 @@ def _train_launches_expected(sys_, rounds: int):
     p, m = sys_.protocol, sys_.obs.metrics
     calls = m.snapshot("bmoe.audit_calls")
     replayed = int(m.value("bmoe.replayed_rounds"))
-    return ({"moe_gemm": 5 * (rounds + replayed),
-             "redundancy_vote": p.stats["escalations"],
-             "audit_mlp": p.stats["committed"] + int(sum(calls.values())),
-             "flash_attention": 0, "rglru_scan": 0, "ssd_scan": 0},
+    return (lm_counts(moe_gemm=5 * (rounds + replayed),
+                      redundancy_vote=p.stats["escalations"],
+                      audit_mlp=p.stats["committed"]
+                      + int(sum(calls.values()))),
             calls, replayed)
 
 
@@ -2402,9 +2928,7 @@ def cnn_path_g4(torch, np, ops, rv, ref):
         bitwise = all(_bitwise_equal(torch, runs[0][0][k], runs[1][0][k])
                       for k in runs[0][0])
         acc = runs[0][1]
-        want = {"moe_gemm": 0, "redundancy_vote": 3 * (framework == "bmoe"),
-                "audit_mlp": 0, "flash_attention": 0, "rglru_scan": 0,
-                "ssd_scan": 0}
+        want = lm_counts(redundancy_vote=3 * (framework == "bmoe"))
         row = {"phase": "cnn_training", "path": "G4", "framework": framework,
                "rounds": 3, "task": 1000, "launches": acc,
                "grad_max_abs_err": errs, "grad_close": close,
@@ -2477,13 +3001,18 @@ def optimistic_training_path(torch, np, ops, rv, ref):
     return counts_g1, counts_g4, prof_opt, prof_cnn
 
 
-def profile_batch(torch, run, cpu: bool = True):
+def profile_batch(torch, run, cpu: bool = True, spans=()):
     """Device time by kernel (and copy) over one warm call of ``run``,
     from torch.profiler's CUDA activities: the eight largest rows, the
     device launches, and the ``ssd_*``, ``rglru_*``, ``moe_gemm`` and
     flash kernels' launches and time summed (``ssd``, ``rglru``,
     ``moe_gemm``, ``flash``), ``rows``, every (device us, kernel,
-    launches), and ``takes``, the calls of ``run`` made.
+    launches), ``takes``, the calls of ``run`` made, and ``span_us``, the
+    device clock from the end of the first marker to the start of the
+    second (the call's wall time on the device, its idle gaps included).
+    ``spans`` names ``record_function`` regions of ``run``: each one's
+    device-side annotation is kept out of the kernels and its (start,
+    end) listed under ``spans``.
 
     A trace can lose records at its edges: the first kernels of a call
     (once 3 of a 16-wide serving chunk's 1,152 ``moe_gemm``), a marker
@@ -2533,6 +3062,8 @@ def profile_batch(torch, run, cpu: bool = True):
         # device
         dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                and not e.name.startswith(("Activity", "ProfilerStep"))]
+        marked = [e for e in dev if e.name in spans]
+        dev = [e for e in dev if e.name not in spans]
         marks = sorted((e.time_range.start, e.time_range.end) for e in dev
                        if "spin_kernel" in e.name)
         if len(marks) == 2:
@@ -2550,13 +3081,25 @@ def profile_batch(torch, run, cpu: bool = True):
     rows = sorted(((us, k, c) for k, (us, c) in by.items()), reverse=True)
     res = {"device_busy_us": sum(r[0] for r in rows),
            "device_launches": sum(r[2] for r in rows), "rows": rows,
-           "takes": take,
+           "takes": take, "span_us": marks[1][0] - marks[0][1],
+           "spans": {n: sorted((e.time_range.start, e.time_range.end)
+                               for e in marked if e.name == n
+                               and marks[0][1] <= e.time_range.start
+                               and e.time_range.end <= marks[1][0])
+                     for n in spans},
+           "events": sorted((e.time_range.start, e.time_range.elapsed_us(),
+                             e.name) for e in dev
+                            if marks[0][1] <= e.time_range.start
+                            and e.time_range.end <= marks[1][0]
+                            and "spin_kernel" not in e.name),
            "top": [{"name": k[:70], "device_us": us, "count": c}
                    for us, k, c in rows[:8]]}
     for group, pat in (("ssd", r"ssd_\w+_kernel"),
-                       ("rglru", r"rglru_\w+_kernel"),
+                       ("rglru", r"rglru_chunk_\w+_kernel"),
+                       ("rglru_bwd", r"rglru_bwd_\w+_kernel"),
                        ("moe_gemm", r"moe_gemm_kernel"),
-                       ("flash", r"flash_fwd_kernel")):
+                       ("flash", r"flash_fwd_kernel"),
+                       ("flash_bwd", r"flash_bwd_\w+_kernel")):
         mine = [r for r in rows if re.search(r"\b" + pat + r"\b", r[1])]
         by = {}
         for us, k, c in mine:       # template instances summed by name
@@ -2664,10 +3207,28 @@ def main() -> int:
             torch.cuda.empty_cache()
         return 0
 
+    if "--training" in sys.argv:
+        # path L alone (L1, L2, L3), each model initialised here
+        from repro_torch.configs import get_config
+        from repro_torch.train.loop import init_model
+        train_l1(torch, ops, get_config("bmoe-paper"))
+        for arch, l in (("recurrentgemma-2b", train_l2),
+                        ("seamless-m4t-medium", train_l3)):
+            cfg = get_config(arch)
+            params = init_model(cfg, 0)
+            l(torch, ops, cfg, params)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        return 0
+
     if "--kernels" in sys.argv:
         # only the named kernels' cases, e.g. to time two trees in one call
         cases = {"moe_gemm": lambda: moe_gemm_cases(torch, mg, ref),
                  "flash_attention": lambda: flash_cases(torch, np, fa, ref),
+                 "flash_attention_bwd": lambda: flash_bwd_cases(torch, np,
+                                                                fa, ref),
+                 "rglru_scan_bwd": lambda: rglru_bwd_cases(torch, rg, ref),
                  "ssd_scan": lambda: ssd_cases(torch, ss, ref),
                  "redundancy_vote": lambda: vote_cases(torch, rv, ref),
                  "rglru_scan": lambda: rglru_cases(torch, rg, ref),
@@ -2676,12 +3237,14 @@ def main() -> int:
             cases[name]()
         return 0
 
-    gemm, gemm_bwd, gemm_lm = moe_gemm_cases(torch, mg, ref)
+    gemm, gemm_bwd, gemm_lm, gemm_lm_bwd = moe_gemm_cases(torch, mg, ref)
     vote, vote_court, vote_dense = vote_cases(torch, rv, ref)
 
     audit = audit_cases(torch, am, ref)
     flash = flash_cases(torch, np, fa, ref)
+    flash_bwd = flash_bwd_cases(torch, np, fa, ref)
     scan = rglru_cases(torch, rg, ref)
+    scan_bwd = rglru_bwd_cases(torch, rg, ref)
     ssd = ssd_cases(torch, ss, ref)
 
     counts = main_path(torch, np, ops)
@@ -2708,9 +3271,15 @@ def main() -> int:
                              lm_counts(flash_attention=36), decode_seq=128,
                              serving=True, width1_tol=1e-4, then=lambda
                              cfg, p: serving_k3(torch, ops, cfg, p))
+    # path L (LM training): L2 and L3 run on the weights of paths D and J
+    # while they are on the card, L1 (after K2) on H's seed-0 weights
+    # drawn again by ``train``
+    trained_lm = {}
     counts_d, row_d, _ = lm_path(torch, ops, "recurrentgemma-2b",
                                  lm_counts(flash_attention=8,
-                                           rglru_scan=18), decode_seq=2112)
+                                           rglru_scan=18), decode_seq=2112,
+                                 then=lambda cfg, p: trained_lm.setdefault(
+                                     "L2", train_l2(torch, ops, cfg, p)))
     # path E: 384 decode steps cross two chunk boundaries of the forward
     counts_e, _, _ = lm_path(torch, ops, "mamba2-2.7b",
                              lm_counts(ssd_scan=64), decode_seq=384,
@@ -2720,8 +3289,12 @@ def main() -> int:
     # its bmoe-paper and qwen2-moe-a2.7b weights
     counts_h, serving = {}, {}
     for arch, n_moe, n_attn, seq, smoke, k in (
-            # bmoe-paper decodes 64 steps (128 before path K)
-            ("bmoe-paper", 12, 12, 64, False, serving_k2),
+            # bmoe-paper decodes 64 steps (128 before path K); L1 trains
+            # its seed-0 weights, drawn again, after K2 served them
+            ("bmoe-paper", 12, 12, 64, False,
+             lambda t, o, cfg, p: (serving_k2(t, o, cfg, p),
+                                   trained_lm.setdefault(
+                                       "L1", train_l1(t, o, cfg)))[0]),
             ("qwen2-moe-a2.7b", 24, 24, 64, False, serving_k1),
             # one MoE layer of 128 experts is 64 GB in fp32
             ("llama4-maverick-400b-a17b", 1, 2, 128, True, None)):
@@ -2744,7 +3317,11 @@ def main() -> int:
     # path J: the encoder-decoder: 12 encoder, 12 decoder self- and 12
     # cross-attention launches
     counts_j, _, _ = lm_path(torch, ops, "seamless-m4t-medium",
-                             lm_counts(flash_attention=36), decode_seq=128)
+                             lm_counts(flash_attention=36), decode_seq=128,
+                             then=lambda cfg, p: trained_lm.setdefault(
+                                 "L3", train_l3(torch, ops, cfg, p)))
+    (counts_l1, row_l1), (counts_l2, row_l2), (counts_l3, row_l3) = (
+        trained_lm[k] for k in ("L1", "L2", "L3"))
     # path F: B-MoE training under traditional and bmoe
     trained, train_prof = training_path(torch, np, ops)
     counts_fb = trained["bmoe"]["launches"]
@@ -2769,7 +3346,9 @@ def main() -> int:
              "optimistic training, 20 rounds + replays (G1)": counts_g1[
                  "moe_gemm"],
              "CNN training, 3 rounds (G4, bmoe)": counts_g4["bmoe"][
-                 "moe_gemm"]},
+                 "moe_gemm"],
+             "LM training, bmoe-paper, 4 steps (L1, 36 forward + 72 "
+             "backward a step)": counts_l1["moe_gemm"]},
          "backward": [{k: r[k] for k in ("case", "shape", "max_abs_err",
                                          "kernel_ms", "plain_ms",
                                          "bound_ms", "bound_by",
@@ -2780,6 +3359,12 @@ def main() -> int:
                                           "bound_ms", "bound_by",
                                           "library_ms")}
                        for r in gemm_lm],
+         "lm_backward_shapes": [{k: r[k] for k in (
+             "case", "shape", "max_abs_err", "kernel_ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms")} for r in gemm_lm_bwd],
+         "lm_training_step_device_ms": {
+             "forward": row_l1["profile"]["moe_gemm_forward_ms"],
+             "backward": row_l1["profile"]["moe_gemm_backward_ms"]},
          "lm_prefill_launches": {a: c["moe_gemm"]
                                  for a, c in counts_h.items()},
          "serving_launches": {
@@ -2791,8 +3376,8 @@ def main() -> int:
                   "backward": prof["moe_gemm_backward_us"]}
              for fw, prof in [*train_prof.items(),
                               ("optimistic", prof_g_opt)]},
-         "max_abs_err": max(r["max_abs_err"]
-                            for r in gemm + gemm_bwd + gemm_lm),
+         "max_abs_err": max(r["max_abs_err"] for r in
+                            gemm + gemm_bwd + gemm_lm + gemm_lm_bwd),
          "ms": sum(r["kernel_ms"] for r in gemm),
          "plain_ms": sum(r["plain_ms"] for r in gemm),
          "bound_ms": sum(r["bound_ms"] for r in gemm),
@@ -2860,7 +3445,13 @@ def main() -> int:
              **{f"{a} prefill": c["flash_attention"]
                 for a, c in {**counts_h, **counts_i}.items()},
              "seamless-m4t-medium prefill (12 encoder, 12 self, 12 "
-             "cross)": counts_j["flash_attention"]},
+             "cross)": counts_j["flash_attention"],
+             "bmoe-paper training, 4 steps (L1)": counts_l1[
+                 "flash_attention"],
+             "recurrentgemma-2b training, 2 steps of 2 microbatches, "
+             "remat (L2)": counts_l2["flash_attention"],
+             "seamless-m4t-medium training, 2 steps (L3)": counts_l3[
+                 "flash_attention"]},
          "non_causal_shape": {k: flash[2][k] for k in (
              "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "library_backend")},
@@ -2871,6 +3462,32 @@ def main() -> int:
          "bound_ms": flash[0]["bound_ms"], "bound_by": flash[0]["bound_by"],
          "bound_fp32_cores_ms": flash[0]["bound_fp32_cores_ms"],
          "library_ms": flash[0]["library_ms"]},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:64 (the "
+                     "gradient JAX takes of src/repro/models/layers.py:48)",
+         "launches": counts_l1["flash_attention_bwd"],
+         "launches_by_path": {
+             "bmoe-paper training, 4 steps (L1)": counts_l1[
+                 "flash_attention_bwd"],
+             "recurrentgemma-2b training, 2 steps of 2 microbatches (L2)":
+                 counts_l2["flash_attention_bwd"],
+             "seamless-m4t-medium training, 2 steps (L3)": counts_l3[
+                 "flash_attention_bwd"]},
+         "cuda_launches_per_call": 3,
+         "per": "one qwen2.5-3b layer's backward at (1, 4096): q "
+                "(1,4096,16,128), kv heads 2, causal, fp32",
+         "shapes": [{k: r[k] for k in (
+             "case", "shape", "fp64_err_kernel", "fp64_err_plain",
+             "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "library_backend")} for r in flash_bwd],
+         "training_step_device_ms": row_l1["profile"]["flash_backward_ms"],
+         "max_abs_err": max(r["max_abs_err"] for r in flash_bwd),
+         "ms": flash_bwd[0]["kernel_ms"], "plain_ms": flash_bwd[0][
+             "plain_ms"], "bound_ms": flash_bwd[0]["bound_ms"],
+         "bound_by": flash_bwd[0]["bound_by"],
+         "bound_fp32_cores_ms": flash_bwd[0]["bound_fp32_cores_ms"],
+         "library_ms": flash_bwd[0]["library_ms"]},
         {"name": "rglru_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan.py:41",
@@ -2883,7 +3500,26 @@ def main() -> int:
          "path_device_ms": row_d["rglru_profiled"]["device_ms"],
          "ms": scan[0]["kernel_ms"], "plain_ms": scan[0]["plain_ms"],
          "bound_ms": scan[0]["bound_ms"], "bound_by": scan[0]["bound_by"],
-         "design_floor_ms": scan[0]["design_floor_ms"], "library_ms": None},
+         "design_floor_ms": scan[0]["design_floor_ms"], "library_ms": None,
+         "training_launches": counts_l2["rglru_scan"]},
+        {"name": "rglru_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+         "replaces": "src/repro/kernels/rglru_scan.py:41 (the gradient "
+                     "JAX takes of src/repro/models/rglru.py:55)",
+         "launches": counts_l2["rglru_scan_bwd"],
+         "launches_by_path": {
+             "recurrentgemma-2b training, 2 steps of 2 microbatches (L2)":
+                 counts_l2["rglru_scan_bwd"]},
+         "per": "one recurrentgemma-2b layer's backward at (1, 4096), "
+                "(1,4096,2560)",
+         "max_abs_err": max(r["max_abs_err"] for r in scan_bwd),
+         "fp64_err_kernel": scan_bwd[0]["fp64_err_kernel"],
+         "fp64_err_plain": scan_bwd[0]["fp64_err_plain"],
+         "ms": scan_bwd[0]["kernel_ms"], "plain_ms": scan_bwd[0]["plain_ms"],
+         "bound_ms": scan_bwd[0]["bound_ms"],
+         "bound_by": scan_bwd[0]["bound_by"],
+         "design_floor_ms": scan_bwd[0]["design_floor_ms"],
+         "library_ms": None},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:53",

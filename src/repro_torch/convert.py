@@ -1,9 +1,12 @@
-"""Carry weights across from the JAX package (or any numpy source).
+"""Carry weights across from the JAX package (or any numpy source), and
+back.
 
 Both packages keep the same parameter names and layouts (``x @ w``;
 conv kernels HWIO; the expert bank and the LM's blocks stacked on a
 leading axis), so nothing is transposed: the arrays are copied onto the
-target device.
+target device.  An AdamW state carries across as its (step, m, v) parts
+(``adamw_state_from_numpy``, ``adamw_state_to_numpy``); ``tree_to_numpy``
+copies any tree of tensors back to host numpy arrays.
 """
 from __future__ import annotations
 
@@ -60,3 +63,37 @@ def lm_params_from_numpy(tree: Any, device=None) -> Any:
         return torch.from_numpy(arr).to(dev)
 
     return walk(tree)
+
+
+def tree_to_numpy(tree: Any) -> Any:
+    """The same nested dicts and lists with every tensor copied to a host
+    numpy array in its own dtype (what the JAX package's functions take)."""
+    if isinstance(tree, Mapping):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to_numpy(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return np.asarray(tree)
+
+
+def adamw_state_from_numpy(state: Any, device=None):
+    """The port's ``optim.adamw.AdamWState`` from a JAX ``AdamWState`` (or
+    any (step, m, v) triple) of numpy-convertible arrays: step as a 0-dim
+    int32 tensor, the moments in their own dtypes, on ``device``
+    (``None``: the CUDA device)."""
+    from repro_torch.optim.adamw import AdamWState
+    step, m, v = state
+    dev = resolve_device(device)
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                          device=dev),
+        m=lm_params_from_numpy(m, dev), v=lm_params_from_numpy(v, dev))
+
+
+def adamw_state_to_numpy(state: Any):
+    """(step int32 0-dim array, m, v numpy trees): the parts of a JAX
+    ``AdamWState``, which ``AdamWState(*parts)`` rebuilds there."""
+    step, m, v = state
+    return (np.asarray(step.detach().cpu().numpy(), np.int32),
+            tree_to_numpy(m), tree_to_numpy(v))

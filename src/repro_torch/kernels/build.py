@@ -23,9 +23,9 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("moe_gemm.cu", "vote.cu", "audit_mlp.cu", "flash_attention.cu",
-           "rglru_scan.cu", "ssd_scan.cu")
-# included by moe_gemm.cu, flash_attention.cu, ssd_scan.cu and
-# audit_mlp.cu; part of the build key
+           "flash_attention_bwd.cu", "rglru_scan.cu", "ssd_scan.cu")
+# included by moe_gemm.cu, flash_attention.cu, flash_attention_bwd.cu,
+# ssd_scan.cu and audit_mlp.cu; part of the build key
 HEADERS = ("tf32x3.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -115,11 +115,17 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.argtypes = [P] * 7 + [I] * 6 + [P]
     fn.restype = I
     fn = lib.flash_attention_fwd
-    fn.argtypes = [P] * 4 + [ctypes.POINTER(ctypes.c_longlong)] + [I] * 10 \
+    fn.argtypes = [P] * 5 + [ctypes.POINTER(ctypes.c_longlong)] + [I] * 10 \
         + [F, F, P]
+    fn.restype = I
+    fn = lib.flash_attention_bwd
+    fn.argtypes = [P] * 10 + [I] * 9 + [F, F, P]
     fn.restype = I
     fn = lib.rglru_scan_f32
     fn.argtypes = [P] * 5 + [I] * 4 + [P]
+    fn.restype = I
+    fn = lib.rglru_scan_bwd_f32
+    fn.argtypes = [P] * 7 + [I] * 4 + [P]
     fn.restype = I
     fn = lib.ssd_scan_f32
     fn.argtypes = [P] * 9 + [ctypes.POINTER(ctypes.c_longlong)] + [I] * 6 \

@@ -13,6 +13,12 @@
 // Layout: q (B, Sq, H, D) and k, v (B, Sk, KH, D), the model's own layout,
 // read through element strides (the last dimension must be contiguous), so
 // the wrapper makes no transposed copy.  out is (B, Sq, H, D) contiguous.
+// Where the caller passes an lse buffer (a gradient is wanted), each row's
+// log-sum-exp over its scaled, soft-capped and masked scores, in natural
+// units, goes to lse (B, H, Sq) float32: m + log2(l), times ln 2, from the
+// running max and sum the kernel already holds, written after out and
+// touching nothing out is computed from, so out has the same bits with or
+// without it.  flash_attention_bwd.cu recomputes P = exp(s - lse) from it.
 //
 // Masks use absolute positions: query row i sits at q_offset + i, key j at
 // j; causal keeps kpos <= qpos, a window keeps kpos > qpos - window.
@@ -74,6 +80,7 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kBQ = 16 * kWarps;     // query rows per block
 constexpr float kMasked = -1e30f;    // NEG_INF of the JAX package
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float neg_infinity() {
   return -__int_as_float(0x7f800000);
@@ -84,6 +91,7 @@ struct Params {
   const void* k;
   const void* v;
   void* out;
+  float* lse;                   // (B, H, Sq) or null
   int B, Sq, Sk, H, KH;
   long long q_sb, q_ss, q_sh;   // element strides of q: batch, seq, head
   long long k_sb, k_ss, k_sh;
@@ -389,6 +397,9 @@ flash_fwd_kernel(Params p) {
 #pragma unroll
     for (int j = 0; j < NO; ++j)
       store2(orow + 8 * j, o[j][2 * hr] * inv, o[j][2 * hr + 1] * inv);
+    if (p.lse != nullptr && q == 0)
+      p.lse[((long long)b * p.H + h) * p.Sq + row] =
+          (m[hr] + log2f(fmaxf(lt, 1e-30f))) * kLn2;
   }
 }
 
@@ -427,18 +438,19 @@ int dispatch(Params p, int D, void* stream) {
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  dtype 0 = float32, 1 = bf16.
-// Strides are in elements, [batch, seq, head] for each of q, k, v.
+// Strides are in elements, [batch, seq, head] for each of q, k, v; lse may
+// be null (no log-sum-exp written).
 // Returns the cudaGetLastError() code of the launch (or of raising the
 // dynamic shared-memory limit); the wrapper raises on non-zero.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* out,
+                                   const void* v, void* out, float* lse,
                                    const long long* strides, int dtype,
                                    int B, int Sq, int Sk, int H, int KH,
                                    int D, int causal, int window,
                                    int q_offset, float scale,
                                    float softcap, void* stream) {
   Params p;
-  p.q = q; p.k = k; p.v = v; p.out = out;
+  p.q = q; p.k = k; p.v = v; p.out = out; p.lse = lse;
   p.B = B; p.Sq = Sq; p.Sk = Sk; p.H = H; p.KH = KH;
   p.q_sb = strides[0]; p.q_ss = strides[1]; p.q_sh = strides[2];
   p.k_sb = strides[3]; p.k_ss = strides[4]; p.k_sh = strides[5];

@@ -4,6 +4,15 @@ The route follows the tensor's device, nothing else: a CUDA tensor
 launches the hand-written kernel (or the wrapper raises — there is no
 fallback), a CPU tensor runs the kernel's plain PyTorch version from
 ``kernels.ref``.  No environment variable changes the route.
+
+Where autograd records the call (grad mode on, an operand that requires
+a gradient), ``moe_gemm``, ``flash_attention`` and ``rglru_scan`` go
+through ``torch.autograd.Function``s whose backward takes the same route:
+``moe_gemm`` launches the kernel on transposed copies, the other two
+their backward kernels (``kernels.ref``'s plain backward on the CPU).
+``ssd_scan`` has no backward kernel yet and refuses a gradient on the
+card.  A call autograd does not record runs the forward alone, as it
+always did.
 """
 from __future__ import annotations
 
@@ -48,14 +57,48 @@ def kernel_route(t: torch.Tensor) -> str:
     raise ValueError(f"no kernel route for device {t.device}")
 
 
-def moe_gemm(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """out[e] = buf[e] @ w[e]; buf (E, C, d), w (E, d, f) -> (E, C, f)."""
+def _recorded(*ts: torch.Tensor) -> bool:
+    """Does autograd record a call on these operands?"""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _moe_gemm(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     route = kernel_route(buf)
     with annotate(f"moe_gemm[{route}]"):
         if route == "cuda":
             return _mg.moe_gemm(buf, w)
         _mg.check_operands(buf, w)
         return ref.moe_gemm_ref(buf, w)
+
+
+class _MoeGemm(torch.autograd.Function):
+    """out = buf @ w per expert, with the backward as two more grouped
+    products on contiguous transposed copies (as ``core.experts.
+    _GroupedMLP`` does): d_buf = g w^T, d_w = buf^T g."""
+
+    @staticmethod
+    def forward(ctx, buf, w):
+        ctx.save_for_backward(buf, w)
+        return _moe_gemm(buf, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        buf, w = ctx.saved_tensors
+        g = g.contiguous()
+        d_buf = (_moe_gemm(g, w.transpose(1, 2).contiguous())
+                 if ctx.needs_input_grad[0] else None)
+        d_w = (_moe_gemm(buf.transpose(1, 2).contiguous(), g)
+               if ctx.needs_input_grad[1] else None)
+        return d_buf, d_w
+
+
+def moe_gemm(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """out[e] = buf[e] @ w[e]; buf (E, C, d), w (E, d, f) -> (E, C, f).
+    Differentiable: one launch forward, one for each operand's gradient
+    in the backward."""
+    if _recorded(buf, w):
+        return _MoeGemm.apply(buf, w)
+    return _moe_gemm(buf, w)
 
 
 class _Vote(torch.autograd.Function):
@@ -109,26 +152,61 @@ def audit_mlp(params: Dict[str, torch.Tensor], x: torch.Tensor,
         return ref.audit_mlp_ref(params, x, gid)
 
 
+def _flash(q, k, v, kw, return_lse):
+    route = kernel_route(q)
+    with annotate(f"flash_attention[{route}]"):
+        if route == "cuda":
+            return _fa.flash_attention(q, k, v, return_lse=return_lse, **kw)
+        _fa.check_operands(q, k, v, window=kw["window"],
+                           q_offset=kw["q_offset"])
+        return ref.attention_ref(q, k, v, return_lse=return_lse, **kw)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Attention whose forward also writes the rows' log-sum-exp, and
+    whose backward is ``flash_attention_bwd`` (``attention_bwd_ref`` on
+    the CPU) from the saved q, k, v, o and lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, q_offset):
+        kw = dict(causal=causal, window=window, softcap=softcap,
+                  q_offset=q_offset)
+        out, lse = _flash(q, k, v, kw, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        route = kernel_route(q)
+        with annotate(f"flash_attention_bwd[{route}]"):
+            if route == "cuda":
+                dq, dk, dv = _fa.flash_attention_bwd(q, k, v, o, do, lse,
+                                                     **ctx.kw)
+            else:
+                dq, dk, dv = ref.attention_bwd_ref(q, k, v, o, do, lse,
+                                                   **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0, q_offset: int = 0) -> torch.Tensor:
     """Online-softmax attention in the model layout: q (B, Sq, H, D),
     k/v (B, Sk, KH, D) -> (B, Sq, H, D) in q's dtype.  Query row i sits at
     absolute position ``q_offset + i``; ``window`` > 0 keeps the last
-    ``window`` keys (inclusive of self)."""
-    route = kernel_route(q)
-    with annotate(f"flash_attention[{route}]"):
-        if route == "cuda":
-            return _fa.flash_attention(q, k, v, causal=causal, window=window,
-                                       softcap=softcap, q_offset=q_offset)
-        _fa.check_operands(q, k, v, window=window, q_offset=q_offset)
-        return ref.attention_ref(q, k, v, causal=causal, window=window,
-                                 softcap=softcap, q_offset=q_offset)
+    ``window`` keys (inclusive of self).  Differentiable in q, k and v
+    (float32): the forward then also writes the log-sum-exp, and the
+    backward is one more kernel call."""
+    if _recorded(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, window, softcap,
+                                     q_offset)
+    return _flash(q, k, v, dict(causal=causal, window=window,
+                                softcap=softcap, q_offset=q_offset), False)
 
 
-def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """h_t = a_t * h_{t-1} + b_t over axis 1 from h = 0; a, b (B, S, C)
-    float32 -> h (B, S, C) float32."""
+def _rglru(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     route = kernel_route(a)
     with annotate(f"rglru_scan[{route}]"):
         if route == "cuda":
@@ -137,15 +215,50 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return ref.rglru_scan_ref(a, b)
 
 
+class _RGLRUScan(torch.autograd.Function):
+    """The scan with the reverse scan as its backward, from the saved a
+    and the output h."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        h = _rglru(a, b)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h = ctx.saved_tensors
+        dh = dh.contiguous()
+        route = kernel_route(a)
+        with annotate(f"rglru_scan_bwd[{route}]"):
+            if route == "cuda":
+                return _rg.rglru_scan_bwd(a, h, dh)
+            return ref.rglru_scan_bwd_ref(a, h, dh)
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t over axis 1 from h = 0; a, b (B, S, C)
+    float32 -> h (B, S, C) float32.  Differentiable in a and b."""
+    if _recorded(a, b):
+        return _RGLRUScan.apply(a, b)
+    return _rglru(a, b)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bmat: torch.Tensor, Cmat: torch.Tensor,
              chunk: int = 128) -> torch.Tensor:
     """Mamba-2 SSD scan from a zero state: x (B, S, H, P), dt (B, S, H),
     A (H,), Bmat/Cmat (B, S, N), float32 -> y (B, S, H, P) float32.  S
-    must be a multiple of min(chunk, S)."""
+    must be a multiple of min(chunk, S).  The CPU route is differentiable
+    by autograd; on the card a call autograd would record raises, since
+    the kernel has no backward yet."""
     route = kernel_route(x)
     with annotate(f"ssd_scan[{route}]"):
         if route == "cuda":
+            if _recorded(x, dt, A, Bmat, Cmat):
+                raise NotImplementedError(
+                    "ssd_scan has no backward kernel yet (ROADMAP A4.4b): "
+                    "mamba2 trains on the CPU only")
             return _ss.ssd_scan(x, dt, A, Bmat, Cmat, chunk)
         _ss.check_operands(x, dt, A, Bmat, Cmat, chunk)
         B, _, H, P = x.shape
@@ -154,15 +267,23 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return ref.ssd_scan_ref(x, dt, A, Bmat, Cmat, state0)[0]
 
 
-_KERNELS = {"moe_gemm": _mg, "redundancy_vote": _rv, "audit_mlp": _am,
-            "flash_attention": _fa, "rglru_scan": _rg, "ssd_scan": _ss}
+# name -> (wrapper module, its counter)
+_KERNELS = {"moe_gemm": (_mg, "launches"),
+            "redundancy_vote": (_rv, "launches"),
+            "audit_mlp": (_am, "launches"),
+            "flash_attention": (_fa, "launches"),
+            "flash_attention_bwd": (_fa, "bwd_launches"),
+            "rglru_scan": (_rg, "launches"),
+            "rglru_scan_bwd": (_rg, "bwd_launches"),
+            "ssd_scan": (_ss, "launches")}
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per wrapper since the last reset."""
-    return {name: mod.launches for name, mod in _KERNELS.items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _KERNELS.values():
-        mod.launches = 0
+    for mod, attr in _KERNELS.values():
+        setattr(mod, attr, 0)

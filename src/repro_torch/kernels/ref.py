@@ -124,9 +124,24 @@ def audit_mlp_ref(params, x: torch.Tensor, gid: torch.Tensor) -> torch.Tensor:
 NEG_INF = -1e30
 
 
+def attention_mask(Sq: int, Sk: int, device, *, causal: bool, window: int,
+                   q_offset: int) -> torch.Tensor:
+    """(Sq, Sk) bool: query row i (absolute position ``q_offset + i``)
+    may attend key j."""
+    qpos = q_offset + torch.arange(Sq, device=device)[:, None]
+    kpos = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    return mask
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0,
-                  softcap: float = 0.0, q_offset: int = 0) -> torch.Tensor:
+                  softcap: float = 0.0, q_offset: int = 0,
+                  return_lse: bool = False):
     """Naive softmax attention (the counterpart of JAX
     ``kernels/ref.py::attention_ref``, with the kernel's ``q_offset``).
 
@@ -134,7 +149,11 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sits at absolute position ``q_offset + i``, key j at j.  Masked
     scores are set to -1e30, so a row with every key masked averages v
     over the Sk keys.  Scores, softmax and the weighted sum run in
-    float32; the output is cast to ``q.dtype``."""
+    float32; the output is cast to ``q.dtype``.  ``return_lse`` also
+    returns the log-sum-exp of each row's scaled, soft-capped and masked
+    scores, (B, H, Sq) float32: what the backward recomputes the softmax
+    from (a row with no valid key has none that means anything; the
+    backward gives it the uniform weights it had)."""
     B, Sq, H, D = q.shape
     Sk, KH = k.shape[1], k.shape[2]
     G = H // KH
@@ -142,17 +161,62 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.einsum("bqhgd,bkhd->bhgqk", qh, k.float()) * (D ** -0.5)
     if softcap:
         s = softcap * torch.tanh(s / softcap)
-    qpos = q_offset + torch.arange(Sq, device=q.device)[:, None]
-    kpos = torch.arange(Sk, device=q.device)[None, :]
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window:
-        mask &= kpos > qpos - window
+    mask = attention_mask(Sq, Sk, q.device, causal=causal, window=window,
+                          q_offset=q_offset)
     s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
-    return out.reshape(B, Sq, H, D).to(q.dtype)
+    out = out.reshape(B, Sq, H, D).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
+    return out
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                      *, causal: bool = True, window: int = 0,
+                      softcap: float = 0.0, q_offset: int = 0):
+    """The gradient of ``attention_ref``, written out step by step (no
+    autograd), in float32: (dq, dk, dv) in q's, k's and v's shapes.
+
+    o is the forward's output and lse its (B, H, Sq) log-sum-exp; with
+    s the scaled (and soft-capped) scores, P = exp(s - lse) on the mask,
+    dV = P^T dO, dP = dO V^T, dS = P (dP - rowsum(dO o)), then the
+    softcap's tanh derivative and the scale, dQ = dS K and dK = dS^T Q.
+    GQA: dk and dv sum the G query heads of their group.  Masked scores
+    are constants (-1e30), so they carry no gradient; a row with no
+    valid key weighs every key 1/Sk, as the forward did, and gives dv
+    that weight and q no gradient."""
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    scale = D ** -0.5
+    qh = q.float().reshape(B, Sq, KH, G, D)
+    doh = do.float().reshape(B, Sq, KH, G, D)
+    kf, vf = k.float(), v.float()
+    raw = torch.einsum("bqhgd,bkhd->bhgqk", qh, kf) * scale
+    if softcap:
+        th = torch.tanh(raw / softcap)
+        s = softcap * th
+    else:
+        s = raw
+    mask = attention_mask(Sq, Sk, q.device, causal=causal, window=window,
+                          q_offset=q_offset)
+    alive = mask.any(dim=-1)[:, None]                     # (Sq, 1)
+    p = torch.exp(s - lse.float().reshape(B, KH, G, Sq)[..., None])
+    p = torch.where(mask, p, torch.zeros((), device=q.device))
+    p = torch.where(alive, p, torch.full((), 1.0 / Sk, device=q.device))
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, doh)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", doh, vf)
+    delta = (do.float() * o.float()).sum(dim=-1)          # (B, Sq, H)
+    delta = delta.reshape(B, Sq, KH, G).permute(0, 2, 3, 1)[..., None]
+    ds = torch.where(mask, p * (dp - delta), torch.zeros((), device=q.device))
+    if softcap:
+        ds = ds * (1.0 - th * th)
+    ds = ds * scale
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf).reshape(B, Sq, H, D)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qh)
+    return dq, dk, dv
 
 
 # ------------------------------------------------- RG-LRU scan
@@ -170,6 +234,28 @@ def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         h = a[:, t] * h + b[:, t]
         out[:, t] = h
     return out
+
+
+def rglru_scan_bwd_ref(a: torch.Tensor, h: torch.Tensor,
+                       dh: torch.Tensor):
+    """The gradient of ``rglru_scan_ref`` as the reverse loop (no
+    autograd): with c_t = dh_t + a_{t+1} c_{t+1} (a_S = 0), db_t = c_t and
+    da_t = c_t h_{t-1} (h_{-1} = 0).  a, h (the forward's output), dh
+    (B, S, C) -> (da, db) (B, S, C) float32.  Each step rounds the
+    product and then the sum, as the CUDA kernel does, which agrees with
+    this loop bit for bit over the last 64 steps and within rounding
+    before them."""
+    a, h, dh = a.float(), h.float(), dh.float()
+    S = a.shape[1]
+    c = torch.zeros_like(a[:, 0])
+    zero = torch.zeros_like(c)
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    for t in range(S - 1, -1, -1):
+        a_next = a[:, t + 1] if t + 1 < S else zero
+        c = a_next * c + dh[:, t]
+        db[:, t] = c
+        da[:, t] = c * (h[:, t - 1] if t > 0 else zero)
+    return da, db
 
 
 # ------------------------------------------------- SSD scan

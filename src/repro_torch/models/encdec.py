@@ -12,6 +12,7 @@ the JAX package does in jnp.  The cross-attention has no rope.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.builder import Leaf, stack
 from repro_torch.models.config import ModelConfig
@@ -82,33 +83,54 @@ def _cross_attn_train(p, x, memory, cfg):
     return out.reshape(B, Sq, cfg.q_dim) @ p["wo"]
 
 
-def encode(params, frames, cfg: ModelConfig):
-    """frames: (B, S_enc, d) stub embeddings -> encoder memory."""
+def _enc_layer(params, i: int, x, cfg):
+    p = _index(params["enc_blocks"], i)
+    h = rmsnorm(x, p["norm1"], cfg.norm_eps)
+    x = x + attn_train(p["attn"], h, cfg, causal=False)
+    h = rmsnorm(x, p["norm2"], cfg.norm_eps)
+    return x + swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"],
+                      p["mlp"]["w_down"])
+
+
+def _dec_layer(params, i: int, x, memory, cfg):
+    p = _index(params["dec_blocks"], i)
+    h = rmsnorm(x, p["norm1"], cfg.norm_eps)
+    x = x + attn_train(p["attn"], h, cfg, causal=True)
+    h = rmsnorm(x, p["norm_x"], cfg.norm_eps)
+    x = x + _cross_attn_train(p["xattn"], h, memory, cfg)
+    h = rmsnorm(x, p["norm2"], cfg.norm_eps)
+    return x + swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"],
+                      p["mlp"]["w_down"])
+
+
+def encode(params, frames, cfg: ModelConfig, *, remat=False):
+    """frames: (B, S_enc, d) stub embeddings -> encoder memory.
+    ``remat``: each layer under ``torch.utils.checkpoint``
+    (non-reentrant), as JAX checkpoints its scan body."""
     x = frames
     for i in range(cfg.num_encoder_layers):
-        p = _index(params["enc_blocks"], i)
-        h = rmsnorm(x, p["norm1"], cfg.norm_eps)
-        x = x + attn_train(p["attn"], h, cfg, causal=False)
-        h = rmsnorm(x, p["norm2"], cfg.norm_eps)
-        x = x + swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"],
-                       p["mlp"]["w_down"])
+        if remat:
+            x = checkpoint(_enc_layer, params, i, x, cfg,
+                           use_reentrant=False)
+        else:
+            x = _enc_layer(params, i, x, cfg)
     return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
 
 
-def forward_train(params, frames, tokens, cfg: ModelConfig):
+def forward_train(params, frames, tokens, cfg: ModelConfig, *,
+                  remat=False):
     """The full encoder-decoder forward.  frames: (B, S_enc, d) stub
-    embeddings; tokens: (B, S_dec).  Returns (logits, aux = 0)."""
-    memory = encode(params, frames, cfg)
+    embeddings; tokens: (B, S_dec).  Returns (logits, aux = 0).
+    ``remat``: every encoder and decoder layer under
+    ``torch.utils.checkpoint``."""
+    memory = encode(params, frames, cfg, remat=remat)
     x = _embed(params, tokens)
     for i in range(cfg.num_layers):
-        p = _index(params["dec_blocks"], i)
-        h = rmsnorm(x, p["norm1"], cfg.norm_eps)
-        x = x + attn_train(p["attn"], h, cfg, causal=True)
-        h = rmsnorm(x, p["norm_x"], cfg.norm_eps)
-        x = x + _cross_attn_train(p["xattn"], h, memory, cfg)
-        h = rmsnorm(x, p["norm2"], cfg.norm_eps)
-        x = x + swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"],
-                       p["mlp"]["w_down"])
+        if remat:
+            x = checkpoint(_dec_layer, params, i, x, memory, cfg,
+                           use_reentrant=False)
+        else:
+            x = _dec_layer(params, i, x, memory, cfg)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return (x @ params["lm_head"],
             torch.zeros((), dtype=torch.float32, device=x.device))

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
@@ -244,21 +245,42 @@ def _layer_train(spec: LayerSpec, p, x, cfg, chunks):
     return x, aux
 
 
+def _block_train(params, b: int, x, aux, cfg: ModelConfig, chunks):
+    """Stacked block ``b``: every layer of the pattern, in order."""
+    for i, spec in enumerate(cfg.block_pattern):
+        x, a = _layer_train(spec, _index(params["blocks"][str(i)], b), x,
+                            cfg, chunks)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
 def forward_train(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
-                  q_chunk=512, kv_chunk=512):
+                  remat=False, q_chunk=512, kv_chunk=512):
     """tokens: (B, S_text) integer; prefix_embeds: optional (B, P, d)
     stub modality embeddings prepended to the sequence (VLM early
     fusion).  Returns (logits (B, S, padded_vocab), aux_loss): aux is the
     sum of the MoE layers' weighted load-balance losses, a zero scalar
-    without MoE layers."""
+    without MoE layers.
+
+    ``remat``: each stacked block of the pattern runs under
+    ``torch.utils.checkpoint`` (non-reentrant), the counterpart of JAX's
+    ``jax.checkpoint`` over its scan body: the backward recomputes the
+    block's activations from its input, and the remainder layers keep
+    theirs.  The values are the same bits either way."""
     x = _embed(params, tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     chunks = (q_chunk, kv_chunk)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for spec, key, i in _layers(cfg):
-        x, a = _layer_train(spec, _layer_params(params, key, i), x, cfg,
-                            chunks)
+    for b in range(cfg.resolved_num_blocks):
+        if remat:
+            x, aux = checkpoint(_block_train, params, b, x, aux, cfg, chunks,
+                                use_reentrant=False)
+        else:
+            x, aux = _block_train(params, b, x, aux, cfg, chunks)
+    for i, spec in enumerate(cfg.remainder):
+        x, a = _layer_train(spec, params["remainder"][i], x, cfg, chunks)
         if a is not None:
             aux = aux + a
     return _head(params, x, cfg), aux
@@ -378,3 +400,43 @@ def forward_serve_chunk(params, caches, tokens, start, pos, lengths, adv,
     if expert_stats:
         return outs, caches, total
     return outs, caches
+
+
+class _LMLoss(torch.autograd.Function):
+    """Mean cross-entropy with its gradient written out: (softmax -
+    one-hot) * valid / denom, built in one logits-sized buffer (autograd
+    through logsumexp and gather would hold three: at recurrentgemma-2b's
+    256k vocabulary and 4,096 positions each is 4.2 GB)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, valid):
+        lf = logits.float()
+        lse = torch.logsumexp(lf, dim=-1)
+        picked = lf.gather(-1, labels[..., None])[..., 0]
+        denom = torch.clamp(valid.sum(), min=1)
+        ctx.save_for_backward(logits, labels, valid, lse, denom)
+        return -((picked - lse) * valid).sum() / denom
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, valid, lse, denom = ctx.saved_tensors
+        grad = torch.sub(logits.float(), lse[..., None]).exp_()   # softmax
+        idx = labels[..., None]
+        grad.scatter_(-1, idx, grad.gather(-1, idx) - 1.0)
+        grad.mul_((g * valid / denom)[..., None])
+        return grad.to(logits.dtype), None, None
+
+
+def lm_loss(logits, labels, mask=None):
+    """Mean cross-entropy over the valid positions (the counterpart of
+    JAX's ``lm_loss``).  logits (B, S, V); labels (B, S) integer, label
+    < 0 ignored (a VLM's image prefix); ``mask`` (B, S) bool narrows the
+    valid positions further.  In float32.  The label's logit is taken by
+    ``gather`` where JAX contracts a one-hot: one term and zeros, the
+    same value, without a (B, S, V) one-hot; the backward builds its
+    gradient in one (B, S, V) buffer (``_LMLoss``)."""
+    labels = torch.as_tensor(labels).to(logits.device, torch.long)
+    valid = labels >= 0
+    if mask is not None:
+        valid = valid & torch.as_tensor(mask).to(logits.device, torch.bool)
+    return _LMLoss.apply(logits, labels.clamp(min=0), valid)

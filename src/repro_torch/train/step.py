@@ -1,37 +1,62 @@
-"""Prefill and decode step builders for the LM stack (the counterpart of
-``repro.train.step``).
+"""Train, prefill and decode step builders for the LM stack (the
+counterpart of ``repro.train.step``).
 
+- ``make_train_step(cfg, opt_cfg, remat=True)``: ``(params, opt_state,
+  batch) -> (params, opt_state, metrics)``, the loss (``lm_loss`` plus
+  the MoE aux loss), its gradients over ``train_microbatches``
+  microbatches and one AdamW update, in place;
+- ``make_loss_and_grads(cfg, remat=True)``: ``(params, batch) -> (loss,
+  aux, grads)``, the step without the update;
 - ``make_prefill_step(cfg)``: ``(params, batch) -> next token (B, 1)``,
   the full-sequence forward and the argmax of the last position;
 - ``make_decode_step(cfg, expert_stats=False)``: ``(params, caches,
   batch) -> (next token (B,), caches)``, one token through the caches,
   and with ``expert_stats`` also the per-MoE-layer routed-token counts;
 - ``make_serve_chunk_step(cfg, expert_stats=False)``: the serving
-  engine's fused macro-step, C masked greedy decode micro-steps.
+  engine's fused macro-step, C masked greedy decode micro-steps;
+- ``make_step(cfg, kind)``: one of the first three by name.
 
-Training steps wait for an attention backward kernel (ROADMAP A4.4);
-the federated local step waits for federated training (A6).
+On the card the training step's attention, RG-LRU and MoE products run
+their kernels forward and backward (``kernels.ops``); a mamba2 model's
+SSD scan has no backward kernel yet and raises there (ROADMAP A4.4b).
+A mesh (ROADMAP A7) and the federated local step (A6) are not ported.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from repro_torch.core.ledger import tree_flatten, tree_unflatten
 from repro_torch.models import encdec
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
+from repro_torch.optim import adamw
+
+# the parameter subtrees whose leaves stack layers on their leading axis
+_STACKED = ("blocks", "enc_blocks", "dec_blocks")
 
 
-def model_forward(params, batch, cfg: ModelConfig):
+def _refuse_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError("a device mesh is not ported yet (ROADMAP "
+                                  "A7): the port trains on one device")
+
+
+def model_forward(params, batch, cfg: ModelConfig, remat: bool = False):
     """Dispatch on architecture family: the encoder-decoder takes
     ``frames``, a VLM the ``patches`` prefix.  Returns (logits, aux,
-    labels); a VLM's labels gain -1 (no loss) over the prefix."""
+    labels); a VLM's labels gain -1 (no loss) over the prefix.
+    ``remat`` checkpoints each stacked block (the training step's
+    choice; prefill and decode have no backward)."""
     if cfg.is_encoder_decoder:
         logits, aux = encdec.forward_train(params, batch["frames"],
-                                           batch["tokens"], cfg)
+                                           batch["tokens"], cfg,
+                                           remat=remat)
         return logits, aux, batch.get("labels")
     prefix = batch.get("patches")
     logits, aux = tfm.forward_train(params, batch["tokens"], cfg,
-                                    prefix_embeds=prefix)
+                                    prefix_embeds=prefix, remat=remat)
     labels = batch.get("labels")
     if prefix is not None and labels is not None:
         labels = torch.as_tensor(labels)
@@ -39,6 +64,90 @@ def model_forward(params, batch, cfg: ModelConfig):
                             device=labels.device)
         labels = torch.cat([ignore, labels], dim=1)
     return logits, aux, labels
+
+
+def _layer_leaves(params, grads):
+    """The tree the training forward reads: every leaf a detached tensor
+    that requires a gradient and whose ``.grad`` is preset to the matching
+    view of ``grads``; a stacked leaf becomes a list of its layers, which
+    the forward indexes as it indexes the stacked tensor.  Autograd then
+    accumulates each layer's gradient in place into its slice of
+    ``grads`` (a preset ``.grad`` is added to, not replaced), with no
+    full-size gradient of a stacked leaf per layer."""
+    def leaf(p, g):
+        t = p.detach().requires_grad_(True)
+        t.grad = g
+        return t
+
+    def walk(p, g, stacked):
+        if isinstance(p, dict):
+            return {k: walk(p[k], g[k], stacked or k in _STACKED)
+                    for k in p}
+        if isinstance(p, list):
+            return [walk(a, b, stacked) for a, b in zip(p, g)]
+        if stacked:
+            return [leaf(p[i], g[i]) for i in range(p.shape[0])]
+        return leaf(p, g)
+
+    return walk(params, grads, False)
+
+
+def make_loss_and_grads(cfg: ModelConfig, remat: bool = True):
+    """``(params, batch) -> (loss, aux, grads)``: the training loss
+    (``lm_loss`` + aux) and its gradients, a tree shaped like ``params``
+    (float32, as ``init_model`` draws them).  With ``train_microbatches`` K > 1
+    the batch is cut into K along its first axis and the microbatches run in
+    order, each adding its gradient / K into the accumulator (the backward of
+    loss / K, JAX's ``acc + g / K`` exactly when K is a power of two) and its
+    loss and aux / K into theirs, as JAX's ``scan`` does.  The parameters are
+    not modified."""
+    K = max(cfg.train_microbatches, 1)
+
+    def loss_and_grads(params, batch):
+        flat, _ = tree_flatten(params)
+        grads = tree_unflatten(params, [torch.zeros_like(p) for p in flat])
+        leaves = _layer_leaves(params, grads)
+        micro = [batch] if K == 1 else [
+            {k: v[i * (v.shape[0] // K):(i + 1) * (v.shape[0] // K)]
+             for k, v in batch.items()} for i in range(K)]
+        loss_acc = aux_acc = None
+        for mb in micro:
+            logits, aux, labels = model_forward(leaves, mb, cfg, remat)
+            loss = tfm.lm_loss(logits, labels) + aux
+            del logits
+            (loss if K == 1 else loss / K).backward()
+            loss, aux = loss.detach(), aux.detach()
+            if K == 1:
+                loss_acc, aux_acc = loss, aux
+            else:
+                loss_acc = (loss / K if loss_acc is None
+                            else loss_acc + loss / K)
+                aux_acc = aux / K if aux_acc is None else aux_acc + aux / K
+        return loss_acc, aux_acc, grads
+
+    return loss_and_grads
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
+                    mesh=None, remat: bool = True):
+    """``(params, opt_state, batch) -> (params, opt_state, metrics)``:
+    ``make_loss_and_grads`` then ``adamw.update``, which overwrites the
+    parameters and the moments in place.  Metrics: loss, aux_loss,
+    grad_norm, lr (0-dim float32 tensors on the device).  ``mesh`` must be
+    None (ROADMAP A7).  The update is a ``torch.profiler`` region named
+    ``adamw.update``, so a profiled step shows the optimizer's share of
+    the device time (a few microseconds of host time a step otherwise)."""
+    _refuse_mesh(mesh)
+    loss_and_grads = make_loss_and_grads(cfg, remat)
+
+    def train_step(params, opt_state, batch):
+        loss, aux, grads = loss_and_grads(params, batch)
+        with torch.profiler.record_function("adamw.update"):
+            params, opt_state, om = adamw.update(opt_cfg, grads, opt_state,
+                                                 params)
+        return params, opt_state, {"loss": loss, "aux_loss": aux, **om}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig):
@@ -100,3 +209,18 @@ def make_serve_chunk_step(cfg: ModelConfig, expert_stats: bool = False):
             batch["lengths"], batch["adv"], cfg, expert_stats=expert_stats)
 
     return serve_chunk_step
+
+
+def make_step(cfg: ModelConfig, kind: str, mesh=None,
+              opt_cfg: Optional[adamw.AdamWConfig] = None,
+              remat: bool = True):
+    """The step of ``kind``: "train", "prefill" or "decode"."""
+    _refuse_mesh(mesh)
+    if kind == "train":
+        return make_train_step(cfg, opt_cfg or adamw.AdamWConfig(),
+                               remat=remat)
+    if kind == "prefill":
+        return make_prefill_step(cfg)
+    if kind == "decode":
+        return make_decode_step(cfg)
+    raise ValueError(kind)

@@ -271,7 +271,9 @@ def test_plain_path_launches_no_kernel(data, port_systems):
     sys_b.infer(data[2][:50])
     assert ops.launch_counts() == {"moe_gemm": 0, "redundancy_vote": 0,
                                    "audit_mlp": 0, "flash_attention": 0,
-                                   "rglru_scan": 0, "ssd_scan": 0}
+                                   "flash_attention_bwd": 0,
+                                   "rglru_scan": 0,
+                                   "rglru_scan_bwd": 0, "ssd_scan": 0}
 
 
 @pytest.mark.parametrize("kw,match", [
@@ -308,9 +310,9 @@ def test_params_from_numpy_checks_keys():
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """Every repro_torch module (the serving engine and its launcher
-    among them), and chip_smoke.py, imported in a fresh interpreter,
-    leaves jax and repro out of sys.modules."""
+    """Every repro_torch module (the serving engine, the training stack
+    and their launchers among them), and chip_smoke.py, imported in a
+    fresh interpreter, leaves jax and repro out of sys.modules."""
     code = textwrap.dedent(f"""
         import importlib, importlib.util, pkgutil, sys
         sys.path.insert(0, {os.path.join(ROOT, 'src')!r})
@@ -332,7 +334,9 @@ def test_port_imports_neither_jax_nor_repro():
               "repro_torch.kernels.rglru_scan",
               "repro_torch.serve", "repro_torch.serve.engine",
               "repro_torch.serve.scheduler", "repro_torch.trust.session",
-              "repro_torch.storage.kv", "repro_torch.launch.serve"}}
+              "repro_torch.storage.kv", "repro_torch.launch.serve",
+              "repro_torch.optim.adamw", "repro_torch.checkpoint.io",
+              "repro_torch.launch.train"}}
         missing = sorted(lm - set(names))
         print(len(names), bad, missing)
         sys.exit(1 if bad or missing or len(names) < 25 else 0)

@@ -159,7 +159,9 @@ def test_evaluate_launches_the_kernels(cuda):
     sys_b.evaluate(x, y, attack=AttackConfig())
     assert ops.launch_counts() == {"moe_gemm": 2, "redundancy_vote": 1,
                                    "audit_mlp": 0, "flash_attention": 0,
-                                   "rglru_scan": 0, "ssd_scan": 0}
+                                   "flash_attention_bwd": 0,
+                                   "rglru_scan": 0,
+                                   "rglru_scan_bwd": 0, "ssd_scan": 0}
 
 
 def _train_system(framework, device, attack=None, **kw):
@@ -210,7 +212,9 @@ def test_training_round_on_the_card_matches_the_cpu(cuda, framework):
     assert counts_g == {"moe_gemm": 5,
                         "redundancy_vote": int(framework == "bmoe"),
                         "audit_mlp": 0, "flash_attention": 0,
-                        "rglru_scan": 0, "ssd_scan": 0}
+                        "flash_attention_bwd": 0,
+                        "rglru_scan": 0,
+                        "rglru_scan_bwd": 0, "ssd_scan": 0}
     for k in ("activation", "support", "flags", "dropped"):
         np.testing.assert_array_equal(m_g[k], m_c[k], err_msg=k)
     np.testing.assert_allclose(m_g["loss"], m_c["loss"], rtol=1e-5)
@@ -309,7 +313,8 @@ def test_optimistic_training_on_the_card_matches_the_cpu(cuda):
                   "audit_mlp": sg.protocol.stats["committed"]
                   + int(sum(calls.values())),
                   "redundancy_vote": sg.protocol.stats["escalations"],
-                  "flash_attention": 0, "rglru_scan": 0, "ssd_scan": 0}
+                  "flash_attention": 0, "flash_attention_bwd": 0,
+                  "rglru_scan": 0, "rglru_scan_bwd": 0, "ssd_scan": 0}
 
 
 def test_chain_rollback_on_the_card_is_bitwise_the_clean_twin(cuda):
@@ -798,7 +803,9 @@ def test_mamba2_smoke_prefill_on_the_card(cuda):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"moe_gemm": 0, "redundancy_vote": 0,
                                    "audit_mlp": 0, "flash_attention": 0,
+                                   "flash_attention_bwd": 0,
                                    "rglru_scan": 0,
+                                   "rglru_scan_bwd": 0,
                                    "ssd_scan": cfg.num_layers}
     want, _ = transformer.forward_train(p_cpu, toks, cfg)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
@@ -996,7 +1003,8 @@ def test_serving_engine_on_the_card_matches_the_cpu(cuda, arch, scheduling,
     assert card.micro_steps == cpu.micro_steps > 0
     assert counts == {"moe_gemm": 3 * n_moe * card.micro_steps,
                       "redundancy_vote": 0, "audit_mlp": 0,
-                      "flash_attention": 0, "rglru_scan": 0, "ssd_scan": 0}
+                      "flash_attention": 0, "flash_attention_bwd": 0,
+                      "rglru_scan": 0, "rglru_scan_bwd": 0, "ssd_scan": 0}
 
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "bmoe-paper"])
@@ -1030,3 +1038,261 @@ def test_serve_launcher_runs_on_the_card(cuda, capsys):
                        "--slots", "2", "--cache-len", "64"])
     assert len(done) == 3
     assert "device=cuda" in capsys.readouterr().out
+
+
+# ------------------------------------------------------ LM training
+def _attn_grad_fp64(q, k, v, do, causal, window, softcap, q_offset):
+    """dq, dk, dv of attention in float64 by autograd (the yardstick both
+    backward versions are held to)."""
+    q, k, v = (t.double().requires_grad_(True) for t in (q, k, v))
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.reshape(B, Sq, KH, G, D),
+                     k) * D ** -0.5
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    mask = ref.attention_mask(Sq, Sk, q.device, causal=causal,
+                              window=window, q_offset=q_offset)
+    s = torch.where(mask, s, torch.full((), -1e30, dtype=s.dtype,
+                                        device=s.device))
+    o = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(s, -1), v)
+    return torch.autograd.grad(o.reshape(B, Sq, H, D), (q, k, v),
+                               do.double())
+
+
+# the chip_smoke shapes cut in length (qwen2.5-3b, recurrentgemma-2b,
+# seamless-m4t-medium, its cross-attention), then GQA with window and
+# q_offset, softcap, rows with no valid key, and every head dim at a
+# ragged length
+@pytest.mark.parametrize("B,Sq,Sk,H,KH,D,causal,window,softcap,q_offset", [
+    (1, 512, 512, 16, 2, 128, True, 0, 0.0, 0),
+    (1, 600, 600, 10, 1, 256, True, 256, 0.0, 0),
+    (1, 512, 512, 16, 16, 64, False, 0, 0.0, 0),
+    (2, 100, 150, 8, 4, 64, False, 0, 0.0, 0),
+    (1, 48, 300, 6, 3, 128, True, 64, 0.0, 252),
+    (1, 512, 512, 8, 4, 128, True, 0, 50.0, 0),
+    (1, 97, 97, 2, 2, 256, False, 16, 20.0, 0),
+    (1, 40, 30, 4, 2, 64, False, 8, 0.0, 30),
+    (2, 100, 100, 4, 2, 32, True, 0, 0.0, 0),
+    (1, 130, 130, 6, 2, 48, True, 40, 0.0, 0),
+    (2, 77, 77, 4, 4, 64, True, 0, 0.0, 0),
+    (1, 70, 333, 2, 2, 256, True, 0, 0.0, 263),
+    (1, 200, 200, 4, 1, 128, True, 45, 0.0, 0),
+])
+def test_flash_attention_bwd_matches_plain(cuda, B, Sq, Sk, H, KH, D,
+                                           causal, window, softcap,
+                                           q_offset):
+    """The backward kernel against ``attention_bwd_ref`` on the same o
+    and lse at 2e-4 (the forward's bar), and no further from a float64
+    backward than twice the plain version's error (plus 1e-6)."""
+    q = _randn(Sq + D, B, Sq, H, D).to(cuda)
+    k = _randn(Sk + H, B, Sk, KH, D).to(cuda)
+    v = _randn(Sk + KH, B, Sk, KH, D).to(cuda)
+    do = _randn(Sq + 1, B, Sq, H, D).to(cuda)
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              q_offset=q_offset)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    ops.reset_launch_counts()
+    got = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    assert ops.launch_counts()["flash_attention_bwd"] == 1
+    want = ref.attention_bwd_ref(q, k, v, o, do, lse, **kw)
+    exact = _attn_grad_fp64(q, k, v, do, **kw)
+    torch.cuda.synchronize()
+    for g, w, x, name in zip(got, want, exact, ("dq", "dk", "dv")):
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4, msg=name)
+        err_k = float((g.double() - x).abs().max())
+        err_p = float((w.double() - x).abs().max())
+        assert err_k <= 2 * err_p + 1e-6, (name, err_k, err_p)
+
+
+@pytest.mark.parametrize("window,q_offset,softcap", [
+    (0, 0, 0.0), (100, 0, 0.0), (0, 37, 30.0)])
+def test_flash_attention_lse_leaves_out_bitwise(cuda, window, q_offset,
+                                                softcap):
+    """Writing the log-sum-exp changes no bit of o, and it is the rows'
+    log-sum-exp of the plain version."""
+    q = _randn(1, 2, 300, 8, 64).to(cuda)
+    k, v = (_randn(s, 2, 340, 2, 64).to(cuda) for s in (2, 3))
+    kw = dict(causal=True, window=window, softcap=softcap, q_offset=q_offset)
+    o1 = fa.flash_attention(q, k, v, **kw)
+    o2, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    _, want = ref.attention_ref(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert _bitwise(o1, o2)
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
+
+
+def test_flash_attention_bwd_is_bitwise_repeatable(cuda):
+    q = _randn(1, 1, 600, 10, 256).to(cuda)
+    k, v = (_randn(s, 1, 600, 1, 256).to(cuda) for s in (2, 3))
+    do = _randn(4, 1, 600, 10, 256).to(cuda)
+    o, lse = fa.flash_attention(q, k, v, window=200, return_lse=True)
+    first = fa.flash_attention_bwd(q, k, v, o, do, lse, window=200)
+    second = fa.flash_attention_bwd(q, k, v, o, do, lse, window=200)
+    torch.cuda.synchronize()
+    assert all(_bitwise(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("B,S,C", [(2, 20, 33), (2, 64, 130), (2, 65, 130),
+                                   (3, 129, 257), (1, 4096, 2560)])
+def test_rglru_scan_bwd_matches_plain(cuda, B, S, C):
+    """The reverse scan against the reverse loop at 1e-5, bit for bit up
+    to two chunks, and bit for bit its emulation in plain torch
+    (tests/test_torch_tf32x3.py) at every length."""
+    from test_torch_tf32x3 import rglru_bwd_chunked
+    a, b = (t.to(cuda) for t in _scan_inputs(S, B, S, C))
+    dh = _randn(S + 1, B, S, C).to(cuda)
+    h = rg.rglru_scan(a, b)
+    ops.reset_launch_counts()
+    got = rg.rglru_scan_bwd(a, h, dh)
+    assert ops.launch_counts()["rglru_scan_bwd"] == 1
+    want = ref.rglru_scan_bwd_ref(a, h, dh)
+    emul = rglru_bwd_chunked(a, h, dh, rg.CHUNK)
+    torch.cuda.synchronize()
+    for g, w, e in zip(got, want, emul):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+        assert _bitwise(g, e)
+        if S <= 2 * rg.CHUNK:
+            assert _bitwise(g, w)
+
+
+def test_ops_gradients_on_the_card_match_the_plain_versions(cuda):
+    """``ops``' autograd Functions on CUDA tensors launch the kernels, one
+    forward and one backward call each (moe_gemm: one forward, two
+    backward), and give the plain versions' gradients."""
+    def grads(fn, *xs):
+        xs = [x.clone().requires_grad_(True) for x in xs]
+        out = fn(*xs)
+        return torch.autograd.grad(out, xs, _randn(9, *out.shape).to(
+            out.device))
+
+    q = _randn(1, 2, 200, 4, 64).to(cuda)
+    k, v = (_randn(s, 2, 200, 2, 64).to(cuda) for s in (2, 3))
+    a, b = (t.to(cuda) for t in _scan_inputs(4, 2, 300, 70))
+    buf, w = _randn(5, 3, 100, 64).to(cuda), _randn(6, 3, 64, 48).to(cuda)
+    for fn, plain, xs, n in (
+            (lambda *t: ops.flash_attention(*t, window=50),
+             lambda *t: ref.attention_ref(*t, window=50), (q, k, v),
+             dict(flash_attention=1, flash_attention_bwd=1)),
+            (ops.rglru_scan, ref.rglru_scan_ref, (a, b),
+             dict(rglru_scan=1, rglru_scan_bwd=1)),
+            (ops.moe_gemm, ref.moe_gemm_ref, (buf, w), dict(moe_gemm=3))):
+        ops.reset_launch_counts()
+        got = grads(fn, *xs)
+        counts = ops.launch_counts()
+        assert counts == {k: n.get(k, 0) for k in counts}
+        want = grads(plain, *xs)
+        for g, wnt in zip(got, want):
+            torch.testing.assert_close(g, wnt, rtol=2e-4, atol=2e-4)
+
+
+TRAIN_ARCHS = ("qwen2.5-3b", "recurrentgemma-2b", "pixtral-12b",
+               "seamless-m4t-medium", "gemma3-27b", "bmoe-paper")
+
+
+def _train_batch(cfg, device, seed=12):
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64))
+                            .astype(np.int32))
+    batch = {"tokens": toks, "labels": toks}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, 64, cfg.d_model)).astype(np.float32))
+    elif cfg.frontend == "vision":
+        batch["patches"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.frontend_tokens, cfg.d_model)).astype(np.float32))
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_smoke_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """Every family but the SSM: the loss and its gradients on the card
+    (attention, RG-LRU and MoE products through their kernels, forward
+    and backward) against the CPU's at rtol 1e-4 / atol 1e-5, with one
+    flash forward and one backward per attention layer, one scan and one
+    reverse scan per RG-LRU layer, 3 + 6 moe_gemm per MoE layer.  The
+    routing is recorded on both devices and held equal first."""
+    from repro_torch.core.ledger import tree_flatten
+    from repro_torch.train import step
+    cfg = get_config(arch, smoke=True)
+    p_cpu = init_model(cfg, 0, "cpu")
+    p = _to(p_cpu, cuda)
+    routes = {}
+    inner = moe.route
+
+    def route(logits, k, capacity, num_real=0):
+        out = inner(logits, k, capacity, num_real)
+        routes.setdefault(logits.device.type, []).append(out[1].cpu())
+        return out
+
+    moe.route = route
+    try:
+        lg = step.make_loss_and_grads(cfg, remat=True)
+        want = lg(p_cpu, _train_batch(cfg, "cpu"))
+        ops.reset_launch_counts()
+        got = lg(p, _train_batch(cfg, cuda))
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    finally:
+        moe.route = inner
+    for a, b in zip(routes.get("cuda", []), routes.get("cpu", [])):
+        assert torch.equal(a, b)
+    # per layer kind: (in checkpointed blocks, in the remainder); remat
+    # runs a checkpointed block's forward again in the backward
+    blocks = list(cfg.block_pattern) * cfg.resolved_num_blocks
+    n = {}
+    for what, hit in (("attn", lambda s: s.kind in ("attn", "local_attn")),
+                      ("rglru", lambda s: s.kind == "rglru"),
+                      ("moe", lambda s: s.mlp == "moe")):
+        n[what] = (sum(map(hit, blocks)), sum(map(hit, cfg.remainder)))
+    if cfg.is_encoder_decoder:
+        n["attn"] = (cfg.num_encoder_layers + 2 * cfg.num_layers, 0)
+    assert counts == {
+        "moe_gemm": 3 * (2 * n["moe"][0] + n["moe"][1]) + 6 * sum(n["moe"]),
+        "redundancy_vote": 0, "audit_mlp": 0,
+        "flash_attention": 2 * n["attn"][0] + n["attn"][1],
+        "flash_attention_bwd": sum(n["attn"]),
+        "rglru_scan": 2 * n["rglru"][0] + n["rglru"][1],
+        "rglru_scan_bwd": sum(n["rglru"]), "ssd_scan": 0}
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-5, atol=1e-5)
+    for (a, b) in zip(tree_flatten(got[2])[0], tree_flatten(want[2])[0]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+
+
+def test_card_train_steps_are_bitwise_repeatable(cuda):
+    """Two train steps from one state give the same parameters and
+    moments, bit for bit (no atomics on the path)."""
+    from repro_torch.core.ledger import tree_flatten
+    from repro_torch.optim import adamw
+    from repro_torch.train import step
+    cfg = get_config("recurrentgemma-2b", smoke=True)
+    runs = []
+    for _ in range(2):
+        p = init_model(cfg, 0, cuda)
+        st = adamw.init(p)
+        fn = step.make_train_step(cfg, adamw.AdamWConfig(lr=1e-3))
+        for s in range(2):
+            p, st, m = fn(p, st, _train_batch(cfg, cuda, seed=s))
+        runs.append(tree_flatten((p, st.m, st.v))[0])
+    torch.cuda.synchronize()
+    assert all(_bitwise(a, b) for a, b in zip(*runs))
+
+
+def test_mamba2_train_step_on_the_card_refuses(cuda):
+    """The SSD scan has no backward kernel yet: a gradient through it on
+    the card raises and names the queue item (no plain fallback)."""
+    from repro_torch.train import step
+    cfg = get_config("mamba2-2.7b", smoke=True)
+    p = init_model(cfg, 0, cuda)
+    with pytest.raises(NotImplementedError, match="A4.4b"):
+        step.make_loss_and_grads(cfg)(p, _train_batch(cfg, cuda))
+
+
+def test_train_launcher_runs_on_the_card(cuda, capsys):
+    from repro_torch.launch import train
+    hist = train.main(["--arch", "bmoe-paper", "--steps", "3", "--batch",
+                       "2", "--seq", "32"])
+    assert len(hist) == 3 and all(np.isfinite(r["loss"]) for r in hist)
+    assert "[train] done" in capsys.readouterr().out

@@ -19,7 +19,8 @@ themselves against their plain versions on the card.
 
 ``rglru_chunked`` is the chunked association of ``rglru_scan.cu`` in plain
 torch, step for step (each product and each sum rounded on its own), so
-the kernel gives its bits exactly; ``tests/test_torch_kernels.py`` holds it
+the kernel gives its bits exactly (``rglru_bwd_chunked`` the same for its
+reverse scan, the backward); ``tests/test_torch_kernels.py`` holds it
 against JAX's associative scan, ``tests/test_torch_cuda.py`` the kernel
 against it on the card."""
 import numpy as np
@@ -314,6 +315,47 @@ def rglru_chunked(a, b, L: int):
     return out.reshape(B, nc * L, C)[:, :S]
 
 
+def rglru_bwd_chunked(a, h, dh, L: int):
+    """``rglru_scan.cu``'s reverse chunked scan, the gradient of the scan:
+    c_t = a_{t+1} c_{t+1} + dh_t (a_S = 0), db_t = c_t, da_t = c_t h_{t-1}.
+    For chunks 1 .. nc-1, from c = 0 past the chunk's end, the product of
+    the a_{t+1} (P) and the c at its first step (H); the c carried into
+    chunk k folded from the last chunk down (H_{nc-1}, then P_j carry +
+    H_j for j = nc-2 .. k+1); then each chunk re-run from its carry.
+    Every product and sum its own rounded operation, as in the kernel; the
+    last chunk is padded past S with a = 1, dh = 0, which keep c at 0."""
+    B, S, C = a.shape
+    nc = -(-S // L)
+    pad = nc * L - S
+
+    def chunks(x, fill):
+        x = torch.cat([x, torch.full((B, pad, C), fill, dtype=x.dtype,
+                                     device=x.device)], 1)
+        return x.reshape(B, nc, L, C)
+
+    zero = torch.zeros_like(a[:, :1])
+    an = chunks(torch.cat([a[:, 1:], zero], 1), 1.0)     # a_{t+1}
+    hp = chunks(torch.cat([zero, h[:, :-1]], 1), 0.0)    # h_{t-1}
+    dp = chunks(dh, 0.0)
+    p = torch.ones_like(an[:, :, 0])
+    c = torch.zeros_like(an[:, :, 0])
+    for t in range(L - 1, -1, -1):         # summaries, every chunk at once
+        c = an[:, :, t] * c + dp[:, :, t]
+        p = p * an[:, :, t]
+    carry = [torch.zeros_like(c[:, 0])]
+    if nc > 1:
+        carry.append(c[:, nc - 1])
+    for j in range(nc - 2, 0, -1):
+        carry.append(p[:, j] * carry[-1] + c[:, j])
+    c = torch.stack(carry[::-1], 1)        # chunk k's carry at k
+    da, db = torch.empty_like(an), torch.empty_like(an)
+    for t in range(L - 1, -1, -1):
+        c = an[:, :, t] * c + dp[:, :, t]
+        db[:, :, t] = c
+        da[:, :, t] = c * hp[:, :, t]
+    return (da.reshape(B, nc * L, C)[:, :S], db.reshape(B, nc * L, C)[:, :S])
+
+
 def _ab(seed, B, S, C):
     rng = np.random.default_rng(seed)
     return (torch.from_numpy(rng.uniform(0.5, 1.0, (B, S, C)).astype(
@@ -339,3 +381,23 @@ def test_rglru_chunked_association(B, S, C):
     n = min(S, 64)
     assert torch.equal(got[:, :n].view(torch.int32),
                        want[:, :n].view(torch.int32))
+
+
+@pytest.mark.parametrize("B,S,C", RGLRU_LENGTHS)
+def test_rglru_bwd_chunked_association(B, S, C):
+    """The reverse chunked association against the reverse loop
+    (ref.rglru_scan_bwd_ref) at 1e-5; up to two chunks (the carry into
+    chunk 0 is the last chunk's own c) it is the loop bit for bit, and the
+    last chunk always is."""
+    a, b = _ab(S + C, B, S, C)
+    h = ref.rglru_scan_ref(a, b)
+    dh = torch.from_numpy(np.random.default_rng(S).standard_normal(
+        (B, S, C)).astype(np.float32))
+    got = rglru_bwd_chunked(a, h, dh, 64)
+    want = ref.rglru_scan_bwd_ref(a, h, dh)
+    last = (S - 1) // 64 * 64
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+        assert torch.equal(g[:, last:], w[:, last:])
+        if S <= 128:
+            assert torch.equal(g, w)

@@ -355,7 +355,9 @@ def test_plain_audit_mlp_launches_nothing():
     ops.audit_mlp(tb, torch.zeros(2, 3, 8), torch.tensor([1, 0]))
     assert ops.launch_counts() == {"moe_gemm": 0, "redundancy_vote": 0,
                                    "audit_mlp": 0, "flash_attention": 0,
-                                   "rglru_scan": 0, "ssd_scan": 0}
+                                   "flash_attention_bwd": 0,
+                                   "rglru_scan": 0,
+                                   "rglru_scan_bwd": 0, "ssd_scan": 0}
 
 
 # ------------------------------------------------------------- system
@@ -405,7 +407,9 @@ def test_optimistic_infer_matches_jax(data, case):
     assert tsys.flush_trust() == jsys.flush_trust()
     assert ops.launch_counts() == {"moe_gemm": 0, "redundancy_vote": 0,
                                    "audit_mlp": 0, "flash_attention": 0,
-                                   "rglru_scan": 0, "ssd_scan": 0}
+                                   "flash_attention_bwd": 0,
+                                   "rglru_scan": 0,
+                                   "rglru_scan_bwd": 0, "ssd_scan": 0}
     tp, jp = tsys._infer_protocol, jsys._infer_protocol
 
     def strip(log):
