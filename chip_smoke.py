@@ -703,7 +703,8 @@ def check_flash_bwd(torch, np, fa, ref, seed: int, name: str, B: int,
     first and GQA expanded, by ``torch.autograd.grad``; its largest kernel
     named).  The bound: five products of the forward's size (S, dP, dV, dK, dQ)
     at the 3xTF32 rate, against q, k, v, o, dO, lse read once and dq, dk, dv
-    written once."""
+    written once.  ``passes_us``: each CUDA launch's device time in one
+    profiled call (Delta, dK/dV, the head sum under GQA, dQ)."""
     import torch.nn.functional as F
     Sk = Sk or S
     g = torch.Generator().manual_seed(seed)
@@ -765,6 +766,11 @@ def check_flash_bwd(torch, np, fa, ref, seed: int, name: str, B: int,
            "library_ms": library_ms, "library_backend": backend,
            "bound_ms": b_ms, "bound_by": b_by,
            "bound_fp32_cores_ms": bound(flops, nbytes, FP32_PEAK)[0]}
+    prof = profile_batch(torch, lambda: fa.flash_attention_bwd(
+        q, k, v, o, do, lse, **kw), cpu=False)["flash_bwd"]
+    row["cuda_launches_per_call"] = prof["cuda_launches"]
+    row["passes_us"] = {n: one["device_us"]
+                        for n, one in prof["by_kernel"].items()}
     emit(row)
     require(ok and o_bitwise, f"flash_attention_bwd {name}: kernel error "
                               f"{err_k} against plain {err_p} (float64), "
@@ -1482,6 +1488,19 @@ def _train_profile(torch, step_fn, params, state, batch, n_fwd_gemm: int):
     return out
 
 
+def _flash_bwd_share(torch, run):
+    """One fenced, profiled call of ``run`` (a train step), the device
+    alone traced: busy and wall on the device, and the flash backward's
+    device time, CUDA launches and share of busy."""
+    prof = profile_batch(torch, run, cpu=False)
+    busy = prof["device_busy_us"] / 1e3
+    fb = prof["flash_bwd"]
+    return {"device_busy_ms": busy, "device_wall_ms": prof["span_us"] / 1e3,
+            "flash_backward_ms": fb["device_us"] / 1e3,
+            "flash_backward_cuda_launches": fb["cuda_launches"],
+            "flash_backward_share": fb["device_us"] / 1e3 / busy}
+
+
 def train_l1(torch, ops, cfg):
     """L1: bmoe-paper at full width and depth, ``train`` (remat off) from
     seed 0 (path H's weights, drawn again) for 4 steps on one fixed batch
@@ -1608,7 +1627,8 @@ def train_l2(torch, ops, cfg, params):
     into its 2 microbatches of (1, 4096), so the 2048-key window masks
     keys: finite losses and gradient norms, launches per microbatch held
     to the config (rglru_scan 18 + 16 recomputed, 18 reverse; flash 8 + 8
-    recomputed, 8 backward), the peak memory printed."""
+    recomputed, 8 backward), the peak memory printed; then a third step
+    profiled for the flash backward's share of the device's busy time."""
     from repro_torch.core.ledger import tree_flatten
     from repro_torch.optim import adamw
     from repro_torch.train.step import make_train_step
@@ -1631,6 +1651,7 @@ def train_l2(torch, ops, cfg, params):
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    profiled = _flash_bwd_share(torch, lambda: step_fn(params, st, batch))
     del st
     gc.collect()
     torch.cuda.empty_cache()
@@ -1642,7 +1663,7 @@ def train_l2(torch, ops, cfg, params):
            "tokens_per_s": 2 * 4096 / walls[-1],
            "peak_mem_gb": peak / 1e9,
            "params_gb": sum(t.numel() for t in tree_flatten(params)[0])
-           * 4 / 1e9,
+           * 4 / 1e9, "profiled_step": profiled,
            "path_s": time.perf_counter() - start}
     emit(row)
     require(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
@@ -1660,7 +1681,8 @@ def train_l3(torch, ops, cfg, params):
     """L3: seamless-m4t-medium at full width on path J's weights, 2 steps
     (remat off) on 4,096 stub frames and 512 tokens: finite losses, 36
     flash forward launches (12 encoder, 12 decoder self, 12 cross) and 36
-    backward a step."""
+    backward a step; then a third step profiled for the flash backward's
+    share of the device's busy time."""
     from repro_torch.data.synthetic import stub_embeddings
     from repro_torch.optim import adamw
     from repro_torch.train.step import make_train_step
@@ -1682,6 +1704,7 @@ def train_l3(torch, ops, cfg, params):
         walls.append(time.perf_counter() - t0)
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    profiled = _flash_bwd_share(torch, lambda: step_fn(params, st, batch))
     del st
     gc.collect()
     torch.cuda.empty_cache()
@@ -1689,7 +1712,8 @@ def train_l3(torch, ops, cfg, params):
            "tokens": 512, "steps": 2, "remat": False, "metrics": metrics,
            "launches": counts, "launches_per_step": per_step,
            "step_walls_ms": [w * 1e3 for w in walls],
-           "peak_mem_gb": peak / 1e9, "path_s": time.perf_counter() - start}
+           "peak_mem_gb": peak / 1e9, "profiled_step": profiled,
+           "path_s": time.perf_counter() - start}
     emit(row)
     require(all(math.isfinite(m["loss"]) for m in metrics),
             f"L3 metrics {metrics}")
@@ -3188,7 +3212,8 @@ def main() -> int:
         # the tensor-core kernels keep every instantiation out of local
         # memory, and so do the scan's
         if fn["source"] in ("moe_gemm.cu", "flash_attention.cu",
-                            "ssd_scan.cu", "audit_mlp.cu", "rglru_scan.cu"):
+                            "flash_attention_bwd.cu", "ssd_scan.cu",
+                            "audit_mlp.cu", "rglru_scan.cu"):
             require(fn["spill_stores"] == 0 and fn["spill_loads"] == 0,
                     f"ptxas spills in {fn['function']}")
 
@@ -3474,14 +3499,19 @@ def main() -> int:
                  counts_l2["flash_attention_bwd"],
              "seamless-m4t-medium training, 2 steps (L3)": counts_l3[
                  "flash_attention_bwd"]},
-         "cuda_launches_per_call": 3,
+         "cuda_launches_per_call": flash_bwd[0]["cuda_launches_per_call"],
          "per": "one qwen2.5-3b layer's backward at (1, 4096): q "
                 "(1,4096,16,128), kv heads 2, causal, fp32",
          "shapes": [{k: r[k] for k in (
              "case", "shape", "fp64_err_kernel", "fp64_err_plain",
              "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "library_backend")} for r in flash_bwd],
+             "library_ms", "library_backend", "passes_us")}
+             for r in flash_bwd],
          "training_step_device_ms": row_l1["profile"]["flash_backward_ms"],
+         "training_step_share": {
+             "L1": row_l1["profile"]["shares"]["flash_backward"],
+             "L2": row_l2["profiled_step"]["flash_backward_share"],
+             "L3": row_l3["profiled_step"]["flash_backward_share"]},
          "max_abs_err": max(r["max_abs_err"] for r in flash_bwd),
          "ms": flash_bwd[0]["kernel_ms"], "plain_ms": flash_bwd[0][
              "plain_ms"], "bound_ms": flash_bwd[0]["bound_ms"],

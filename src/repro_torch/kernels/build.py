@@ -119,7 +119,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         + [F, F, P]
     fn.restype = I
     fn = lib.flash_attention_bwd
-    fn.argtypes = [P] * 10 + [I] * 9 + [F, F, P]
+    fn.argtypes = [P] * 13 + [I] * 9 + [F, F, P]
     fn.restype = I
     fn = lib.rglru_scan_f32
     fn.argtypes = [P] * 5 + [I] * 4 + [P]

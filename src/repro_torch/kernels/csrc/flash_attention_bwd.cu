@@ -2,9 +2,9 @@
 // softmax forward in flash_attention.cu, on the tensor cores (3xTF32).
 //
 // Replaces: the gradient the JAX package takes by differentiating
-// src/repro/models/layers.py::blockwise_attention (its jnp online softmax
+// src/repro/models/layers.py:48 blockwise_attention (its jnp online softmax
 // under jax.checkpoint), the training path's twin of the Pallas TPU kernel
-// src/repro/kernels/flash_attention.py::flash_attention.  Same contract as
+// src/repro/kernels/flash_attention.py:64 flash_attention.  Same contract as
 // the forward: causal and sliding-window masks on absolute positions
 // (query row i at q_offset + i), GQA (query head h reads kv head h / G, so
 // dk and dv sum the G heads of a group), the tanh logit softcap (one
@@ -21,55 +21,123 @@
 // weight 1/Sk in the forward: it gives dv that weight and, its scores
 // being constants, q and k no gradient (kernels/ref.py::attention_bwd_ref).
 //
-// What bounds it on the H100: five products of the forward's size (S and dP
-// recomputed, dV, dK, dQ), 10*B*H*D flops per unmasked (q, k) pair, against
-// q, k, v, o, dO and the three gradients read or written once: bound by
-// operations (at qwen2.5-3b's layer, 172 GFLOP against 109 MB).
+// What bounds it on the H100: operations.  The function is five products
+// of the forward's size (S, dP, dV, dK, dQ), 10*B*H*D flops per unmasked
+// (q, k) pair, against q, k, v, o, dO and the three gradients read or
+// written once; at 3xTF32's 165 TFLOP/s (three TF32 products a fp32 one)
+// the qwen2.5-3b layer's 172 GFLOP take 1.04 ms, its 109 MB 0.03 ms.  This
+// design computes those five products and no more.
 //
-// Design (FlashAttention-2's backward, kept simple): three launches.
-// 1. flash_bwd_delta_kernel: Delta = rowsum(dO o), one warp a row.
-// 2. flash_bwd_dkdv_kernel: one block of 4 warps per (64-key tile, b, kv
-//    head, 64-column slice of dk/dv); each warp owns 16 keys and keeps its
-//    dK and dV slices in registers while it walks the group's G query
-//    heads and their 32-row query tiles in the mask's range, in order:
-//    S^T = K Q^T and dP^T = V dO^T over the whole head dim, P and dS in
-//    registers, then dV += P^T dO and dK += dS^T Q on the slice.  K and V
-//    stay in shared memory; Q and dO tiles are staged by cp.async.  At
-//    D > 64 the column slices recompute S and dP (D / 64 times): the price
-//    of keeping the accumulators in registers without spilling.
-// 3. flash_bwd_dq_kernel: one block per (b, query head, 64-row query tile,
-//    128-column slice of dq), the forward's shape: key tiles in the mask's
-//    range, S and dP again, dQ += dS K in registers (at D = 256 the two
-//    slices recompute S and dP).
-// Each tile's products are accumulated in a zeroed register tile and then
-// added to the running sum with one fp32 add, as moe_gemm.cu does: the
-// tensor cores' own accumulation truncates, and run over the thousands of
-// queries or keys of a long sequence it drifts (at a qwen2.5-3b layer dk
-// came out 16 times further from float64 than the plain version's); over
-// one tile it does not.  S and dP take the same care per 8-column step.
-// Products are m16n8k8 TF32 mma.sync in 3xTF32 (tf32x3.cuh); P passes from
-// the accumulator layout to the A operand with no shuffle, as in the
-// forward (the A fragment's columns t and t+4 are keys 2t and 2t+1, and the
-// B rows are read in that order).  Shared-memory rows are padded by 4
-// floats, so every fragment load of a warp hits 32 banks.
-// Determinism: every output element is owned by one thread of one block,
-// which sums its terms in a fixed order; no atomics, so two launches on the
-// same inputs give the same bits.
+// Design: two launches (three when G > 1).
+// 1. flash_bwd_delta_kernel: Delta = rowsum(dO o), one warp a row; it also
+//    zeroes dq and the semaphores of pass 2.
+// 2. flash_bwd_dkdv_kernel: one block per (key tile of BK keys, b, query
+//    head), so every query head has blocks of its own (1,024 at the qwen
+//    layer, 1,280 at recurrentgemma-2b's).  The block walks the 32-row
+//    query tiles its keys meet under the mask (and the rows with no valid
+//    key).  For each it computes S^T = K Q^T and dP^T = V dO^T once over
+//    the whole head dim, warp (wk, wd) taking keys 16 wk .. 16 wk + 15 and
+//    a 1/WD share of the queries; P and dS stay in the warp's registers
+//    (WD = 1) or pass through shared memory, split into TF32 hi and lo
+//    once, in the A-fragment order the next products read; warp (wk, wd)
+//    then adds P^T dO and dS^T Q to dV and dK for its 16 keys and a 1/WD
+//    share of the head dim (64 columns or fewer, so the accumulators stay
+//    in registers at every D, and no column slice of dK and dV recomputes
+//    S and dP).  dS also goes to shared memory query-major, and the block
+//    computes the tile's dQ = dS K over its keys and adds it to dq: dQ
+//    needs no pass of its own, which would compute S and dP a second time
+//    (seven products of the forward's size instead of five; timed on the
+//    card, the separate pass was slower at every shape but D = 256, where
+//    the two were within 3%).  With G > 1 each head writes its
+//    dK and dV to a float32 scratch (B, Sk, H, D).
+// 3. flash_bwd_headsum_kernel (G > 1): dk and dv are the sum of a group's
+//    G partials in head order.
+// Blocks are ordered longest first: the grid walks key tiles from the one
+// that meets the most query tiles under the mask (the first under a causal
+// mask, the last under a window alone), so short blocks fill the last
+// wave.  The block walks its query tiles downward (upward under a window
+// alone): with that, the block before it in the grid's order reaches each
+// query tile at the same step or before, so waiting for its turn at dq
+// costs about one tile's add, not a tile's products.
+// Copies overlap the products: the streamed tiles (Q, dO, lse, Delta) go
+// through a ring of two shared-memory stages by cp.async: once tile n has
+// landed (cp.async.wait_group 0 and a barrier, which also says every warp
+// is done with tile n - 1's stage), tile n + 1's copy is issued into the
+// other stage and runs under tile n's products.  K and V stay resident.
+// Shared memory per block and blocks an SM (warps: WK x WD):
+//   D 64: 75,264 bytes, 2 of 4 warps; D 128: 173,568, 1 of 8;
+//   D 256: 218,624, 1 of 8 (BK = 32 keys).
+// Tiles sit in shared memory unpadded and swizzled (row r's 16-byte chunks
+// XOR a function of r mod 8), so both ways the products read them, a row's
+// 16-byte chunks along d (S, dP) and a 16-byte chunk of columns of rows
+// 2t, 2t + 1 (dV, dK, dQ), hit every bank once per phase.  The 3xTF32 split
+// (tf32x3.cuh) of P and dS is done once, by the thread that computed them
+// (dQ's A fragments of dS are split as they are read); the streamed
+// operands are split in registers, and each split value is reused across
+// the fragment's n-tiles.
+//
+// Order of every sum (fixed, so two launches give the same bits; no
+// atomic operation anywhere):
+// - S and dP: each 8-column step of d goes to a zeroed fragment and is
+//   added to the running sum with one rounded fp32 add, in d order (at
+//   D = 256 a peaked softmax turned S's truncated tensor-core sum into dq
+//   errors 10 times the plain version's);
+// - dK and dV per head: each query tile's product goes to a zeroed
+//   fragment (the tensor cores' own accumulation truncates, and over the
+//   thousands of queries of a long sequence dk drifted 16 times further
+//   from float64 than the plain version did) and is added to the running
+//   sum with one rounded add, in the block's walk order;
+// - dq: each (query tile, key tile)'s dS K goes to a zeroed fragment and is
+//   added to dq with one rounded add, key tiles in the grid's order: a
+//   semaphore per (b, head, query tile) holds the rank + 1 of the last
+//   block that added, and a block waits for the one before it (the key
+//   tiles that meet a query tile are consecutive ranks), as
+//   FlashAttention-3's deterministic backward does.  Blocks are issued in
+//   rank order, so the one waited for is running or done; a wait that
+//   never ends traps (a launch error) instead of hanging the card;
+// - dk, dv under GQA: the G heads' sums added in head order (h = kh G + 0,
+//   1, ...), in pass 3.
+// Products are m16n8k8 TF32 mma.sync in 3xTF32; P and dS pass to the A
+// operand with the fragment's column t taken as query (or key) 2t and t+4
+// as 2t+1, and the B rows are read in that order.
 #include "tf32x3.cuh"
 
 namespace {
 
-using tc::mma_3xtf32;
+using tc::mma_tf32;
 using tc::split;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kPad = 4;              // floats of row padding
-constexpr int kKeys = 16 * kWarps;   // dk/dv kernel: keys per block
-constexpr int kQT = 32;              // dk/dv kernel: query rows per step
-constexpr int kRows = 16 * kWarps;   // dq kernel: query rows per block
-constexpr int kSlice = 64;           // dk/dv columns per block
-constexpr int kQSlice = 128;         // dq columns per block
+constexpr int kSmemPerSM = 233472;      // 228 KB, 1 KB of it per block
+
+// ------------------------------------------------------------ tiles
+constexpr int kBQ = 32;                 // query rows a step of the pass
+
+template <int D>
+struct Cfg {
+  static constexpr int DP = (D + 31) / 32 * 32;  // shared-memory row width
+  // WK x WD warps, BK keys a block
+  static constexpr int WK = D == 256 ? 2 : 4;
+  static constexpr int WD = D == 256 ? 4 : D == 128 ? 2 : 1;
+  static constexpr int BK = 16 * WK;
+  static constexpr int BQ = kBQ;
+  static constexpr int NW = WK * WD;
+  static constexpr int kThreads = 32 * NW;
+  // dQ of a step: warp w takes query rows 16 (w % 2) .. and the column
+  // group w / 2 of NGQ (the warps past them sit out)
+  static constexpr int NGQ = NW / 2 < DP / 32 ? NW / 2 : DP / 32;
+  static constexpr int LDM = BK + 8;    // dS's row stride, keys
+  static_assert(BQ % (8 * WD) == 0 && DP % (32 * WD) == 0, "dK/dV split");
+  static_assert(BQ == 32, "dQ's two m-tiles");
+
+  // shared memory (bytes): K and V, the two ring stages, P and dS as split
+  // A fragments when the warps split the head dim, dS query-major for dQ
+  static constexpr int kSmem = (2 * BK * DP + 2 * (2 * BQ * DP + 2 * BQ) +
+                                (WD > 1 ? 4 * BK * BQ : 0) + BQ * LDM) * 4;
+  // blocks an SM holds by shared memory, at most two (at three ptxas
+  // caps the registers at 168 a thread, and D 64 spills)
+  static constexpr int kMinBlocks =
+      kSmemPerSM / (kSmem + 1024) < 2 ? kSmemPerSM / (kSmem + 1024) : 2;
+};
 
 struct Params {
   const float* q;     // (B, Sq, H, D), contiguous
@@ -82,23 +150,293 @@ struct Params {
   float* dq;
   float* dk;
   float* dv;
+  float* dk_part;     // (B, Sk, H, D) scratch when G > 1, else null
+  float* dv_part;
+  int* sem;           // (B, H, ceil(Sq / 32)) scratch: dQ's turn
   int B, Sq, Sk, H, KH;
   int causal, window, q_offset;
   int vec;
   float scale, softcap;
 };
 
-template <int D>
-__host__ __device__ constexpr int key_tile() {   // dq kernel's key tiles
-  return D == 256 ? 16 : D == 128 ? 32 : 64;
+// The swizzle of a tile with rows DP floats wide: row r's columns XOR
+// ((r & 1) << 4) ^ ((r & 6) << 2), which moves 16-byte chunks whole inside
+// their 32-column block.  Eight consecutive lanes then read eight
+// different 4-bank groups both when they take a 16-byte chunk along d of
+// rows g, g+1 (chunks t = 0..3) and when they take chunk g of rows 2t and
+// 2t + 1 (t = 0..3).
+__device__ __forceinline__ int swz_bits(int r) {
+  return ((r & 1) << 4) ^ ((r & 6) << 2);
 }
-template <int D>
-__host__ __device__ constexpr int slice() {      // dk/dv columns a block
-  return D < kSlice ? D : kSlice;
+template <int DP>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * DP + (c ^ swz_bits(r));
 }
-template <int D>
-__host__ __device__ constexpr int qslice() {     // dq columns a block
-  return D < kQSlice ? D : kQSlice;
+
+// Stage rows x DP floats of global memory (row stride ld; rows >= nr or
+// columns >= nc read 0) into a swizzled tile, with threads tid of n.  vec:
+// 16-byte copies (aligned rows); otherwise 4-byte ones.  The caller
+// commits and waits.
+template <int DP>
+__device__ __forceinline__ void stage(float* dst, const float* src,
+                                      long long ld, int rows, int nr, int nc,
+                                      bool vec, int tid, int n) {
+  if (vec) {
+    constexpr int cpr = DP / 4;
+    for (int c = tid; c < rows * cpr; c += n) {
+      const int r = c / cpr, cc = (c % cpr) * 4;
+      const bool in = r < nr && cc < nc;
+      tc::cp_async16(dst + swz<DP>(r, cc), in ? src + r * ld + cc : src,
+                     in ? 16 : 0);
+    }
+  } else {
+    for (int c = tid; c < rows * DP; c += n) {
+      const int r = c / DP, cc = c % DP;
+      const bool in = r < nr && cc < nc;
+      tc::cp_async4(dst + swz<DP>(r, cc), in ? src + r * ld + cc : src,
+                    in ? 4 : 0);
+    }
+  }
+}
+
+// d = a * b in 3xTF32 from a zeroed accumulator: the two small terms
+// first, then hi * hi
+__device__ __forceinline__ void mma_3xtf32_z(float (&d)[4],
+                                             const uint32_t (&ah)[4],
+                                             const uint32_t (&al)[4],
+                                             const uint32_t (&bh)[2],
+                                             const uint32_t (&bl)[2]) {
+  tc::mma_tf32_z(d, al, bh);
+  mma_tf32(d, ah, bl);
+  mma_tf32(d, ah, bh);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// 16 columns of d of S (or dP) for the warp's NT n-tiles: the A fragments
+// of the two 8-steps (hi and lo) against Y's rows yr + 8j DP at column
+// col, d taken in the order of the 16-byte loads (thread t's k columns t
+// and t+4 are d = 4t and 4t+1 in the first 8-step, 4t+2 and 4t+3 in the
+// second).  Each 8-step goes to a zeroed fragment and is added to acc with
+// one rounded add.
+template <int DP, int NT>
+__device__ __forceinline__ void s_step(float (&acc)[NT][4],
+                                       const uint32_t (&ah0)[4],
+                                       const uint32_t (&al0)[4],
+                                       const uint32_t (&ah1)[4],
+                                       const uint32_t (&al1)[4],
+                                       const float* yr, int col) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const float4 kb = ld4(yr + 8 * j * DP + col);
+    uint32_t bh[2], bl[2];
+    float part[4];
+    split(kb.x, bh[0], bl[0]);
+    split(kb.y, bh[1], bl[1]);
+    mma_3xtf32_z(part, ah0, al0, bh, bl);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[j][r] = __fadd_rn(acc[j][r], part[r]);
+    split(kb.z, bh[0], bl[0]);
+    split(kb.w, bh[1], bl[1]);
+    mma_3xtf32_z(part, ah1, al1, bh, bl);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[j][r] = __fadd_rn(acc[j][r], part[r]);
+  }
+}
+
+// acc[j] (16 x 8) += X (rows x0 + g, x0 + g + 8) . Y^T (rows y0 + 8j + g),
+// over the DP columns of two swizzled tiles (x0, y0 multiples of 8)
+template <int DP, int NT>
+__device__ __forceinline__ void rows_dot(float (&acc)[NT][4], const float* X,
+                                         int x0, const float* Y, int y0,
+                                         int g, int t) {
+  const int c = (4 * t) ^ swz_bits(g);    // every row read is g mod 8
+  const float* xa = X + (x0 + g) * DP;
+  const float* xb = xa + 8 * DP;
+  const float* yr = Y + (y0 + g) * DP;
+#pragma unroll 1
+  for (int k32 = 0; k32 < DP; k32 += 32) {
+#pragma unroll
+    for (int h = 0; h < 32; h += 16) {
+      const int col = k32 + (c ^ h);
+      const float4 qa = ld4(xa + col), qb = ld4(xb + col);
+      uint32_t ah0[4], al0[4], ah1[4], al1[4];
+      split(qa.x, ah0[0], al0[0]);
+      split(qb.x, ah0[1], al0[1]);
+      split(qa.y, ah0[2], al0[2]);
+      split(qb.y, ah0[3], al0[3]);
+      split(qa.z, ah1[0], al1[0]);
+      split(qb.z, ah1[1], al1[1]);
+      split(qa.w, ah1[2], al1[2]);
+      split(qb.w, ah1[3], al1[3]);
+      s_step<DP, NT>(acc, ah0, al0, ah1, al1, yr, col);
+    }
+  }
+}
+
+// A fragments of P (or dS) from a warp's accumulators (rows g, g+8;
+// columns 2t, 2t+1 of n-tile j), split into hi and lo: k-step j, with the
+// fragment's column t taken as column 2t and t+4 as 2t+1 (a0 (g, 2t),
+// a1 (g+8, 2t), a2 (g, 2t+1), a3 (g+8, 2t+1))
+template <int NT>
+__device__ __forceinline__ void split_frags(uint32_t (&ah)[NT][4],
+                                            uint32_t (&al)[NT][4],
+                                            const float (&x)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    split(x[j][0], ah[j][0], al[j][0]);
+    split(x[j][2], ah[j][1], al[j][1]);
+    split(x[j][1], ah[j][2], al[j][2]);
+    split(x[j][3], ah[j][3], al[j][3]);
+  }
+}
+
+// Those fragments to shared memory, for the warps that split the head dim:
+// fragment J0 + j of the m-tile, lane by lane, {hi, lo} as two 16-byte
+// words
+template <int NT>
+__device__ __forceinline__ void store_frags(uint4* F, const float (&x)[NT][4],
+                                            int J0, int lane) {
+  uint32_t ah[NT][4], al[NT][4];
+  split_frags<NT>(ah, al, x);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    F[((J0 + j) * 32 + lane) * 2] = make_uint4(ah[j][0], ah[j][1], ah[j][2],
+                                               ah[j][3]);
+    F[((J0 + j) * 32 + lane) * 2 + 1] = make_uint4(al[j][0], al[j][1],
+                                                   al[j][2], al[j][3]);
+  }
+}
+
+template <int KS>
+__device__ __forceinline__ void load_frags(uint32_t (&ah)[KS][4],
+                                           uint32_t (&al)[KS][4],
+                                           const uint4* F, int lane) {
+#pragma unroll
+  for (int J = 0; J < KS; ++J) {
+    const uint4 h = F[(J * 32 + lane) * 2], l = F[(J * 32 + lane) * 2 + 1];
+    ah[J][0] = h.x; ah[J][1] = h.y; ah[J][2] = h.z; ah[J][3] = h.w;
+    al[J][0] = l.x; al[J][1] = l.y; al[J][2] = l.z; al[J][3] = l.w;
+  }
+}
+
+// acc (16 rows x NC n-tiles) += A (16 x 8 KS) . Y (rows 0 .. 8 KS - 1 of a
+// swizzled tile, columns col0 ..); a(J, hi, lo) gives k-step J's split A
+// fragment.  The n-tiles are taken four at a time: n-tile 4 cb + u holds
+// columns col0 + 32 cb + 4 n + u (n = 0 .. 7), so one 16-byte load of a
+// row brings a B value for each of the four.  B rows: k column t is row
+// 2t, t+4 row 2t+1 of each 8-row step (the order of the A fragments).  The
+// whole product (every k-step) goes to a zeroed fragment, added to acc
+// once.
+template <int DP, int NC, int KS, class AFrag>
+__device__ __forceinline__ void frag_dot(float (&acc)[NC][4], AFrag a,
+                                         const float* Y, int col0, int g,
+                                         int t) {
+  const float* y0 = Y + swz<DP>(2 * t, col0 + 4 * g);
+  const float* y1 = Y + swz<DP>(2 * t + 1, col0 + 4 * g);
+#pragma unroll
+  for (int cb = 0; cb < NC / 4; ++cb) {
+    float part[4][4];
+#pragma unroll
+    for (int J = 0; J < KS; ++J) {
+      uint32_t ah[4], al[4];
+      a(J, ah, al);
+      const float4 b0 = ld4(y0 + 8 * J * DP + 32 * cb);
+      const float4 b1 = ld4(y1 + 8 * J * DP + 32 * cb);
+      const float v0[4] = {b0.x, b0.y, b0.z, b0.w};
+      const float v1[4] = {b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        uint32_t bh[2], bl[2];
+        split(v0[u], bh[0], bl[0]);
+        split(v1[u], bh[1], bl[1]);
+        if (J == 0) {
+          mma_3xtf32_z(part[u], ah, al, bh, bl);
+        } else {
+          mma_tf32(part[u], al, bh);
+          mma_tf32(part[u], ah, bl);
+          mma_tf32(part[u], ah, bh);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        acc[4 * cb + u][r] = __fadd_rn(acc[4 * cb + u][r], part[u][r]);
+  }
+}
+
+// Write a warp's accumulators (rows row_g, row_g + 8 of dst, each a
+// pointer or null past the end; columns as frag_dot lays them out), the
+// columns below D
+template <int NC>
+__device__ __forceinline__ void store_rows(float* row_g, float* row_g8,
+                                           const float (&acc)[NC][4],
+                                           int col0, int t, int D) {
+#pragma unroll
+  for (int cb = 0; cb < NC / 4; ++cb) {
+    const int col = col0 + 32 * cb + 8 * t;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if (col + 4 * half >= D) continue;
+      if (row_g)
+        *reinterpret_cast<float4*>(row_g + col + 4 * half) = make_float4(
+            acc[4 * cb][half], acc[4 * cb + 1][half], acc[4 * cb + 2][half],
+            acc[4 * cb + 3][half]);
+      if (row_g8)
+        *reinterpret_cast<float4*>(row_g8 + col + 4 * half) = make_float4(
+            acc[4 * cb][2 + half], acc[4 * cb + 1][2 + half],
+            acc[4 * cb + 2][2 + half], acc[4 * cb + 3][2 + half]);
+    }
+  }
+}
+
+// The same rows and columns added to dst's values: read and written
+// through L2, which the block before in the order wrote them to
+template <int NC>
+__device__ __forceinline__ void add_rows(float* row_g, float* row_g8,
+                                         const float (&acc)[NC][4],
+                                         int col0, int t, int D) {
+#pragma unroll
+  for (int cb = 0; cb < NC / 4; ++cb) {
+    const int col = col0 + 32 * cb + 8 * t;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if (col + 4 * half >= D) continue;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float* row = e ? row_g8 : row_g;
+        if (!row) continue;
+        float4* d = reinterpret_cast<float4*>(row + col + 4 * half);
+        float4 x = __ldcg(d);
+        x.x = __fadd_rn(x.x, acc[4 * cb][2 * e + half]);
+        x.y = __fadd_rn(x.y, acc[4 * cb + 1][2 * e + half]);
+        x.z = __fadd_rn(x.z, acc[4 * cb + 2][2 * e + half]);
+        x.w = __fadd_rn(x.w, acc[4 * cb + 3][2 * e + half]);
+        __stcg(d, x);
+      }
+    }
+  }
+}
+
+// dQ's turn for a query tile: wait until the block before in the order
+// has added (the semaphore holds its rank + 1); a wait that never ends
+// stops the kernel with an error rather than hanging the card
+__device__ __forceinline__ void sem_wait(const int* sem, int v) {
+  long long spins = 0;
+  while (*reinterpret_cast<const volatile int*>(sem) != v) {
+    __nanosleep(64);
+    if (++spins > (1LL << 26)) __trap();
+  }
+  __threadfence();
+}
+
+__device__ __forceinline__ void sem_post(int* sem, int v) {
+  __threadfence();
+  *reinterpret_cast<volatile int*>(sem) = v;
 }
 
 template <int N>
@@ -107,16 +445,6 @@ __device__ __forceinline__ void zero(float (&a)[N][4]) {
   for (int j = 0; j < N; ++j)
 #pragma unroll
     for (int r = 0; r < 4; ++r) a[j][r] = 0.f;
-}
-
-// acc += t, one rounded fp32 add an element
-template <int N>
-__device__ __forceinline__ void add(float (&acc)[N][4],
-                                    const float (&t)[N][4]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) acc[j][r] = __fadd_rn(acc[j][r], t[j][r]);
 }
 
 // does the query at absolute position qpos have a valid key at all?
@@ -131,80 +459,22 @@ __device__ __forceinline__ bool keep(int qpos, int kpos, const Params& p) {
          (!p.window || kpos > qpos - p.window);
 }
 
-// acc (16 x N) += X (16 rows) . Y^T (Y: N rows), over D columns, rows
-// D + kPad apart: a0 (g, t) a1 (g+8, t) a2 (g, t+4) a3 (g+8, t+4) from X,
-// b0 (t, n g) b1 (t+4, n g) from Y's row 8j+g.  Each 8-column step goes
-// to a zeroed fragment, added to acc with one rounded fp32 add: S and dP
-// feed exp(), and at D = 256 a peaked softmax turned S's truncated
-// tensor-core sum into dq errors 10 times the plain version's (the card
-// tests' windowed cases)
-template <int D, int N>
-__device__ __forceinline__ void rows_dot(float (&acc)[N / 8][4],
-                                         const float* X, const float* Y,
-                                         int g, int t) {
-  constexpr int L = D + kPad;
-#pragma unroll 2
-  for (int kk = 0; kk < D; kk += 8) {
-    uint32_t ah[4], al[4];
-    split(X[g * L + kk + t], ah[0], al[0]);
-    split(X[(g + 8) * L + kk + t], ah[1], al[1]);
-    split(X[g * L + kk + t + 4], ah[2], al[2]);
-    split(X[(g + 8) * L + kk + t + 4], ah[3], al[3]);
-#pragma unroll
-    for (int j = 0; j < N / 8; ++j) {
-      uint32_t bh[2], bl[2];
-      split(Y[(8 * j + g) * L + kk + t], bh[0], bl[0]);
-      split(Y[(8 * j + g) * L + kk + t + 4], bh[1], bl[1]);
-      float part[4] = {0.f, 0.f, 0.f, 0.f};
-      mma_3xtf32(part, ah, al, bh, bl);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[j][r] = __fadd_rn(acc[j][r], part[r]);
-    }
-  }
+// Is every (query, key) pair of the tile inside the tensors and the mask
+// (then no row of it lacks a valid key)?
+__device__ __forceinline__ bool tile_inside(int i0, int ni, int k0, int nk,
+                                            const Params& p) {
+  const int qfirst = p.q_offset + i0, qlast = qfirst + ni - 1;
+  return i0 + ni <= p.Sq && k0 + nk <= p.Sk &&
+         (!p.causal || k0 + nk - 1 <= qfirst) &&
+         (!p.window || k0 > qlast - p.window);
 }
 
-// acc (16 x N) += P (16 x K, accumulator layout in registers) . Y (K rows,
-// LY apart, N columns from Y): the A fragment's column t is key 2t and t+4
-// key 2t+1 of each 8-key step, so Y's rows are read in that order
-template <int N, int K, int LY>
-__device__ __forceinline__ void p_dot(float (&acc)[N / 8][4],
-                                      const float (&pm)[K / 8][4],
-                                      const float* Y, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < K / 8; ++kk) {
-    uint32_t ah[4], al[4];
-    split(pm[kk][0], ah[0], al[0]);    // (row g,   key 2t)
-    split(pm[kk][2], ah[1], al[1]);    // (row g+8, key 2t)
-    split(pm[kk][1], ah[2], al[2]);    // (row g,   key 2t+1)
-    split(pm[kk][3], ah[3], al[3]);    // (row g+8, key 2t+1)
-    const float* y = Y + (8 * kk + 2 * t) * LY + g;
-#pragma unroll
-    for (int j = 0; j < N / 8; ++j) {
-      uint32_t bh[2], bl[2];
-      split(y[8 * j], bh[0], bl[0]);
-      split(y[LY + 8 * j], bh[1], bl[1]);
-      mma_3xtf32(acc[j], ah, al, bh, bl);
-    }
-  }
-}
-
-// The score's softmax weight and the gradient of the raw product q . k for
-// one (query, key) pair, from S's accumulator s and dP's dp.
-__device__ __forceinline__ void weight_and_grad(float s, float dp, int qpos,
-                                                int kpos, float lse,
-                                                float delta, bool dead,
-                                                const Params& p, float& P,
-                                                float& dS) {
-  if (dead) {                       // no valid key: uniform, constant
-    P = 1.f / (float)p.Sk;
-    dS = 0.f;
-    return;
-  }
-  if (!keep(qpos, kpos, p)) {
-    P = 0.f;
-    dS = 0.f;
-    return;
-  }
+// The softmax weight and the gradient of the raw product q . k for a pair
+// inside the mask, from S's accumulator s and dP's dp
+__device__ __forceinline__ void weight_and_grad_in(float s, float dp,
+                                                   float lse, float delta,
+                                                   const Params& p, float& P,
+                                                   float& dS) {
   const float raw = s * p.scale;
   float sc = raw, th = 0.f;
   if (p.softcap > 0.f) {
@@ -217,10 +487,31 @@ __device__ __forceinline__ void weight_and_grad(float s, float dp, int qpos,
   dS = d * p.scale;
 }
 
+// The same for any pair: off the mask P = dS = 0; a row with no valid key
+// weighs every key 1/Sk and has no gradient
+__device__ __forceinline__ void weight_and_grad(float s, float dp, int qpos,
+                                                int kpos, float lse,
+                                                float delta, bool dead,
+                                                const Params& p, float& P,
+                                                float& dS) {
+  if (dead) {
+    P = 1.f / (float)p.Sk;
+    dS = 0.f;
+  } else if (!keep(qpos, kpos, p)) {
+    P = 0.f;
+    dS = 0.f;
+  } else {
+    weight_and_grad_in(s, dp, lse, delta, p, P, dS);
+  }
+}
+
 // ------------------------------------------------------------ Delta
-__global__ void __launch_bounds__(kThreads)
+// Delta = rowsum(dO o); dq and the semaphores zeroed for the pass's sums
+constexpr int kDeltaWarps = 4;
+
+__global__ void __launch_bounds__(32 * kDeltaWarps)
 flash_bwd_delta_kernel(Params p, int D) {
-  const long long row = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
+  const long long row = (long long)blockIdx.x * kDeltaWarps + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= (long long)p.B * p.Sq * p.H) return;
   const float* o = p.o + row * D;
@@ -230,297 +521,315 @@ flash_bwd_delta_kernel(Params p, int D) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  for (int c = lane; c < D; c += 32) p.dq[row * D + c] = 0.f;
   if (lane == 0) {                  // row = (b * Sq + i) * H + h
     const int h = row % p.H;
     const long long bi = row / p.H;
     const int i = bi % p.Sq, b = bi / p.Sq;
     p.delta[((long long)b * p.H + h) * p.Sq + i] = acc;
+    if (i % kBQ == 0)
+      p.sem[((long long)b * p.H + h) * ((p.Sq + kBQ - 1) / kBQ) + i / kBQ] =
+          0;
   }
 }
 
-// ------------------------------------------------------------ dK, dV
-template <int D>
-__host__ __device__ constexpr int dkdv_smem() {
-  return ((2 * kKeys + 2 * kQT) * (D + kPad) + 2 * kQT) * 4;
-}
+// ------------------------------------------------------------ dK, dV, dQ
+// The query tiles a key tile kt meets: the mask's range [qa, qa + nA),
+// and the tiles from qd on, whose rows lack any valid key (only under a
+// window); n of them in all.  They are walked downward (upward under a
+// window without the causal mask): then the block before in dQ's order
+// reaches each query tile at the same step or before.
+struct QTiles {
+  int qa, nA, qd, n;
+  bool up;
+  __device__ int tile(int i) const {
+    if (!up) i = n - 1 - i;
+    return i < nA ? qa + i : qd + i - nA;
+  }
+  __device__ bool meets(int qt) const {
+    return (qt >= qa && qt < qa + nA) || qt >= qd;
+  }
+};
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(Params p) {
-  constexpr int L = D + kPad;
-  constexpr int DC = slice<D>();
-  constexpr int NQ = kQT / 8;          // S^T n-tiles (8 queries each)
-  constexpr int NC = DC / 8;           // dK, dV n-tiles per warp
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Ks = reinterpret_cast<float*>(smem_raw);   // [kKeys][L]
-  float* Vs = Ks + kKeys * L;                       // [kKeys][L]
-  float* Qs = Vs + kKeys * L;                       // [kQT][L]
-  float* Ds = Qs + kQT * L;                         // dO [kQT][L]
-  float* lse_s = Ds + kQT * L;                      // [kQT]
-  float* del_s = lse_s + kQT;                       // [kQT]
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int k0 = blockIdx.x * kKeys;
-  const int b = blockIdx.y / p.KH, kh = blockIdx.y % p.KH;
-  const int c0 = blockIdx.z * DC;
-  const int G = p.H / p.KH;
-  const bool vec = p.vec != 0;
-  const long long kstride = (long long)p.KH * D;
-  const long long qstride = (long long)p.H * D;
-  const float* kg = p.k + ((long long)b * p.Sk + k0) * kstride + kh * D;
-  const float* vg = p.v + ((long long)b * p.Sk + k0) * kstride + kh * D;
-  tc::stage_tile(Ks, L, kg, kstride, kKeys, D, p.Sk - k0, D, vec, tid,
-                 kThreads);
-  tc::stage_tile(Vs, L, vg, kstride, kKeys, D, p.Sk - k0, D, vec, tid,
-                 kThreads);
-  tc::cp_async_commit();
-
-  // query rows this key tile can touch: the mask's range, and the rows
-  // with no valid key at all (a suffix, only under a window)
-  const int klast = min(k0 + kKeys, p.Sk) - 1;
+__device__ __forceinline__ QTiles q_tiles(int kt, int BK, const Params& p) {
+  const int k0 = kt * BK;
+  const int nqt = (p.Sq + kBQ - 1) / kBQ;
+  const int klast = min(k0 + BK, p.Sk) - 1;
   const int i_lo = p.causal ? max(0, k0 - p.q_offset) : 0;
   const int i_hi = p.window ? min(p.Sq, klast + p.window - p.q_offset)
                             : p.Sq;
   const int i_dead = p.window ? max(0, p.Sk + p.window - 1 - p.q_offset)
                               : p.Sq;
-
-  float dk[NC][4], dv[NC][4];
-#pragma unroll
-  for (int j = 0; j < NC; ++j)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) dk[j][r] = dv[j][r] = 0.f;
-
-  const int nqt = (p.Sq + kQT - 1) / kQT;
-  for (int hg = 0; hg < G; ++hg) {
-    const int h = kh * G + hg;
-    for (int qt = 0; qt < nqt; ++qt) {
-      const int i0 = qt * kQT;
-      const bool in_mask = i0 < i_hi && i0 + kQT > i_lo;
-      const bool has_dead = i0 + kQT > i_dead;
-      if (!in_mask && !has_dead) continue;          // uniform in the block
-      __syncthreads();                // the last tile's Q, dO consumed
-      const long long qoff = ((long long)b * p.Sq + i0) * qstride + h * D;
-      tc::stage_tile(Qs, L, p.q + qoff, qstride, kQT, D, p.Sq - i0, D, vec,
-                     tid, kThreads);
-      tc::stage_tile(Ds, L, p.dout + qoff, qstride, kQT, D, p.Sq - i0, D,
-                     vec, tid, kThreads);
-      tc::cp_async_commit();
-      if (tid < kQT) {
-        const int i = i0 + tid;
-        const long long r = ((long long)b * p.H + h) * p.Sq + i;
-        lse_s[tid] = i < p.Sq ? p.lse[r] : 0.f;
-        del_s[tid] = i < p.Sq ? p.delta[r] : 0.f;
-      }
-      tc::cp_async_wait<0>();
-      __syncthreads();
-
-      float s[NQ][4], dp[NQ][4];
-#pragma unroll
-      for (int j = 0; j < NQ; ++j)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) s[j][r] = dp[j][r] = 0.f;
-      rows_dot<D, kQT>(s, Ks + 16 * warp * L, Qs, g, t);    // S^T
-      rows_dot<D, kQT>(dp, Vs + 16 * warp * L, Ds, g, t);   // dP^T
-
-#pragma unroll
-      for (int j = 0; j < NQ; ++j)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int kpos = k0 + 16 * warp + g + 8 * (r >> 1);
-          const int qc = 8 * j + 2 * t + (r & 1);
-          const int i = i0 + qc, qpos = p.q_offset + i;
-          float P = 0.f, dS = 0.f;
-          if (kpos < p.Sk && i < p.Sq)
-            weight_and_grad(s[j][r], dp[j][r], qpos, kpos, lse_s[qc],
-                            del_s[qc], !has_key(qpos, p), p, P, dS);
-          s[j][r] = P;
-          dp[j][r] = dS;
-        }
-      float part[NC][4];
-      zero(part);
-      p_dot<DC, kQT, L>(part, s, Ds + c0, g, t);    // dV += P^T dO
-      add(dv, part);
-      zero(part);
-      p_dot<DC, kQT, L>(part, dp, Qs + c0, g, t);   // dK += dS^T Q
-      add(dk, part);
-    }
-  }
-  tc::cp_async_wait<0>();             // K and V staged even with no tile
-
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int kpos = k0 + 16 * warp + g + 8 * hr;
-    if (kpos >= p.Sk) continue;
-    const long long off = ((long long)b * p.Sk + kpos) * kstride + kh * D +
-                          c0 + 2 * t;
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      p.dk[off + 8 * j] = dk[j][2 * hr];
-      p.dk[off + 8 * j + 1] = dk[j][2 * hr + 1];
-      p.dv[off + 8 * j] = dv[j][2 * hr];
-      p.dv[off + 8 * j + 1] = dv[j][2 * hr + 1];
-    }
-  }
-}
-
-// ------------------------------------------------------------ dQ
-template <int D>
-__host__ __device__ constexpr int dq_smem() {
-  return (2 * kRows + 2 * key_tile<D>()) * (D + kPad) * 4;
+  QTiles r;
+  r.qa = min(i_lo / kBQ, nqt);
+  r.nA = max(0, (i_hi + kBQ - 1) / kBQ - r.qa);
+  r.qd = i_dead < p.Sq ? max(i_dead / kBQ, r.qa + r.nA) : nqt;
+  r.n = r.nA + (nqt - r.qd);
+  r.up = !p.causal && p.window;
+  return r;
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(Params p) {
-  constexpr int L = D + kPad;
-  constexpr int BK = key_tile<D>();
-  constexpr int NS = BK / 8;
-  constexpr int DQ = qslice<D>();
-  constexpr int NO = DQ / 8;
+__global__ void __launch_bounds__(Cfg<D>::kThreads, Cfg<D>::kMinBlocks)
+flash_bwd_dkdv_kernel(Params p) {
+  using C = Cfg<D>;
+  constexpr int DP = C::DP, BK = C::BK, BQ = C::BQ, WD = C::WD;
+  constexpr int NQ = BQ / WD;          // queries of S^T a warp computes
+  constexpr int NT = NQ / 8;
+  constexpr int NC = DP / WD / 8;      // dK, dV n-tiles a warp owns
+  constexpr int KS = BQ / 8;
+  constexpr int NCQ = DP / C::NGQ / 8;  // dQ n-tiles a warp owns
+  constexpr int LDM = C::LDM;
+  constexpr int kStage = 2 * BQ * DP + 2 * BQ;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);   // [kRows][L]
-  float* Ds = Qs + kRows * L;                       // dO [kRows][L]
-  float* Ks = Ds + kRows * L;                       // [BK][L]
-  float* Vs = Ks + BK * L;                          // [BK][L]
+  float* Ks = reinterpret_cast<float*>(smem_raw);   // [BK][DP]
+  float* Vs = Ks + BK * DP;                         // [BK][DP]
+  float* ring = Vs + BK * DP;                       // 2 x {Q, dO, lse, Delta}
+  float* dSm = ring + 2 * kStage;                   // dS [BQ][LDM]
+  uint4* Pf = reinterpret_cast<uint4*>(dSm + BQ * LDM);
+  uint4* dSf = Pf + BK * BQ / 2;                    // (WD > 1)
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const int h = blockIdx.x % p.H, b = blockIdx.x / p.H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;   // last tiles first
-  const int kh = h / (p.H / p.KH);
-  const int c0 = blockIdx.z * DQ;
+  const int wk = warp / WD, wd = warp % WD;
+  const int mq = warp % 2, cg = warp / 2;           // dQ's share
+  const int BH = p.B * p.H;
+  const int nk = (p.Sk + BK - 1) / BK;
+  const int rank = blockIdx.x / BH;
+  // longest first: under a causal mask the first key tiles meet the most
+  // query tiles, under a window alone the last ones.  dQ's sums follow the
+  // same order.
+  const bool down = !p.causal && p.window;
+  const int kt = down ? nk - 1 - rank : rank;
+  const int b = (blockIdx.x % BH) / p.H, h = blockIdx.x % p.H;
+  const int G = p.H / p.KH, kh = h / G;
+  const int k0 = kt * BK;
   const bool vec = p.vec != 0;
   const long long kstride = (long long)p.KH * D;
   const long long qstride = (long long)p.H * D;
-  const long long qoff = ((long long)b * p.Sq + q0) * qstride + h * D;
-  tc::stage_tile(Qs, L, p.q + qoff, qstride, kRows, D, p.Sq - q0, D, vec,
-                 tid, kThreads);
-  tc::stage_tile(Ds, L, p.dout + qoff, qstride, kRows, D, p.Sq - q0, D, vec,
-                 tid, kThreads);
+  const long long koff = ((long long)b * p.Sk + k0) * kstride + kh * D;
+  stage<DP>(Ks, p.k + koff, kstride, BK, p.Sk - k0, D, vec, tid,
+            C::kThreads);
+  stage<DP>(Vs, p.v + koff, kstride, BK, p.Sk - k0, D, vec, tid,
+            C::kThreads);
+
+  const QTiles mine = q_tiles(kt, BK, p);
+  // the key tile before this one in dQ's order; the query tiles that meet
+  // a tile are a run of consecutive ranks, so if the one before meets a
+  // query tile it is the one to wait for
+  const QTiles prev = q_tiles(down ? kt + 1 : kt - 1, BK, p);
+  int* sem = p.sem + (long long)(b * p.H + h) * ((p.Sq + BQ - 1) / BQ);
+
+  auto load_tile = [&](int n) {
+    const int i0 = mine.tile(n) * BQ;
+    float* st = ring + (n & 1) * kStage;
+    const long long qoff = ((long long)b * p.Sq + i0) * qstride + h * D;
+    stage<DP>(st, p.q + qoff, qstride, BQ, p.Sq - i0, D, vec, tid,
+              C::kThreads);
+    stage<DP>(st + BQ * DP, p.dout + qoff, qstride, BQ, p.Sq - i0, D, vec,
+              tid, C::kThreads);
+    if (tid < BQ) {
+      const bool in = i0 + tid < p.Sq;
+      const long long r = ((long long)b * p.H + h) * p.Sq + i0 + tid;
+      tc::cp_async4(st + 2 * BQ * DP + tid, in ? p.lse + r : p.lse,
+                    in ? 4 : 0);
+      tc::cp_async4(st + 2 * BQ * DP + BQ + tid, in ? p.delta + r : p.delta,
+                    in ? 4 : 0);
+    }
+  };
+  if (mine.n > 0) load_tile(0);
   tc::cp_async_commit();
 
-  // this thread's two rows: their lse, Delta and whether any key is valid
-  float lse[2], del[2];
-  bool dead[2];
-  const int row0 = q0 + 16 * warp + g;
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int i = row0 + 8 * hr;
-    const long long r = ((long long)b * p.H + h) * p.Sq + i;
-    lse[hr] = i < p.Sq ? p.lse[r] : 0.f;
-    del[hr] = i < p.Sq ? p.delta[r] : 0.f;
-    dead[hr] = !has_key(p.q_offset + i, p);
-  }
-
-  // key tiles with a valid key for some row of the tile (a row with none
-  // has no dq)
-  const int nk = (p.Sk + BK - 1) / BK;
-  const int qlo = p.q_offset + q0;
-  const int qhi = p.q_offset + min(q0 + kRows, p.Sq) - 1;
-  const int kt_lo = p.window ? min(nk, max(0, qlo - p.window + 1) / BK) : 0;
-  const int kt_hi = p.causal ? min(nk, qhi / BK + 1) : nk;
-
-  float dq[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) dq[j][r] = 0.f;
-
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();                  // the last key tile consumed
-    const long long koff = ((long long)b * p.Sk + k0) * kstride + kh * D;
-    tc::stage_tile(Ks, L, p.k + koff, kstride, BK, D, p.Sk - k0, D, vec, tid,
-                   kThreads);
-    tc::stage_tile(Vs, L, p.v + koff, kstride, BK, D, p.Sk - k0, D, vec, tid,
-                   kThreads);
-    tc::cp_async_commit();
+  float dk[NC][4], dv[NC][4];
+  zero(dk);
+  zero(dv);
+  int posted = -1;                      // query tile whose dQ sum is ours
+  for (int n = 0; n < mine.n; ++n) {
     tc::cp_async_wait<0>();
-    __syncthreads();
+    __syncthreads();           // tile n landed; tile n - 1 done by all
+    if (tid == 0 && posted >= 0) sem_post(sem + posted, rank + 1);
+    if (n + 1 < mine.n) load_tile(n + 1);
+    tc::cp_async_commit();
+    const int qt = mine.tile(n);
+    const int i0 = qt * BQ;
+    const float* Qs = ring + (n & 1) * kStage;
+    const float* Ds = Qs + BQ * DP;
+    const float* lse_s = Ds + BQ * DP;
+    const float* del_s = lse_s + BQ;
 
-    float s[NS][4], dp[NS][4];
+    float s[NT][4], dp[NT][4];
+    zero(s);
+    zero(dp);
+    rows_dot<DP, NT>(s, Ks, 16 * wk, Qs, wd * NQ, g, t);      // S^T
+    rows_dot<DP, NT>(dp, Vs, 16 * wk, Ds, wd * NQ, g, t);     // dP^T
+    const bool inside = tile_inside(i0, BQ, k0, BK, p);
 #pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) s[j][r] = dp[j][r] = 0.f;
-    rows_dot<D, BK>(s, Qs + 16 * warp * L, Ks, g, t);    // S
-    rows_dot<D, BK>(dp, Ds + 16 * warp * L, Vs, g, t);   // dP
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        const int hr = r >> 1;
-        const int i = row0 + 8 * hr;
-        const int kpos = k0 + 8 * j + 2 * t + (r & 1);
-        float P = 0.f, dS = 0.f;
-        if (kpos < p.Sk && i < p.Sq)
-          weight_and_grad(s[j][r], dp[j][r], p.q_offset + i, kpos, lse[hr],
-                          del[hr], dead[hr], p, P, dS);
+        const int qc = wd * NQ + 8 * j + 2 * t + (r & 1);
+        const int kc = 16 * wk + g + 8 * (r >> 1);
+        float P, dS;
+        if (inside) {
+          weight_and_grad_in(s[j][r], dp[j][r], lse_s[qc], del_s[qc], p, P,
+                             dS);
+        } else {
+          const int kpos = k0 + kc;
+          const int i = i0 + qc, qpos = p.q_offset + i;
+          P = dS = 0.f;
+          if (kpos < p.Sk && i < p.Sq)
+            weight_and_grad(s[j][r], dp[j][r], qpos, kpos, lse_s[qc],
+                            del_s[qc], !has_key(qpos, p), p, P, dS);
+        }
+        s[j][r] = P;
         dp[j][r] = dS;
+        dSm[qc * LDM + kc] = dS;
       }
-    float part[NO][4];
-    zero(part);
-    p_dot<DQ, BK, L>(part, dp, Ks + c0, g, t);         // dQ += dS K
-    add(dq, part);
-  }
-  tc::cp_async_wait<0>();             // Q and dO staged even with no tile
-
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int i = row0 + 8 * hr;
-    if (i >= p.Sq) continue;
-    float* out = p.dq + ((long long)b * p.Sq + i) * qstride + h * D + c0 +
-                 2 * t;
-#pragma unroll
-    for (int j = 0; j < NO; ++j) {
-      out[8 * j] = dq[j][2 * hr];
-      out[8 * j + 1] = dq[j][2 * hr + 1];
+    if constexpr (WD > 1) {                 // shared by the wd warps
+      store_frags<NT>(Pf + wk * KS * 64, s, wd * NT, lane);
+      store_frags<NT>(dSf + wk * KS * 64, dp, wd * NT, lane);
     }
+    __syncthreads();
+    {
+      uint32_t ah[KS][4], al[KS][4];
+      auto a = [&](int J, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          hi[r] = ah[J][r];
+          lo[r] = al[J][r];
+        }
+      };
+      if constexpr (WD == 1) split_frags<KS>(ah, al, s);   // the warp's own
+      else load_frags<KS>(ah, al, Pf + wk * KS * 64, lane);
+      frag_dot<DP, NC, KS>(dv, a, Ds, wd * (DP / WD), g, t);  // dV += P^T dO
+      if constexpr (WD == 1) split_frags<KS>(ah, al, dp);
+      else load_frags<KS>(ah, al, dSf + wk * KS * 64, lane);
+      frag_dot<DP, NC, KS>(dk, a, Qs, wd * (DP / WD), g, t);  // dK += dS^T Q
+    }
+    // dQ of this tile, dS K over the block's keys: rows 16 mq .., columns
+    // of group cg, in a zeroed fragment added to dq once, in turn
+    float dqt[NCQ][4];
+    zero(dqt);
+    if (cg < C::NGQ) {
+      auto a = [&](int J, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+        const float* r0 = dSm + (16 * mq + g) * LDM + 8 * J + 2 * t;
+        const float2 x0 = *reinterpret_cast<const float2*>(r0);
+        const float2 x1 = *reinterpret_cast<const float2*>(r0 + 8 * LDM);
+        split(x0.x, hi[0], lo[0]);
+        split(x1.x, hi[1], lo[1]);
+        split(x0.y, hi[2], lo[2]);
+        split(x1.y, hi[3], lo[3]);
+      };
+      frag_dot<DP, NCQ, BK / 8>(dqt, a, Ks, cg * (DP / C::NGQ), g, t);
+    }
+    if (tid == 0 && rank > 0 && prev.meets(qt)) sem_wait(sem + qt, rank);
+    __syncthreads();
+    if (cg < C::NGQ) {
+      const int i = i0 + 16 * mq + g;
+      float* row = p.dq + ((long long)b * p.Sq + i) * qstride + h * D;
+      add_rows<NCQ>(i < p.Sq ? row : nullptr,
+                    i + 8 < p.Sq ? row + 8 * qstride : nullptr, dqt,
+                    cg * (DP / C::NGQ), t, D);
+    }
+    posted = qt;
   }
+  tc::cp_async_wait<0>();             // K and V staged even with no tile
+  __syncthreads();
+  if (tid == 0 && posted >= 0) sem_post(sem + posted, rank + 1);
+
+  const int kpos = k0 + 16 * wk + g;
+  float *dkr = nullptr, *dkr8 = nullptr, *dvr = nullptr, *dvr8 = nullptr;
+  const long long ostride = G > 1 ? qstride : kstride;
+  const long long ohead = G > 1 ? (long long)h * D : (long long)kh * D;
+  float* dkb = G > 1 ? p.dk_part : p.dk;
+  float* dvb = G > 1 ? p.dv_part : p.dv;
+  if (kpos < p.Sk) {
+    dkr = dkb + ((long long)b * p.Sk + kpos) * ostride + ohead;
+    dvr = dvb + ((long long)b * p.Sk + kpos) * ostride + ohead;
+  }
+  if (kpos + 8 < p.Sk) {
+    dkr8 = dkb + ((long long)b * p.Sk + kpos + 8) * ostride + ohead;
+    dvr8 = dvb + ((long long)b * p.Sk + kpos + 8) * ostride + ohead;
+  }
+  store_rows<NC>(dkr, dkr8, dk, wd * (DP / WD), t, D);
+  store_rows<NC>(dvr, dvr8, dv, wd * (DP / WD), t, D);
+}
+
+// ------------------------------------------------------------ head sum
+// dk[b, s, kh] = sum over g of dk_part[b, s, kh G + g], g = 0, 1, ... in
+// order (and dv): block (x, y) takes key row x = b Sk + s and 256 of its
+// KH D / 4 groups of four columns
+constexpr int kSumThreads = 256;
+
+__global__ void __launch_bounds__(kSumThreads)
+flash_bwd_headsum_kernel(Params p, int D) {
+  const int c4 = D / 4;
+  const int j = blockIdx.y * kSumThreads + threadIdx.x;
+  if (j >= p.KH * c4) return;
+  const int G = p.H / p.KH, kh = j / c4, c = (j % c4) * 4;
+  const long long row = blockIdx.x;              // b * Sk + s
+  const long long src = (row * p.H + kh * G) * D + c;
+  const long long dst = (row * p.KH + kh) * D + c;
+  float4 sk = ld4(p.dk_part + src), sv = ld4(p.dv_part + src);
+  for (int gg = 1; gg < G; ++gg) {
+    const float4 a = ld4(p.dk_part + src + gg * D);
+    const float4 w = ld4(p.dv_part + src + gg * D);
+    sk.x = __fadd_rn(sk.x, a.x); sk.y = __fadd_rn(sk.y, a.y);
+    sk.z = __fadd_rn(sk.z, a.z); sk.w = __fadd_rn(sk.w, a.w);
+    sv.x = __fadd_rn(sv.x, w.x); sv.y = __fadd_rn(sv.y, w.y);
+    sv.z = __fadd_rn(sv.z, w.z); sv.w = __fadd_rn(sv.w, w.w);
+  }
+  *reinterpret_cast<float4*>(p.dk + dst) = sk;
+  *reinterpret_cast<float4*>(p.dv + dst) = sv;
 }
 
 template <int D>
 int launch(const Params& p, void* stream) {
+  using C = Cfg<D>;
   const cudaStream_t st = (cudaStream_t)stream;
   const long long rows = (long long)p.B * p.Sq * p.H;
-  flash_bwd_delta_kernel<<<(unsigned)((rows + kWarps - 1) / kWarps),
-                           kThreads, 0, st>>>(p, D);
+  flash_bwd_delta_kernel<<<(unsigned)((rows + kDeltaWarps - 1) / kDeltaWarps),
+                           32 * kDeltaWarps, 0, st>>>(p, D);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  constexpr int s1 = dkdv_smem<D>();
+  const unsigned BH = (unsigned)(p.B * p.H);
   err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, s1);
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::kSmem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 g1((p.Sk + kKeys - 1) / kKeys, p.B * p.KH, D / slice<D>());
-  flash_bwd_dkdv_kernel<D><<<g1, kThreads, s1, st>>>(p);
+  flash_bwd_dkdv_kernel<D><<<(p.Sk + C::BK - 1) / C::BK * BH, C::kThreads,
+                             C::kSmem, st>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  constexpr int s2 = dq_smem<D>();
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, s2);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 g2(p.B * p.H, (p.Sq + kRows - 1) / kRows, D / qslice<D>());
-  flash_bwd_dq_kernel<D><<<g2, kThreads, s2, st>>>(p);
-  return (int)cudaGetLastError();
+  if (p.H > p.KH) {
+    const dim3 grid((unsigned)(p.B * p.Sk),
+                    (unsigned)((p.KH * (D / 4) + kSumThreads - 1) /
+                               kSumThreads));
+    flash_bwd_headsum_kernel<<<grid, kSumThreads, 0, st>>>(p, D);
+    err = cudaGetLastError();
+  }
+  return (int)err;
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  Every operand float32 and
 // contiguous in the model layout: q, o, dout, dq (B, Sq, H, D); k, v, dk,
-// dv (B, Sk, KH, D); lse and the delta scratch (B, H, Sq).  Three launches
-// on the stream; returns the first non-zero cudaError (of a launch or of
-// raising the dynamic shared-memory limit), else 0.
+// dv (B, Sk, KH, D); lse and the delta scratch (B, H, Sq); with H > KH the
+// dk_part and dv_part scratch (B, Sk, H, D) (else null).  Three or four
+// launches on the stream; returns the first non-zero cudaError (of a
+// launch or of raising the dynamic shared-memory limit), else 0.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const void* lse,
                                    void* delta, void* dq, void* dk, void* dv,
-                                   int B, int Sq, int Sk, int H, int KH,
-                                   int D, int causal, int window,
-                                   int q_offset, float scale, float softcap,
+                                   void* dk_part, void* dv_part, void* sem,
+                                   int B,
+                                   int Sq, int Sk, int H, int KH, int D,
+                                   int causal, int window, int q_offset,
+                                   float scale, float softcap,
                                    void* stream) {
   Params p;
   p.q = static_cast<const float*>(q);
@@ -533,12 +842,17 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   p.dq = static_cast<float*>(dq);
   p.dk = static_cast<float*>(dk);
   p.dv = static_cast<float*>(dv);
+  p.dk_part = static_cast<float*>(dk_part);
+  p.dv_part = static_cast<float*>(dv_part);
+  p.sem = static_cast<int*>(sem);
   p.B = B; p.Sq = Sq; p.Sk = Sk; p.H = H; p.KH = KH;
   p.causal = causal; p.window = window; p.q_offset = q_offset;
   p.scale = scale;
   p.softcap = softcap;
+  if ((H > KH && (dk_part == nullptr || dv_part == nullptr)) || !sem)
+    return (int)cudaErrorInvalidValue;
   // 16-byte copies need 16-byte-aligned rows: the bases, and D a multiple
-  // of 4 (every supported D is)
+  // of 4 (every supported D is); the epilogues store 16 bytes too
   p.vec = (uintptr_t)q % 16 == 0 && (uintptr_t)k % 16 == 0 &&
           (uintptr_t)v % 16 == 0 && (uintptr_t)dout % 16 == 0;
   switch (D) {

@@ -1,5 +1,5 @@
 // Tensor-core building blocks shared by moe_gemm.cu, flash_attention.cu,
-// ssd_scan.cu and audit_mlp.cu:
+// flash_attention_bwd.cu, ssd_scan.cu and audit_mlp.cu:
 // fp32-accurate products as three TF32 mma.sync (3xTF32), bf16 products as
 // one bf16 mma.sync, and the cp.async copies that stage their tiles.
 //
@@ -62,6 +62,17 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d = a * b + 0: one TF32 product into a zeroed accumulator
+__device__ __forceinline__ void mma_tf32_z(float (&d)[4],
+                                           const uint32_t (&a)[4],
+                                           const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.f), "f"(0.f), "f"(0.f), "f"(0.f));
 }
 
 // d += a * b in 3xTF32: the two small terms first, then hi * hi

@@ -12,9 +12,10 @@ kernel).  With ``return_lse`` it also returns each row's log-sum-exp,
 way.
 
 ``flash_attention_bwd(q, k, v, o, do, lse, ...)`` is the backward
-(``csrc/flash_attention_bwd.cu``): (dq, dk, dv), float32 only, three
-CUDA launches a call (the row sums rowsum(dO o), dK and dV, dQ).
-``launches`` and ``bwd_launches`` count calls.
+(``csrc/flash_attention_bwd.cu``): (dq, dk, dv), float32 only, two
+CUDA launches a call (the row sums rowsum(dO o), then dK, dV and dQ per
+key tile and query head) and, under GQA, a third that sums each group's
+heads.  ``launches`` and ``bwd_launches`` count calls.
 
 Both take CUDA tensors only and launch the kernel or raise;
 ``kernels.ops.flash_attention`` is the device dispatch that gives CPU
@@ -138,21 +139,33 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            for t in (o, do, lse)):
         raise TypeError("flash_attention_bwd: o, do and lse must be float32 "
                         "on q's device")
-    if B * H >= 2 ** 31 or B * KH > 65535 or (Sq + 63) // 64 > 65535:
-        raise ValueError(f"flash_attention_bwd: B={B}, H={H} or Sq={Sq} "
-                         f"over the grid's limits")
+    # one-dimensional grids of (tile, b, query head), tiles of 16 rows at
+    # the least
+    if (max(Sq, Sk) + 15) // 16 * B * H >= 2 ** 31:
+        raise ValueError(f"flash_attention_bwd: B={B}, H={H}, Sq={Sq} or "
+                         f"Sk={Sk} over the grid's limits")
     q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    # under GQA each query head's dK and dV, summed in head order after
+    parts = [torch.empty((B, Sk, H, D), dtype=torch.float32,
+                         device=q.device) for _ in range(2)] \
+        if H > KH else [None, None]
+    # a semaphore per (b, head, 32-row query tile): dQ's order of sums
+    sem = torch.empty(B * H * ((Sq + 31) // 32), dtype=torch.int32,
+                      device=q.device)
     lib = build.library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KH, D, int(causal),
+            dk.data_ptr(), dv.data_ptr(),
+            *[t.data_ptr() if t is not None else None for t in parts],
+            sem.data_ptr(),
+            B, Sq, Sk, H, KH, D, int(causal),
             int(window), int(q_offset), D ** -0.5, float(softcap or 0.0),
             stream)
     build.check(code, "flash_attention_bwd")

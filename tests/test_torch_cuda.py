@@ -1064,7 +1064,10 @@ def _attn_grad_fp64(q, k, v, do, causal, window, softcap, q_offset):
 # the chip_smoke shapes cut in length (qwen2.5-3b, recurrentgemma-2b,
 # seamless-m4t-medium, its cross-attention), then GQA with window and
 # q_offset, softcap, rows with no valid key, and every head dim at a
-# ragged length
+# ragged length; then the kernel's tile edges: G = 8 and 10 with Sk ending
+# inside a ring stage (32 keys at D 128, 16 at D 256), Sk under one key
+# tile, a window narrower than a query tile, D 256 non-causal with a
+# softcap, and B = 2 under GQA (the head-sum pass over several batches)
 @pytest.mark.parametrize("B,Sq,Sk,H,KH,D,causal,window,softcap,q_offset", [
     (1, 512, 512, 16, 2, 128, True, 0, 0.0, 0),
     (1, 600, 600, 10, 1, 256, True, 256, 0.0, 0),
@@ -1079,6 +1082,14 @@ def _attn_grad_fp64(q, k, v, do, causal, window, softcap, q_offset):
     (2, 77, 77, 4, 4, 64, True, 0, 0.0, 0),
     (1, 70, 333, 2, 2, 256, True, 0, 0.0, 263),
     (1, 200, 200, 4, 1, 128, True, 45, 0.0, 0),
+    (1, 300, 300, 16, 2, 128, True, 0, 0.0, 0),
+    (1, 333, 333, 10, 1, 256, True, 0, 0.0, 0),
+    (1, 40, 20, 4, 2, 64, False, 0, 0.0, 0),
+    (1, 10, 12, 4, 1, 128, True, 0, 0.0, 2),
+    (1, 200, 200, 8, 2, 128, True, 7, 0.0, 0),
+    (1, 150, 150, 4, 2, 256, False, 0, 30.0, 0),
+    (2, 130, 130, 8, 2, 64, True, 0, 0.0, 0),
+    (2, 100, 160, 8, 4, 128, False, 0, 0.0, 0),
 ])
 def test_flash_attention_bwd_matches_plain(cuda, B, Sq, Sk, H, KH, D,
                                            causal, window, softcap,
@@ -1124,13 +1135,17 @@ def test_flash_attention_lse_leaves_out_bitwise(cuda, window, q_offset,
     torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
 
 
-def test_flash_attention_bwd_is_bitwise_repeatable(cuda):
-    q = _randn(1, 1, 600, 10, 256).to(cuda)
-    k, v = (_randn(s, 1, 600, 1, 256).to(cuda) for s in (2, 3))
-    do = _randn(4, 1, 600, 10, 256).to(cuda)
-    o, lse = fa.flash_attention(q, k, v, window=200, return_lse=True)
-    first = fa.flash_attention_bwd(q, k, v, o, do, lse, window=200)
-    second = fa.flash_attention_bwd(q, k, v, o, do, lse, window=200)
+# recurrentgemma-like D 256 under a window; a qwen2.5-3b-like GQA layer
+@pytest.mark.parametrize("S,H,KH,D,window", [(600, 10, 1, 256, 200),
+                                             (1024, 16, 2, 128, 0)])
+def test_flash_attention_bwd_is_bitwise_repeatable(cuda, S, H, KH, D,
+                                                   window):
+    q = _randn(1, 1, S, H, D).to(cuda)
+    k, v = (_randn(s, 1, S, KH, D).to(cuda) for s in (2, 3))
+    do = _randn(4, 1, S, H, D).to(cuda)
+    o, lse = fa.flash_attention(q, k, v, window=window, return_lse=True)
+    first = fa.flash_attention_bwd(q, k, v, o, do, lse, window=window)
+    second = fa.flash_attention_bwd(q, k, v, o, do, lse, window=window)
     torch.cuda.synchronize()
     assert all(_bitwise(a, b) for a, b in zip(first, second))
 

@@ -22,7 +22,10 @@ torch, step for step (each product and each sum rounded on its own), so
 the kernel gives its bits exactly (``rglru_bwd_chunked`` the same for its
 reverse scan, the backward); ``tests/test_torch_kernels.py`` holds it
 against JAX's associative scan, ``tests/test_torch_cuda.py`` the kernel
-against it on the card."""
+against it on the card.  ``attention_bwd_tiled`` is
+``flash_attention_bwd.cu``'s order of sums (its tiles, zeroed per-tile
+sums, the head sum, dQ's order of key tiles) with 3xTF32 products, held
+against a float64 backward as the card tests hold the kernel."""
 import numpy as np
 import pytest
 import torch
@@ -401,3 +404,122 @@ def test_rglru_bwd_chunked_association(B, S, C):
         assert torch.equal(g[:, last:], w[:, last:])
         if S <= 128:
             assert torch.equal(g, w)
+
+
+# ------------------------------------------------------------ attention backward
+def attention_bwd_tiled(q, k, v, o, do, lse, *, causal, window, q_offset=0,
+                        softcap=0.0, bq=32, bk=64):
+    """``flash_attention_bwd.cu``'s order of sums in plain torch float32,
+    its products in 3xTF32 (``mm_3xtf32``): S and dP over d in the
+    kernel's 8-column steps (columns 0, 1, 4, 5, 8, 9, 12, 13 then 2, 3,
+    6, 7, ... of each 16, the order of its 16-byte loads), each step's
+    product added to the running sum with one rounded add; dK and dV per
+    query head and key, query tiles of ``bq`` rows in descending order
+    (ascending under a window without the causal mask), each tile's
+    product a fresh sum added once; dk and dv the G heads' sums
+    added in head order; dQ by key tiles of ``bk`` keys (the kernel's
+    block: 32 at D 256), each tile's product a fresh sum added once, in
+    the kernel's order of blocks (ascending, descending under a window
+    without the causal mask).  Tiles the mask leaves out add exact zeros,
+    so they are not skipped here.  P, dS and the rows with no valid key as
+    ``ref.attention_bwd_ref``."""
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    qh, doh = q.transpose(1, 2), do.transpose(1, 2)       # (B, H, Sq, D)
+    kh = k.repeat_interleave(G, dim=2).transpose(1, 2)    # (B, H, Sk, D)
+    vh = v.repeat_interleave(G, dim=2).transpose(1, 2)
+    s = torch.zeros(B, H, Sq, Sk)
+    dp = torch.zeros(B, H, Sq, Sk)
+    for kk in range(0, D, 16):
+        for first in (0, 2):
+            cols = [kk + c + first for c in (0, 1, 4, 5, 8, 9, 12, 13)]
+            s = s + mm_3xtf32(qh[..., cols], kh[..., cols].transpose(-1, -2))
+            dp = dp + mm_3xtf32(doh[..., cols],
+                                vh[..., cols].transpose(-1, -2))
+    scale = D ** -0.5
+    raw = s * scale
+    th = torch.tanh(raw / softcap) if softcap else None
+    sc = softcap * th if softcap else raw
+    mask = ref.attention_mask(Sq, Sk, q.device, causal=causal, window=window,
+                              q_offset=q_offset)
+    alive = mask.any(dim=-1)[:, None]
+    p = torch.where(mask, torch.exp(sc - lse[..., None]), torch.zeros(()))
+    p = torch.where(alive, p, torch.full((), 1.0 / Sk))
+    delta = (do * o).sum(-1).transpose(1, 2)[..., None]  # (B, H, Sq, 1)
+    ds = torch.where(mask, p * (dp - delta), torch.zeros(()))
+    if softcap:
+        ds = ds * (1.0 - th * th)
+    ds = ds * scale
+    dkh = torch.zeros(B, H, Sk, D)
+    dvh = torch.zeros(B, H, Sk, D)
+    up = bool(window) and not causal
+    for i0 in (range(0, Sq, bq) if up else reversed(range(0, Sq, bq))):
+        pt = p[:, :, i0:i0 + bq].transpose(-1, -2)
+        dst = ds[:, :, i0:i0 + bq].transpose(-1, -2)
+        dvh = dvh + mm_3xtf32(pt, doh[:, :, i0:i0 + bq])
+        dkh = dkh + mm_3xtf32(dst, qh[:, :, i0:i0 + bq])
+    dk = dkh[:, 0::G]
+    dv = dvh[:, 0::G]
+    for g in range(1, G):
+        dk = dk + dkh[:, g::G]
+        dv = dv + dvh[:, g::G]
+    dq = torch.zeros(B, H, Sq, D)
+    starts = range(0, Sk, bk)
+    for k0 in (reversed(starts) if up else starts):
+        dq = dq + mm_3xtf32(ds[..., k0:k0 + bk], kh[:, :, k0:k0 + bk])
+    return (dq.transpose(1, 2), dk.transpose(1, 2).contiguous(),
+            dv.transpose(1, 2).contiguous())
+
+
+def attention_grad_f64(q, k, v, do, *, causal, window, q_offset=0,
+                       softcap=0.0):
+    """dq, dk, dv of attention in float64 by autograd."""
+    q, k, v = (t.double().requires_grad_(True) for t in (q, k, v))
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    s = torch.einsum("bqhgd,bkhd->bhgqk",
+                     q.reshape(B, Sq, KH, H // KH, D), k) * D ** -0.5
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    mask = ref.attention_mask(Sq, Sk, q.device, causal=causal,
+                              window=window, q_offset=q_offset)
+    s = torch.where(mask, s, torch.full((), -1e30, dtype=s.dtype))
+    o = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(s, -1), v)
+    return torch.autograd.grad(o.reshape(B, Sq, H, D), (q, k, v),
+                               do.double())
+
+
+# (B, Sq, Sk, H, KH, D, causal, window, softcap, q_offset): a causal GQA
+# layer (G = 4), a recurrentgemma-like D 256 MQA layer with a window, a
+# ragged non-causal cross-attention with a softcap under GQA, and a window
+# without the causal mask (dQ's key tiles in descending order)
+ATTN_BWD_CASES = {"causal_gqa_d64": (1, 160, 160, 8, 2, 64, True, 0, 0.0, 0),
+                  "window_d256": (1, 200, 200, 4, 1, 256, True, 48, 0.0, 0),
+                  "cross_softcap_d128": (2, 70, 100, 4, 2, 128, False, 0,
+                                         30.0, 0),
+                  "window_only_d64": (1, 150, 150, 4, 2, 64, False, 40, 0.0,
+                                      0)}
+
+
+@pytest.mark.parametrize("case", sorted(ATTN_BWD_CASES))
+def test_attention_bwd_tiled_association(case):
+    """The backward kernel's order of sums, 3xTF32 products emulated, is no
+    further from a float64 backward than twice the plain version's error,
+    on each of dq, dk and dv."""
+    B, Sq, Sk, H, KH, D, causal, window, softcap, q_offset = \
+        ATTN_BWD_CASES[case]
+    q, do = (_randn(seed, B, Sq, H, D) for seed in (D, D + 1))
+    k, v = (_randn(seed, B, Sk, KH, D) for seed in (D + 2, D + 3))
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              q_offset=q_offset)
+    o, lse = ref.attention_ref(q, k, v, return_lse=True, **kw)
+    got = attention_bwd_tiled(q, k, v, o, do, lse, bk=32 if D == 256 else 64,
+                              **kw)
+    want = ref.attention_bwd_ref(q, k, v, o, do, lse, **kw)
+    exact = attention_grad_f64(q, k, v, do, **kw)
+    for g, w, x, name in zip(got, want, exact, ("dq", "dk", "dv")):
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        err_t = float((g.double() - x).abs().max())
+        err_p = float((w.double() - x).abs().max())
+        assert err_t <= 2 * err_p, (name, err_t, err_p)
