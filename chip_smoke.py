@@ -42,13 +42,17 @@ capacity 376, edge cache on):
   plain engine bit for bit; K3, qwen2.5-3b with KV paging (warm prefix,
   page-out and resume, tick roots against paging off, DA challenges);
 - LM training (path L, through ``train`` and ``make_train_step``, the
-  attention, RG-LRU and MoE products forward and backward through their
-  kernels): L1, bmoe-paper at full width and depth from seed 0, 4 steps
-  of (2, 2048) with the loss falling, two steps from one state bitwise
-  equal, one layer against the CPU by gradients and one step profiled;
-  L2, recurrentgemma-2b at full width, 2 steps of (2, 4096) over its 2
-  microbatches with remat; L3, seamless-m4t-medium over 4,096 frames and
-  512 tokens, 2 steps; each path's launches held to the config's count;
+  attention, RG-LRU, SSD and MoE products forward and backward through
+  their kernels): L1, bmoe-paper at full width and depth from seed 0, 4
+  steps of (2, 2048) with the loss falling, two steps from one state
+  bitwise equal, one layer against the CPU by gradients and one step
+  profiled; L2, recurrentgemma-2b at full width, 2 steps of (2, 4096)
+  over its 2 microbatches with remat; L3, seamless-m4t-medium over 4,096
+  frames and 512 tokens, 2 steps; L4, mamba2-2.7b at full width and
+  depth on path E's weights, 2 steps of (4, 4096) over its 4
+  microbatches with remat, the SSD backward's share of a profiled step,
+  one layer against the CPU by gradients; each path's launches held to
+  the config's count;
 - B-MoE training (path F): ``train_round`` under ``traditional`` and
   ``bmoe``, 30 clean rounds each on tasks of 1000, then the paper's
   claim under 3 of 10 colluding edges (bmoe holds its clean accuracy,
@@ -73,15 +77,16 @@ Each path's launch counts are set to 0 just before it and read just
 after it.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --kernels moe_gemm flash_attention ssd_scan
+    python3 chip_smoke.py --kernels moe_gemm flash_attention ssd_scan_bwd
     python3 chip_smoke.py --serving
     python3 chip_smoke.py --training
 
 The second form builds, then checks and times only the named kernels'
 cases (``moe_gemm``, ``flash_attention``, ``flash_attention_bwd``,
-``ssd_scan``, ``redundancy_vote``, ``rglru_scan``, ``rglru_scan_bwd``,
-``audit_mlp``) and stops (no main path, no last line): run from two
-trees in one call, it compares two versions of a kernel on one card.
+``ssd_scan``, ``ssd_scan_bwd``, ``redundancy_vote``, ``rglru_scan``,
+``rglru_scan_bwd``, ``audit_mlp``) and stops (no main path, no last
+line): run from two trees in one call, it compares two versions of a
+kernel on one card.
 The third runs path K alone and the fourth path L alone (their models
 initialised from seed 0 as the main run's are) and stop the same way.
 
@@ -652,13 +657,13 @@ def rglru_cases(torch, rg, ref):
     return scan
 
 
-def time_events(fn, iters: int = 5) -> float:
+def time_events(fn, iters: int = 5, warmup: int = 2) -> float:
     """Device time per call of ``fn`` between two CUDA events over
-    ``iters`` calls after two warm-up calls: for calls (an autograd
-    backward) that a CUDA graph would not capture, and long enough that
-    the host's launch overhead does not count."""
+    ``iters`` calls after ``warmup`` warm-up calls: for calls (an autograd
+    backward, a loop of seconds) that a CUDA graph would not capture, and
+    long enough that the host's launch overhead does not count."""
     import torch
-    for _ in range(2):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -939,13 +944,130 @@ def ssd_cases(torch, ss, ref):
                       128, 100)]
 
 
+def ssd_chunked_grads(torch, x, dt, A, Bm, Cm, dy, Q):
+    """The five gradients of the port's chunked form from zero
+    (``models.ssm.ssd_chunked``, the JAX package's form) by autograd, in
+    float32: with the sequential loop, the float32 yardstick the SSD
+    backward kernel's float64 error is held to."""
+    from repro_torch.models.ssm import ssd_chunked
+    ts = [t.detach().clone().requires_grad_(True)
+          for t in (x, dt, A, Bm, Cm)]
+    s0 = x.new_zeros((x.shape[0], x.shape[2], x.shape[3], Bm.shape[-1]))
+    return torch.autograd.grad(ssd_chunked(*ts, s0, Q)[0], ts, dy)
+
+
+def check_ssd_bwd(torch, ss, ref, seed: int, name: str, B: int, S: int,
+                  H: int, P: int, N: int, chunk: int, decay: float = 1.0,
+                  iters: int = 20, profiled: bool = False):
+    """The SSD backward kernels against ``ssd_scan_bwd_ref`` (the plain
+    reverse loop) on inputs drawn as ``check_ssd`` draws them (dt and A
+    times ``decay``) and a unit-normal dy.  Each of the five gradients'
+    float64 error (against ``ssd_scan_bwd_ref`` in float64) may not
+    exceed twice the plain loop's float32 error; under strong decay
+    (``decay`` > 1) twice the larger float32 error of the loop and of the
+    chunked form by autograd: there the loop's sums are a few steps long
+    and its error small, and the kernel's decomposition emulated with
+    3xTF32 products (tests/test_torch_tf32x3.py) misses twice it as well.
+    Two calls bitwise equal.  The bound: the products the gradient needs, the forward's
+    C B^T and chunk states recomputed (ssd_scan_bwd.cu's note), at the
+    3xTF32 rate, against x, dt, A, B, C, dy read once and the five
+    gradients written once; ``design_gflop`` adds the dy x^T launch e
+    computes again."""
+    import torch.nn.functional as F
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, S, H, P, generator=g).cuda()
+    dt = (F.softplus(torch.randn(B, S, H, generator=g)) * 0.1
+          * decay).cuda()
+    A = ((-torch.randn(H, generator=g).abs() - 0.1) * decay).cuda()
+    Bm = (torch.randn(B, S, N, generator=g) * 0.5).cuda()
+    Cm = (torch.randn(B, S, N, generator=g) * 0.5).cuda()
+    dy = torch.randn(B, S, H, P, generator=g).cuda()
+    args = (x, dt, A, Bm, Cm, dy)
+    Q = min(chunk, S)
+    got = ss.ssd_scan_bwd(*args, chunk=chunk)
+    again = ss.ssd_scan_bwd(*args, chunk=chunk)
+    want = ref.ssd_scan_bwd_ref(*args, chunk)
+    chunked = ssd_chunked_grads(torch, *args, Q)
+    exact = ref.ssd_scan_bwd_ref(*args, chunk, dtype=torch.float64)
+    torch.cuda.synchronize()
+    names = ("dx", "ddt", "dA", "dB", "dC")
+
+    def errs(outs):
+        return {n: float((a.double() - e).abs().max())
+                for n, a, e in zip(names, outs, exact)}
+    err_k, err_p, err_c = errs(got), errs(want), errs(chunked)
+    del exact, chunked
+    bars = {n: 2.0 * (max(err_p[n], err_c[n]) if decay > 1.0 else err_p[n])
+            for n in names}
+    ok = all(err_k[n] <= bars[n] for n in names)
+    bitwise = all(_bitwise_equal(torch, a, b) for a, b in zip(got, again))
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
+    vs_plain = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    nc = S // Q
+    pairs = Q * (Q + 1) // 2
+    # recomputed C B^T and chunk states; the local gradient states; per
+    # (chunk, head) C s^T, B G^T, (CB o L)^T dy and dy x^T; the head sums
+    # dCB, dC and dB
+    flops = 2.0 * B * (6 * H * (nc - 1) * Q * N * P + 2 * H * nc * pairs * P
+                       + 3 * nc * pairs * N)
+    redone = 2.0 * B * H * nc * pairs * P    # dy x^T again in launch e
+    nbytes = 4.0 * 2 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * N) \
+        - 4.0 * B * S * H * P               # dy has no gradient written
+    b_ms, b_by = bound(flops, nbytes, TF32X3_PEAK)
+    row = {"case": name, "kernel": "ssd_scan_bwd",
+           "shape": f"x ({B},{S},{H},{P}), N {N}, chunk {Q}",
+           "decay": decay, "dtype": "float32", "max_abs_err": vs_plain,
+           "fp64_err_kernel": err_k, "fp64_err_plain": err_p,
+           "fp64_err_chunked": err_c, "bar": bars,
+           "err_over_loop": {n: err_k[n] / err_p[n] for n in names},
+           "ok": ok, "bitwise": bitwise,
+           "finite": finite,
+           "kernel_ms": time_ms(lambda: ss.ssd_scan_bwd(*args, chunk=chunk),
+                                iters=iters),
+           # the plain loop ran just above (warm); seconds a call
+           "plain_ms": time_events(lambda: ref.ssd_scan_bwd_ref(*args,
+                                                                chunk),
+                                   iters=1, warmup=0),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "bound_fp32_cores_ms": bound(flops, nbytes, FP32_PEAK)[0],
+           "gflop": flops / 1e9, "design_gflop": (flops + redone) / 1e9}
+    if profiled:
+        prof = profile_batch(torch, lambda: ss.ssd_scan_bwd(
+            *args, chunk=chunk), cpu=False)["ssd"]
+        row["cuda_launches_per_call"] = prof["cuda_launches"]
+        row["launch_profile"] = prof["by_kernel"]
+    emit(row)
+    require(ok and bitwise and finite,
+            f"ssd_scan_bwd {name}: float64 errors {err_k} against the "
+            f"bars {bars} (plain loop {err_p}, chunked form {err_c}); "
+            f"bitwise {bitwise}, finite {finite}")
+    return row
+
+
+def ssd_bwd_cases(torch, ss, ref):
+    """A mamba2-2.7b layer (first, profiled), the JAX test shape, one
+    chunk of 48, ragged chunks of 100 through both state passes, and dt
+    and A x4 (|cum| to about 300 a chunk)."""
+    return [check_ssd_bwd(torch, ss, ref, 80, "mamba2_layer", 1, 4096, 80,
+                          64, 128, 128, iters=3, profiled=True),
+            check_ssd_bwd(torch, ss, ref, 81, "jax_test_shape", 2, 256, 3,
+                          16, 8, 32),
+            check_ssd_bwd(torch, ss, ref, 82, "single_chunk", 1, 48, 16, 32,
+                          32, 128),
+            check_ssd_bwd(torch, ss, ref, 83, "ragged_chunks", 2, 300, 8, 64,
+                          128, 100),
+            check_ssd_bwd(torch, ss, ref, 84, "strong_decay", 2, 512, 4, 64,
+                          128, 128, decay=4.0)]
+
+
 # --------------------------- LM stack: paths C, D, E, H, I and J
 def lm_counts(**n):
     """A launch-count dict: the named kernels' counts, every other 0."""
     return {k: n.get(k, 0) for k in ("moe_gemm", "redundancy_vote",
                                      "audit_mlp", "flash_attention",
                                      "flash_attention_bwd", "rglru_scan",
-                                     "rglru_scan_bwd", "ssd_scan")}
+                                     "rglru_scan_bwd", "ssd_scan",
+                                     "ssd_scan_bwd")}
 
 
 def prefill_batch(torch, cfg, S: int):
@@ -1416,6 +1538,7 @@ def _layer_counts(cfg):
     out = {}
     for what, hit in (("attn", lambda s: s.kind in ("attn", "local_attn")),
                       ("rglru", lambda s: s.kind == "rglru"),
+                      ("ssm", lambda s: s.kind == "ssm"),
                       ("moe", lambda s: s.mlp == "moe")):
         out[what] = (sum(map(hit, blocks)), sum(map(hit, cfg.remainder)))
     return out
@@ -1425,7 +1548,8 @@ def train_step_counts(cfg, remat: bool):
     """The launches one microbatch of a train step makes: each MoE layer 3
     moe_gemm forward and 6 backward, each attention layer one flash
     forward and one backward, each RG-LRU layer one scan and one reverse
-    scan; with remat a checkpointed block's forwards run twice."""
+    scan, each SSM layer one SSD scan and one SSD backward; with remat a
+    checkpointed block's forwards run twice."""
     n = _layer_counts(cfg)
     if cfg.is_encoder_decoder:
         n["attn"] = (cfg.num_encoder_layers + 2 * cfg.num_layers, 0)
@@ -1435,7 +1559,9 @@ def train_step_counts(cfg, remat: bool):
         flash_attention=twice * n["attn"][0] + n["attn"][1],
         flash_attention_bwd=sum(n["attn"]),
         rglru_scan=twice * n["rglru"][0] + n["rglru"][1],
-        rglru_scan_bwd=sum(n["rglru"]))
+        rglru_scan_bwd=sum(n["rglru"]),
+        ssd_scan=twice * n["ssm"][0] + n["ssm"][1],
+        ssd_scan_bwd=sum(n["ssm"]))
 
 
 def _clone_tree(torch, tree):
@@ -1499,6 +1625,46 @@ def _flash_bwd_share(torch, run):
             "flash_backward_ms": fb["device_us"] / 1e3,
             "flash_backward_cuda_launches": fb["cuda_launches"],
             "flash_backward_share": fb["device_us"] / 1e3 / busy}
+
+
+def _ssd_bwd_share(torch, run):
+    """One fenced, profiled call of ``run`` (a train step), the device
+    alone traced: busy and wall on the device, and the SSD scan's device
+    time forward and backward.  A call's first three launches (C B^T,
+    chunk states, state pass) are the same in both, so the SSD kernels
+    are cut into chains at each C B^T launch (ssd_cb_kernel): a chain
+    holding the backward's main launch (ssd_bwd_chunk_kernel) is a
+    backward call, whose recomputed states count as its own, and every
+    ssd_bwd_* launch counts to the backward wherever it falls."""
+    prof = profile_batch(torch, run, cpu=False)
+    chains = []
+    for _, us, name in prof["events"]:
+        if not re.search(r"\bssd_\w+_kernel\b", name):
+            continue
+        if re.search(r"\bssd_cb_kernel\b", name) or not chains:
+            chains.append([])
+        chains[-1].append((us, name))
+    is_bwd = [any("ssd_bwd_chunk_kernel" in n for _, n in c) for c in chains]
+    fwd_ms = bwd_ms = 0.0
+    bwd_launches = 0
+    for c, b in zip(chains, is_bwd):
+        for us, n in c:
+            if b or "ssd_bwd_" in n:
+                bwd_ms += us / 1e3
+                bwd_launches += 1
+            else:
+                fwd_ms += us / 1e3
+    busy = prof["device_busy_us"] / 1e3
+    n_fwd = sum(len(re.findall(r"\bssd_chunk_out_kernel\b", n))
+                for _, _, n in prof["events"])
+    return {"device_busy_ms": busy, "device_wall_ms": prof["span_us"] / 1e3,
+            "device_idle_share": 1.0 - prof["device_busy_us"]
+            / prof["span_us"],
+            "ssd_forward_calls": n_fwd, "ssd_forward_ms": fwd_ms,
+            "ssd_forward_share": fwd_ms / busy,
+            "ssd_backward_calls": sum(is_bwd), "ssd_backward_ms": bwd_ms,
+            "ssd_backward_cuda_launches": bwd_launches,
+            "ssd_backward_share": bwd_ms / busy, "top": prof["top"]}
 
 
 def train_l1(torch, ops, cfg):
@@ -1583,41 +1749,53 @@ def train_l1(torch, ops, cfg):
 
 
 def train_layer_vs_cpu(torch, cfg):
-    """bmoe-paper cut to one layer at full width, (1, 512): the loss and
-    every gradient on the card against the CPU's from the same weights
-    (drawn on the CPU from seed 0) at rtol 1e-4 / atol 1e-5, with the
-    routing recorded on both and held equal."""
+    """The model cut to one layer at full width, (1, 512) in one
+    microbatch: the loss and every gradient on the card against the CPU's
+    from the same weights (drawn on the CPU from seed 0) at rtol 1e-4 /
+    atol 1e-5, the loss positive and some gradient not zero; for a MoE
+    model the routing recorded on both and held equal."""
+    import contextlib
     import dataclasses
     from repro_torch.core.ledger import tree_flatten, tree_unflatten
     from repro_torch.train.loop import init_model
     from repro_torch.train.step import make_loss_and_grads
-    cfg1 = dataclasses.replace(cfg, num_layers=1, num_blocks=1).validate()
+    # one microbatch: mamba2's 4 would cut a batch of 1 into empty ones
+    cfg1 = dataclasses.replace(cfg, num_layers=1, num_blocks=1,
+                               train_microbatches=1).validate()
     p_cpu = init_model(cfg1, 0, device="cpu")
     p = tree_unflatten(p_cpu, [t.cuda() for t in tree_flatten(p_cpu)[0]])
     batch = _lm_train_batch(torch, cfg1, 1, 512, seed=1)
     lg = make_loss_and_grads(cfg1, remat=False)
-    with RouteRecorder() as rc:
+    moe = bool(cfg.num_experts)
+    record = RouteRecorder if moe else (lambda: contextlib.nullcontext([]))
+    with record() as rc:
         got = lg(p, batch)
-    with RouteRecorder() as rp:
+    with record() as rp:
         want = lg(p_cpu, {k: v.cpu() for k, v in batch.items()})
     torch.cuda.synchronize()
-    same_route = all(torch.equal(a[1].cpu(), b[1]) for a, b in zip(rc, rp))
-    top = rp[0][0].detach()[..., :cfg.num_experts].sort(
-        -1, descending=True)[0]
-    k = cfg.num_experts_per_tok
-    margin = float((top[..., k - 1] - top[..., k]).min())
     g_card, _ = tree_flatten(got[2])
     g_cpu, _ = tree_flatten(want[2])
     errs = [float((a.cpu() - b).abs().max()) for a, b in zip(g_card, g_cpu)]
     close = [bool(torch.allclose(a.cpu(), b, rtol=1e-4, atol=1e-5))
              for a, b in zip(g_card, g_cpu)]
-    res = {"layers": 1, "batch": [1, 512], "routing_equal": same_route,
-           "router_margin_min": margin,
+    res = {"layers": 1, "batch": [1, 512],
            "loss": [float(want[0]), float(got[0])],
            "grad_max_abs_err": max(errs), "leaves": len(errs),
            "leaves_close": sum(close),
-           "ok": same_route and all(close) and abs(
-               float(got[0]) - float(want[0])) <= 1e-5}
+           "grad_max_abs": max(float(g.abs().max()) for g in g_cpu)}
+    same_route = True
+    if moe:
+        same_route = all(torch.equal(a[1].cpu(), b[1])
+                         for a, b in zip(rc, rp))
+        top = rp[0][0].detach()[..., :cfg.num_experts].sort(
+            -1, descending=True)[0]
+        k = cfg.num_experts_per_tok
+        res["routing_equal"] = same_route
+        res["router_margin_min"] = float((top[..., k - 1]
+                                          - top[..., k]).min())
+    res["ok"] = same_route and all(close) and abs(
+        float(got[0]) - float(want[0])) <= 1e-5 and float(want[0]) > 0 \
+        and res["grad_max_abs"] > 0
     return res
 
 
@@ -1722,6 +1900,74 @@ def train_l3(torch, ops, cfg, params):
             f"L3 per-step counts {per_step}")
     require(counts == {k: 2 * v for k, v in per_step.items()},
             f"L3 launched {counts}, wanted 2 x {per_step}")
+    return counts, row
+
+
+def train_l4(torch, ops, cfg, params):
+    """L4: mamba2-2.7b at full width and depth on path E's weights:
+    ``make_train_step(remat=True)``, 2 steps on a batch of (4, 4096) cut
+    into its 4 microbatches of (1, 4096), 32 SSD chunks each: finite
+    losses and gradient norms, launches per microbatch held to the config
+    (ssd_scan 64 + 64 recomputed, 64 ssd_scan_bwd, every other kernel 0),
+    the peak memory printed; then a third step profiled for the SSD
+    backward's share of the device's busy time; then one layer at full
+    width, (1, 512) = 4 chunks, against the CPU by gradients."""
+    from repro_torch.core.ledger import tree_flatten
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+    start = time.perf_counter()
+    K = cfg.train_microbatches
+    batch = _lm_train_batch(torch, cfg, K, 4096)
+    opt = adamw.AdamWConfig(lr=1e-4, schedule="constant", warmup_steps=1)
+    step_fn = make_train_step(cfg, opt, remat=True)
+    st = adamw.init(params)
+    per_mb = train_step_counts(cfg, remat=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    metrics, walls = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        _, st, m = step_fn(params, st, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+        walls.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    profiled = _ssd_bwd_share(torch, lambda: step_fn(params, st, batch))
+    profile_s = time.perf_counter() - t0
+    del st
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    layer = train_layer_vs_cpu(torch, cfg)
+    layer_s = time.perf_counter() - t0
+    row = {"phase": "L4_train", "model": cfg.name, "batch": [K, 4096],
+           "microbatches": K, "remat": True, "steps": 2,
+           "metrics": metrics, "launches": counts,
+           "launches_per_microbatch": per_mb,
+           "step_walls_ms": [w * 1e3 for w in walls],
+           "tokens_per_s": K * 4096 / walls[-1],
+           "peak_mem_gb": peak / 1e9,
+           "params_gb": sum(t.numel() for t in tree_flatten(params)[0])
+           * 4 / 1e9, "profiled_step": profiled,
+           "one_layer_vs_cpu": layer, "profile_s": profile_s,
+           "one_layer_s": layer_s, "path_s": time.perf_counter() - start}
+    emit(row)
+    require(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                for m in metrics), f"L4 metrics {metrics}")
+    require(per_mb == lm_counts(ssd_scan=128, ssd_scan_bwd=64),
+            f"L4 per-microbatch counts {per_mb}")
+    require(counts == {k: 2 * K * v for k, v in per_mb.items()},
+            f"L4 launched {counts}, wanted {2 * K} x {per_mb}")
+    require(profiled["ssd_backward_calls"] == K * 64
+            and profiled["ssd_forward_calls"] == 2 * K * 64,
+            f"L4 profiled step: {profiled['ssd_forward_calls']} SSD "
+            f"forward and {profiled['ssd_backward_calls']} backward calls, "
+            f"wanted {2 * K * 64} and {K * 64}")
+    require(peak < 80e9, f"L4 peak memory {peak / 1e9} GB")
+    require(layer["ok"], f"L4 one layer against the CPU: {layer}")
     return counts, row
 
 
@@ -3082,40 +3328,43 @@ def profile_batch(torch, run, cpu: bool = True, spans=()):
             fence()
             torch.cuda.synchronize()
             prof.step()
-        # the schedule's step annotation spans the whole step on the
-        # device
-        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not e.name.startswith(("Activity", "ProfilerStep"))]
-        marked = [e for e in dev if e.name in spans]
-        dev = [e for e in dev if e.name not in spans]
-        marks = sorted((e.time_range.start, e.time_range.end) for e in dev
-                       if "spin_kernel" in e.name)
+        # the device's records as (name, start us, end us), read from the
+        # raw trace: building ``prof.events()`` took 119 s for a mamba2
+        # training step's 1.6 M records, the raw list 3 s; the schedule's
+        # step annotation spans the whole step on the device
+        raw = prof.profiler.kineto_results
+        t_ns = raw.trace_start_ns()
+        dev = [(n, (e.start_ns() - t_ns) / 1e3, (e.end_ns() - t_ns) / 1e3)
+               for e in raw.events()
+               if e.device_type() == DeviceType.CUDA
+               and not (n := e.name()).startswith(("Activity",
+                                                    "ProfilerStep",
+                                                    "[memory]"))]
+        marked = [e for e in dev if e[0] in spans]
+        dev = [e for e in dev if e[0] not in spans]
+        marks = sorted((t0, t1) for n, t0, t1 in dev if "spin_kernel" in n)
         if len(marks) == 2:
             break
         emit({"phase": "profile_retake", "take": take,
               "markers": len(marks)})
     require(len(marks) == 2, "no device trace held both marker kernels")
+    inside = [(n, t0, t1) for n, t0, t1 in dev
+              if marks[0][1] <= t0 and t1 <= marks[1][0]
+              and "spin_kernel" not in n]
     by = {}
-    for e in dev:
-        if marks[0][1] <= e.time_range.start and e.time_range.end \
-                <= marks[1][0] and "spin_kernel" not in e.name:
-            one = by.setdefault(e.name, [0.0, 0])
-            one[0] += e.time_range.elapsed_us()
-            one[1] += 1
+    for n, t0, t1 in inside:
+        one = by.setdefault(n, [0.0, 0])
+        one[0] += t1 - t0
+        one[1] += 1
     rows = sorted(((us, k, c) for k, (us, c) in by.items()), reverse=True)
     res = {"device_busy_us": sum(r[0] for r in rows),
            "device_launches": sum(r[2] for r in rows), "rows": rows,
            "takes": take, "span_us": marks[1][0] - marks[0][1],
-           "spans": {n: sorted((e.time_range.start, e.time_range.end)
-                               for e in marked if e.name == n
-                               and marks[0][1] <= e.time_range.start
-                               and e.time_range.end <= marks[1][0])
+           "spans": {n: sorted((t0, t1) for m, t0, t1 in marked
+                               if m == n and marks[0][1] <= t0
+                               and t1 <= marks[1][0])
                      for n in spans},
-           "events": sorted((e.time_range.start, e.time_range.elapsed_us(),
-                             e.name) for e in dev
-                            if marks[0][1] <= e.time_range.start
-                            and e.time_range.end <= marks[1][0]
-                            and "spin_kernel" not in e.name),
+           "events": sorted((t0, t1 - t0, n) for n, t0, t1 in inside),
            "top": [{"name": k[:70], "device_us": us, "count": c}
                    for us, k, c in rows[:8]]}
     for group, pat in (("ssd", r"ssd_\w+_kernel"),
@@ -3213,7 +3462,8 @@ def main() -> int:
         # memory, and so do the scan's
         if fn["source"] in ("moe_gemm.cu", "flash_attention.cu",
                             "flash_attention_bwd.cu", "ssd_scan.cu",
-                            "audit_mlp.cu", "rglru_scan.cu"):
+                            "ssd_scan_bwd.cu", "audit_mlp.cu",
+                            "rglru_scan.cu"):
             require(fn["spill_stores"] == 0 and fn["spill_loads"] == 0,
                     f"ptxas spills in {fn['function']}")
 
@@ -3233,12 +3483,13 @@ def main() -> int:
         return 0
 
     if "--training" in sys.argv:
-        # path L alone (L1, L2, L3), each model initialised here
+        # path L alone (L1, L2, L3, L4), each model initialised here
         from repro_torch.configs import get_config
         from repro_torch.train.loop import init_model
         train_l1(torch, ops, get_config("bmoe-paper"))
         for arch, l in (("recurrentgemma-2b", train_l2),
-                        ("seamless-m4t-medium", train_l3)):
+                        ("seamless-m4t-medium", train_l3),
+                        ("mamba2-2.7b", train_l4)):
             cfg = get_config(arch)
             params = init_model(cfg, 0)
             l(torch, ops, cfg, params)
@@ -3255,6 +3506,7 @@ def main() -> int:
                                                                 fa, ref),
                  "rglru_scan_bwd": lambda: rglru_bwd_cases(torch, rg, ref),
                  "ssd_scan": lambda: ssd_cases(torch, ss, ref),
+                 "ssd_scan_bwd": lambda: ssd_bwd_cases(torch, ss, ref),
                  "redundancy_vote": lambda: vote_cases(torch, rv, ref),
                  "rglru_scan": lambda: rglru_cases(torch, rg, ref),
                  "audit_mlp": lambda: audit_cases(torch, am, ref)}
@@ -3271,6 +3523,7 @@ def main() -> int:
     scan = rglru_cases(torch, rg, ref)
     scan_bwd = rglru_bwd_cases(torch, rg, ref)
     ssd = ssd_cases(torch, ss, ref)
+    ssd_bwd = ssd_bwd_cases(torch, ss, ref)
 
     counts = main_path(torch, np, ops)
 
@@ -3305,10 +3558,13 @@ def main() -> int:
                                            rglru_scan=18), decode_seq=2112,
                                  then=lambda cfg, p: trained_lm.setdefault(
                                      "L2", train_l2(torch, ops, cfg, p)))
-    # path E: 384 decode steps cross two chunk boundaries of the forward
+    # path E: 384 decode steps cross two chunk boundaries of the forward;
+    # L4 trains its weights
     counts_e, _, _ = lm_path(torch, ops, "mamba2-2.7b",
                              lm_counts(ssd_scan=64), decode_seq=384,
-                             serving=True, width1_tol=5e-4)
+                             serving=True, width1_tol=5e-4,
+                             then=lambda cfg, p: trained_lm.setdefault(
+                                 "L4", train_l4(torch, ops, cfg, p)))
     # path H: the MoE LMs, 3 moe_gemm launches a MoE layer; paths K2
     # (edge storage) and K1 (the serving engine at full width) run on
     # its bmoe-paper and qwen2-moe-a2.7b weights
@@ -3345,8 +3601,9 @@ def main() -> int:
                              lm_counts(flash_attention=36), decode_seq=128,
                              then=lambda cfg, p: trained_lm.setdefault(
                                  "L3", train_l3(torch, ops, cfg, p)))
-    (counts_l1, row_l1), (counts_l2, row_l2), (counts_l3, row_l3) = (
-        trained_lm[k] for k in ("L1", "L2", "L3"))
+    ((counts_l1, row_l1), (counts_l2, row_l2), (counts_l3, row_l3),
+     (counts_l4, row_l4)) = (trained_lm[k] for k in ("L1", "L2", "L3",
+                                                     "L4"))
     # path F: B-MoE training under traditional and bmoe
     trained, train_prof = training_path(torch, np, ops)
     counts_fb = trained["bmoe"]["launches"]
@@ -3561,6 +3818,32 @@ def main() -> int:
          "ms": ssd[0]["kernel_ms"], "plain_ms": ssd[0]["plain_ms"],
          "bound_ms": ssd[0]["bound_ms"], "bound_by": ssd[0]["bound_by"],
          "bound_fp32_cores_ms": ssd[0]["bound_fp32_cores_ms"],
+         "library_ms": None,
+         "training_launches": counts_l4["ssd_scan"]},
+        {"name": "ssd_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+         "replaces": "src/repro/kernels/ssd_scan.py:53 (the gradient JAX "
+                     "takes of src/repro/models/ssm.py:50)",
+         "launches": counts_l4["ssd_scan_bwd"],
+         "launches_by_path": {
+             "mamba2-2.7b training, 2 steps of 4 microbatches (L4)":
+                 counts_l4["ssd_scan_bwd"]},
+         "per": "one mamba2-2.7b layer's backward at (1, 4096), x "
+                "(1,4096,80,64), N 128, chunk 128",
+         "cuda_launches_per_call": ssd_bwd[0]["cuda_launches_per_call"],
+         "shapes": [{k: r[k] for k in (
+             "case", "shape", "fp64_err_kernel", "fp64_err_plain",
+             "fp64_err_chunked", "kernel_ms", "plain_ms", "bound_ms",
+             "bound_by")} for r in ssd_bwd],
+         "training_step_device_ms": row_l4["profiled_step"][
+             "ssd_backward_ms"],
+         "training_step_share": row_l4["profiled_step"][
+             "ssd_backward_share"],
+         "max_abs_err": max(r["max_abs_err"] for r in ssd_bwd),
+         "ms": ssd_bwd[0]["kernel_ms"], "plain_ms": ssd_bwd[0]["plain_ms"],
+         "bound_ms": ssd_bwd[0]["bound_ms"],
+         "bound_by": ssd_bwd[0]["bound_by"],
+         "bound_fp32_cores_ms": ssd_bwd[0]["bound_fp32_cores_ms"],
          "library_ms": None},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",

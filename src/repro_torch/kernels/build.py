@@ -23,10 +23,12 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("moe_gemm.cu", "vote.cu", "audit_mlp.cu", "flash_attention.cu",
-           "flash_attention_bwd.cu", "rglru_scan.cu", "ssd_scan.cu")
-# included by moe_gemm.cu, flash_attention.cu, flash_attention_bwd.cu,
-# ssd_scan.cu and audit_mlp.cu; part of the build key
-HEADERS = ("tf32x3.cuh",)
+           "flash_attention_bwd.cu", "rglru_scan.cu", "ssd_scan.cu",
+           "ssd_scan_bwd.cu")
+# part of the build key: tf32x3.cuh is included by moe_gemm.cu,
+# flash_attention.cu, flash_attention_bwd.cu, ssd_scan.cu, ssd_scan_bwd.cu
+# and audit_mlp.cu, ssd_common.cuh by the two SSD sources
+HEADERS = ("tf32x3.cuh", "ssd_common.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -129,6 +131,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.restype = I
     fn = lib.ssd_scan_f32
     fn.argtypes = [P] * 9 + [ctypes.POINTER(ctypes.c_longlong)] + [I] * 6 \
+        + [P]
+    fn.restype = I
+    fn = lib.ssd_scan_bwd_f32
+    fn.argtypes = [P] * 18 + [ctypes.POINTER(ctypes.c_longlong)] + [I] * 6 \
         + [P]
     fn.restype = I
     return lib

@@ -60,17 +60,13 @@
 // order, inter-chunk slices before intra-chunk ones), with no split-K and
 // no atomics; a row b reads only row b's inputs and scratch, so its bytes
 // do not depend on the batch width or on the other rows.
-#include "tf32x3.cuh"
+#include "ssd_common.cuh"
 
 namespace {
 
 using tc::mma_tf32;
 using tc::split;
 
-constexpr int kThreads = 256;     // 8 warps in every launch
-constexpr int kMaxQ = 128;
-constexpr int kMaxP = 64;
-constexpr int kMaxN = 128;
 constexpr int kSlice = 64;        // K slice of launch 4
 constexpr int kStages = 2;
 // Row strides (floats) of the staged tiles.  An operand whose fragment is
@@ -104,14 +100,14 @@ struct Params {
   int vec_x, vec_b, vec_c, vec_s;   // 16-byte copies (aligned rows)
 };
 
-__host__ __device__ constexpr int round_up(int v, int m) {
-  return (v + m - 1) / m * m;
-}
-
 // d[i][j] += a[i] b[j] in 3xTF32 over the warp's MI x NJ tiles where
 // on_i[i] and on_j[j], one of the three products at a time across all the
-// tiles (lo * hi, then hi * lo, then hi * hi).  Each tile sees
-// tc::mma_3xtf32's order, and no mma.sync waits on the one just before it.
+// tiles (lo * hi into a zeroed fragment, then hi * lo, then hi * hi), so no
+// mma.sync waits on the one just before it; each tile's 8-deep step is then
+// added to d in fp32.  The tensor core's fp32 accumulation truncates, so C
+// B^T and the chunk states summed in place over K = 128 drifted from
+// float64 by several times a float32 sum's error, which the backward
+// (ssd_scan_bwd.cu), recomputing them, carried into dx and ddt.
 template <int MI, int NJ>
 __device__ __forceinline__ void mma_tiles(float (&d)[MI][NJ][4],
                                           const uint32_t (&ah)[MI][4],
@@ -120,51 +116,26 @@ __device__ __forceinline__ void mma_tiles(float (&d)[MI][NJ][4],
                                           const uint32_t (&bl)[NJ][2],
                                           const bool (&on_i)[MI],
                                           const bool (&on_j)[NJ]) {
+  float t[MI][NJ][4];
 #pragma unroll
   for (int i = 0; i < MI; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
-      if (on_i[i] && on_j[j]) mma_tf32(d[i][j], al[i], bh[j]);
+      if (on_i[i] && on_j[j]) tc::mma_tf32_z(t[i][j], al[i], bh[j]);
 #pragma unroll
   for (int i = 0; i < MI; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
-      if (on_i[i] && on_j[j]) mma_tf32(d[i][j], ah[i], bl[j]);
+      if (on_i[i] && on_j[j]) mma_tf32(t[i][j], ah[i], bl[j]);
 #pragma unroll
   for (int i = 0; i < MI; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
-      if (on_i[i] && on_j[j]) mma_tf32(d[i][j], ah[i], bh[j]);
-}
-
-// The chunk's dt (strided) into dts[kMaxQ], zero past Q.
-__device__ __forceinline__ void stage_dt(float* dts, const float* dtc,
-                                         long long dt_ss, int Q, int tid) {
-  for (int j = tid; j < kMaxQ; j += kThreads)
-    tc::cp_async4(dts + j, j < Q ? dtc + j * dt_ss : dtc, j < Q ? 4 : 0);
-}
-
-// cums = inclusive cumsum of dt * A over the chunk, by one warp (4 steps a
-// lane); entries past Q repeat cum_Q-1.
-__device__ __forceinline__ void chunk_cumsum(const float* dts, float* cums,
-                                             float Ah, int Q, int lane) {
-  float v[4];
-  float run = 0.f;
+      if (on_i[i] && on_j[j]) {
+        mma_tf32(t[i][j], ah[i], bh[j]);
 #pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int j = lane * 4 + u;
-    run += (j < Q) ? dts[j] * Ah : 0.f;
-    v[u] = run;
-  }
-  float incl = run;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float t = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += t;
-  }
-  const float off = incl - run;
-#pragma unroll
-  for (int u = 0; u < 4; ++u) cums[lane * 4 + u] = off + v[u];
+        for (int r = 0; r < 4; ++r) d[i][j][r] += t[i][j][r];
+      }
 }
 
 // ---------------------------------------------- 1. C B^T per (b, chunk)
@@ -255,6 +226,7 @@ ssd_chunk_state_kernel(const Params p) {
   float* dts = Bs + kMaxQ * kLdB;       // [kMaxQ]
   float* cums = dts + kMaxQ;            // [kMaxQ]
   float* ws = cums + kMaxQ;             // [kMaxQ] exp(cum_Q - cum) * dt
+  double* cumd = reinterpret_cast<double*>(ws + kMaxQ);   // [kMaxQ]
   const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
   const int Q = p.Q, P = p.P, N = p.N, c0 = c * Q;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -272,12 +244,12 @@ ssd_chunk_state_kernel(const Params p) {
   tc::cp_async_commit();
   tc::cp_async_wait<0>();
   __syncthreads();
-  if (warp == 0) chunk_cumsum(dts, cums, p.A[h], Q, lane);
+  if (warp == 0) chunk_cumsum(dts, cums, p.A[h], Q, lane, cumd);
   __syncthreads();
-  const float total = cums[Q - 1];
   for (int j = tid; j < kMaxQ; j += kThreads)
-    ws[j] = j < Q ? expf(total - cums[j]) * dts[j] : 0.f;
-  if (tid == 0) p.decay[((long long)b * p.nc + c) * p.H + h] = expf(total);
+    ws[j] = j < Q ? exp_diff(cumd[Q - 1], cumd[j]) * dts[j] : 0.f;
+  if (tid == 0)
+    p.decay[((long long)b * p.nc + c) * p.H + h] = expf(cums[Q - 1]);
   __syncthreads();
 
   const int wm0 = 32 * (warp / 4), wn0 = 32 * (warp % 4);
@@ -541,41 +513,19 @@ ssd_chunk_out_kernel(const Params p) {
 
 constexpr size_t kSmemCB = sizeof(float) * 2 * kMaxQ * kLdCB;
 constexpr size_t kSmemState =
-    sizeof(float) * (kMaxQ * kLdX + kMaxQ * kLdB + 3 * kMaxQ);
+    sizeof(float) * (kMaxQ * kLdX + kMaxQ * kLdB + 3 * kMaxQ) +
+    sizeof(double) * kMaxQ;
 constexpr size_t kSmemOut =
     sizeof(float) * (kStages * (kSliceA + kSliceB) + 2 * kMaxQ);
 
-template <typename K>
-int launch(K kern, dim3 grid, size_t smem, cudaStream_t stream,
-           const Params& p) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<grid, kThreads, smem, stream>>>(p);
-  return (int)cudaGetLastError();
-}
-
-bool aligned16(const void* ptr) { return (uintptr_t)ptr % 16 == 0; }
-
-}  // namespace
-
-// Plain C entry point (bound with ctypes).  Strides are in elements:
-// x [batch, seq, head], dt [batch, seq, head], B [batch, seq],
-// C [batch, seq].  cb (B, nc, Q, round_up(Q, 4)), st (B, nc-1, H, P, N)
-// and decay (B, nc, H) are float32 scratch the caller allocates.  Launches
-// 1 to 4 in order on `stream` (2 only if nc > 1, 3 only if nc > 2) and
-// returns the first non-zero cudaGetLastError() code (or that of raising a
-// dynamic shared-memory limit, or cudaErrorInvalidValue for a shape the
-// kernels do not take); the wrapper raises on non-zero.
-extern "C" int ssd_scan_f32(const void* x, const void* dt, const void* A,
-                            const void* Bm, const void* Cm, void* y,
-                            void* cb, void* st, void* decay,
-                            const long long* strides, int B, int S, int H,
-                            int P, int N, int Q, void* stream) {
+// The forward's Params; false for a shape the kernels do not take.
+bool make_params(Params& p, const void* x, const void* dt, const void* A,
+                 const void* Bm, const void* Cm, void* y, void* cb, void* st,
+                 void* decay, const long long* strides, int B, int S, int H,
+                 int P, int N, int Q) {
   if (Q < 1 || Q > kMaxQ || P < 1 || P > kMaxP || N < 1 || N > kMaxN ||
       S % Q != 0 || S / Q > 65535 || B < 1 || B > 65535 || H < 1)
-    return (int)cudaErrorInvalidValue;
-  Params p;
+    return false;
   p.x = static_cast<const float*>(x);
   p.dt = static_cast<const float*>(dt);
   p.A = static_cast<const float*>(A);
@@ -599,20 +549,66 @@ extern "C" int ssd_scan_f32(const void* x, const void* dt, const void* A,
   p.vec_c = aligned16(Cm) && p.c_sb % 4 == 0 && p.c_ss % 4 == 0 &&
             N % 4 == 0;
   p.vec_s = aligned16(st) && N % 4 == 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return true;
+}
+
+// Launches 1 to 3 (2 only if nc > 1, 3 only if nc > 2).
+int run_states(const Params& p, int B, cudaStream_t s) {
   int err = launch(ssd_cb_kernel, dim3(p.nc, B), kSmemCB, s, p);
   if (err) return err;
   if (p.nc > 1) {
-    err = launch(ssd_chunk_state_kernel, dim3(H, p.nc - 1, B), kSmemState,
+    err = launch(ssd_chunk_state_kernel, dim3(p.H, p.nc - 1, B), kSmemState,
                  s, p);
     if (err) return err;
   }
   if (p.nc > 2) {
-    const long long per = (long long)H * P * N;
+    const long long per = (long long)p.H * p.P * p.N;
     err = launch(ssd_state_pass_kernel,
                  dim3((unsigned)((per + kThreads - 1) / kThreads), B), 0, s,
                  p);
     if (err) return err;
   }
+  return 0;
+}
+
+}  // namespace
+
+// Plain C entry point (bound with ctypes).  Strides are in elements:
+// x [batch, seq, head], dt [batch, seq, head], B [batch, seq],
+// C [batch, seq].  cb (B, nc, Q, round_up(Q, 4)), st (B, nc-1, H, P, N)
+// and decay (B, nc, H) are float32 scratch the caller allocates.  Launches
+// 1 to 4 in order on `stream` (2 only if nc > 1, 3 only if nc > 2) and
+// returns the first non-zero cudaGetLastError() code (or that of raising a
+// dynamic shared-memory limit, or cudaErrorInvalidValue for a shape the
+// kernels do not take); the wrapper raises on non-zero.
+extern "C" int ssd_scan_f32(const void* x, const void* dt, const void* A,
+                            const void* Bm, const void* Cm, void* y,
+                            void* cb, void* st, void* decay,
+                            const long long* strides, int B, int S, int H,
+                            int P, int N, int Q, void* stream) {
+  Params p;
+  if (!make_params(p, x, dt, A, Bm, Cm, y, cb, st, decay, strides, B, S, H,
+                   P, N, Q))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = run_states(p, B, s);
+  if (err) return err;
   return launch(ssd_chunk_out_kernel, dim3(H, p.nc, B), kSmemOut, s, p);
+}
+
+// Launches 1 to 3 alone, for the backward (ssd_scan_bwd.cu), which
+// recomputes C B^T, the states entering chunks 1..nc-1 and exp(cum_Q) of
+// chunks 0..nc-2 instead of keeping them from the forward.  Same operands
+// and scratch as ssd_scan_f32, no y.
+extern "C" int ssd_scan_states_f32(const void* x, const void* dt,
+                                   const void* A, const void* Bm,
+                                   const void* Cm, void* cb, void* st,
+                                   void* decay, const long long* strides,
+                                   int B, int S, int H, int P, int N, int Q,
+                                   void* stream) {
+  Params p;
+  if (!make_params(p, x, dt, A, Bm, Cm, nullptr, cb, st, decay, strides, B,
+                   S, H, P, N, Q))
+    return (int)cudaErrorInvalidValue;
+  return run_states(p, B, static_cast<cudaStream_t>(stream));
 }

@@ -6,13 +6,12 @@ fallback), a CPU tensor runs the kernel's plain PyTorch version from
 ``kernels.ref``.  No environment variable changes the route.
 
 Where autograd records the call (grad mode on, an operand that requires
-a gradient), ``moe_gemm``, ``flash_attention`` and ``rglru_scan`` go
-through ``torch.autograd.Function``s whose backward takes the same route:
-``moe_gemm`` launches the kernel on transposed copies, the other two
-their backward kernels (``kernels.ref``'s plain backward on the CPU).
-``ssd_scan`` has no backward kernel yet and refuses a gradient on the
-card.  A call autograd does not record runs the forward alone, as it
-always did.
+a gradient), ``moe_gemm``, ``flash_attention``, ``rglru_scan`` and
+``ssd_scan`` go through ``torch.autograd.Function``s whose backward takes
+the same route: ``moe_gemm`` launches the kernel on transposed copies,
+the other three their backward kernels (``kernels.ref``'s plain backward
+on the CPU).  A call autograd does not record runs the forward alone, as
+it always did.
 """
 from __future__ import annotations
 
@@ -244,27 +243,53 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _rglru(a, b)
 
 
-def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-             Bmat: torch.Tensor, Cmat: torch.Tensor,
-             chunk: int = 128) -> torch.Tensor:
-    """Mamba-2 SSD scan from a zero state: x (B, S, H, P), dt (B, S, H),
-    A (H,), Bmat/Cmat (B, S, N), float32 -> y (B, S, H, P) float32.  S
-    must be a multiple of min(chunk, S).  The CPU route is differentiable
-    by autograd; on the card a call autograd would record raises, since
-    the kernel has no backward yet."""
+def _ssd(x, dt, A, Bmat, Cmat, chunk):
     route = kernel_route(x)
     with annotate(f"ssd_scan[{route}]"):
         if route == "cuda":
-            if _recorded(x, dt, A, Bmat, Cmat):
-                raise NotImplementedError(
-                    "ssd_scan has no backward kernel yet (ROADMAP A4.4b): "
-                    "mamba2 trains on the CPU only")
             return _ss.ssd_scan(x, dt, A, Bmat, Cmat, chunk)
         _ss.check_operands(x, dt, A, Bmat, Cmat, chunk)
         B, _, H, P = x.shape
         state0 = torch.zeros((B, H, P, Bmat.shape[-1]), dtype=torch.float32,
                              device=x.device)
         return ref.ssd_scan_ref(x, dt, A, Bmat, Cmat, state0)[0]
+
+
+class _SSDScan(torch.autograd.Function):
+    """The scan whose backward is ``ssd_scan_bwd`` (``ssd_scan_bwd_ref``
+    on the CPU) from the five saved operands: the chunk states are
+    recomputed there, not kept."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bmat, Cmat, chunk):
+        ctx.save_for_backward(x, dt, A, Bmat, Cmat)
+        ctx.chunk = chunk
+        return _ssd(x, dt, A, Bmat, Cmat, chunk)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, dt, A, Bmat, Cmat = ctx.saved_tensors
+        route = kernel_route(x)
+        with annotate(f"ssd_scan_bwd[{route}]"):
+            if route == "cuda":
+                grads = _ss.ssd_scan_bwd(x, dt, A, Bmat, Cmat, dy, ctx.chunk)
+            else:
+                grads = ref.ssd_scan_bwd_ref(x, dt, A, Bmat, Cmat, dy,
+                                             ctx.chunk)
+        return (*grads, None)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bmat: torch.Tensor, Cmat: torch.Tensor,
+             chunk: int = 128) -> torch.Tensor:
+    """Mamba-2 SSD scan from a zero state: x (B, S, H, P), dt (B, S, H),
+    A (H,), Bmat/Cmat (B, S, N), float32 -> y (B, S, H, P) float32.  S
+    must be a multiple of min(chunk, S).  Differentiable in all five
+    operands: the backward is one more kernel call, which recomputes the
+    forward's chunk states from the saved operands."""
+    if _recorded(x, dt, A, Bmat, Cmat):
+        return _SSDScan.apply(x, dt, A, Bmat, Cmat, chunk)
+    return _ssd(x, dt, A, Bmat, Cmat, chunk)
 
 
 # name -> (wrapper module, its counter)
@@ -275,7 +300,8 @@ _KERNELS = {"moe_gemm": (_mg, "launches"),
             "flash_attention_bwd": (_fa, "bwd_launches"),
             "rglru_scan": (_rg, "launches"),
             "rglru_scan_bwd": (_rg, "bwd_launches"),
-            "ssd_scan": (_ss, "launches")}
+            "ssd_scan": (_ss, "launches"),
+            "ssd_scan_bwd": (_ss, "bwd_launches")}
 
 
 def launch_counts() -> Dict[str, int]:

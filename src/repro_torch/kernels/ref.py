@@ -279,3 +279,59 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         state = state * decay[:, :, None, None] + ds
         ys[:, t] = torch.einsum("bn,bhpn->bhp", Cmat[:, t], state)
     return ys, state
+
+
+def ssd_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                     Bmat: torch.Tensor, Cmat: torch.Tensor,
+                     dy: torch.Tensor, chunk: int = 128, *,
+                     dtype: torch.dtype = torch.float32):
+    """The gradient of ``ssd_scan_ref`` from a zero state, written out
+    step by step (no autograd): (dx, ddt, dA, dB, dC) in the operands'
+    shapes, in ``dtype`` (float32; float64 for a ground truth).
+
+    With a_t = exp(dt_t A) and h_t = a_t h_{t-1} + dt_t x_t B_t^T, the
+    reverse loop carries g_t = dl/dh_t = dy_t C_t^T + a_{t+1} g_{t+1} and
+    gives dx_t = dt_t g_t B_t, dB_t = sum_h dt_t g_t^T x_t, dC_t = sum_h
+    h_t^T dy_t, ddt_t = x_t . (g_t B_t) + A a_t <g_t, h_{t-1}> and dA =
+    sum_{b,t} dt_t a_t <g_t, h_{t-1}>.  The (B, H, P, N) state of every
+    step would take S of them (10.7 GB at mamba2-2.7b's layer), so the
+    forward keeps the state at each boundary of ``chunk`` =
+    min(chunk, S) steps, and the reverse loop recomputes a chunk's states
+    from its boundary before it walks the chunk backwards."""
+    x, dt, A, Bmat, Cmat, dy = (t.to(dtype) for t in (x, dt, A, Bmat, Cmat,
+                                                      dy))
+    Bsz, S, H, P = x.shape
+    N = Bmat.shape[-1]
+    Q = min(chunk, S) if S else 1
+    a = torch.exp(dt * A)                                     # (B, S, H)
+
+    def advance(state, t):
+        ds = torch.einsum("bh,bhp,bn->bhpn", dt[:, t], x[:, t], Bmat[:, t])
+        return state * a[:, t, :, None, None] + ds
+
+    bounds, state = [], torch.zeros((Bsz, H, P, N), dtype=dtype,
+                                    device=x.device)
+    for t in range(S):
+        if t % Q == 0:
+            bounds.append(state)
+        state = advance(state, t)
+    dx, dB, dC = (torch.empty_like(t) for t in (x, Bmat, Cmat))
+    ddt = torch.empty_like(dt)
+    dA = torch.zeros_like(A)
+    g = torch.zeros((Bsz, H, P, N), dtype=dtype, device=x.device)
+    for c0 in range((len(bounds) - 1) * Q, -1, -Q):
+        hs = [bounds[c0 // Q]]                 # h_{c0-1}, h_c0, ..., h_end
+        for t in range(c0, min(c0 + Q, S)):
+            hs.append(advance(hs[-1], t))
+        for t in range(min(c0 + Q, S) - 1, c0 - 1, -1):
+            h_prev, h_t = hs[t - c0], hs[t - c0 + 1]
+            g = g + torch.einsum("bhp,bn->bhpn", dy[:, t], Cmat[:, t])
+            dC[:, t] = torch.einsum("bhp,bhpn->bn", dy[:, t], h_t)
+            gB = torch.einsum("bhpn,bn->bhp", g, Bmat[:, t])
+            dx[:, t] = dt[:, t, :, None] * gB
+            dB[:, t] = torch.einsum("bh,bhpn,bhp->bn", dt[:, t], g, x[:, t])
+            dda = a[:, t] * torch.einsum("bhpn,bhpn->bh", g, h_prev)
+            ddt[:, t] = (x[:, t] * gB).sum(-1) + A * dda
+            dA = dA + (dt[:, t] * dda).sum(0)
+            g = g * a[:, t, :, None, None]
+    return dx, ddt, dA, dB, dC

@@ -12,8 +12,16 @@ gives CPU tensors the plain version.
 
 One call runs up to four CUDA launches on the current stream (C B^T per
 chunk, the chunk states with a second chunk, the state pass with a third,
-the outputs) over scratch this wrapper allocates with ``torch.empty``;
-``launches`` counts calls.
+the outputs) over scratch this wrapper allocates with ``torch.empty``.
+
+``ssd_scan_bwd(x, dt, A, Bmat, Cmat, dy, chunk=128)`` is the gradient, the
+kernels of ``csrc/ssd_scan_bwd.cu``: from the five operands (the forward's
+C B^T and states are recomputed, not kept) and dy (B, S, H, P), it returns
+(dx, ddt, dA, dB, dC) in the operands' shapes, contiguous float32, in up
+to nine CUDA launches over ``torch.empty`` scratch (at mamba2-2.7b's layer
+the states and their gradients, 2 x 81 MB, are the largest).  dA sums over
+the batch; every other output's row b depends on row b alone.
+``launches`` and ``bwd_launches`` count calls.
 """
 from __future__ import annotations
 
@@ -26,8 +34,10 @@ from repro_torch.kernels import build
 # the kernel's register tiles: head dim, state size and chunk length
 MAX_P, MAX_N, MAX_Q = 64, 128, 128
 
-# kernel calls since the last reset (ops.reset_launch_counts)
+# calls that launched the forward and the backward kernels since the last
+# reset (ops.reset_launch_counts)
 launches = 0
+bwd_launches = 0
 
 
 def check_operands(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -59,50 +69,107 @@ def check_operands(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return Q
 
 
+def _check_launch(x, dt, A, Bmat, Cmat, chunk: int, what: str) -> int:
+    """The checks both launches share; returns the chunk length Q."""
+    Q = check_operands(x, dt, A, Bmat, Cmat, chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} launches on CUDA tensors, got {x.device}")
+    if torch.cuda.get_device_capability(x.device) != (9, 0):
+        raise RuntimeError(f"{what} is built for sm_90a (Hopper); device "
+                           f"{torch.cuda.get_device_name(x.device)} is not")
+    B, S, H, P = x.shape
+    N = Bmat.shape[-1]
+    if P > MAX_P or N > MAX_N or Q > MAX_Q:
+        raise ValueError(f"{what} takes head dim <= {MAX_P}, state <= "
+                         f"{MAX_N} and chunk <= {MAX_Q}; got P={P}, N={N}, "
+                         f"Q={Q}")
+    if x.stride(3) != 1 or Bmat.stride(2) != 1 or Cmat.stride(2) != 1:
+        raise ValueError(f"{what} needs the last dimension of x, B and C "
+                         "contiguous")
+    nc = S // Q if Q else 0
+    if B > 65535 or nc > 65535:
+        raise ValueError(f"{what}: batch {B} or {nc} chunks exceed the "
+                         f"grid's limit of 65535")
+    return Q
+
+
+def _strides(x, dt, Bmat, Cmat):
+    return (ctypes.c_longlong * 10)(
+        *x.stride()[:3], *dt.stride(), *Bmat.stride()[:2],
+        *Cmat.stride()[:2])
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bmat: torch.Tensor, Cmat: torch.Tensor,
              chunk: int = 128) -> torch.Tensor:
     """Launch the CUDA kernels on CUDA tensors."""
     global launches
-    Q = check_operands(x, dt, A, Bmat, Cmat, chunk)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_scan launches on CUDA tensors, got "
-                         f"{x.device}")
-    if torch.cuda.get_device_capability(x.device) != (9, 0):
-        raise RuntimeError("ssd_scan is built for sm_90a (Hopper); device "
-                           f"{torch.cuda.get_device_name(x.device)} is not")
+    Q = _check_launch(x, dt, A, Bmat, Cmat, chunk, "ssd_scan")
     B, S, H, P = x.shape
     N = Bmat.shape[-1]
-    if P > MAX_P or N > MAX_N or Q > MAX_Q:
-        raise ValueError(f"ssd_scan takes head dim <= {MAX_P}, state <= "
-                         f"{MAX_N} and chunk <= {MAX_Q}; got P={P}, N={N}, "
-                         f"Q={Q}")
-    if x.stride(3) != 1 or Bmat.stride(2) != 1 or Cmat.stride(2) != 1:
-        raise ValueError("ssd_scan needs the last dimension of x, B and C "
-                         "contiguous")
     y = torch.empty((B, S, H, P), dtype=torch.float32, device=x.device)
     if y.numel() == 0 or N == 0:
         return y.zero_()
     nc = S // Q
-    if B > 65535 or nc > 65535:
-        raise ValueError(f"ssd_scan: batch {B} or {nc} chunks exceed the "
-                         f"grid's limit of 65535")
     A = A.contiguous()
     dev = dict(dtype=torch.float32, device=x.device)
     cb = torch.empty((B, nc, Q, -(-Q // 4) * 4), **dev)
     st = torch.empty((B, nc - 1, H, P, N), **dev)
     decay = torch.empty((B, nc, H), **dev)
-    strides = (ctypes.c_longlong * 10)(
-        *x.stride()[:3], *dt.stride(), *Bmat.stride()[:2],
-        *Cmat.stride()[:2])
     lib = build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.ssd_scan_f32(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                                 Bmat.data_ptr(), Cmat.data_ptr(),
                                 y.data_ptr(), cb.data_ptr(), st.data_ptr(),
-                                decay.data_ptr(), strides, B, S, H, P, N, Q,
-                                stream)
+                                decay.data_ptr(),
+                                _strides(x, dt, Bmat, Cmat), B, S, H, P, N,
+                                Q, stream)
     build.check(code, "ssd_scan")
     launches += 1
     return y
+
+
+def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bmat: torch.Tensor, Cmat: torch.Tensor, dy: torch.Tensor,
+                 chunk: int = 128):
+    """Launch the backward's CUDA kernels on CUDA tensors: (dx, ddt, dA,
+    dB, dC)."""
+    global bwd_launches
+    Q = _check_launch(x, dt, A, Bmat, Cmat, chunk, "ssd_scan_bwd")
+    if tuple(dy.shape) != tuple(x.shape) or dy.dtype != torch.float32 \
+            or dy.device != x.device:
+        raise ValueError(f"ssd_scan_bwd wants dy float32 of x's shape "
+                         f"{tuple(x.shape)} on {x.device}, got "
+                         f"{dy.dtype} {tuple(dy.shape)} on {dy.device}")
+    B, S, H, P = x.shape
+    N = Bmat.shape[-1]
+    dev = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty((B, S, H, P), **dev)
+    ddt = torch.empty((B, S, H), **dev)
+    dA = torch.empty((H,), **dev)
+    dB = torch.empty((B, S, N), **dev)
+    dC = torch.empty((B, S, N), **dev)
+    outs = (dx, ddt, dA, dB, dC)
+    if dx.numel() == 0 or N == 0:
+        return tuple(t.zero_() for t in outs)
+    nc = S // Q
+    LQ = -(-Q // 4) * 4
+    A, dy = A.contiguous(), dy.contiguous()
+    cb = torch.empty((B, nc, Q, LQ), **dev)
+    st = torch.empty((B, nc - 1, H, P, N), **dev)
+    gst = torch.empty((B, nc - 1, H, P, N), **dev)
+    decay = torch.empty((B, nc, H), **dev)
+    dap = torch.empty((B, nc, H), **dev)
+    cum = torch.empty((B, nc, H, Q), dtype=torch.float64, device=x.device)
+    dcb = torch.empty((B, nc, Q, LQ), **dev)
+    lib = build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.ssd_scan_bwd_f32(
+            *(t.data_ptr() for t in (x, dt, A, Bmat, Cmat, dy, *outs, cb, st,
+                                     decay, gst, cum, dcb, dap)),
+            _strides(x, dt, Bmat, Cmat), B, S, H, P, N, Q, stream)
+    build.check(code, "ssd_scan_bwd")
+    bwd_launches += 1
+    return outs

@@ -16,10 +16,9 @@ counterpart of ``repro.train.step``).
   engine's fused macro-step, C masked greedy decode micro-steps;
 - ``make_step(cfg, kind)``: one of the first three by name.
 
-On the card the training step's attention, RG-LRU and MoE products run
-their kernels forward and backward (``kernels.ops``); a mamba2 model's
-SSD scan has no backward kernel yet and raises there (ROADMAP A4.4b).
-A mesh (ROADMAP A7) and the federated local step (A6) are not ported.
+On the card the training step's attention, RG-LRU, SSD and MoE products
+run their kernels forward and backward (``kernels.ops``).  A mesh (ROADMAP
+A7) and the federated local step (A6) are not ported.
 """
 from __future__ import annotations
 

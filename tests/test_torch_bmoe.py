@@ -273,7 +273,8 @@ def test_plain_path_launches_no_kernel(data, port_systems):
                                    "audit_mlp": 0, "flash_attention": 0,
                                    "flash_attention_bwd": 0,
                                    "rglru_scan": 0,
-                                   "rglru_scan_bwd": 0, "ssd_scan": 0}
+                                   "rglru_scan_bwd": 0, "ssd_scan": 0,
+                                   "ssd_scan_bwd": 0}
 
 
 @pytest.mark.parametrize("kw,match", [

@@ -161,7 +161,8 @@ def test_evaluate_launches_the_kernels(cuda):
                                    "audit_mlp": 0, "flash_attention": 0,
                                    "flash_attention_bwd": 0,
                                    "rglru_scan": 0,
-                                   "rglru_scan_bwd": 0, "ssd_scan": 0}
+                                   "rglru_scan_bwd": 0, "ssd_scan": 0,
+                                   "ssd_scan_bwd": 0}
 
 
 def _train_system(framework, device, attack=None, **kw):
@@ -214,7 +215,8 @@ def test_training_round_on_the_card_matches_the_cpu(cuda, framework):
                         "audit_mlp": 0, "flash_attention": 0,
                         "flash_attention_bwd": 0,
                         "rglru_scan": 0,
-                        "rglru_scan_bwd": 0, "ssd_scan": 0}
+                        "rglru_scan_bwd": 0, "ssd_scan": 0,
+                        "ssd_scan_bwd": 0}
     for k in ("activation", "support", "flags", "dropped"):
         np.testing.assert_array_equal(m_g[k], m_c[k], err_msg=k)
     np.testing.assert_allclose(m_g["loss"], m_c["loss"], rtol=1e-5)
@@ -314,7 +316,8 @@ def test_optimistic_training_on_the_card_matches_the_cpu(cuda):
                   + int(sum(calls.values())),
                   "redundancy_vote": sg.protocol.stats["escalations"],
                   "flash_attention": 0, "flash_attention_bwd": 0,
-                  "rglru_scan": 0, "rglru_scan_bwd": 0, "ssd_scan": 0}
+                  "rglru_scan": 0, "rglru_scan_bwd": 0, "ssd_scan": 0,
+                  "ssd_scan_bwd": 0}
 
 
 def test_chain_rollback_on_the_card_is_bitwise_the_clean_twin(cuda):
@@ -771,6 +774,154 @@ def test_ssd_scan_refuses_what_the_kernel_does_not_take(cuda):
                     Bm, Cm)
 
 
+def _ssd_bwd_args(seed, B, S, H, P, N, device, decay=1.0):
+    """x, dt, A, B, C as ``_ssd_inputs`` draws them (dt and A times
+    ``decay``) and dy, on ``device``."""
+    x, dt, A, Bm, Cm = _ssd_inputs(seed, B, S, H, P, N)
+    dy = _randn(seed + 1, B, S, H, P)
+    return [t.to(device) for t in (x, dt * decay, A * decay, Bm, Cm, dy)]
+
+
+def _ssd_bwd_within_bar(got, args, chunk, strong=False):
+    """The kernel's gradients against float64, each within twice the
+    sequential loop's float32 error; under ``strong`` decay within twice
+    the larger float32 error of the loop and of the chunked form by
+    autograd (``tests/test_torch_tf32x3.py::ssd_bwd_errors``).  Each also
+    within twice that wider bar of the decomposition emulated there with
+    3xTF32 products."""
+    from test_torch_tf32x3 import mm_3xtf32, ssd_bwd_chunks, ssd_bwd_errors
+    Q = min(chunk, args[0].shape[1])
+    errs = ssd_bwd_errors(got, *args, Q)
+    assert all(e <= 2.0 * (max(p, c) if strong else p)
+               for e, p, c in errs.values()), errs
+    emul = ssd_bwd_chunks(*args, Q, mm_3xtf32)
+    for g, e, (name, (_, p, c)) in zip(got, emul, errs.items()):
+        assert float((g - e).abs().max()) <= 4.0 * max(p, c), name
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (2, 256, 3, 16, 8, 32), (1, 64, 1, 32, 16, 64),
+    (1, 48, 16, 32, 32, 128),              # a single chunk of 48
+    (1, 512, 4, 64, 128, 128),             # mamba2-2.7b's P and N
+    (2, 96, 5, 24, 40, 96), (1, 21, 2, 7, 3, 7),    # off the 16-wide tiles
+    (1, 200, 3, 64, 128, 100),             # two ragged chunks of 100
+    (3, 300, 4, 64, 128, 100),             # three of 100: the state passes
+    (1, 1024, 8, 64, 128, 128),            # eight chunks
+])
+def test_ssd_scan_bwd_kernel_matches_plain(cuda, B, S, H, P, N, chunk):
+    """One launch count per call; the five gradients in the operands'
+    shapes, contiguous float32, finite and within the float64 bar."""
+    args = _ssd_bwd_args(S + P, B, S, H, P, N, cuda)
+    ops.reset_launch_counts()
+    got = ss.ssd_scan_bwd(*args, chunk=chunk)
+    assert ops.launch_counts()["ssd_scan_bwd"] == 1
+    torch.cuda.synchronize()
+    for g, t in zip(got, args[:5]):
+        assert g.shape == t.shape and g.dtype == torch.float32
+        assert g.is_contiguous() and bool(torch.isfinite(g).all())
+    _ssd_bwd_within_bar(got, args, chunk)
+
+
+def test_ssd_scan_bwd_is_bitwise_repeatable(cuda):
+    args = _ssd_bwd_args(20, 2, 1024, 16, 64, 128, cuda)
+    first, second = ss.ssd_scan_bwd(*args), ss.ssd_scan_bwd(*args)
+    torch.cuda.synchronize()
+    assert all(_bitwise(a, b) for a, b in zip(first, second))
+
+
+def test_ssd_scan_bwd_rows_do_not_depend_on_the_batch(cuda):
+    """dx, ddt, dB and dC of each row of a B = 3 call are, bit for bit,
+    the row's run alone; dA, the one sum over the batch, is the rows' dA
+    within float32 rounding."""
+    args = _ssd_bwd_args(21, 3, 512, 8, 64, 128, cuda)
+    full = ss.ssd_scan_bwd(*args)
+    dA = torch.zeros_like(full[2])
+    for b in range(3):
+        one = ss.ssd_scan_bwd(*(t[b:b + 1].contiguous() if t.dim() > 1
+                                else t for t in args))
+        for k in (0, 1, 3, 4):
+            assert _bitwise(one[k][0], full[k][b]), k
+        dA += one[2]
+    torch.testing.assert_close(full[2], dA, rtol=1e-5, atol=1e-5)
+
+
+def test_ssd_scan_bwd_reads_strided_views(cuda):
+    """x and dt cut out of wider tensors, B and C out of one (B, S, 2N)
+    projection: the same bits as on contiguous copies, the gradients
+    contiguous in the views' shapes."""
+    x, dt, A, Bm, Cm, dy = _ssd_bwd_args(22, 2, 256, 4, 32, 16, cuda)
+    xw = torch.cat([x, x], dim=2)[:, :, 1:5]
+    dtw = torch.cat([dt, dt], dim=2)[:, :, 2:6]
+    bc = torch.cat([Bm, Cm], dim=-1)
+    assert not (xw.is_contiguous() or dtw.is_contiguous())
+    got = ss.ssd_scan_bwd(xw, dtw, A, bc[..., :16], bc[..., 16:], dy,
+                          chunk=64)
+    want = ss.ssd_scan_bwd(xw.contiguous(), dtw.contiguous(), A,
+                           bc[..., :16].contiguous(),
+                           bc[..., 16:].contiguous(), dy, chunk=64)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.is_contiguous() and _bitwise(g, w)
+    _ssd_bwd_within_bar(got, [xw, dtw, A, bc[..., :16], bc[..., 16:], dy],
+                        64)
+
+
+@pytest.mark.parametrize("dt_scale,A_scale", [(4.0, 4.0), (50.0, 20.0)])
+def test_ssd_scan_bwd_strong_decay(cuda, dt_scale, A_scale):
+    """dt and A scaled up (|cum| to about 300, then to about 18,600 in a
+    chunk): exp(cum) underflows inside a chunk and the masked exponents
+    would overflow; the gradients stay finite and within the strong-decay
+    bar (which at x50 / x20 follows the chunked form's own loss of
+    digits)."""
+    x, dt, A, Bm, Cm, dy = _ssd_bwd_args(23, 2, 512, 4, 64, 128, cuda)
+    args = [x, dt * dt_scale, A * A_scale, Bm, Cm, dy]
+    got = ss.ssd_scan_bwd(*args)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    _ssd_bwd_within_bar(got, args, 128, strong=True)
+
+
+def test_ssd_scan_bwd_under_cuda_graph_capture(cuda):
+    """Captured into a CUDA graph and replayed on new inputs copied in
+    place: the replay gives the eager call's bits."""
+    args = _ssd_bwd_args(24, 1, 1024, 8, 64, 128, cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ss.ssd_scan_bwd(*args)                    # warm up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ss.ssd_scan_bwd(*args)
+    for seed in (25, 26):
+        for dst, src in zip(args, _ssd_bwd_args(seed, 1, 1024, 8, 64, 128,
+                                                cuda)):
+            dst.copy_(src)
+        graph.replay()
+        want = ss.ssd_scan_bwd(*args)
+        torch.cuda.synchronize()
+        assert all(_bitwise(a, b) for a, b in zip(out, want))
+
+
+def test_ssd_scan_bwd_refuses_what_the_kernel_does_not_take(cuda):
+    x, dt, A, Bm, Cm, dy = _ssd_bwd_args(27, 1, 256, 2, 64, 128, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        ss.ssd_scan_bwd(torch.cat([x, x], -1), dt, A, Bm, Cm,
+                        torch.cat([dy, dy], -1))                  # P = 128
+    with pytest.raises(ValueError, match="state"):
+        ss.ssd_scan_bwd(x, dt, A, torch.cat([Bm, Bm], -1),
+                        torch.cat([Cm, Cm], -1), dy)              # N = 256
+    with pytest.raises(ValueError, match="chunk"):
+        ss.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, chunk=256)          # Q = 256
+    with pytest.raises(ValueError, match="not divisible"):
+        ss.ssd_scan_bwd(x[:, :200], dt[:, :200], A, Bm[:, :200],
+                        Cm[:, :200], dy[:, :200])
+    with pytest.raises(ValueError, match="dy"):
+        ss.ssd_scan_bwd(x, dt, A, Bm, Cm, dy[:, :128])
+    with pytest.raises(TypeError):
+        ss.ssd_scan_bwd(x.double(), dt, A, Bm, Cm, dy)
+
+
 def test_smollm_smoke_prefill_on_the_card(cuda):
     """The smoke-width smollm-360m (head dim 48) on the card launches one
     flash attention per layer and agrees with the port's CPU run at
@@ -806,7 +957,8 @@ def test_mamba2_smoke_prefill_on_the_card(cuda):
                                    "flash_attention_bwd": 0,
                                    "rglru_scan": 0,
                                    "rglru_scan_bwd": 0,
-                                   "ssd_scan": cfg.num_layers}
+                                   "ssd_scan": cfg.num_layers,
+                                   "ssd_scan_bwd": 0}
     want, _ = transformer.forward_train(p_cpu, toks, cfg)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     caches = materialize(transformer.cache_decl(cfg, 2, 256), 0, cuda)
@@ -1004,7 +1156,8 @@ def test_serving_engine_on_the_card_matches_the_cpu(cuda, arch, scheduling,
     assert counts == {"moe_gemm": 3 * n_moe * card.micro_steps,
                       "redundancy_vote": 0, "audit_mlp": 0,
                       "flash_attention": 0, "flash_attention_bwd": 0,
-                      "rglru_scan": 0, "rglru_scan_bwd": 0, "ssd_scan": 0}
+                      "rglru_scan": 0, "rglru_scan_bwd": 0, "ssd_scan": 0,
+                      "ssd_scan_bwd": 0}
 
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "bmoe-paper"])
@@ -1176,7 +1329,8 @@ def test_rglru_scan_bwd_matches_plain(cuda, B, S, C):
 def test_ops_gradients_on_the_card_match_the_plain_versions(cuda):
     """``ops``' autograd Functions on CUDA tensors launch the kernels, one
     forward and one backward call each (moe_gemm: one forward, two
-    backward), and give the plain versions' gradients."""
+    backward), and give the plain versions' gradients (the SSD scan's by
+    autograd through its sequential recurrence)."""
     def grads(fn, *xs):
         xs = [x.clone().requires_grad_(True) for x in xs]
         out = fn(*xs)
@@ -1187,7 +1341,10 @@ def test_ops_gradients_on_the_card_match_the_plain_versions(cuda):
     k, v = (_randn(s, 2, 200, 2, 64).to(cuda) for s in (2, 3))
     a, b = (t.to(cuda) for t in _scan_inputs(4, 2, 300, 70))
     buf, w = _randn(5, 3, 100, 64).to(cuda), _randn(6, 3, 64, 48).to(cuda)
+    ssd = [t.to(cuda) for t in _ssd_inputs(7, 2, 256, 3, 32, 16)]
     for fn, plain, xs, n in (
+            (lambda *t: ops.ssd_scan(*t, chunk=64), _ssd_plain, ssd,
+             dict(ssd_scan=1, ssd_scan_bwd=1)),
             (lambda *t: ops.flash_attention(*t, window=50),
              lambda *t: ref.attention_ref(*t, window=50), (q, k, v),
              dict(flash_attention=1, flash_attention_bwd=1)),
@@ -1204,7 +1361,8 @@ def test_ops_gradients_on_the_card_match_the_plain_versions(cuda):
 
 
 TRAIN_ARCHS = ("qwen2.5-3b", "recurrentgemma-2b", "pixtral-12b",
-               "seamless-m4t-medium", "gemma3-27b", "bmoe-paper")
+               "seamless-m4t-medium", "gemma3-27b", "bmoe-paper",
+               "mamba2-2.7b")
 
 
 def _train_batch(cfg, device, seed=12):
@@ -1223,12 +1381,13 @@ def _train_batch(cfg, device, seed=12):
 
 @pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_smoke_train_step_on_the_card_matches_the_cpu(cuda, arch):
-    """Every family but the SSM: the loss and its gradients on the card
-    (attention, RG-LRU and MoE products through their kernels, forward
-    and backward) against the CPU's at rtol 1e-4 / atol 1e-5, with one
-    flash forward and one backward per attention layer, one scan and one
-    reverse scan per RG-LRU layer, 3 + 6 moe_gemm per MoE layer.  The
-    routing is recorded on both devices and held equal first."""
+    """Every family: the loss and its gradients on the card (attention,
+    RG-LRU, SSD and MoE products through their kernels, forward and
+    backward) against the CPU's at rtol 1e-4 / atol 1e-5, with one flash
+    forward and one backward per attention layer, one scan and one reverse
+    scan per RG-LRU layer, one SSD scan and one SSD backward per SSM
+    layer, 3 + 6 moe_gemm per MoE layer.  The routing is recorded on both
+    devices and held equal first."""
     from repro_torch.core.ledger import tree_flatten
     from repro_torch.train import step
     cfg = get_config(arch, smoke=True)
@@ -1260,6 +1419,7 @@ def test_smoke_train_step_on_the_card_matches_the_cpu(cuda, arch):
     n = {}
     for what, hit in (("attn", lambda s: s.kind in ("attn", "local_attn")),
                       ("rglru", lambda s: s.kind == "rglru"),
+                      ("ssm", lambda s: s.kind == "ssm"),
                       ("moe", lambda s: s.mlp == "moe")):
         n[what] = (sum(map(hit, blocks)), sum(map(hit, cfg.remainder)))
     if cfg.is_encoder_decoder:
@@ -1270,7 +1430,9 @@ def test_smoke_train_step_on_the_card_matches_the_cpu(cuda, arch):
         "flash_attention": 2 * n["attn"][0] + n["attn"][1],
         "flash_attention_bwd": sum(n["attn"]),
         "rglru_scan": 2 * n["rglru"][0] + n["rglru"][1],
-        "rglru_scan_bwd": sum(n["rglru"]), "ssd_scan": 0}
+        "rglru_scan_bwd": sum(n["rglru"]),
+        "ssd_scan": 2 * n["ssm"][0] + n["ssm"][1],
+        "ssd_scan_bwd": sum(n["ssm"])}
     torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-5, atol=1e-5)
     for (a, b) in zip(tree_flatten(got[2])[0], tree_flatten(want[2])[0]):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
@@ -1295,19 +1457,23 @@ def test_card_train_steps_are_bitwise_repeatable(cuda):
     assert all(_bitwise(a, b) for a, b in zip(*runs))
 
 
-def test_mamba2_train_step_on_the_card_refuses(cuda):
-    """The SSD scan has no backward kernel yet: a gradient through it on
-    the card raises and names the queue item (no plain fallback)."""
-    from repro_torch.train import step
-    cfg = get_config("mamba2-2.7b", smoke=True)
-    p = init_model(cfg, 0, cuda)
-    with pytest.raises(NotImplementedError, match="A4.4b"):
-        step.make_loss_and_grads(cfg)(p, _train_batch(cfg, cuda))
-
-
 def test_train_launcher_runs_on_the_card(cuda, capsys):
     from repro_torch.launch import train
     hist = train.main(["--arch", "bmoe-paper", "--steps", "3", "--batch",
                        "2", "--seq", "32"])
     assert len(hist) == 3 and all(np.isfinite(r["loss"]) for r in hist)
+    assert "[train] done" in capsys.readouterr().out
+
+
+def test_train_launcher_trains_mamba2_on_the_card(cuda, capsys):
+    """The launcher's mamba2 run (smoke width, (2, 256): two chunks of
+    128) takes two steps on the card, each through the SSD kernels forward
+    and backward."""
+    from repro_torch.launch import train
+    ops.reset_launch_counts()
+    hist = train.main(["--arch", "mamba2-2.7b", "--steps", "2", "--batch",
+                       "2", "--seq", "256"])
+    assert len(hist) == 2 and all(np.isfinite(r["loss"]) for r in hist)
+    assert ops.launch_counts()["ssd_scan_bwd"] == 2 * get_config(
+        "mamba2-2.7b", smoke=True).num_layers
     assert "[train] done" in capsys.readouterr().out

@@ -26,6 +26,9 @@ against it on the card.  ``attention_bwd_tiled`` is
 ``flash_attention_bwd.cu``'s order of sums (its tiles, zeroed per-tile
 sums, the head sum, dQ's order of key tiles) with 3xTF32 products, held
 against a float64 backward as the card tests hold the kernel."""
+import contextlib
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -143,35 +146,129 @@ def test_attention_arithmetic(case, route, meets_bar):
         float((got - want).abs().max())
 
 
-def ssd_chunks(x, dt, A, Bm, Cm, Q, mm):
-    """The chunk-parallel SSD of ``ssd_scan.cu`` in x's dtype, from a zero
-    state, with its four products through ``mm``: C B^T once per chunk,
-    the chunk states (w o x)^T B, the state pass, then the outputs
-    (exp(cum) o C) s^T + (C B^T o L o dt_j) x.  x (B, S, H, P), dt (B, S,
-    H), A (H,), Bm / Cm (B, S, N) -> y (B, S, H, P)."""
+def ssd_chunk_parts(x, dt, A, Bm, Cm, Q, mm):
+    """The pieces of ``ssd_scan.cu``'s chunk-parallel SSD in x's dtype,
+    from a zero state, with its four products through ``mm``: C B^T once
+    per chunk, the chunk states (w o x)^T B, the state pass, then the
+    outputs (exp(cum) o C) s^T + (C B^T o L o dt_j) x.  x (B, S, H, P), dt
+    (B, S, H), A (H,), Bm / Cm (B, S, N).  Returns a dict of the chunked
+    operands (``xc`` (B, nc, H, Q, P), ``dtc`` (B, nc, H, Q), ``Bc``,
+    ``Cc`` (B, nc, Q, N)), the cumsum ``cumd`` summed in float64 as the
+    kernels sum it and ``cum``, it rounded to x's dtype, ``cb`` (B, nc, 1,
+    Q, Q), ``L`` (masked before the exponential; the output launch's, from
+    differences of ``cum``) and ``Ld`` (from differences of ``cumd``,
+    rounded once, as the chunk states and the backward take them),
+    ``decay`` exp(cum_Q) (B, nc, H), the states ``s`` entering each chunk
+    (B, nc, H, P, N) and ``y`` (B, nc, H, Q, P)."""
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     nc = S // Q
     xc = x.reshape(B, nc, Q, H, P).permute(0, 1, 3, 2, 4)    # (B,nc,H,Q,P)
     dtc = dt.reshape(B, nc, Q, H).permute(0, 1, 3, 2)         # (B,nc,H,Q)
     Bc, Cc = Bm.reshape(B, nc, Q, N), Cm.reshape(B, nc, Q, N)
-    cum = torch.cumsum(dtc * A[:, None], dim=-1)
+    cumd = torch.cumsum(dtc.double() * A.double()[:, None], dim=-1)
+    cum = cumd.to(x.dtype)
     cb = mm(Cc, Bc.transpose(-1, -2))[:, :, None]              # (B,nc,1,Q,Q)
-    w = torch.exp(cum[..., -1:] - cum) * dtc
+    w = torch.exp((cumd[..., -1:] - cumd).to(x.dtype)) * dtc
     ds = mm((w[..., None] * xc).transpose(-1, -2), Bc[:, :, None])
-    decay = torch.exp(cum[..., -1])[..., None, None]           # (B,nc,H,1,1)
+    decay = torch.exp(cum[..., -1])                            # (B,nc,H)
     states = [torch.zeros_like(ds[:, 0])]
     for c in range(nc - 1):
-        states.append(decay[:, c] * states[-1] + ds[:, c])
+        states.append(decay[:, c, :, None, None] * states[-1] + ds[:, c])
     s = torch.stack(states, 1)                                 # (B,nc,H,P,N)
-    pos = torch.arange(Q)
+    pos = torch.arange(Q, device=x.device)
     causal = pos[None, :] <= pos[:, None]
     seg = torch.where(causal, cum[..., :, None] - cum[..., None, :], 0.0)
     L = torch.where(causal, torch.exp(seg), 0.0)               # masked first
+    segd = (cumd[..., :, None] - cumd[..., None, :]).to(x.dtype)
+    Ld = torch.where(causal, torch.exp(torch.where(causal, segd, 0.0)), 0.0)
     scores = cb * L * dtc[..., None, :]
     y = (mm(torch.exp(cum)[..., None] * Cc[:, :, None], s.transpose(-1, -2))
          + mm(scores, xc))
-    return y.permute(0, 1, 3, 2, 4).reshape(B, S, H, P)
+    return dict(xc=xc, dtc=dtc, Bc=Bc, Cc=Cc, cum=cum, cumd=cumd, cb=cb,
+                L=L, Ld=Ld, decay=decay, s=s, y=y)
+
+
+def ssd_chunks(x, dt, A, Bm, Cm, Q, mm):
+    """The chunk-parallel SSD of ``ssd_scan.cu`` (``ssd_chunk_parts``):
+    y (B, S, H, P)."""
+    B, S, H, P = x.shape
+    return ssd_chunk_parts(x, dt, A, Bm, Cm, Q, mm)["y"].permute(
+        0, 1, 3, 2, 4).reshape(B, S, H, P)
+
+
+def ssd_bwd_chunks(x, dt, A, Bm, Cm, dy, Q, mm, slice_k: int = 64):
+    """The backward of ``ssd_scan_bwd.cu`` in x's dtype, its products
+    through ``mm``, in its order of sums; returns (dx, ddt, dA, dB, dC).
+
+    It recomputes the forward's pieces (``ssd_chunk_parts``); then, with
+    G_c = dl/ds_c, the local part (exp(cum) o dy)^T C and the reverse state
+    pass G_c = that + exp(cum_Q) G_c+1 (G_nc = 0).  Per (chunk, head):
+    dx = dt o (acc_s + acc_i), acc_s = exp(cum_Q - cum) o (B G_c+1^T), the
+    state's part, and acc_i = (C B^T o L)^T dy, the scores' part; dda_k,
+    dl/d(dt_k A), sums what crosses step k: the pairs j < k <= i of D =
+    (dy x^T) o C B^T o L o dt_j (an exclusive prefix along each row, then
+    the column below the diagonal), the inter-chunk terms exp(cum_i) dy_i .
+    (s_c C_i) at i >= k, the state writes dt_j x_j . acc_s_j at j < k, and
+    the carried state's decay exp(cum_Q) <s_c, G_c+1>; ddt = A dda + x .
+    (acc_s + acc_i); dA sums dt o dda per (b, chunk, head), then over the
+    batch and the chunks.  dB and dC sum the heads: dCB = sum_h (dy x^T) o
+    L o dt_j in head order, then dC = sum_h (exp(cum) o dy) s_c + dCB B and
+    dB = sum_h (w o x) G_c+1 + dCB^T C, each head's product and each
+    ``slice_k`` keys of dCB's summed from zero and then added, heads
+    first."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    nc = S // Q
+    f = ssd_chunk_parts(x, dt, A, Bm, Cm, Q, mm)
+    xc, dtc, Bc, Cc, cum, L, s = (f[k] for k in ("xc", "dtc", "Bc", "Cc",
+                                                 "cum", "Ld", "s"))
+    dyc = dy.reshape(B, nc, Q, H, P).permute(0, 1, 3, 2, 4)
+    # exp(cum_Q - cum), the difference taken in float64 and rounded once
+    tail = torch.exp((f["cumd"][..., -1:] - f["cumd"]).to(x.dtype))
+    gloc = mm((torch.exp(cum)[..., None] * dyc).transpose(-1, -2),
+              Cc[:, :, None])                                  # (B,nc,H,P,N)
+    nxt = [torch.zeros_like(gloc[:, 0])]       # G_c+1 for c = nc-1 .. 0
+    for c in range(nc - 1, 0, -1):
+        nxt.append(gloc[:, c] + f["decay"][:, c, :, None, None] * nxt[-1])
+    g_next = torch.stack(nxt[::-1], 1)                         # (B,nc,H,P,N)
+    inter = torch.exp(cum) * (dyc * mm(Cc[:, :, None],
+                                       s.transpose(-1, -2))).sum(-1)
+    acc_s = tail[..., None] * mm(
+        Bc[:, :, None], g_next.transpose(-1, -2))              # (B,nc,H,Q,P)
+    acc_i = mm((f["cb"] * L).transpose(-1, -2), dyc)
+    dxc = dtc[..., None] * acc_s + dtc[..., None] * acc_i
+    u_s, u_i = (xc * acc_s).sum(-1), (xc * acc_i).sum(-1)
+    D = mm(dyc, xc.transpose(-1, -2)) * f["cb"] * L * dtc[..., None, :]
+    row = torch.cumsum(D, -1)
+    row = torch.cat([torch.zeros_like(row[..., :1]), row[..., :-1]], -1)
+    pos = torch.arange(Q, device=x.device)
+    cross = torch.where(pos[:, None] >= pos[None, :], row, 0.0).sum(-2)
+    later = torch.flip(torch.cumsum(torch.flip(inter, [-1]), -1), [-1])
+    written = torch.cumsum(dtc * u_s, -1)
+    written = torch.cat([torch.zeros_like(written[..., :1]),
+                         written[..., :-1]], -1)
+    gsd = f["decay"] * (s * g_next).sum((-1, -2))
+    dda = ((cross + later) + written) + gsd[..., None]
+    ddtc = A[:, None] * dda + (u_s + u_i)
+    dA = (dtc * dda).sum(-1).sum((0, 1))
+    dcb = x.new_zeros((B, nc, Q, Q))
+    for h in range(H):
+        dcb = dcb + mm(dyc[:, :, h], xc[:, :, h].transpose(-1, -2)) * \
+            L[:, :, h] * dtc[:, :, h, None, :]
+    w = tail * dtc
+    dC, dB = torch.zeros_like(Cc), torch.zeros_like(Bc)
+    for h in range(H):
+        dC = dC + mm(torch.exp(cum[:, :, h])[..., None] * dyc[:, :, h],
+                     s[:, :, h])
+        dB = dB + mm(w[:, :, h, :, None] * xc[:, :, h], g_next[:, :, h])
+    for j0 in range(0, Q, slice_k):
+        dC = dC + mm(dcb[..., j0:j0 + slice_k], Bc[:, :, j0:j0 + slice_k])
+        dB = dB + mm(dcb[:, :, j0:j0 + slice_k].transpose(-1, -2),
+                     Cc[:, :, j0:j0 + slice_k])
+    return (dxc.permute(0, 1, 3, 2, 4).reshape(B, S, H, P),
+            ddtc.permute(0, 1, 3, 2).reshape(B, S, H), dA,
+            dB.reshape(B, S, N), dC.reshape(B, S, N))
 
 
 def ssd_recurrence_f64(x, dt, A, Bm, Cm):
@@ -231,6 +328,114 @@ def test_ssd_chunk_state_algebra(case):
     state0 = torch.zeros(B, H, P, N)
     want = ref.ssd_scan_ref(x, dt, A, Bm, Cm, state0)[0]
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def ssd_chunked_grads(x, dt, A, Bm, Cm, dy, Q):
+    """The five gradients of the chunked form from zero
+    (``models.ssm.ssd_chunked``, the port's copy of the JAX package's,
+    whose ``jax.vjp`` is the authority) by autograd, in x's dtype."""
+    from repro_torch.models.ssm import ssd_chunked
+    ts = [t.detach().clone().requires_grad_(True)
+          for t in (x, dt, A, Bm, Cm)]
+    s0 = x.new_zeros((x.shape[0], x.shape[2], x.shape[3], Bm.shape[-1]))
+    y = ssd_chunked(*ts, s0, Q)[0]
+    return torch.autograd.grad(y, ts, dy)
+
+
+def ssd_bwd_refs(x, dt, A, Bm, Cm, dy, Q):
+    """The gradients ``ssd_bwd_errors`` compares: ``ref.ssd_scan_bwd_ref``
+    in float64 (the truth) and in float32, and the chunked form's by
+    autograd."""
+    return (ref.ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, Q,
+                                 dtype=torch.float64),
+            ref.ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, Q),
+            ssd_chunked_grads(x, dt, A, Bm, Cm, dy, Q))
+
+
+def ssd_bwd_errors(got, x, dt, A, Bm, Cm, dy, Q, refs=None):
+    """Per gradient of ``got`` (dx, ddt, dA, dB, dC): its float64 error
+    and the float32 errors of the two plain routes, the sequential reverse
+    loop (``ssd_scan_bwd_ref``) and the chunked form by autograd, each
+    against ``ref.ssd_scan_bwd_ref`` in float64.  ``refs``:
+    ``ssd_bwd_refs``' result for these operands, if at hand."""
+    truth, plain, chunked = refs or ssd_bwd_refs(x, dt, A, Bm, Cm, dy, Q)
+
+    def err(a, t):
+        return float((a.double().cpu() - t.cpu()).abs().max())
+    return {n: (err(g, t), err(p, t), err(c, t))
+            for n, g, t, p, c in zip(("dx", "ddt", "dA", "dB", "dC"), got,
+                                     truth, plain, chunked)}
+
+
+def _ssd_bwd_inputs(seed, B, S, H, P, N, decay=1.0):
+    """``_ssd_inputs`` with dt and A scaled by ``decay``, and dy (unit
+    normal) from the next seed."""
+    x, dt, A, Bm, Cm = _ssd_inputs(seed, B, S, H, P, N)
+    dy = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        (B, S, H, P)).astype(np.float32))
+    return x, dt * decay, A * decay, Bm, Cm, dy
+
+
+# (B, S, H, P, N, Q, decay): mamba2-2.7b's chunk shape over three chunks,
+# ragged chunks of 100, and dt and A x4 (cum down to about -300 a chunk)
+SSD_BWD_CASES = {"mamba2_h2": (1, 384, 2, 64, 128, 128, 1.0),
+                 "ragged_q100": (2, 300, 3, 64, 128, 100, 1.0),
+                 "strong_decay": (2, 512, 4, 64, 128, 128, 4.0)}
+
+
+@contextlib.contextmanager
+def one_thread():
+    """The reverse loops are thousands of small ops: with the test workers'
+    threads oversubscribing the cores they ran 60x slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+@functools.lru_cache(maxsize=None)
+def _ssd_bwd_case(case):
+    """A case's operands, chunk and ``ssd_bwd_refs``, once per process."""
+    B, S, H, P, N, Q, decay = SSD_BWD_CASES[case]
+    args = _ssd_bwd_inputs(S + H, B, S, H, P, N, decay)
+    with one_thread():
+        return args, Q, ssd_bwd_refs(*args, Q)
+
+
+@pytest.mark.parametrize("route,meets_bar", [("3xtf32", True),
+                                             ("1xtf32", False)])
+@pytest.mark.parametrize("case", sorted(SSD_BWD_CASES))
+def test_ssd_bwd_arithmetic(case, route, meets_bar):
+    """The backward's decomposition with 3xTF32 in every product is within
+    twice the larger float32 error of the two plain routes on all five
+    gradients (it is a chunked form: at mamba2_h2 its dB error is 2.4x
+    the loop's, the chunked form's 1.7x); with one TF32 product it misses
+    on every case."""
+    args, Q, refs = _ssd_bwd_case(case)
+    mm = mm_3xtf32 if route == "3xtf32" else mm_1xtf32
+    with one_thread():
+        errs = ssd_bwd_errors(ssd_bwd_chunks(*args, Q, mm), *args, Q,
+                              refs=refs)
+    assert all(e <= 2.0 * max(p, c)
+               for e, p, c in errs.values()) == meets_bar, errs
+
+
+@pytest.mark.parametrize("case", sorted(SSD_BWD_CASES))
+def test_ssd_bwd_chunk_algebra(case):
+    """The decomposition with float32 products is the sequential reverse
+    loop (``ref.ssd_scan_bwd_ref``) within rtol 1e-4 / atol 1e-4 (the
+    gradients reach 10^2; at dt and A x4 the chunked form's own float32
+    error reaches 1.5e-3 on ddt, so that case is held at rtol 1e-4 / atol
+    5e-3)."""
+    args, Q, (_, want, _) = _ssd_bwd_case(case)
+    with one_thread():
+        got = ssd_bwd_chunks(*args, Q, torch.matmul)
+    atol = 1e-4 if SSD_BWD_CASES[case][-1] == 1.0 else 5e-3
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=atol)
 
 
 # ------------------------------------------------------------ audit_mlp

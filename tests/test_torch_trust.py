@@ -357,7 +357,8 @@ def test_plain_audit_mlp_launches_nothing():
                                    "audit_mlp": 0, "flash_attention": 0,
                                    "flash_attention_bwd": 0,
                                    "rglru_scan": 0,
-                                   "rglru_scan_bwd": 0, "ssd_scan": 0}
+                                   "rglru_scan_bwd": 0, "ssd_scan": 0,
+                                   "ssd_scan_bwd": 0}
 
 
 # ------------------------------------------------------------- system
@@ -409,7 +410,8 @@ def test_optimistic_infer_matches_jax(data, case):
                                    "audit_mlp": 0, "flash_attention": 0,
                                    "flash_attention_bwd": 0,
                                    "rglru_scan": 0,
-                                   "rglru_scan_bwd": 0, "ssd_scan": 0}
+                                   "rglru_scan_bwd": 0, "ssd_scan": 0,
+                                   "ssd_scan_bwd": 0}
     tp, jp = tsys._infer_protocol, jsys._infer_protocol
 
     def strip(log):
