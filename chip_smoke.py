@@ -956,6 +956,23 @@ def ssd_chunked_grads(torch, x, dt, A, Bm, Cm, dy, Q):
     return torch.autograd.grad(ssd_chunked(*ts, s0, Q)[0], ts, dy)
 
 
+def ssd_bwd_inputs(torch, seed: int, B: int, S: int, H: int, P: int,
+                   N: int, decay: float = 1.0):
+    """(x, dt, A, B, C, dy) on the card, drawn from ``seed`` as
+    ``check_ssd`` draws them (dt and A times ``decay``) and a unit-normal
+    dy."""
+    import torch.nn.functional as F
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, S, H, P, generator=g).cuda()
+    dt = (F.softplus(torch.randn(B, S, H, generator=g)) * 0.1
+          * decay).cuda()
+    A = ((-torch.randn(H, generator=g).abs() - 0.1) * decay).cuda()
+    Bm = (torch.randn(B, S, N, generator=g) * 0.5).cuda()
+    Cm = (torch.randn(B, S, N, generator=g) * 0.5).cuda()
+    dy = torch.randn(B, S, H, P, generator=g).cuda()
+    return x, dt, A, Bm, Cm, dy
+
+
 def check_ssd_bwd(torch, ss, ref, seed: int, name: str, B: int, S: int,
                   H: int, P: int, N: int, chunk: int, decay: float = 1.0,
                   iters: int = 20, profiled: bool = False):
@@ -968,21 +985,13 @@ def check_ssd_bwd(torch, ss, ref, seed: int, name: str, B: int, S: int,
     chunked form by autograd: there the loop's sums are a few steps long
     and its error small, and the kernel's decomposition emulated with
     3xTF32 products (tests/test_torch_tf32x3.py) misses twice it as well.
-    Two calls bitwise equal.  The bound: the products the gradient needs, the forward's
-    C B^T and chunk states recomputed (ssd_scan_bwd.cu's note), at the
-    3xTF32 rate, against x, dt, A, B, C, dy read once and the five
-    gradients written once; ``design_gflop`` adds the dy x^T launch e
-    computes again."""
-    import torch.nn.functional as F
-    g = torch.Generator().manual_seed(seed)
-    x = torch.randn(B, S, H, P, generator=g).cuda()
-    dt = (F.softplus(torch.randn(B, S, H, generator=g)) * 0.1
-          * decay).cuda()
-    A = ((-torch.randn(H, generator=g).abs() - 0.1) * decay).cuda()
-    Bm = (torch.randn(B, S, N, generator=g) * 0.5).cuda()
-    Cm = (torch.randn(B, S, N, generator=g) * 0.5).cuda()
-    dy = torch.randn(B, S, H, P, generator=g).cuda()
-    args = (x, dt, A, Bm, Cm, dy)
+    Two calls bitwise equal.  The bound: the products the gradient needs,
+    the forward's C B^T and chunk states recomputed (ssd_scan_bwd.cu's
+    note), at the 3xTF32 rate, against x, dt, A, B, C, dy read once and
+    the five gradients written once; ``design_gflop`` adds the dCB
+    products launch f runs once per head group (``head_group`` heads
+    each, ``head_groups`` of them) where the gradient needs them once."""
+    args = ssd_bwd_inputs(torch, seed, B, S, H, P, N, decay)
     Q = min(chunk, S)
     got = ss.ssd_scan_bwd(*args, chunk=chunk)
     again = ss.ssd_scan_bwd(*args, chunk=chunk)
@@ -1010,7 +1019,10 @@ def check_ssd_bwd(torch, ss, ref, seed: int, name: str, B: int, S: int,
     # dCB, dC and dB
     flops = 2.0 * B * (6 * H * (nc - 1) * Q * N * P + 2 * H * nc * pairs * P
                        + 3 * nc * pairs * N)
-    redone = 2.0 * B * H * nc * pairs * P    # dy x^T again in launch e
+    HG = ss.default_head_group(H, S, Q, N)
+    NG = -(-H // HG)
+    # dCB B and dCB^T C once per head group
+    redone = 2.0 * B * (NG - 1) * 2 * nc * pairs * N
     nbytes = 4.0 * 2 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * N) \
         - 4.0 * B * S * H * P               # dy has no gradient written
     b_ms, b_by = bound(flops, nbytes, TF32X3_PEAK)
@@ -1030,7 +1042,8 @@ def check_ssd_bwd(torch, ss, ref, seed: int, name: str, B: int, S: int,
                                    iters=1, warmup=0),
            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
            "bound_fp32_cores_ms": bound(flops, nbytes, FP32_PEAK)[0],
-           "gflop": flops / 1e9, "design_gflop": (flops + redone) / 1e9}
+           "gflop": flops / 1e9, "design_gflop": (flops + redone) / 1e9,
+           "head_group": HG, "head_groups": NG}
     if profiled:
         prof = profile_batch(torch, lambda: ss.ssd_scan_bwd(
             *args, chunk=chunk), cpu=False)["ssd"]
@@ -1044,20 +1057,24 @@ def check_ssd_bwd(torch, ss, ref, seed: int, name: str, B: int, S: int,
     return row
 
 
+# (name, seed, B, S, H, P, N, chunk, decay): a mamba2-2.7b layer, the JAX
+# test shape, one chunk of 48, ragged chunks of 100 through both state
+# passes, and dt and A x4 (|cum| to about 300 a chunk)
+SSD_BWD_CASES = (("mamba2_layer", 80, 1, 4096, 80, 64, 128, 128, 1.0),
+                 ("jax_test_shape", 81, 2, 256, 3, 16, 8, 32, 1.0),
+                 ("single_chunk", 82, 1, 48, 16, 32, 32, 128, 1.0),
+                 ("ragged_chunks", 83, 2, 300, 8, 64, 128, 100, 1.0),
+                 ("strong_decay", 84, 2, 512, 4, 64, 128, 128, 4.0))
+
+
 def ssd_bwd_cases(torch, ss, ref):
-    """A mamba2-2.7b layer (first, profiled), the JAX test shape, one
-    chunk of 48, ragged chunks of 100 through both state passes, and dt
-    and A x4 (|cum| to about 300 a chunk)."""
-    return [check_ssd_bwd(torch, ss, ref, 80, "mamba2_layer", 1, 4096, 80,
-                          64, 128, 128, iters=3, profiled=True),
-            check_ssd_bwd(torch, ss, ref, 81, "jax_test_shape", 2, 256, 3,
-                          16, 8, 32),
-            check_ssd_bwd(torch, ss, ref, 82, "single_chunk", 1, 48, 16, 32,
-                          32, 128),
-            check_ssd_bwd(torch, ss, ref, 83, "ragged_chunks", 2, 300, 8, 64,
-                          128, 100),
-            check_ssd_bwd(torch, ss, ref, 84, "strong_decay", 2, 512, 4, 64,
-                          128, 128, decay=4.0)]
+    """``check_ssd_bwd`` at each of ``SSD_BWD_CASES``, the mamba2 layer
+    first and profiled."""
+    return [check_ssd_bwd(torch, ss, ref, seed, name, B, S, H, P, N, chunk,
+                          decay, iters=3 if k == 0 else 20,
+                          profiled=k == 0)
+            for k, (name, seed, B, S, H, P, N, chunk, decay)
+            in enumerate(SSD_BWD_CASES)]
 
 
 # --------------------------- LM stack: paths C, D, E, H, I and J
@@ -1630,26 +1647,28 @@ def _flash_bwd_share(torch, run):
 def _ssd_bwd_share(torch, run):
     """One fenced, profiled call of ``run`` (a train step), the device
     alone traced: busy and wall on the device, and the SSD scan's device
-    time forward and backward.  A call's first three launches (C B^T,
-    chunk states, state pass) are the same in both, so the SSD kernels
-    are cut into chains at each C B^T launch (ssd_cb_kernel): a chain
-    holding the backward's main launch (ssd_bwd_chunk_kernel) is a
-    backward call, whose recomputed states count as its own, and every
-    ssd_bwd_* launch counts to the backward wherever it falls."""
+    time forward and backward.  Both start with the same chunk-state
+    launches, so the SSD kernels are cut into calls after each call's
+    last launch (the forward's ssd_chunk_out_kernel, the backward's
+    ssd_bwd_sums_kernel): a call holding the backward's main launch
+    (ssd_bwd_chunk_kernel) is a backward call, whose recomputed states
+    count as its own."""
     prof = profile_batch(torch, run, cpu=False)
-    chains = []
+    chains, ended = [], True
     for _, us, name in prof["events"]:
         if not re.search(r"\bssd_\w+_kernel\b", name):
             continue
-        if re.search(r"\bssd_cb_kernel\b", name) or not chains:
+        if ended:
             chains.append([])
         chains[-1].append((us, name))
+        ended = bool(re.search(r"\bssd_(chunk_out|bwd_sums)_kernel\b",
+                               name))
     is_bwd = [any("ssd_bwd_chunk_kernel" in n for _, n in c) for c in chains]
     fwd_ms = bwd_ms = 0.0
     bwd_launches = 0
     for c, b in zip(chains, is_bwd):
         for us, n in c:
-            if b or "ssd_bwd_" in n:
+            if b:
                 bwd_ms += us / 1e3
                 bwd_launches += 1
             else:

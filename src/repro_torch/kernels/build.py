@@ -134,7 +134,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         + [P]
     fn.restype = I
     fn = lib.ssd_scan_bwd_f32
-    fn.argtypes = [P] * 18 + [ctypes.POINTER(ctypes.c_longlong)] + [I] * 6 \
+    fn.argtypes = [P] * 20 + [ctypes.POINTER(ctypes.c_longlong)] + [I] * 7 \
         + [P]
     fn.restype = I
     return lib

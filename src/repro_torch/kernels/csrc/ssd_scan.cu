@@ -552,10 +552,9 @@ bool make_params(Params& p, const void* x, const void* dt, const void* A,
   return true;
 }
 
-// Launches 1 to 3 (2 only if nc > 1, 3 only if nc > 2).
+// Launches 2 and 3 (2 only if nc > 1, 3 only if nc > 2).
 int run_states(const Params& p, int B, cudaStream_t s) {
-  int err = launch(ssd_cb_kernel, dim3(p.nc, B), kSmemCB, s, p);
-  if (err) return err;
+  int err;
   if (p.nc > 1) {
     err = launch(ssd_chunk_state_kernel, dim3(p.H, p.nc - 1, B), kSmemState,
                  s, p);
@@ -591,24 +590,24 @@ extern "C" int ssd_scan_f32(const void* x, const void* dt, const void* A,
                    P, N, Q))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err = run_states(p, B, s);
-  if (err) return err;
+  int err = launch(ssd_cb_kernel, dim3(p.nc, B), kSmemCB, s, p);
+  if (err || (err = run_states(p, B, s))) return err;
   return launch(ssd_chunk_out_kernel, dim3(H, p.nc, B), kSmemOut, s, p);
 }
 
-// Launches 1 to 3 alone, for the backward (ssd_scan_bwd.cu), which
-// recomputes C B^T, the states entering chunks 1..nc-1 and exp(cum_Q) of
-// chunks 0..nc-2 instead of keeping them from the forward.  Same operands
-// and scratch as ssd_scan_f32, no y.
+// Launches 2 and 3 alone, for the backward (ssd_scan_bwd.cu), which
+// recomputes the states entering chunks 1..nc-1 and exp(cum_Q) of chunks
+// 0..nc-2 instead of keeping them from the forward (and forms its own
+// C B^T).  Same operands and scratch as ssd_scan_f32, no y and no cb.
 extern "C" int ssd_scan_states_f32(const void* x, const void* dt,
                                    const void* A, const void* Bm,
-                                   const void* Cm, void* cb, void* st,
-                                   void* decay, const long long* strides,
-                                   int B, int S, int H, int P, int N, int Q,
+                                   const void* Cm, void* st, void* decay,
+                                   const long long* strides, int B, int S,
+                                   int H, int P, int N, int Q,
                                    void* stream) {
   Params p;
-  if (!make_params(p, x, dt, A, Bm, Cm, nullptr, cb, st, decay, strides, B,
-                   S, H, P, N, Q))
+  if (!make_params(p, x, dt, A, Bm, Cm, nullptr, nullptr, st, decay,
+                   strides, B, S, H, P, N, Q))
     return (int)cudaErrorInvalidValue;
   return run_states(p, B, static_cast<cudaStream_t>(stream));
 }

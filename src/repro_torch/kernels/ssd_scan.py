@@ -20,7 +20,10 @@ C B^T and states are recomputed, not kept) and dy (B, S, H, P), it returns
 (dx, ddt, dA, dB, dC) in the operands' shapes, contiguous float32, in up
 to nine CUDA launches over ``torch.empty`` scratch (at mamba2-2.7b's layer
 the states and their gradients, 2 x 81 MB, are the largest).  dA sums over
-the batch; every other output's row b depends on row b alone.
+the batch; every other output's row b depends on row b alone.  The sums
+of dCB, dB and dC over the heads run in groups of
+``default_head_group(H, S, Q, N)`` heads, the groups' partials added in
+order.
 ``launches`` and ``bwd_launches`` count calls.
 """
 from __future__ import annotations
@@ -33,6 +36,10 @@ from repro_torch.kernels import build
 
 # the kernel's register tiles: head dim, state size and chunk length
 MAX_P, MAX_N, MAX_Q = 64, 128, 128
+
+# the backward's head sums of dB and dC run on at least this many blocks
+# where the heads allow: two waves of the H100's 132 SMs
+HEAD_GROUP_BLOCKS = 2 * 132
 
 # calls that launched the forward and the backward kernels since the last
 # reset (ops.reset_launch_counts)
@@ -93,6 +100,17 @@ def _check_launch(x, dt, A, Bmat, Cmat, chunk: int, what: str) -> int:
     return Q
 
 
+def default_head_group(H: int, S: int, Q: int, N: int) -> int:
+    """Heads a group of the backward's head sums: the fewest groups that
+    give the dB and dC launch (one block per group, dB or dC, 64-wide N
+    tile and chunk) ``HEAD_GROUP_BLOCKS`` blocks a row of the batch, at
+    most one a head, the heads then dealt evenly.  It reads the shape but
+    not the batch, so a row's sums do not depend on the batch."""
+    tiles = 2 * -(-N // 64) * (S // Q)
+    groups = min(H, -(-HEAD_GROUP_BLOCKS // tiles))
+    return -(-H // groups)
+
+
 def _strides(x, dt, Bmat, Cmat):
     return (ctypes.c_longlong * 10)(
         *x.stride()[:3], *dt.stride(), *Bmat.stride()[:2],
@@ -137,6 +155,9 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dB, dC)."""
     global bwd_launches
     Q = _check_launch(x, dt, A, Bmat, Cmat, chunk, "ssd_scan_bwd")
+    if x.shape[2] > 65535:
+        raise ValueError(f"ssd_scan_bwd: {x.shape[2]} heads exceed the "
+                         f"grid's limit of 65535")
     if tuple(dy.shape) != tuple(x.shape) or dy.dtype != torch.float32 \
             or dy.device != x.device:
         raise ValueError(f"ssd_scan_bwd wants dy float32 of x's shape "
@@ -155,6 +176,8 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return tuple(t.zero_() for t in outs)
     nc = S // Q
     LQ = -(-Q // 4) * 4
+    HG = default_head_group(H, S, Q, N)
+    NG = -(-H // HG)
     A, dy = A.contiguous(), dy.contiguous()
     cb = torch.empty((B, nc, Q, LQ), **dev)
     st = torch.empty((B, nc - 1, H, P, N), **dev)
@@ -162,14 +185,17 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     decay = torch.empty((B, nc, H), **dev)
     dap = torch.empty((B, nc, H), **dev)
     cum = torch.empty((B, nc, H, Q), dtype=torch.float64, device=x.device)
-    dcb = torch.empty((B, nc, Q, LQ), **dev)
+    xcb = torch.empty((B, nc, H, Q, LQ), **dev)
+    dcbp = torch.empty((NG, B, nc, Q, LQ), **dev)
+    part = torch.empty((NG, 2, B, S, N) if NG > 1 else (0,), **dev)
     lib = build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.ssd_scan_bwd_f32(
             *(t.data_ptr() for t in (x, dt, A, Bmat, Cmat, dy, *outs, cb, st,
-                                     decay, gst, cum, dcb, dap)),
-            _strides(x, dt, Bmat, Cmat), B, S, H, P, N, Q, stream)
+                                     decay, gst, cum, xcb, dcbp, part,
+                                     dap)),
+            _strides(x, dt, Bmat, Cmat), B, S, H, P, N, Q, HG, stream)
     build.check(code, "ssd_scan_bwd")
     bwd_launches += 1
     return outs

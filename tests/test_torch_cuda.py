@@ -782,19 +782,20 @@ def _ssd_bwd_args(seed, B, S, H, P, N, device, decay=1.0):
     return [t.to(device) for t in (x, dt * decay, A * decay, Bm, Cm, dy)]
 
 
-def _ssd_bwd_within_bar(got, args, chunk, strong=False):
+def _ssd_bwd_within_bar(got, args, chunk, strong=False, head_group=None):
     """The kernel's gradients against float64, each within twice the
     sequential loop's float32 error; under ``strong`` decay within twice
     the larger float32 error of the loop and of the chunked form by
     autograd (``tests/test_torch_tf32x3.py::ssd_bwd_errors``).  Each also
     within twice that wider bar of the decomposition emulated there with
-    3xTF32 products."""
+    3xTF32 products (its head sums in groups of ``head_group`` heads, the
+    kernel's default where None)."""
     from test_torch_tf32x3 import mm_3xtf32, ssd_bwd_chunks, ssd_bwd_errors
     Q = min(chunk, args[0].shape[1])
     errs = ssd_bwd_errors(got, *args, Q)
     assert all(e <= 2.0 * (max(p, c) if strong else p)
                for e, p, c in errs.values()), errs
-    emul = ssd_bwd_chunks(*args, Q, mm_3xtf32)
+    emul = ssd_bwd_chunks(*args, Q, mm_3xtf32, head_group=head_group)
     for g, e, (name, (_, p, c)) in zip(got, emul, errs.items()):
         assert float((g - e).abs().max()) <= 4.0 * max(p, c), name
 
@@ -901,6 +902,58 @@ def test_ssd_scan_bwd_under_cuda_graph_capture(cuda):
         want = ss.ssd_scan_bwd(*args)
         torch.cuda.synchronize()
         assert all(_bitwise(a, b) for a, b in zip(out, want))
+
+
+def _head_groups(monkeypatch, H, S, Q, N, head_group):
+    """Set ``ss.HEAD_GROUP_BLOCKS`` so that the backward's default groups
+    of the head sums hold ``head_group`` heads at this shape."""
+    tiles = 2 * -(-N // 64) * (S // Q)
+    monkeypatch.setattr(ss, "HEAD_GROUP_BLOCKS", -(-H // head_group) * tiles)
+    assert ss.default_head_group(H, S, Q, N) == head_group
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk,head_group", [
+    (1, 256, 3, 64, 128, 128, 2),          # H = 3 in groups of 2 and 1
+    (1, 384, 5, 64, 128, 128, 2),          # H = 5 in groups of 2, 2, 1
+    (1, 128, 5, 64, 128, 128, 3),          # one chunk: no gradient states
+    (2, 256, 5, 64, 128, 128, 3),          # two chunks: no reverse pass
+    (1, 192, 5, 32, 64, 48, 2),            # chunks of 48
+    (1, 300, 5, 64, 128, 100, 3),          # chunks of 100
+    (2, 256, 4, 64, 128, 128, 4),          # one group of every head
+])
+def test_ssd_scan_bwd_head_groups(cuda, monkeypatch, B, S, H, P, N, chunk,
+                                  head_group):
+    """Head groups that do not divide H, one and two chunks, Q = 48 and
+    100: the five gradients within the float64 bar (the emulation's head
+    sums in the same groups); dx, ddt and dA, which no group touches, the
+    bits of one group of every head; dB and dC within float32 rounding of
+    them."""
+    args = _ssd_bwd_args(S + H, B, S, H, P, N, cuda)
+    Q = min(chunk, S)
+    _head_groups(monkeypatch, H, S, Q, N, head_group)
+    got = ss.ssd_scan_bwd(*args, chunk=chunk)
+    _head_groups(monkeypatch, H, S, Q, N, H)
+    one = ss.ssd_scan_bwd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    for k in (0, 1, 2):
+        assert _bitwise(got[k], one[k]), k
+    for k in (3, 4):
+        torch.testing.assert_close(got[k], one[k], rtol=1e-5, atol=1e-4)
+    _ssd_bwd_within_bar(got, args, chunk, head_group=head_group)
+
+
+def test_ssd_scan_bwd_head_groups_keep_rows_apart(cuda, monkeypatch):
+    """B = 3 with the heads in groups of 2 of 5: each row's dx, ddt, dB and
+    dC are, bit for bit, the row's run alone, so a group's partials do not
+    mix rows."""
+    args = _ssd_bwd_args(28, 3, 384, 5, 64, 128, cuda)
+    _head_groups(monkeypatch, 5, 384, 128, 128, 2)
+    full = ss.ssd_scan_bwd(*args)
+    for b in range(3):
+        one = ss.ssd_scan_bwd(*(t[b:b + 1].contiguous() if t.dim() > 1
+                                else t for t in args))
+        for k in (0, 1, 3, 4):
+            assert _bitwise(one[k][0], full[k][b]), (b, k)
 
 
 def test_ssd_scan_bwd_refuses_what_the_kernel_does_not_take(cuda):

@@ -197,32 +197,157 @@ def ssd_chunks(x, dt, A, Bm, Cm, Q, mm):
         0, 1, 3, 2, 4).reshape(B, S, H, P)
 
 
-def ssd_bwd_chunks(x, dt, A, Bm, Cm, dy, Q, mm, slice_k: int = 64):
+def _lanes_incl(v):
+    """A warp's inclusive sums over its last axis (32 lanes) in the
+    kernel's association: shifts 1, 2, 4, 8, 16, each step reading the
+    previous step's values."""
+    for o in (1, 2, 4, 8, 16):
+        prev = torch.cat([torch.zeros_like(v[..., :o]), v[..., :-o]], -1)
+        v = v + prev
+    return v
+
+
+def _lanes_incl_rev(v):
+    """The same from the last lane down: lane l gets lanes >= l."""
+    return torch.flip(_lanes_incl(torch.flip(v, [-1])), [-1])
+
+
+def _lanes_sum(v):
+    """A warp's xor tree (16, 8, 4, 2, 1) over its last axis: every lane
+    ends with the same sum; lane 0's."""
+    lane = torch.arange(32, device=v.device)
+    for o in (16, 8, 4, 2, 1):
+        v = v + v[..., lane ^ o]
+    return v[..., 0]
+
+
+def _pad_last(v, n):
+    return torch.cat([v, v.new_zeros(v.shape[:-1] + (n - v.shape[-1],))], -1)
+
+
+def _crossing_sums(D):
+    """sum_{i>=k, j<k} D_ij (D (..., Q, Q)) as ssd_scan_bwd.cu forms it:
+    per 64-column half, lane l's pair (v0, v1), the lanes' v0 + v1 scanned,
+    base = carry + lane l-1's inclusive sum, then base and base + v0 (each
+    row's exclusive prefix, its sum so far carried to the next half); each
+    column's sum over its rows at and below the diagonal, row by row within
+    four groups of 32 rows, then the groups in order."""
+    Q = D.shape[-1]
+    lead = D.shape[:-2]
+    Dp = D.new_zeros(lead + (128, 128))
+    Dp[..., :Q, :Q] = D
+    carry = D.new_zeros(lead + (128,))
+    cross = D.new_zeros(lead + (128,))
+    rows = torch.arange(128, device=D.device)
+    for j0 in range(0, Q, 64):
+        v = Dp[..., j0:j0 + 64].reshape(lead + (128, 32, 2))
+        incl = _lanes_incl(v[..., 0] + v[..., 1])
+        ex = torch.cat([torch.zeros_like(incl[..., :1]), incl[..., :-1]], -1)
+        base = carry[..., None] + ex
+        R = torch.stack([base, base + v[..., 0]], -1).reshape(
+            lead + (128, 64))
+        carry = carry + incl[..., 31]
+        keep = (rows[:, None] >= j0 + torch.arange(64, device=D.device)) \
+            & (rows[:, None] < Q)
+        R = torch.where(keep, R, 0.0)
+        parts = []
+        for g0 in range(0, 128, 32):
+            part = D.new_zeros(lead + (64,))
+            for i in range(g0, g0 + 32):
+                part = part + R[..., i, :]
+            parts.append(part)
+        cross[..., j0:j0 + 64] = ((parts[0] + parts[1]) + parts[2]) + parts[3]
+    return cross[..., :Q]
+
+
+def _suffix_sums(v):
+    """sum_{i>=k} v_i over the last axis (<= 128 entries) as the kernel's
+    warp forms it: 4 entries a lane from the right, the lanes' totals
+    scanned, then entry + the later lanes' sum."""
+    Q = v.shape[-1]
+    w = _pad_last(v, 128).reshape(v.shape[:-1] + (32, 4))
+    t3 = w[..., 3]
+    t2 = w[..., 2] + t3
+    t1 = w[..., 1] + t2
+    t0 = w[..., 0] + t1
+    incl = _lanes_incl_rev(t0)
+    ex = torch.cat([incl[..., 1:], torch.zeros_like(incl[..., :1])], -1)
+    out = torch.stack([t0 + ex, t1 + ex, t2 + ex, t3 + ex], -1)
+    return out.reshape(v.shape[:-1] + (128,))[..., :Q]
+
+
+def _prefix_sums(v):
+    """sum_{j<k} v_j, the mirror of ``_suffix_sums``: 4 entries a lane from
+    the left, the lanes' totals scanned, then the earlier lanes' sum +
+    the lane's entries before k."""
+    Q = v.shape[-1]
+    w = _pad_last(v, 128).reshape(v.shape[:-1] + (32, 4))
+    p0 = w[..., 0]
+    p1 = p0 + w[..., 1]
+    p2 = p1 + w[..., 2]
+    p3 = p2 + w[..., 3]
+    incl = _lanes_incl(p3)
+    ex = torch.cat([torch.zeros_like(incl[..., :1]), incl[..., :-1]], -1)
+    out = torch.stack([ex, ex + p0, ex + p1, ex + p2], -1)
+    return out.reshape(v.shape[:-1] + (128,))[..., :Q]
+
+
+def _block_dot(a, b):
+    """<a, b> over the last two axes as launch d's 256 threads sum it:
+    thread t's elements t, t + 256, ... by fused multiply-adds, each warp's
+    xor tree, then the 8 warps in order from zero."""
+    fa, fb = a.flatten(-2), b.flatten(-2)
+    n = fa.shape[-1]
+    pad = -n % 256
+    fa, fb = _pad_last(fa, n + pad), _pad_last(fb, n + pad)
+    fa = fa.reshape(fa.shape[:-1] + (-1, 256))
+    fb = fb.reshape(fb.shape[:-1] + (-1, 256))
+    acc = fa.new_zeros(fa.shape[:-2] + (256,))
+    for u in range(fa.shape[-2]):       # fmaf: one rounding of a * b + acc
+        acc = (fa[..., u, :].double() * fb[..., u, :].double()
+               + acc.double()).to(fa.dtype)
+    warps = _lanes_sum(acc.reshape(acc.shape[:-1] + (8, 32)))
+    tot = acc.new_zeros(acc.shape[:-1])
+    for w in range(8):
+        tot = tot + warps[..., w]
+    return tot
+
+
+def ssd_bwd_chunks(x, dt, A, Bm, Cm, dy, Q, mm, slice_k: int = 8,
+                   head_group=None):
     """The backward of ``ssd_scan_bwd.cu`` in x's dtype, its products
     through ``mm``, in its order of sums; returns (dx, ddt, dA, dB, dC).
 
-    It recomputes the forward's pieces (``ssd_chunk_parts``); then, with
-    G_c = dl/ds_c, the local part (exp(cum) o dy)^T C and the reverse state
+    It recomputes the forward's pieces (``ssd_chunk_parts``), C B^T
+    again summed in float64 and rounded once, as the kernel's own launch
+    sums it; then, with G_c = dl/ds_c, the local part (exp(cum) o dy)^T C and the reverse state
     pass G_c = that + exp(cum_Q) G_c+1 (G_nc = 0).  Per (chunk, head):
-    dx = dt o (acc_s + acc_i), acc_s = exp(cum_Q - cum) o (B G_c+1^T), the
-    state's part, and acc_i = (C B^T o L)^T dy, the scores' part; dda_k,
-    dl/d(dt_k A), sums what crosses step k: the pairs j < k <= i of D =
-    (dy x^T) o C B^T o L o dt_j (an exclusive prefix along each row, then
-    the column below the diagonal), the inter-chunk terms exp(cum_i) dy_i .
-    (s_c C_i) at i >= k, the state writes dt_j x_j . acc_s_j at j < k, and
-    the carried state's decay exp(cum_Q) <s_c, G_c+1>; ddt = A dda + x .
-    (acc_s + acc_i); dA sums dt o dda per (b, chunk, head), then over the
-    batch and the chunks.  dB and dC sum the heads: dCB = sum_h (dy x^T) o
-    L o dt_j in head order, then dC = sum_h (exp(cum) o dy) s_c + dCB B and
-    dB = sum_h (w o x) G_c+1 + dCB^T C, each head's product and each
-    ``slice_k`` keys of dCB's summed from zero and then added, heads
-    first."""
+    acc = exp(cum_Q - cum) o (B G_c+1^T), the state's part, plus (C B^T o
+    L)^T dy, the scores' part; dx = dt o acc; dda_k, dl/d(dt_k A), sums
+    what crosses step k: the pairs j < k <= i of D = X o C B^T, with X =
+    (dy x^T) o L o dt_j the head's part of dCB (``_crossing_sums``), the
+    inter-chunk terms exp(cum_i) dy_i . (s_c C_i) at i >= k
+    (``_suffix_sums``), the state writes dt_j x_j . (state part)_j at j < k
+    (``_prefix_sums``), and the carried state's decay exp(cum_Q) <s_c,
+    G_c+1> (``_block_dot``), added in that order; ddt = A dda + x . acc;
+    dA: per (b, chunk, head) the sum of dt o dda by 4-entry lanes and a
+    warp's xor tree, then over the batch and the chunks in order.  dB and
+    dC sum the heads in groups of ``head_group`` (default
+    ``default_head_group``, the kernel's): a group's dCB is its heads' X
+    added in head order from zero; its dC = sum_h (exp(cum) o dy) s_c then
+    dCB B, its dB = sum_h (w o x) G_c+1 then dCB^T C, every ``slice_k``
+    keys of each product summed from zero and added in order (the kernel
+    adds each 8-key step); the groups' partials added in group order."""
+    from repro_torch.kernels.ssd_scan import default_head_group
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     nc = S // Q
+    HG = min(H, head_group or default_head_group(H, S, Q, N))
     f = ssd_chunk_parts(x, dt, A, Bm, Cm, Q, mm)
     xc, dtc, Bc, Cc, cum, L, s = (f[k] for k in ("xc", "dtc", "Bc", "Cc",
                                                  "cum", "Ld", "s"))
+    f["cb"] = (Cc.double() @ Bc.double().transpose(-1, -2)).to(
+        x.dtype)[:, :, None]
     dyc = dy.reshape(B, nc, Q, H, P).permute(0, 1, 3, 2, 4)
     # exp(cum_Q - cum), the difference taken in float64 and rounded once
     tail = torch.exp((f["cumd"][..., -1:] - f["cumd"]).to(x.dtype))
@@ -236,36 +361,42 @@ def ssd_bwd_chunks(x, dt, A, Bm, Cm, dy, Q, mm, slice_k: int = 64):
                                        s.transpose(-1, -2))).sum(-1)
     acc_s = tail[..., None] * mm(
         Bc[:, :, None], g_next.transpose(-1, -2))              # (B,nc,H,Q,P)
-    acc_i = mm((f["cb"] * L).transpose(-1, -2), dyc)
-    dxc = dtc[..., None] * acc_s + dtc[..., None] * acc_i
-    u_s, u_i = (xc * acc_s).sum(-1), (xc * acc_i).sum(-1)
-    D = mm(dyc, xc.transpose(-1, -2)) * f["cb"] * L * dtc[..., None, :]
-    row = torch.cumsum(D, -1)
-    row = torch.cat([torch.zeros_like(row[..., :1]), row[..., :-1]], -1)
-    pos = torch.arange(Q, device=x.device)
-    cross = torch.where(pos[:, None] >= pos[None, :], row, 0.0).sum(-2)
-    later = torch.flip(torch.cumsum(torch.flip(inter, [-1]), -1), [-1])
-    written = torch.cumsum(dtc * u_s, -1)
-    written = torch.cat([torch.zeros_like(written[..., :1]),
-                         written[..., :-1]], -1)
-    gsd = f["decay"] * (s * g_next).sum((-1, -2))
-    dda = ((cross + later) + written) + gsd[..., None]
-    ddtc = A[:, None] * dda + (u_s + u_i)
-    dA = (dtc * dda).sum(-1).sum((0, 1))
-    dcb = x.new_zeros((B, nc, Q, Q))
-    for h in range(H):
-        dcb = dcb + mm(dyc[:, :, h], xc[:, :, h].transpose(-1, -2)) * \
-            L[:, :, h] * dtc[:, :, h, None, :]
+    acc = acc_s + mm((f["cb"] * L).transpose(-1, -2), dyc)
+    dxc = dtc[..., None] * acc
+    u_s, u = (xc * acc_s).sum(-1), (xc * acc).sum(-1)
+    X = mm(dyc, xc.transpose(-1, -2)) * L * dtc[..., None, :]
+    dda = ((_crossing_sums(X * f["cb"]) + _suffix_sums(inter))
+           + _prefix_sums(dtc * u_s)) \
+        + (f["decay"] * _block_dot(s, g_next))[..., None]
+    ddtc = A[:, None] * dda + u
+    r = _pad_last(dtc * dda, 128).reshape(dda.shape[:-1] + (32, 4))
+    dap = _lanes_sum(((r[..., 0] + r[..., 1]) + r[..., 2]) + r[..., 3])
+    dA = x.new_zeros(H)
+    for b in range(B):
+        for c in range(nc):
+            dA = dA + dap[b, c]
     w = tail * dtc
-    dC, dB = torch.zeros_like(Cc), torch.zeros_like(Bc)
-    for h in range(H):
-        dC = dC + mm(torch.exp(cum[:, :, h])[..., None] * dyc[:, :, h],
-                     s[:, :, h])
-        dB = dB + mm(w[:, :, h, :, None] * xc[:, :, h], g_next[:, :, h])
-    for j0 in range(0, Q, slice_k):
-        dC = dC + mm(dcb[..., j0:j0 + slice_k], Bc[:, :, j0:j0 + slice_k])
-        dB = dB + mm(dcb[:, :, j0:j0 + slice_k].transpose(-1, -2),
-                     Cc[:, :, j0:j0 + slice_k])
+    dC = dB = None
+    for h0 in range(0, H, HG):
+        heads = range(h0, min(H, h0 + HG))
+        dcb = x.new_zeros((B, nc, Q, Q))
+        for h in heads:
+            dcb = dcb + X[:, :, h]
+        pC, pB = torch.zeros_like(Cc), torch.zeros_like(Bc)
+        for h in heads:
+            aC = torch.exp(cum[:, :, h])[..., None] * dyc[:, :, h]
+            aB = w[:, :, h, :, None] * xc[:, :, h]
+            for k in range(0, P, slice_k):
+                pC = pC + mm(aC[..., k:k + slice_k],
+                             s[:, :, h, k:k + slice_k])
+                pB = pB + mm(aB[..., k:k + slice_k],
+                             g_next[:, :, h, k:k + slice_k])
+        for k in range(0, Q, slice_k):
+            pC = pC + mm(dcb[..., k:k + slice_k], Bc[:, :, k:k + slice_k])
+            pB = pB + mm(dcb[:, :, k:k + slice_k].transpose(-1, -2),
+                         Cc[:, :, k:k + slice_k])
+        dC = pC if dC is None else dC + pC
+        dB = pB if dB is None else dB + pB
     return (dxc.permute(0, 1, 3, 2, 4).reshape(B, S, H, P),
             ddtc.permute(0, 1, 3, 2).reshape(B, S, H), dA,
             dB.reshape(B, S, N), dC.reshape(B, S, N))
@@ -436,6 +567,31 @@ def test_ssd_bwd_chunk_algebra(case):
     for g, w in zip(got, want):
         assert g.shape == w.shape
         torch.testing.assert_close(g, w, rtol=1e-4, atol=atol)
+
+
+# (case, heads a group of the head sums): one group, a size that does not
+# divide H, one head a group
+SSD_BWD_GROUPS = [("mamba2_h2", 2), ("mamba2_h2", 1), ("ragged_q100", 3),
+                  ("ragged_q100", 2), ("ragged_q100", 1), ("strong_decay", 4),
+                  ("strong_decay", 3), ("strong_decay", 1)]
+
+
+@pytest.mark.parametrize("case,head_group", SSD_BWD_GROUPS)
+def test_ssd_bwd_head_groups(case, head_group):
+    """With the head sums of dCB, dB and dC in groups of ``head_group``
+    heads, the groups' partials added in order, the decomposition with
+    3xTF32 products stays within ``test_ssd_bwd_arithmetic``'s float64 bar
+    on all five gradients, and dx, ddt and dA, which no group touches, are
+    the same bits as with one group."""
+    args, Q, refs = _ssd_bwd_case(case)
+    H = args[0].shape[2]
+    with one_thread():
+        got = ssd_bwd_chunks(*args, Q, mm_3xtf32, head_group=head_group)
+        one = got if head_group == H else ssd_bwd_chunks(
+            *args, Q, mm_3xtf32, head_group=H)
+        errs = ssd_bwd_errors(got, *args, Q, refs=refs)
+    assert all(e <= 2.0 * max(p, c) for e, p, c in errs.values()), errs
+    assert all(torch.equal(a, b) for a, b in zip(got[:3], one[:3]))
 
 
 # ------------------------------------------------------------ audit_mlp
