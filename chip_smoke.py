@@ -71,7 +71,18 @@ capacity 376, edge cache on):
   repeatable, one dense-dispatch round's vote against its plain
   version).  Launches are held against the run's own records: 5
   moe_gemm a round and a replayed round, one audit_mlp a commitment and
-  a counted recompute call, one vote a court escalation.
+  a counted recompute call, one vote a court escalation;
+- federated training (path M, ``repro_torch.fed``) at the paper's
+  expert width (10 edges owning 2 of 10 experts each, top-3,
+  784->256->10, 4 local steps of 64, Dirichlet shards of 10,000): M1, 6
+  clean verified rounds, all finalized; M2, edge 2 poisoning (gradient
+  scaling x200, sign flip x5) under the defended rule and plain FedAvg;
+  M3, a dishonest aggregator convicted by the recompute court, slashed
+  and rolled back to a clean twin's bits; M4, two seeded runs bitwise
+  equal and a round against the CPU; M5, a profiled warm round and the
+  host syncs of a local update.  The federated step's dense mixture is
+  plain products (the JAX package's reaches no Pallas kernel), so the
+  path's launch counts are held to zero.
 
 Each path's launch counts are set to 0 just before it and read just
 after it.
@@ -80,6 +91,7 @@ after it.
     python3 chip_smoke.py --kernels moe_gemm flash_attention ssd_scan_bwd
     python3 chip_smoke.py --serving
     python3 chip_smoke.py --training
+    python3 chip_smoke.py --federated
 
 The second form builds, then checks and times only the named kernels'
 cases (``moe_gemm``, ``flash_attention``, ``flash_attention_bwd``,
@@ -87,8 +99,9 @@ cases (``moe_gemm``, ``flash_attention``, ``flash_attention_bwd``,
 ``rglru_scan_bwd``, ``audit_mlp``) and stops (no main path, no last
 line): run from two trees in one call, it compares two versions of a
 kernel on one card.
-The third runs path K alone and the fourth path L alone (their models
-initialised from seed 0 as the main run's are) and stop the same way.
+The third runs path K alone, the fourth path L alone (their models
+initialised from seed 0 as the main run's are) and the fifth path M
+alone, and stop the same way.
 
 Prints, in order: the card's name and power limit (nvidia-smi), the
 build time, one JSON line per kernel case, the main-path lines, one
@@ -3290,6 +3303,290 @@ def optimistic_training_path(torch, np, ops, rv, ref):
     return counts_g1, counts_g4, prof_opt, prof_cnn
 
 
+# ------------------------------------------ path M: federated training
+FED_TRUST = dict(chunks_per_expert=4, audit_rate=1.0, challenge_window=2)
+# the undefended FedAvg baseline and the defended rule under one edge's
+# poison: BENCH_federated.json's attacks
+FED_ATTACKS = {"grad_scale": dict(update_attack="grad_scale", scale=200.0),
+               "sign_flip": dict(update_attack="sign_flip", scale=5.0)}
+FED_SPANS = ("fed.round_s", "fed.train_s", "fed.aggregate_s", "fed.audit_s")
+
+
+def _fed(data, device="cuda", **kw):
+    """A ``FedCoordinator`` at the paper's §V expert width (10 edges, 10
+    experts, 2 owned an edge, top-3, 784->256->10, 4 local steps of 64,
+    seed 0; audit rate 1, window 2) on ``data``'s training set, the
+    port's init."""
+    from repro_torch import fed
+    from repro_torch.trust.protocol import TrustConfig
+    cfg = fed.FedConfig(num_edges=10, num_experts=10, experts_per_edge=2,
+                        top_k=3, in_dim=784, hidden=256, num_classes=10,
+                        local_steps=4, local_batch=64, seed=0,
+                        trust=TrustConfig(**FED_TRUST), **kw)
+    return fed.FedCoordinator(cfg, data[0], data[1], device=device)
+
+
+def _fed_summaries(co, rounds: int, flush: bool = True):
+    """``rounds`` rounds then the flush; the round summaries without
+    their aggregation roots (those hash float bytes)."""
+    out = []
+    for _ in range(rounds):
+        s = co.run_round()
+        s.pop("agg_root", None)
+        out.append(s)
+    if flush:
+        out.append(co.flush_trust())
+    return out
+
+
+def _fed_flat(co):
+    from repro_torch.fed import tree_to_flat
+    return tree_to_flat(co.global_params)
+
+
+def _device_profile(torch, run):
+    """One call of ``run`` under torch.profiler tracing the device only
+    (a federated round's host work is mostly numpy and hashing, which a
+    CPU trace would slow several-fold): the device's busy microseconds,
+    kernels and copies, each record as (start, us, name), read from the
+    raw trace, and the call's wall seconds (the profiler's own teardown,
+    seconds more, left out).  One take: ``run`` changes state, so it is
+    not run again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof.step()
+    raw = prof.profiler.kineto_results
+    recs = sorted((e.start_ns() / 1e3, (e.end_ns() - e.start_ns()) / 1e3,
+                   n) for e in raw.events()
+                  if e.device_type() == DeviceType.CUDA
+                  and not (n := e.name()).startswith(("Activity",
+                                                      "ProfilerStep",
+                                                      "[memory]")))
+    return sum(r[1] for r in recs), recs, wall
+
+
+def fed_m1(torch, np, data):
+    """M1: 6 clean verified rounds and the flush.  Every round finalized,
+    no fraud proof, one aggregation block a round, the chain valid; the
+    accuracy after each round (M2's clean reference) and the state after
+    3 rounds (M3's clean twin) are kept.  The last round (a drain of 3
+    rounds' audits) is M5's profiled warm round."""
+    from repro_torch.trust.protocol import RoundPhase
+    co = _fed(data)
+    acc, walls, after3, prof = [], [], None, {}
+    for r in range(6):
+        before = {k: co.obs.metrics.value(k) for k in FED_SPANS}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if r < 5:
+            co.run_round()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        else:
+            prof["busy_us"], prof["kernels"], wall = _device_profile(
+                torch, co.run_round)
+            walls.append(wall)
+        acc.append(co.evaluate(data[2], data[3]))
+        if r == 2:
+            after3 = co.global_params
+    prof["spans_s"] = {k: co.obs.metrics.value(k) - before[k]
+                       for k in FED_SPANS}
+    flushed = co.flush_trust()
+    p = co.protocol
+    phases = [p.rounds[r].phase.value for r in range(6)]
+    rep = co.obs_report()
+    row = {"phase": "federated", "path": "M1", "rounds": 6,
+           "round_wall_s": walls, "accuracy_by_round": acc,
+           "phases": phases, "flushed": flushed,
+           "fraud_proofs": p.stats["fraud_proofs"],
+           "aggregation_blocks": len(co.ledger.aggregations()),
+           "chain_valid": co.ledger.verify_chain(), "fed": rep["fed"],
+           "store": rep["storage"]["store"],
+           "executors": [p.rounds[r].executor for r in range(6)]}
+    emit(row)
+    require(all(ph == "finalized" for ph in phases),
+            f"M1 phases {phases}")
+    require(p.stats["fraud_proofs"] == 0 and rep["fed"]["convictions"] == 0,
+            f"M1 fraud on a clean run: {p.stats}")
+    require(len(co.ledger.aggregations()) == 6 and co.ledger.verify_chain(),
+            "M1 chain")
+    require(all(0 <= a <= 1 for a in acc) and acc[-1] > 0.6,
+            f"M1 accuracy {acc}")
+    return co, acc, after3, walls, prof
+
+
+def fed_m2(torch, np, data, clean_acc, rounds: int = 3):
+    """M2: edge 2 poisons its delta (gradient scaling x200, sign flip x5),
+    ``rounds`` unverified rounds each under the defended rule and under
+    plain FedAvg: the defended run within 0.1 of the clean run's accuracy
+    at the same round, FedAvg below it, sign flips rejected."""
+    from repro_torch import fed
+    res = {}
+    for name, atk in FED_ATTACKS.items():
+        for rule in ("defended", "fedavg"):
+            co = _fed(data, verify="off", rule=rule,
+                      attack=fed.FedAttack(malicious_edges=(2,), **atk))
+            _fed_summaries(co, rounds, flush=False)
+            res[name, rule] = (co.evaluate(data[2], data[3]),
+                               co.obs_report()["fed"]["rejected_updates"])
+    clean = clean_acc[rounds - 1]
+    row = {"phase": "federated", "path": "M2", "rounds": rounds,
+           "accuracy_clean": clean,
+           **{f"accuracy_{n}_{r}": a for (n, r), (a, _) in res.items()},
+           **{f"rejected_{n}_{r}": j for (n, r), (_, j) in res.items()}}
+    emit(row)
+    for name in FED_ATTACKS:
+        acc_d, acc_f = res[name, "defended"][0], res[name, "fedavg"][0]
+        require(acc_d >= clean - 0.1, f"M2 {name}: defended {acc_d}, clean "
+                                      f"{clean}")
+        require(acc_f < acc_d, f"M2 {name}: fedavg {acc_f} not below "
+                               f"defended {acc_d}")
+    require(res["sign_flip", "defended"][1] > 0, "M2: no sign flip rejected")
+    return row
+
+
+def fed_m3(torch, np, data, twin):
+    """M3: edge 1 aggregates dishonestly (substitutes its commitment)
+    when it executes; 3 rounds and the flush: the recompute court
+    convicts it, slashes it, a rollback block lands, and the replayed
+    chain holds the clean twin's bits after 3 rounds (M1's) on the
+    card."""
+    from repro_torch import fed
+    co = _fed(data, attack=fed.FedAttack(malicious_edges=(1,),
+                                   dishonest_aggregator=True))
+    summaries = _fed_summaries(co, 3)
+    rep = co.obs_report()
+    rbs = co.ledger.rollbacks()
+    stake = co.protocol.stakes.stake
+    bitwise = _fed_flat(co).tobytes() == fed.tree_to_flat(twin).tobytes()
+    row = {"phase": "federated", "path": "M3", "rounds": 3,
+           "summaries": summaries, "fed": rep["fed"], "trust": rep["trust"],
+           "rollback_blocks": [b.payload for b in rbs],
+           "stake": stake.tolist(), "slash_blocks": len(co.ledger.slashes()),
+           "court_cases": len(co.protocol.court.cases),
+           "clean_twin_bitwise": bitwise,
+           "chain_valid": co.ledger.verify_chain()}
+    emit(row)
+    require(rep["fed"]["convictions"] >= 1
+            and rep["trust"]["rolled_back"] >= 1, f"M3 {rep['fed']}")
+    require(len(rbs) >= 1 and rbs[0].payload["domain"] == "fed"
+            and 1 in rbs[0].payload["slashed"], f"M3 rollback {rbs}")
+    require(stake[1] < stake[0] and co.ledger.slashes(), f"M3 stake {stake}")
+    require(rep["fed"]["replayed_rounds"] >= 1, "M3 replayed nothing")
+    require(bitwise, "M3: the replayed chain is not the clean twin's bits")
+    require(co.ledger.verify_chain(), "M3 chain")
+    return row
+
+
+def fed_m4(torch, np, data):
+    """M4: two seeded runs on the card (stragglers 0.2, dropouts 0.1,
+    edge 2 flipping its sign, seed 11; 2 rounds and the flush) hold the
+    same bits, roots and counters; the first round against the port on
+    the CPU from the same init: every decision equal, parameters at rtol
+    1e-5 / atol 1e-5 (path F's bar)."""
+    from repro_torch import fed
+    kw = dict(straggler_prob=0.2, dropout_prob=0.1,
+              attack=fed.FedAttack(malicious_edges=(2,),
+                                   **FED_ATTACKS["sign_flip"]))
+    runs = []
+    for _ in range(2):
+        co = _fed(data, **kw)
+        s0 = _fed_summaries(co, 1, flush=False)
+        first = _fed_flat(co)
+        rest = _fed_summaries(co, 1)
+        runs.append((co, s0 + rest, first))
+    cpu = _fed(data, "cpu", **kw)
+    s_cpu = _fed_summaries(cpu, 1, flush=False)
+    (a, sa, fa), (b, sb, _) = runs
+    roots = [[blk.payload.get("agg_root") for blk in c.ledger.aggregations()]
+             for c in (a, b)]
+    bitwise = _fed_flat(a).tobytes() == _fed_flat(b).tobytes()
+    flat_cpu = _fed_flat(cpu)
+    err = float(np.abs(fa - flat_cpu).max())
+    close = bool(np.allclose(fa, flat_cpu, rtol=1e-5, atol=1e-5))
+    row = {"phase": "federated", "path": "M4", "seeded_runs_bitwise": bitwise,
+           "roots_equal": roots[0] == roots[1],
+           "summaries_equal": sa == sb,
+           "card_vs_cpu_decisions_equal": sa[0] == s_cpu[0],
+           "card_vs_cpu_max_abs_err": err, "card_vs_cpu_close": close,
+           "round0": sa[0], "round0_cpu": s_cpu[0]}
+    emit(row)
+    require(bitwise and roots[0] == roots[1] and sa == sb
+            and a.obs_report()["fed"] == b.obs_report()["fed"],
+            "M4: two seeded runs differ")
+    require(sa[0] == s_cpu[0], f"M4 card {sa[0]} against the CPU {s_cpu[0]}")
+    require(close, f"M4 parameters off the CPU's by {err}")
+    return row
+
+
+def fed_m5(torch, np, co, walls, prof):
+    """M5: M1's last round, profiled (a warm round with an audit drain):
+    its wall, the spans' seconds (``obs_report`` metrics), device busy
+    and idle share; and the host syncs of one edge's local update (by
+    torch's sync debug mode), over its local steps."""
+    busy_ms = prof["busy_us"] / 1e3
+    edge = co.edges[0]
+    n_sync, where = _k_syncs(torch, lambda: edge.local_update(
+        co.device_params(), co.round))
+    top = {}
+    for _, us, name in prof["kernels"]:
+        top[name[:70]] = top.get(name[:70], 0.0) + us
+    mine = sorted({n for _, _, n in prof["kernels"] if re.search(
+        r"moe_gemm_kernel|vote_kernel|audit_mlp_kernel|flash_\w+_kernel|"
+        r"rglru_\w+_kernel|ssd_\w+_kernel", n)})
+    row = {"phase": "federated", "path": "M5",
+           "round_wall_ms": walls[-1] * 1e3,
+           "warm_round_walls_ms": [w * 1e3 for w in walls[1:]],
+           "spans_ms": {k: v * 1e3 for k, v in prof["spans_s"].items()},
+           "device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / (walls[-1] * 1e3),
+           "device_records": len(prof["kernels"]),
+           "port_kernels_in_trace": mine,
+           "host_syncs_per_local_update": n_sync,
+           "host_syncs_per_local_step": n_sync / co.cfg.local_steps,
+           "host_sync_sites": where,
+           "top": sorted(({"name": k, "device_us": v} for k, v in
+                          top.items()), key=lambda r: -r["device_us"])[:6]}
+    emit(row)
+    require(not mine, f"M5: port kernels in the trace {mine}")
+    require(n_sync <= 3, f"M5: {n_sync} host syncs a local update: {where}")
+    return row
+
+
+def federated_path(torch, np, ops):
+    """Path M: federated training (``repro_torch.fed``) at the paper's §V
+    expert width on the card, seed 0, nothing cut.  JAX's federated step
+    reaches no Pallas kernel (its dense mixture is plain products), so
+    the path launches no port kernel: its counts are held to zero."""
+    from repro_torch.data.synthetic import FMNIST, make_image_dataset
+    data = make_image_dataset(FMNIST, n_train=10_000, n_test=2_000, seed=0)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    co, acc, twin, walls, prof = fed_m1(torch, np, data)
+    fed_m2(torch, np, data, acc)
+    fed_m3(torch, np, data, twin)
+    fed_m4(torch, np, data)
+    fed_m5(torch, np, co, walls, prof)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    emit({"phase": "federated", "path": "M", "launches": counts,
+          "path_s": time.perf_counter() - t0})
+    require(counts == dict.fromkeys(counts, 0),
+            f"path M launched port kernels: {counts}")
+    return counts
+
+
 def profile_batch(torch, run, cpu: bool = True, spans=()):
     """Device time by kernel (and copy) over one warm call of ``run``,
     from torch.profiler's CUDA activities: the eight largest rows, the
@@ -3517,6 +3814,11 @@ def main() -> int:
             torch.cuda.empty_cache()
         return 0
 
+    if "--federated" in sys.argv:
+        # path M alone
+        federated_path(torch, np, ops)
+        return 0
+
     if "--kernels" in sys.argv:
         # only the named kernels' cases, e.g. to time two trees in one call
         cases = {"moe_gemm": lambda: moe_gemm_cases(torch, mg, ref),
@@ -3630,8 +3932,10 @@ def main() -> int:
     # path G: optimistic training, DA in training rounds, CNN experts
     counts_g1, counts_g4, prof_g_opt, prof_g_cnn = optimistic_training_path(
         torch, np, ops, rv, ref)
+    # path M: federated training; it launches no port kernel
+    counts_m = federated_path(torch, np, ops)
 
-    emit({"kernels": [
+    kernels = [
         {"name": "moe_gemm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/moe_gemm.cu",
          "replaces": "src/repro/kernels/moe_gemm.py:29",
@@ -3864,7 +4168,11 @@ def main() -> int:
          "bound_by": ssd_bwd[0]["bound_by"],
          "bound_fp32_cores_ms": ssd_bwd[0]["bound_fp32_cores_ms"],
          "library_ms": None},
-    ]})
+    ]
+    for k in kernels:
+        # federated training (path M) reaches no kernel: held to zero
+        k["launches_federated_path_m"] = counts_m[k["name"]]
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -28,7 +28,8 @@ def params_from_numpy(gate: Dict[str, np.ndarray],
                       device=None) -> Dict[str, Dict[str, torch.Tensor]]:
     """``{"gate": {w, b}, "experts": bank}`` as float32 tensors on
     ``device`` (``None``: the CUDA device) — what ``BMoESystem(cfg,
-    device, params=...)`` takes.  The bank is the MLP's {w1, b1, w2, b2}
+    device, params=...)`` and ``fed.FedCoordinator(cfg, x, y,
+    params=...)`` take.  The bank is the MLP's {w1, b1, w2, b2}
     or the CNN's {c1, c2, c3, w1, b1, w2, b2} (kernels HWIO, unchanged)."""
     dev = resolve_device(device)
     for name, tree, allowed in (("gate", gate, (GATE_KEYS,)),

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
-from repro_torch.models.builder import Leaf
+from repro_torch.models.builder import Leaf, stack
 from repro_torch.models.moe import top_k
 
 Params = Dict[str, torch.Tensor]
@@ -46,28 +46,20 @@ def _fan_in_std(shape) -> float:
     return 1.0 / max(fan_in, 1) ** 0.5
 
 
-def init_gate(in_dim: int, num_experts: int, seed: int,
-              device=None) -> Params:
-    """Gate ``w`` normal with std 0.01, zero bias, on ``device``
-    (``None``: the CUDA device)."""
-    device = kops.resolve_device(device)
-    return {"w": _normal((in_dim, num_experts), 0.01, seed,
-                         "gate/w").to(device),
-            "b": torch.zeros(num_experts, device=device)}
+def gate_decl(in_dim: int, num_experts: int) -> dict:
+    """The linear gate's declaration, the JAX package's."""
+    return {"w": Leaf((in_dim, num_experts), (None, None), scale=0.01),
+            "b": Leaf((num_experts,), (None,), "zeros")}
 
 
-def init_mlp_bank(num_experts: int, seed: int, *, in_dim: int = 784,
-                  hidden: int = 256, out: int = 10,
-                  device=None) -> Params:
-    """Stacked MLP bank: ``w1`` (N, in, hidden), ``w2`` (N, hidden, out)
-    normal with std 1/sqrt(fan_in), zero biases, on ``device`` (``None``:
-    the CUDA device)."""
-    device = kops.resolve_device(device)
-    s1, s2 = (num_experts, in_dim, hidden), (num_experts, hidden, out)
-    return {"w1": _normal(s1, _fan_in_std(s1), seed, "experts/w1").to(device),
-            "b1": torch.zeros((num_experts, hidden), device=device),
-            "w2": _normal(s2, _fan_in_std(s2), seed, "experts/w2").to(device),
-            "b2": torch.zeros((num_experts, out), device=device)}
+def mlp_expert_decl(in_dim: int, hidden: int = 256, out: int = 10) -> dict:
+    """One MLP expert's declaration, the JAX package's."""
+    return {
+        "w1": Leaf((in_dim, hidden), (None, None)),
+        "b1": Leaf((hidden,), (None,), "zeros"),
+        "w2": Leaf((hidden, out), (None, None)),
+        "b2": Leaf((out,), (None,), "zeros"),
+    }
 
 
 def cnn_expert_decl(in_ch: int = 3, out: int = 10) -> dict:
@@ -84,31 +76,73 @@ def cnn_expert_decl(in_ch: int = 3, out: int = 10) -> dict:
     }
 
 
+def _init_decl(decl: dict, seed: int, prefix: str, device) -> Params:
+    """Tensors for a flat declaration, drawn on the CPU (so the values do
+    not depend on the device) and moved to ``device`` (``None``: the CUDA
+    device): a normal leaf takes its declared std, else 1/sqrt(fan_in)
+    on the second-to-last dim (a conv's input channels), from the stream
+    of its path ``prefix/name``; a zeros leaf is zero."""
+    device = kops.resolve_device(device)
+    out = {}
+    for k, leaf in decl.items():
+        std = (leaf.scale if leaf.scale is not None
+               else _fan_in_std(leaf.shape))
+        out[k] = (torch.zeros(leaf.shape) if leaf.init == "zeros" else
+                  _normal(leaf.shape, std, seed, f"{prefix}/{k}"))
+    return {k: v.to(device) for k, v in out.items()}
+
+
+def init_gate(in_dim: int, num_experts: int, seed: int,
+              device=None) -> Params:
+    """Gate ``w`` normal with std 0.01, zero bias, on ``device``
+    (``None``: the CUDA device)."""
+    return _init_decl(gate_decl(in_dim, num_experts), seed, "gate", device)
+
+
+def init_mlp_bank(num_experts: int, seed: int, *, in_dim: int = 784,
+                  hidden: int = 256, out: int = 10,
+                  device=None) -> Params:
+    """Stacked MLP bank: ``w1`` (N, in, hidden), ``w2`` (N, hidden, out)
+    normal with std 1/sqrt(fan_in), zero biases, on ``device`` (``None``:
+    the CUDA device)."""
+    return _init_decl(stack(mlp_expert_decl(in_dim, hidden, out),
+                            num_experts, axis_name=None),
+                      seed, "experts", device)
+
+
 def init_cnn_bank(num_experts: int, seed: int, *, in_ch: int = 3,
                   out: int = 10, device=None) -> Params:
     """Stacked CNN bank (``cnn_expert_decl`` behind a leading N axis):
     kernels and weights normal with std 1/sqrt(fan_in) on the
     second-to-last dim (a conv's input channels), zero biases, on
     ``device`` (``None``: the CUDA device)."""
-    device = kops.resolve_device(device)
-    bank = {}
-    for k, leaf in cnn_expert_decl(in_ch, out).items():
-        s = (num_experts,) + leaf.shape
-        bank[k] = (torch.zeros(s) if leaf.init == "zeros" else
-                   _normal(s, _fan_in_std(s), seed, f"experts/{k}"))
-    return {k: v.to(device) for k, v in bank.items()}
+    return _init_decl(stack(cnn_expert_decl(in_ch, out), num_experts,
+                            axis_name=None), seed, "experts", device)
 
 
 def init_bank(kind: str, num_experts: int, seed: int, *, in_dim: int = 784,
-              in_ch: int = 3, out: int = 10, device=None) -> Params:
-    """The seeded stacked bank of ``kind`` ("mlp" | "cnn")."""
+              in_ch: int = 3, hidden: int = 256, out: int = 10,
+              device=None) -> Params:
+    """The seeded stacked bank of ``kind`` ("mlp" | "cnn"); ``hidden`` is
+    the MLP's width."""
     if kind == "mlp":
-        return init_mlp_bank(num_experts, seed, in_dim=in_dim, out=out,
-                             device=device)
+        return init_mlp_bank(num_experts, seed, in_dim=in_dim,
+                             hidden=hidden, out=out, device=device)
     if kind == "cnn":
         return init_cnn_bank(num_experts, seed, in_ch=in_ch, out=out,
                              device=device)
     raise ValueError(kind)
+
+
+def make_expert_bank(kind: str, num_experts: int, seed: int, *,
+                     in_dim: int = 784, in_ch: int = 3, hidden: int = 256,
+                     out: int = 10, device=None):
+    """Returns ``(stacked_params, apply_all)`` where ``apply_all(params,
+    x)`` -> (N, B, out): every expert's output on the same batch (the
+    JAX package's ``make_expert_bank`` on the port's seeded init)."""
+    params = init_bank(kind, num_experts, seed, in_dim=in_dim, in_ch=in_ch,
+                       hidden=hidden, out=out, device=device)
+    return params, apply_all_fn(kind)
 
 
 def gate_apply(params: Params, x: torch.Tensor) -> torch.Tensor:

@@ -152,6 +152,12 @@ class Ledger:
         executor, and the voided chain."""
         return self.find_all(kind="rollback")
 
+    def aggregations(self) -> List[Block]:
+        """Federated-aggregation record: one block per training round
+        (kind="fed_round"), binding the aggregation commitment root, the
+        participant set and the received/straggled/dropped split."""
+        return self.find_all(kind="fed_round")
+
     def slashes(self) -> List[Block]:
         """Every slash-bearing block, chain order: DA slashes plus any
         rollback block that burned an executor's stake."""

@@ -3,6 +3,7 @@
 ``make_image_dataset``: Fashion-MNIST-like (28x28x1, 10 classes) and
 CIFAR-10-like (32x32x3, 10 classes) class-conditional data: per-class
 smoothed templates + per-sample noise + random per-sample contrast.
+``dirichlet_shards``: the federated edges' non-IID index partition.
 ``lm_batches``: token batches with planted bigram structure;
 ``serving_requests``: prompts and generation budgets.  Numpy copies of
 ``repro.data.synthetic``: the same seed gives the same values in both
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.ops import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class ImageSpec:
@@ -63,6 +65,43 @@ def make_image_dataset(spec: ImageSpec, n_train: int = 10_000,
     x_tr, y_tr = sample(n_train)
     x_te, y_te = sample(n_test)
     return x_tr, y_tr, x_te, y_te
+
+
+def dirichlet_shards(labels, num_shards: int, *, alpha: float = 0.3,
+                     seed: int = 0, min_per_shard: int = 1):
+    """Deterministic non-IID partition of a labeled dataset: every
+    class's sample indices are split across shards by Dirichlet(alpha)
+    proportions (small alpha -> each shard dominated by a few classes —
+    the federated heterogeneity the FL-MoE papers benchmark on).
+
+    Returns a list of ``num_shards`` sorted int64 index arrays that
+    exactly partition ``range(len(labels))``; identical across runs for
+    the same (labels, num_shards, alpha, seed).  Shards that the draw
+    left below ``min_per_shard`` samples steal from the largest shard so
+    every edge can train."""
+    labels = np.asarray(labels)
+    if num_shards < 1:
+        raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+    rng = np.random.default_rng(seed)
+    shards: list = [[] for _ in range(num_shards)]
+    for cls in np.unique(labels):
+        idx = np.flatnonzero(labels == cls)
+        rng.shuffle(idx)
+        props = rng.dirichlet(np.full(num_shards, alpha))
+        counts = np.floor(props * len(idx)).astype(int)
+        order = np.argsort(-props, kind="stable")
+        counts[order[:len(idx) - counts.sum()]] += 1
+        off = 0
+        for s in range(num_shards):
+            shards[s].extend(idx[off:off + counts[s]].tolist())
+            off += counts[s]
+    out = [np.asarray(sorted(ids), dtype=np.int64) for ids in shards]
+    for s in range(num_shards):
+        while len(out[s]) < min(min_per_shard, len(labels) // num_shards):
+            donor = int(np.argmax([len(a) for a in out]))
+            out[s] = np.sort(np.append(out[s], out[donor][-1]))
+            out[donor] = out[donor][:-1]
+    return out
 
 
 def lm_batches(vocab_size: int, batch: int, seq: int, *, seed: int = 0,

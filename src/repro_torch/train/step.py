@@ -14,11 +14,14 @@ counterpart of ``repro.train.step``).
   and with ``expert_stats`` also the per-MoE-layer routed-token counts;
 - ``make_serve_chunk_step(cfg, expert_stats=False)``: the serving
   engine's fused macro-step, C masked greedy decode micro-steps;
-- ``make_step(cfg, kind)``: one of the first three by name.
+- ``make_step(cfg, kind)``: one of the first three by name;
+- ``make_fed_local_step(num_experts, top_k, lr, apply_all)``: a federated
+  edge's SGD step on the B-MoE gate and expert bank (``repro_torch.fed``).
 
 On the card the training step's attention, RG-LRU, SSD and MoE products
-run their kernels forward and backward (``kernels.ops``).  A mesh (ROADMAP
-A7) and the federated local step (A6) are not ported.
+run their kernels forward and backward (``kernels.ops``); the federated
+step's dense mixture is plain products, as in the JAX package.  A mesh
+(ROADMAP A7) is not ported.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import experts as ex
 from repro_torch.core.ledger import tree_flatten, tree_unflatten
 from repro_torch.models import encdec
 from repro_torch.models import transformer as tfm
@@ -223,3 +227,57 @@ def make_step(cfg: ModelConfig, kind: str, mesh=None,
     if kind == "decode":
         return make_decode_step(cfg)
     raise ValueError(kind)
+
+
+# ------------------------------------------------------- federated edge
+def make_fed_local_step(num_experts: int, top_k: int, lr: float,
+                        apply_all):
+    """Local SGD update for one federated edge (``repro_torch.fed``).
+
+    The edge runs the full-bank dense MoE forward (gate top-k mixture
+    over ``apply_all``'s (N, B, C) outputs) but its gradient is masked
+    to the experts it OWNS: unowned experts receive exactly zero update,
+    so the edge's published delta is zero (and chunk-dedups away) off
+    its expert subset.  The gate is trained by every edge.
+
+    Returns ``step(params, x, y, owned) -> (params, loss)`` where
+    ``params = {"gate", "experts"}`` (tensors on one device), ``x`` is
+    (B, in_dim), ``y`` (B,) int64 labels and ``owned`` a float (N,)
+    ownership mask, all on that device.  The step is functional: it
+    returns new tensors and leaves ``params`` as they were (the
+    coordinator's global state and round snapshots are shared by every
+    edge), and its loss stays a 0-dim tensor on the device (no host
+    sync).
+    """
+
+    def moe_loss(params, x, y):
+        logits = ex.gate_apply(params["gate"], x)
+        w, _ = ex.sparse_gate_weights(logits, top_k)
+        outs = apply_all(params["experts"], x)        # (N, B, C)
+        mix = torch.einsum("bn,nbc->bc", w, outs)
+        logp = torch.log_softmax(mix, dim=-1)
+        return -logp.gather(1, y[:, None]).mean()
+
+    def local_step(params, x, y, owned):
+        leaves, _ = tree_flatten(params)
+        live = [p.detach().requires_grad_(True) for p in leaves]
+        tree = tree_unflatten(params, live)
+        with torch.enable_grad():
+            loss = moe_loss(tree, x, y)
+            grads = torch.autograd.grad(loss, live)
+        g = tree_unflatten(params, list(grads))
+
+        def mask_expert(gr):
+            return gr * owned.reshape((num_experts,) + (1,) * (gr.ndim - 1))
+
+        with torch.no_grad():
+            new = {
+                "gate": {k: params["gate"][k] - lr * g["gate"][k]
+                         for k in params["gate"]},
+                "experts": {k: params["experts"][k]
+                            - lr * mask_expert(g["experts"][k])
+                            for k in params["experts"]},
+            }
+        return new, loss.detach()
+
+    return local_step

@@ -1,5 +1,6 @@
 """The optimistic round state machine, pipelined (a copy of
-``repro.trust.protocol``; a court it builds votes on a device).
+``repro.trust.protocol``; a court it builds votes on a device, and
+``resolve_by_recompute``, the federated court, recomputes on the host).
 
 One round of optimistically-verified execution moves through:
 
@@ -44,12 +45,15 @@ import enum
 import heapq
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
+
 from repro_torch.core.reputation import ReputationLedger
 from repro_torch.obs.metrics import CounterGroup, MetricsRegistry
 from repro_torch.trust.audit import (AuditReport, BatchRecomputeFn,
                                      FraudProof, RecomputeFn, VerifierPool,
                                      verify_fraud_proof)
-from repro_torch.trust.commitments import RoundCommitment, commit_outputs
+from repro_torch.trust.commitments import (RoundCommitment, commit_outputs,
+                                          leaf_digest)
 from repro_torch.trust.slashing import (DisputeCourt, StakeBook, Verdict,
                                         reputation_fraud_update)
 
@@ -399,6 +403,37 @@ class OptimisticProtocol:
         else:
             state.phase = RoundPhase.ACCEPTED
         return state
+
+    def resolve_by_recompute(self, round_id: int,
+                             recompute_fn: RecomputeFn) -> RoundState:
+        """Court for hosts whose committed computation has no M-way
+        redundancy matrix to vote over (federated aggregation: each delta
+        is published once, not recomputed by M edges).  The court settles
+        the dispute by recomputing EVERY leaf of the challenged
+        commitment from the committed inputs — the executor is guilty iff
+        any recomputed leaf digest differs from the committed one, and
+        the verdict's trusted tensor is the full honest recompute.  Costs
+        O(one honest execution) instead of O(M); same ``resolve`` tail
+        (slash, chained rollback, sequential finality)."""
+        state = self.rounds[round_id]
+        com = state.commitment
+        trusted = np.array(com.claimed, copy=True)
+        guilty = False
+        for leaf in range(com.num_leaves):
+            e, _, sl = com.leaf_coords(leaf)
+            chunk = np.asarray(recompute_fn(e, sl))
+            trusted[e, sl] = chunk
+            if leaf_digest(chunk) != com.leaf_digests[leaf]:
+                guilty = True
+        flags = np.ones((com.num_experts, self.num_edges), np.int32)
+        if guilty:
+            flags[:, state.executor] = 0
+        verdict = Verdict(round_id=round_id, trusted=trusted,
+                          support=np.full(com.num_experts,
+                                          float(self.num_edges)),
+                          flags=flags, executor_guilty=guilty)
+        self.court.cases.append(verdict)
+        return self.resolve(round_id, verdict)
 
     def _invalidate_descendants(self, round_id: int) -> List[int]:
         """Void every ACCEPTED round built (transitively) on ``round_id``:

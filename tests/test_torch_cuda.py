@@ -1530,3 +1530,67 @@ def test_train_launcher_trains_mamba2_on_the_card(cuda, capsys):
     assert ops.launch_counts()["ssd_scan_bwd"] == 2 * get_config(
         "mamba2-2.7b", smoke=True).num_layers
     assert "[train] done" in capsys.readouterr().out
+
+
+# ------------------------------------------------ federated training
+_FED_TRUST = dict(chunks_per_expert=4, audit_rate=1.0, challenge_window=2)
+
+
+def _fed_run(device, rounds, **kw):
+    """A federated run at the paper's expert width (10 edges, 10 experts,
+    top-3, 784->256->10, 4 local steps of 64) on 2,000 samples of the
+    Fashion-MNIST-like set, from the port's seed-0 init, with its launch
+    counts from just before the first round to just after the flush."""
+    from repro_torch import fed
+    from repro_torch.data.synthetic import FMNIST, make_image_dataset
+    x, y, _, _ = make_image_dataset(FMNIST, n_train=2000, n_test=1, seed=0)
+    cfg = fed.FedConfig(num_edges=10, num_experts=10, experts_per_edge=2,
+                        top_k=3, hidden=256, local_steps=4, local_batch=64,
+                        seed=0, trust=TrustConfig(**_FED_TRUST), **kw)
+    co = fed.FedCoordinator(cfg, x, y, device=device)
+    ops.reset_launch_counts()
+    summaries = []
+    for _ in range(rounds):
+        s = co.run_round()
+        s.pop("agg_root", None)
+        summaries.append(s)
+    summaries.append(co.flush_trust())
+    if co.device.type == "cuda":
+        torch.cuda.synchronize()
+    return co, summaries, ops.launch_counts()
+
+
+def test_fed_round_on_the_card_matches_the_cpu(cuda):
+    """Two rounds under stragglers, dropouts and a sign-flipping edge on
+    the card and on the CPU: every decision equal, the global parameters
+    at rtol 1e-5 / atol 1e-5; the dense mixture launches no port kernel,
+    as the JAX package's federated step reaches no Pallas kernel."""
+    from repro_torch import fed
+    kw = dict(straggler_prob=0.2, dropout_prob=0.1,
+              attack=fed.FedAttack(malicious_edges=(2,),
+                                   update_attack="sign_flip", scale=5.0))
+    card, s_card, counts = _fed_run(cuda, 2, **kw)
+    cpu, s_cpu, _ = _fed_run("cpu", 2, **kw)
+    assert s_card == s_cpu
+    assert any(s["rejected"] for s in s_card[:-1])
+    assert counts == dict.fromkeys(counts, 0)
+    np.testing.assert_allclose(fed.tree_to_flat(card.global_params),
+                               fed.tree_to_flat(cpu.global_params),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_fed_card_runs_are_bitwise_and_replay_to_the_clean_twin(cuda):
+    """Plain torch, no deterministic switch: two seeded runs with a
+    dishonest aggregator hold the same bits, and the convicted chain,
+    replayed on the card, the clean twin's."""
+    from repro_torch import fed
+    atk = fed.FedAttack(malicious_edges=(1,), dishonest_aggregator=True)
+    a, sa, _ = _fed_run(cuda, 3, attack=atk)
+    b, sb, _ = _fed_run(cuda, 3, attack=atk)
+    clean, _, _ = _fed_run(cuda, 3)
+    assert sa == sb
+    assert a.obs_report()["fed"]["convictions"] >= 1
+    assert a.obs_report()["fed"]["replayed_rounds"] >= 1
+    for other in (b, clean):
+        assert fed.tree_to_flat(a.global_params).tobytes() == \
+            fed.tree_to_flat(other.global_params).tobytes()
