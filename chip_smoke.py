@@ -82,7 +82,21 @@ capacity 376, edge cache on):
   equal and a round against the CPU; M5, a profiled warm round and the
   host syncs of a local update.  The federated step's dense mixture is
   plain products (the JAX package's reaches no Pallas kernel), so the
-  path's launch counts are held to zero.
+  path's launch counts are held to zero;
+- B-MoE on an edge mesh (path N, ``BMoEConfig(mesh="on")``): five ranks
+  on the one card (``launch.mesh.spawn_edges``, gloo), each an edge
+  shard holding 2 of the 10 experts, at the paper's width: N1, 5
+  optimistic rounds with edge 2 cheating, audit rate 1, then
+  ``flush_trust`` and ``infer``; N2, ``bmoe`` and ``traditional`` 3
+  rounds each under 3 colluders; every rank bitwise equal to the
+  one-device system run first in this process (parameters, roots,
+  phases, proofs, the chain, logits); N3, ``moe_gemm``, the vote and
+  ``audit_mlp`` at the shard shapes against their plain versions and
+  bitwise equal to the full-E launch's rows; N4, each rank's launches
+  (5 ``moe_gemm`` and, under bmoe, 1 vote a round; ``audit_mlp`` as
+  the records count); N5, round walls on and off and each exchange's
+  bytes a rank.  The ranks load the library this process built, print
+  nothing and are all joined; a failing rank fails the path.
 
 Each path's launch counts are set to 0 just before it and read just
 after it.
@@ -92,6 +106,7 @@ after it.
     python3 chip_smoke.py --serving
     python3 chip_smoke.py --training
     python3 chip_smoke.py --federated
+    python3 chip_smoke.py --mesh
 
 The second form builds, then checks and times only the named kernels'
 cases (``moe_gemm``, ``flash_attention``, ``flash_attention_bwd``,
@@ -100,8 +115,8 @@ cases (``moe_gemm``, ``flash_attention``, ``flash_attention_bwd``,
 line): run from two trees in one call, it compares two versions of a
 kernel on one card.
 The third runs path K alone, the fourth path L alone (their models
-initialised from seed 0 as the main run's are) and the fifth path M
-alone, and stop the same way.
+initialised from seed 0 as the main run's are), the fifth path M alone
+and the sixth path N alone, and stop the same way.
 
 Prints, in order: the card's name and power limit (nvidia-smi), the
 build time, one JSON line per kernel case, the main-path lines, one
@@ -3587,6 +3602,311 @@ def federated_path(torch, np, ops):
     return counts
 
 
+MESH_SHARDS = 5
+
+
+def mesh_data(np):
+    """Path N's tasks, the same on every rank: 5 training tasks of 1000
+    rows and a test batch of 1000 (seed 2)."""
+    from repro_torch.data.synthetic import FMNIST, make_image_dataset
+    xtr, ytr, xte, _ = make_image_dataset(FMNIST, n_train=5000,
+                                          n_test=1000, seed=2)
+    return xtr.reshape(len(xtr), -1), ytr, xte.reshape(len(xte), -1)
+
+
+def _mesh_rounds(torch, sys_, xtr, ytr, rounds: int):
+    """``rounds`` training rounds on consecutive tasks of 1000: each
+    round's wall (synchronised) and the bytes this rank sent in it, by
+    exchange."""
+    walls, wire = [], []
+    for r in range(rounds):
+        w0 = dict(sys_.mesh.wire_bytes)
+        t0 = time.perf_counter()
+        sys_.train_round(xtr[r * 1000:(r + 1) * 1000],
+                         ytr[r * 1000:(r + 1) * 1000])
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        wire.append({k: v - w0.get(k, 0)
+                     for k, v in sys_.mesh.wire_bytes.items()})
+    return walls, wire
+
+
+def mesh_cases(torch, np, ops, mesh: str):
+    """Path N's runs at the paper's width with ``mesh`` ("on": this
+    rank's share of a 5-shard edge mesh; "off": the one-device system).
+    N1, optimistic training: edge 2 always cheats (sigma 5), audit rate
+    1, batched audits, window 2, 5 rounds, then ``flush_trust`` and
+    ``infer``.  N2, ``bmoe`` and ``traditional`` under 3 colluders, 3
+    rounds each, then an attacked ``infer``.  Returns per run: parameter
+    digests (the whole bank), rounds (root, phase, proofs), logits,
+    block hashes, launches by phase and their records, round walls and
+    wire bytes."""
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.core.bmoe import BMoEConfig, BMoESystem
+    from repro_torch.core.ledger import digest_bytes, digest_tree
+    from repro_torch.trust.commitments import MerkleTree
+    from repro_torch.trust.protocol import TrustConfig
+
+    def params(sys_):
+        return {"bank": digest_tree(sys_.full_bank()),
+                "gate": digest_tree(sys_.gate),
+                "blocks": [b.hash for b in sys_.ledger.blocks],
+                "local_rows": {k: tuple(v.shape)
+                               for k, v in sys_.experts.items()}}
+
+    xtr, ytr, xte = mesh_data(np)
+    out = {}
+    sys_ = _optimistic_trainer(
+        AttackConfig(malicious_edges=(2,), attack_prob=1.0, noise_std=5.0),
+        TrustConfig(audit_rate=1.0, num_verifiers=2, challenge_window=2,
+                    audit_backend="batched"),
+        mesh=mesh, mesh_shards=MESH_SHARDS)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    walls, wire = _mesh_rounds(torch, sys_, xtr, ytr, 5)
+    flush = sys_.flush_trust()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want, calls, replayed = _train_launches_expected(sys_, 5)
+    logits = sys_.infer(xte, commit=False)[0]
+    com = sys_.protocol.rounds[0].commitment
+    out["N1"] = {
+        **params(sys_), "flush": flush, "logits": digest_bytes(
+            logits.tobytes()),
+        "rounds": {rid: (st.commitment.root, st.phase.value,
+                         [(p.leaf_index, p.expert, p.claimed_digest,
+                           p.recomputed_digest) for p in st.proofs])
+                   for rid, st in sys_.protocol.rounds.items()},
+        "rolled_back": sys_.protocol.stats["rolled_back"],
+        "stats": dict(sys_.protocol.stats),
+        "num_shards": com.num_shards,
+        "shard_roots_reduce": (com.shard_roots is None or MerkleTree(
+            com.shard_roots).root == com.root),
+        "audit_rows": {sh: sys_.obs.metrics.value(
+            "bmoe.mesh.audit_rows", shard=str(sh))
+            for sh in range(MESH_SHARDS)},
+        "capacity": sys_._exec_rows(1000), "launches": counts,
+        "want": want, "audit_calls": calls, "replayed": replayed,
+        "walls_ms": walls, "wire": wire}
+    strong = AttackConfig(malicious_edges=(7, 8, 9), attack_prob=1.0,
+                          noise_std=5.0)
+    for fw in ("bmoe", "traditional"):
+        sys_ = BMoESystem(BMoEConfig(framework=fw, attack=strong, mesh=mesh,
+                                     mesh_shards=MESH_SHARDS),
+                          device="cuda")
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        walls, wire = _mesh_rounds(torch, sys_, xtr, ytr, 3)
+        train_counts = ops.launch_counts()
+        ops.reset_launch_counts()
+        logits, _, support = sys_.infer(xte)
+        torch.cuda.synchronize()
+        out["N2_" + fw] = {
+            **params(sys_), "logits": digest_bytes(logits.tobytes()),
+            "support": support.tolist(), "launches": train_counts,
+            "infer_launches": ops.launch_counts(), "walls_ms": walls,
+            "wire": wire}
+    return out
+
+
+def mesh_rank(rank: int, world: int, out_dir: str) -> None:
+    """One rank of path N's world (spawned by ``spawn_edges``, its
+    process group and card set): loads the kernel library the parent
+    built, runs ``mesh_cases(mesh="on")`` and writes the results to
+    ``<out_dir>/rank<r>.pkl``.  It prints nothing: the parent reports."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import build, ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.library()
+    t0 = time.perf_counter()
+    res = mesh_cases(torch, np, ops, "on")
+    res["backend"] = dist.get_backend()
+    res["device"] = torch.cuda.current_device()
+    res["cases_s"] = time.perf_counter() - t0
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def mesh_kernel_cases(torch, mg, rv, am, ref):
+    """N3: the three kernels at one shard's shapes (E_l = 2 of 10
+    experts): each against its plain version and timed (``check_*``),
+    and each E_l launch bitwise equal to the same rows of the full-E
+    launch (shard 1, experts 2 and 3)."""
+    E, El, lo = 10, 2, 2
+    gemm = [check_moe_gemm(torch, mg, ref, seed, name, El, C, d, f,
+                           torch.float32)
+            for seed, name, C, d, f in (
+                (60, "mesh_layer1", 376, 784, 256),
+                (61, "mesh_layer2", 376, 256, 10),
+                (62, "mesh_bwd_dw2", 256, 376, 10),
+                (63, "mesh_bwd_dh", 376, 10, 256),
+                (64, "mesh_bwd_dw1", 784, 376, 256))]
+    vote = check_vote(torch, rv, ref, 65, "mesh_shard", El, 10, 3760,
+                      n_bad=3)
+    audit = check_audit_mlp(torch, am, ref, 66, "mesh_shard_commit", El, 8,
+                            94, 784, 256, 10)
+    g = torch.Generator("cuda").manual_seed(70)
+    same = {}
+    for row, (C, d, f) in zip(gemm, ((376, 784, 256), (376, 256, 10),
+                                     (256, 376, 10), (376, 10, 256),
+                                     (784, 376, 256))):
+        buf = torch.randn(E, C, d, generator=g, device="cuda")
+        w = torch.randn(E, d, f, generator=g, device="cuda") * d ** -0.5
+        full = mg.moe_gemm(buf, w)
+        part = mg.moe_gemm(buf[lo:lo + El].contiguous(),
+                           w[lo:lo + El].contiguous())
+        same["moe_gemm " + row["case"]] = _bitwise_equal(
+            torch, part, full[lo:lo + El])
+    gc = torch.Generator().manual_seed(71)
+    honest = torch.randn(E, 1, 3760, generator=gc)
+    pub = honest.expand(E, 10, 3760).clone()
+    pub[:, 7:] += 5.0 * torch.randn(E, 1, 3760, generator=gc)
+    pub, active = pub.cuda(), torch.ones(10, device="cuda")
+    full = rv.redundancy_vote_masked(pub, active)
+    part = rv.redundancy_vote_masked(pub[lo:lo + El].contiguous(), active)
+    same["redundancy_vote"] = all(_bitwise_equal(torch, p, q[lo:lo + El])
+                                  for p, q in zip(part, full))
+    bank = _audit_bank(torch, gc, E, 784, 256, 10)
+    x = torch.randn(4 * E, 94, 784, generator=gc).cuda()
+    gid = torch.arange(E, dtype=torch.int32).repeat_interleave(4).cuda()
+    full = am.audit_mlp(bank, x, gid)
+    part = am.audit_mlp({k: v[lo:lo + El].contiguous()
+                         for k, v in bank.items()},
+                        x[4 * lo:4 * (lo + El)].contiguous(),
+                        gid[4 * lo:4 * (lo + El)] - lo)
+    same["audit_mlp"] = _bitwise_equal(torch, part,
+                                       full[4 * lo:4 * (lo + El)])
+    torch.cuda.synchronize()
+    emit({"phase": "mesh", "path": "N3", "shard": "1 of 5 (experts 2, 3)",
+          "full_E_rows_bitwise": same})
+    require(all(same.values()),
+            f"a kernel's E_l launch differs from the full-E rows: {same}")
+    return gemm, vote, audit
+
+
+def mesh_path(torch, np, ops, mg, rv, am, ref):
+    """Path N: B-MoE on a 5-shard edge mesh (``mesh="on"``), five ranks
+    on the one card (``spawn_edges``; gloo, since NCCL refuses two ranks
+    on one card), each holding 2 of the 10 experts, at the paper's width:
+    N1 (optimistic) and N2 (bmoe, traditional) held bitwise to the
+    one-device system run here first; N3 the kernels at the shard
+    shapes; N4 each rank's launches against the records; N5 round walls
+    on and off, each exchange's bytes a rank, the backend.  The ranks
+    load the library this process built; a failing rank fails the
+    path."""
+    import pickle
+    from repro_torch.launch.mesh import spawn_edges
+    t_start = time.perf_counter()
+    off = mesh_cases(torch, np, ops, "off")
+    t_off = time.perf_counter() - t_start
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(here, "build", f"mesh-{os.getpid()}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    spawn_edges(mesh_rank, MESH_SHARDS, args=(out_dir,), device="cuda",
+                rendezvous_dir=out_dir, timeout_s=300)
+    t_world = time.perf_counter() - t0
+    ranks = []
+    for r in range(MESH_SHARDS):
+        with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    # N1 and N2: every rank bitwise the one-device system
+    same = {}
+    for run, keys in (("N1", ("bank", "gate", "blocks", "rounds", "flush",
+                              "logits", "rolled_back", "stats")),
+                      ("N2_bmoe", ("bank", "gate", "blocks", "logits",
+                                   "support")),
+                      ("N2_traditional", ("bank", "gate", "blocks", "logits",
+                                          "support"))):
+        same[run] = {k: all(res[run][k] == off[run][k] for res in ranks)
+                     for k in keys}
+    n1 = ranks[0]["N1"]
+    rows = n1["audit_rows"]
+    total = sum(rows.values())
+    n1_ok = (n1["rolled_back"] >= 1 and n1["num_shards"] == MESH_SHARDS
+             and n1["shard_roots_reduce"]
+             and all(r > 0 for r in rows.values())
+             and max(rows.values()) <= total / MESH_SHARDS + n1["capacity"]
+             and all(res["N1"]["local_rows"]["w1"] == (2, 784, 256)
+                     for res in ranks))
+    emit({"phase": "mesh", "path": "N1", "ranks": MESH_SHARDS,
+          "backend": ranks[0]["backend"],
+          "devices": [res["device"] for res in ranks],
+          "bitwise_vs_mesh_off": same["N1"],
+          "rolled_back": n1["rolled_back"], "stats": n1["stats"],
+          "num_shards": n1["num_shards"],
+          "shard_roots_reduce": n1["shard_roots_reduce"],
+          "audit_rows": rows, "audit_rows_total": total,
+          "capacity": n1["capacity"],
+          "local_rows": n1["local_rows"]})
+    require(all(same["N1"].values()) and n1_ok,
+            f"N1 on the mesh differs from mesh off: {same['N1']}")
+    emit({"phase": "mesh", "path": "N2",
+          "bitwise_vs_mesh_off": {k: same["N2_" + k]
+                                  for k in ("bmoe", "traditional")},
+          "support_bmoe": ranks[0]["N2_bmoe"]["support"]})
+    require(all(all(v.values()) for v in same.values()),
+            f"N2 on the mesh differs from mesh off: {same}")
+
+    # N3: the kernels at the shard shapes
+    gemm, vote, audit = mesh_kernel_cases(torch, mg, rv, am, ref)
+
+    # N4: each rank's launches against the numbers a round calls for
+    want_n2 = {fw: (lm_counts(moe_gemm=15, redundancy_vote=3 * (fw ==
+                                                                "bmoe")),
+                    lm_counts(moe_gemm=2, redundancy_vote=int(fw ==
+                                                              "bmoe")))
+               for fw in ("bmoe", "traditional")}
+    launches = [{"N1": res["N1"]["launches"], "N1_want": res["N1"]["want"],
+                 "N2_bmoe": res["N2_bmoe"]["launches"],
+                 "N2_bmoe_infer": res["N2_bmoe"]["infer_launches"],
+                 "N2_traditional": res["N2_traditional"]["launches"],
+                 "N2_traditional_infer": res["N2_traditional"][
+                     "infer_launches"]} for res in ranks]
+    n4_ok = all(
+        lr["N1"] == lr["N1_want"]
+        and all(lr["N2_" + fw] == want_n2[fw][0]
+                and lr[f"N2_{fw}_infer"] == want_n2[fw][1]
+                for fw in want_n2)
+        for lr in launches)
+    emit({"phase": "mesh", "path": "N4",
+          "per_rank_round": {"moe_gemm": "2 forward + 3 backward",
+                             "redundancy_vote": "1 a bmoe round or batch",
+                             "audit_mlp": "1 a commit + the drains and "
+                                          "eager recomputes counted"},
+          "rank0": launches[0],
+          "audit_calls": n1["audit_calls"], "replayed": n1["replayed"],
+          "all_ranks_equal": all(lr == launches[0] for lr in launches)})
+    require(n4_ok, f"path N launches differ from the records: {launches}")
+
+    # N5: walls on and off, bytes a rank by exchange, the backend
+    emit({"phase": "mesh", "path": "N5", "backend": ranks[0]["backend"],
+          "nccl": False,
+          "n1_round_walls_ms": {"off": off["N1"]["walls_ms"],
+                                "on_rank0": n1["walls_ms"]},
+          "n2_bmoe_round_walls_ms": {
+              "off": off["N2_bmoe"]["walls_ms"],
+              "on_rank0": ranks[0]["N2_bmoe"]["walls_ms"]},
+          "n2_traditional_round_walls_ms": {
+              "off": off["N2_traditional"]["walls_ms"],
+              "on_rank0": ranks[0]["N2_traditional"]["walls_ms"]},
+          "wire_bytes_rank0": {"N1_round0": n1["wire"][0],
+                               "N2_bmoe_round1": ranks[0]["N2_bmoe"][
+                                   "wire"][1]},
+          "rank_cases_s": [res["cases_s"] for res in ranks],
+          "off_s": t_off, "world_s": t_world,
+          "path_s": time.perf_counter() - t_start})
+    return {"ranks": launches, "gemm": gemm, "vote": vote, "audit": audit}
+
+
 def profile_batch(torch, run, cpu: bool = True, spans=()):
     """Device time by kernel (and copy) over one warm call of ``run``,
     from torch.profiler's CUDA activities: the eight largest rows, the
@@ -3819,6 +4139,11 @@ def main() -> int:
         federated_path(torch, np, ops)
         return 0
 
+    if "--mesh" in sys.argv:
+        # path N alone
+        mesh_path(torch, np, ops, mg, rv, am, ref)
+        return 0
+
     if "--kernels" in sys.argv:
         # only the named kernels' cases, e.g. to time two trees in one call
         cases = {"moe_gemm": lambda: moe_gemm_cases(torch, mg, ref),
@@ -3934,6 +4259,10 @@ def main() -> int:
         torch, np, ops, rv, ref)
     # path M: federated training; it launches no port kernel
     counts_m = federated_path(torch, np, ops)
+    # path N: B-MoE on a 5-shard edge mesh, five ranks on the card
+    mesh = mesh_path(torch, np, ops, mg, rv, am, ref)
+    mesh_n1 = mesh["ranks"][0]["N1"]
+    mesh_n2 = mesh["ranks"][0]["N2_bmoe"]
 
     kernels = [
         {"name": "moe_gemm", "route": "cuda",
@@ -3953,7 +4282,13 @@ def main() -> int:
              "CNN training, 3 rounds (G4, bmoe)": counts_g4["bmoe"][
                  "moe_gemm"],
              "LM training, bmoe-paper, 4 steps (L1, 36 forward + 72 "
-             "backward a step)": counts_l1["moe_gemm"]},
+             "backward a step)": counts_l1["moe_gemm"],
+             "edge mesh, a rank, 5 optimistic rounds + replays (N1)":
+                 mesh_n1["moe_gemm"],
+             "edge mesh, a rank, 3 bmoe rounds (N2)": mesh_n2["moe_gemm"]},
+         "mesh_shard_shapes": [{k: r[k] for k in (
+             "case", "shape", "max_abs_err", "kernel_ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms")} for r in mesh["gemm"]],
          "backward": [{k: r[k] for k in ("case", "shape", "max_abs_err",
                                          "kernel_ms", "plain_ms",
                                          "bound_ms", "bound_by",
@@ -4009,7 +4344,14 @@ def main() -> int:
              "CNN traditional training, 3 rounds (G4)": counts_g4[
                  "traditional"]["redundancy_vote"],
              "dense-dispatch CNN bmoe round (G4)": counts_g4["dense_round"][
+                 "redundancy_vote"],
+             "edge mesh, a rank, 3 bmoe rounds (N2)": mesh_n2[
+                 "redundancy_vote"],
+             "edge mesh, a rank, optimistic courts (N1)": mesh_n1[
                  "redundancy_vote"]},
+         "mesh_shard_shape": {k: mesh["vote"][k] for k in (
+             "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+             "launch_floor_ms")},
          "max_abs_err": vote["max_abs_err"], "ms": vote["kernel_ms"],
          "plain_ms": vote["plain_ms"], "bound_ms": vote["bound_ms"],
          "bound_by": vote["bound_by"], "library_ms": None,
@@ -4028,7 +4370,12 @@ def main() -> int:
          "launches": counts_a["audit_mlp"],
          "launches_by_path": {
              "optimistic path A, 6 batches + flush": counts_a["audit_mlp"],
-             "optimistic training, 20 rounds (G1)": counts_g1["audit_mlp"]},
+             "optimistic training, 20 rounds (G1)": counts_g1["audit_mlp"],
+             "edge mesh, a rank, 5 optimistic rounds + flush (N1)":
+                 mesh_n1["audit_mlp"]},
+         "mesh_shard_shape": {k: mesh["audit"][k] for k in (
+             "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+             "composition_ms")},
          "per": "optimistic path A (6 batches of 1000 + flush); times at "
                 "the commit shape x (40,94,784), bank E=10",
          "train_merged_shape": {k: audit[4][k] for k in (
@@ -4172,6 +4519,10 @@ def main() -> int:
     for k in kernels:
         # federated training (path M) reaches no kernel: held to zero
         k["launches_federated_path_m"] = counts_m[k["name"]]
+        # path N, rank 0 of 5: every run's launches (N1, N2 and infers)
+        k["launches_mesh_path_n_rank0"] = sum(
+            lr[k["name"]] for ph, lr in mesh["ranks"][0].items()
+            if ph != "N1_want")
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,7 @@ redundancy enabled (faithful mode, r=2 by default).
 This is the config used to demonstrate the paper's technique inside the
 transformer framework; the paper's *original* MLP/CNN-expert experiments
 live in ``repro_torch.core.bmoe``.  The redundancy setting is declared,
-not run: the LM-scale vote needs a mesh (ROADMAP A7).
+not run: the LM-scale vote needs a mesh (ROADMAP A7b).
 """
 import dataclasses
 

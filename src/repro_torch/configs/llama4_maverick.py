@@ -3,7 +3,7 @@ expert, GQA (kv=8), early fusion. [hf:meta-llama/Llama-4-Scout-17B-16E]
 
 Native target of the paper's B-MoE technique: per-expert redundancy +
 consensus vote.  The ``TRUSTED_*`` variants are declared, not run: the
-LM-scale vote needs a mesh (ROADMAP A7)."""
+LM-scale vote needs a mesh (ROADMAP A7b)."""
 import dataclasses
 
 from repro_torch.models.config import LayerSpec, ModelConfig, RedundancyConfig

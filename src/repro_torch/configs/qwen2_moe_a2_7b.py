@@ -4,7 +4,7 @@
 60 experts do not divide the 16-wide model axis, so the sharding rules
 fall back to tensor parallelism inside each expert (moe_ff axis).  On
 one card ``moe_impl="ep"`` means nothing, as in the JAX package without
-a mesh; the ``TRUSTED_*`` variants are declared, not run (ROADMAP A7)."""
+a mesh; the ``TRUSTED_*`` variants are declared, not run (ROADMAP A7b)."""
 import dataclasses
 
 from repro_torch.models.config import LayerSpec, ModelConfig, RedundancyConfig

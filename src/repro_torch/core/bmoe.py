@@ -3,7 +3,7 @@ layer + storage layer, running the Step 1-6 workflow of Fig. 3 for
 training and the Step 1-3 (+6 storage) workflow for inference, in
 PyTorch.
 
-The counterpart of ``repro.core.bmoe`` on one device:
+The counterpart of ``repro.core.bmoe``, on one device or an edge mesh:
 ``BMoESystem.train_round``, ``infer``, ``evaluate`` and ``flush_trust``
 under three frameworks, for the MLP bank (Fashion-MNIST) and the CNN bank
 (CIFAR-10), with sparse or dense dispatch:
@@ -35,7 +35,7 @@ under three frameworks, for the MLP bank (Fashion-MNIST) and the CNN bank
 
 One forward: gate (+ the workload balancer's bias) -> top-k softmax ->
 scatter into capacity buckets -> grouped experts (the MLP bank: two
-``moe_gemm`` launches; the CNN bank: one grouped convolution a layer) ->
+``moe_gemm`` launches; the CNN bank: one expert's network a call) ->
 trust step -> gate-weighted combine.  ``dispatch="dense"`` runs every
 expert on the whole batch instead (plain products) and combines with the
 dense gate weights.  A training step differentiates through it
@@ -52,8 +52,23 @@ round's attack mask and noise (and poisoned uploads) from seeded
 cheating executor and the court's copies are numpy draws, byte for byte
 the JAX package's.
 
-Not in this slice: ``mesh="on"`` raises ``NotImplementedError``
-(ROADMAP.md queue A, item 7).
+``mesh="on"`` runs the same rounds on an edge mesh
+(``launch.mesh.make_edge_mesh``): one process per edge shard, every rank
+running the same script.  Rank ``s`` holds only its contiguous ``E/m``
+slice of the bank (``sharding.shard_bank``); routing runs on the full
+batch on every rank, each rank scatters its own token slice into the
+capacity buckets, the buckets cross the mesh by ``all_to_all_single``,
+the rank's experts run on its ``(E/m, capacity, .)`` buckets, and the
+results return to the token owners by the reverse exchange
+(``_mesh_sparse_forward``).  Corruption noise is drawn at full shape and
+sliced, the vote runs over the local experts, commitments and audit
+recomputes are shard-local (each rank recomputes the leaves of its own
+experts and the results are gathered), and every input to the host
+state (ledger, storage, protocol, stakes, reputation, controllers) is
+first made identical on every rank by gathering it, so the host state is
+replicated.  Everything is bitwise the ``mesh="off"`` system's, which
+runs the same code on a one-shard mesh (``launch.mesh.local_mesh``)
+whose exchanges are the identity.
 """
 from __future__ import annotations
 
@@ -72,9 +87,10 @@ from repro_torch.core.ledger import (Ledger, as_numpy, digest_array,
 from repro_torch.core.reputation import (ReputationConfig, ReputationLedger,
                                          WorkloadBalancer)
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.ops import resolve_device
+from repro_torch.launch.mesh import EdgeMesh, local_mesh, make_edge_mesh
 from repro_torch.models.moe import capacity_positions
 from repro_torch.obs import Observability
+from repro_torch.sharding import shard_bank
 from repro_torch.storage import (ExpertCache, ExpertStore, GateEMA,
                                  NetworkCostModel, StorageNetwork)
 from repro_torch.trust.audit import pack_audit_batch, pack_audit_batch_multi
@@ -130,17 +146,35 @@ class BMoEConfig:
 
 
 def _check_slice(cfg: BMoEConfig) -> None:
-    """Refuse what the port does not run yet, naming the ROADMAP.md
-    queue item that brings it."""
+    """Refuse a configuration the system cannot run."""
     if cfg.framework not in ("bmoe", "traditional", "optimistic"):
         raise ValueError(f"unknown framework {cfg.framework!r}")
     if cfg.dispatch not in ("sparse", "dense"):
         raise ValueError(f"unknown dispatch {cfg.dispatch!r}")
     if cfg.expert_kind not in ("mlp", "cnn"):
         raise ValueError(f"unknown expert_kind {cfg.expert_kind!r}")
-    if cfg.mesh == "on":
-        raise NotImplementedError(
-            "mesh='on' is not ported yet (ROADMAP.md queue A, item 7)")
+    if cfg.mesh not in ("on", "off"):
+        raise ValueError(f"unknown mesh {cfg.mesh!r}")
+    if cfg.mesh == "on" and cfg.dispatch != "sparse":
+        raise ValueError(
+            "mesh='on' runs the all_to_all sparse dispatch; dense "
+            "dispatch has no per-expert buckets to exchange — set "
+            "dispatch='sparse'")
+
+
+def _check_shard_leaves(cfg: BMoEConfig, shards: int, tc) -> None:
+    """Shard-local commitments reduce shard subtree roots into the flat
+    round root; that is bitwise the flat root only when each shard's
+    subtree is a complete subtree, i.e. leaves per shard is a power of
+    two."""
+    lps = (cfg.num_experts // shards) * tc.chunks_per_expert
+    if lps & (lps - 1):
+        raise ValueError(
+            f"shard-local commitments need a power-of-two leaf "
+            f"count per edge: (num_experts/mesh_shards) * "
+            f"chunks_per_expert = ({cfg.num_experts}/{shards}) * "
+            f"{tc.chunks_per_expert} = {lps}; adjust "
+            f"mesh_shards or TrustConfig.chunks_per_expert")
 
 
 def gate_in_dim(cfg: BMoEConfig) -> int:
@@ -155,7 +189,10 @@ class BMoESystem:
     ``device=None`` runs on the CUDA device (raising where there is
     none); ``device="cpu"`` runs every kernel's plain version.
     ``params={"gate": ..., "experts": ...}`` (``convert.params_from_numpy``)
-    replaces the seeded init, and is what the genesis bank publishes."""
+    replaces the seeded init, and is what the genesis bank publishes.
+    Under ``mesh="on"`` every rank of the process group builds the
+    system alike; ``experts`` then holds this rank's bank slice and
+    ``full_bank()`` gathers the whole bank."""
 
     # phase-seconds metrics behind the ``_timers`` keys (the JAX
     # package's): every second the system books flows through a span
@@ -171,7 +208,17 @@ class BMoESystem:
                  params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None):
         _check_slice(cfg)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        # the edge mesh: this rank's shard of the expert axis and its
+        # model-axis group (one shard, exchanges the identity, off the mesh)
+        self.mesh: EdgeMesh = (
+            make_edge_mesh(cfg.num_experts, shards=cfg.mesh_shards,
+                           device=device) if cfg.mesh == "on"
+            else local_mesh(device))
+        self.mesh_shards = self.mesh.shards
+        self.device = self.mesh.device
+        if self.mesh_shards > 1 and cfg.framework == "optimistic":
+            _check_shard_leaves(cfg, self.mesh_shards,
+                                cfg.trust or TrustConfig(seed=cfg.seed))
         # the one observability bundle of the run: storage network, store,
         # cache, trust protocols and DA auditor record into its registry
         self.obs = obs if obs is not None else Observability()
@@ -188,6 +235,8 @@ class BMoESystem:
             self.experts = {k: v.to(self.device)
                             for k, v in params["experts"].items()}
             self._check_params()
+        self.experts = shard_bank(self.experts, self.mesh)
+        self._full_memo = None          # (local bank, gathered bank)
         self.ledger = Ledger()
         self.storage = StorageNetwork(
             num_nodes=cfg.num_storage_nodes,
@@ -342,7 +391,7 @@ class BMoESystem:
                 self.gate, self.experts, metrics = _train_step(
                     self.gate, bank, xt, yt, mask_e.to(self.device),
                     noise.to(self.device), atk.noise_std, gate_bias, active,
-                    cfg=cfg, executor=executor)
+                    cfg=cfg, executor=executor, mesh=self.mesh)
                 metrics = {k: as_numpy(v) for k, v in metrics.items()}
             self.gate_ema.update(metrics["activation"])
             payload = {"round": self.round, "kind": "train",
@@ -438,7 +487,7 @@ class BMoESystem:
         logits, activation, support = _infer_step(
             self.gate, bank, xt, mask_e.to(self.device),
             noise.to(self.device), atk.noise_std, gate_bias, active,
-            cfg=cfg)
+            cfg=cfg, mesh=self.mesh)
         return (as_numpy(logits), as_numpy(activation), as_numpy(support))
 
     def evaluate(self, x, y, *, attack: Optional[AttackConfig] = None,
@@ -487,7 +536,8 @@ class BMoESystem:
         stream with its own fold id (0 for a colluding coalition, whose
         uploads are then identical)."""
         cfg = self.cfg
-        honest = digest_tree(self.experts)
+        bank = self.full_bank()
+        honest = digest_tree(bank)
         poisoned: Dict[int, str] = {}
         uploads = []
         for m in range(cfg.num_edges):
@@ -495,7 +545,7 @@ class BMoESystem:
                 fid = 0 if atk.colluding else m
                 if fid not in poisoned:
                     poisoned[fid] = digest_tree(poison_tree(
-                        self.experts, atk.noise_std, cfg.seed + 17,
+                        bank, atk.noise_std, cfg.seed + 17,
                         self.round, "poison", fid))
                 uploads.append(poisoned[fid])
             else:
@@ -595,12 +645,26 @@ class BMoESystem:
             self.expert_store.manifest_cid(self._object_id(e), version)
             for e in range(cfg.num_experts))
         if key != self._resolved_key:
-            # host-side stack first, ONE host->device copy per leaf
+            # host-side stack first, ONE host->device copy per leaf; under
+            # the mesh every rank made the same fetches (the storage
+            # counters stay replicated) and puts only its own rows
+            lo, hi = self.mesh.expert_range(cfg.num_experts)
             self._resolved_bank = {
-                k: torch.from_numpy(np.stack([r[k] for r in rows]))
+                k: torch.from_numpy(np.stack([r[k] for r in rows[lo:hi]]))
                 .to(self.device) for k in rows[0]}
             self._resolved_key = key
         return self._resolved_bank
+
+    def full_bank(self) -> Dict[str, torch.Tensor]:
+        """The whole ``(N, ...)`` bank on this device: every shard's slice
+        gathered in expert order (a collective: every rank of the group
+        calls it; one device gathers its one shard)."""
+        if self._full_memo is None or self._full_memo[0] is not self.experts:
+            full = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in
+                    ((k, self.mesh.all_gather(v, "bank"))
+                     for k, v in self.experts.items())}
+            self._full_memo = (self.experts, full)
+        return self._full_memo[1]
 
     def _publish_bank(self, activation, version: int) -> None:
         """Step 5, chunked: upload a new manifest version for every
@@ -612,7 +676,8 @@ class BMoESystem:
                     np.nonzero(np.asarray(activation) > 0)[0]])
         if changed:
             # one device->host copy for the whole bank, slice on the host
-            host = {k: as_numpy(v) for k, v in self.experts.items()}
+            # (under the mesh, the bank gathered from every shard)
+            host = {k: as_numpy(v) for k, v in self.full_bank().items()}
             for e in changed:
                 self.expert_store.put_version(
                     self._object_id(e), {k: a[e] for k, a in host.items()},
@@ -791,7 +856,7 @@ class BMoESystem:
                                                _infer_step(
                     self.gate, bank, xt, mask_e.to(self.device),
                     noise.to(self.device), atk.noise_std, gate_bias, active,
-                    cfg=cfg, executor=executor))
+                    cfg=cfg, executor=executor, mesh=self.mesh))
             self.gate_ema.update(activation)
             xin = self._task_rows(xt)          # the published task rows
             row_index, bounds = self._commitment_layout(
@@ -974,23 +1039,30 @@ class BMoESystem:
         chunk) leaf goes through ONE grouped ``audit_mlp`` call; the CNN
         bank applies each expert to each chunk's rows (one call shape per
         leaf).  With ``row_index`` the chunks tile each expert's capacity
-        bucket and the task rows come from the committed routing.  Host
-        numpy (N, R, C)."""
-        cfg = self.cfg
+        bucket and the task rows come from the committed routing.  Each
+        rank builds the leaves of its own experts (one grouped call over
+        its bank slice, local expert ids, its rows of the routing) and the
+        slices are gathered: a leaf's bytes do not depend on the grouping.
+        Host numpy (N, R, C)."""
         n_chunks = len(bounds) - 1
         slices = [slice(bounds[c], bounds[c + 1]) for c in range(n_chunks)]
-        work = [(e, sl) for e in range(cfg.num_experts)
+        n_local = next(iter(experts.values())).shape[0]
+        if row_index is not None:
+            lo, hi = self.mesh.expert_range(self.cfg.num_experts)
+            row_index = row_index[lo:hi]
+        work = [(e, sl) for e in range(n_local)
                 for sl in slices]                # (e, c) row-major = leaf order
         idx, gid, n = pack_audit_batch([e for e, _ in work],
                                        [sl for _, sl in work],
                                        row_map=row_index)
-        out = as_numpy(self._batched_recompute_call(
-            experts, xd, idx, gid, [sl.stop - sl.start for _, sl in work]))
-        parts = [np.concatenate(
+        out = self._batched_recompute_call(
+            experts, xd, idx, gid, [sl.stop - sl.start for _, sl in work])
+        parts = torch.stack([torch.cat(
             [out[e * n_chunks + c][:bounds[c + 1] - bounds[c]]
-             for c in range(n_chunks)], axis=0)
-            for e in range(cfg.num_experts)]
-        return np.stack(parts)
+             for c in range(n_chunks)], dim=0)
+            for e in range(n_local)])
+        return as_numpy(self.mesh.all_gather(parts, "commit").reshape(
+            (-1,) + tuple(parts.shape[1:])))
 
     def _count_audit_call(self, kind: str) -> None:
         """Host-side count of recompute calls, by kind ("drain": one
@@ -1039,9 +1111,10 @@ class BMoESystem:
         round committed against (a withheld chunk raises
         ``ChunkUnavailableError``) — then every sampled chunk in ONE
         grouped call on the device task ``xd`` the commitment was built
-        from.  The host's own drains merge rounds instead
-        (``_audit_jobs_merged``); ``OptimisticProtocol.run_audits`` takes
-        this closure."""
+        from, each sampled chunk on the shard that owns its expert
+        (``_sharded_batch_recompute``).  The host's own drains merge
+        rounds instead (``_audit_jobs_merged``);
+        ``OptimisticProtocol.run_audits`` takes this closure."""
         fetched: set = set()
 
         def batch_recompute(expert_ids, slices):
@@ -1049,14 +1122,76 @@ class BMoESystem:
                 if e not in fetched:
                     self._fetch_expert_manifest(manifests[e])
                     fetched.add(e)
-            idx, gid, n = pack_audit_batch(expert_ids, slices,
-                                           row_map=row_index)
             self._count_audit_call("drain")
-            return as_numpy(self._batched_recompute_call(
-                experts, xd, idx, gid,
-                [sl.stop - sl.start for sl in slices]))
+            return self._sharded_batch_recompute(experts, xd, expert_ids,
+                                                 slices, row_index)
 
         return batch_recompute
+
+    def _shard_groups(self, expert_ids):
+        """Sample indices grouped by the edge shard owning each sampled
+        expert: every audit recompute runs on the shard that holds the
+        expert's slice (off the mesh, the one shard)."""
+        e_l = self.cfg.num_experts // self.mesh_shards
+        groups: Dict[int, List[int]] = {}
+        for i, e in enumerate(expert_ids):
+            groups.setdefault(int(e) // e_l, []).append(i)
+        return e_l, groups
+
+    def _book_audit_rows(self, shard: int, slices, sel) -> None:
+        """Per-shard real recompute rows (padding excluded): shard-local
+        audits cost each edge about 1/shards of a round's audited rows.
+        Booked under ``mesh="on"`` for every shard on every rank
+        (replicated host state)."""
+        rows = int(sum(slices[i].stop - slices[i].start for i in sel))
+        self.obs.metrics.counter("bmoe.mesh.audit_rows",
+                                 shard=str(shard)).add(rows)
+
+    def _shard_local(self, expert_ids, slices, recompute) -> np.ndarray:
+        """Shard-local audit recompute: this rank recomputes the sampled
+        leaves of its own experts, ``recompute(sel, e_lo)`` over the
+        work-list indices ``sel`` whose experts start at ``e_lo`` (one
+        grouped call on the device), and every rank's group is gathered
+        into the one ``(S, Cmax, C)`` host tensor every rank hashes (off
+        the mesh: the one shard's call, gathered by the identity).
+        Per-sample arithmetic does not depend on the grouping, so the
+        bytes are those of one call over the whole bank: verdicts, fraud
+        proofs and attestations do not depend on the shard count."""
+        e_l, groups = self._shard_groups(expert_ids)
+        s, c = self.mesh.shard, self.cfg.num_classes
+        cmax = max(sl.stop - sl.start for sl in slices)
+        mine = torch.zeros((max(len(sel) for sel in groups.values()), cmax,
+                            c), device=self.device)
+        if s in groups:
+            part = recompute(groups[s], s * e_l)
+            w = min(part.shape[1], cmax)
+            mine[:part.shape[0], :w] = part[:, :w]
+        if self.cfg.mesh == "on":
+            for shard, sel in sorted(groups.items()):
+                self._book_audit_rows(shard, slices, sel)
+        every = as_numpy(self.mesh.all_gather(mine, "audit"))
+        out = np.zeros((len(expert_ids), cmax, c), np.float32)
+        for shard, sel in groups.items():
+            out[sel] = every[shard, :len(sel)]
+        return out
+
+    def _sharded_batch_recompute(self, experts, xd, expert_ids, slices,
+                                 row_index):
+        """One round's batched recompute: this rank's sampled leaves in
+        one grouped call over its bank slice (local expert ids, its rows
+        of the routing); see ``_shard_local``."""
+        def recompute(sel, e_lo):
+            rmap = (None if row_index is None else
+                    row_index[e_lo:e_lo + self.cfg.num_experts
+                              // self.mesh_shards])
+            idx, gid, n = pack_audit_batch(
+                [int(expert_ids[i]) - e_lo for i in sel],
+                [slices[i] for i in sel], row_map=rmap)
+            return self._batched_recompute_call(
+                experts, xd, idx, gid,
+                [slices[i].stop - slices[i].start for i in sel])[:n]
+
+        return self._shard_local(expert_ids, slices, recompute)
 
     def _commit_round(self, protocol, rid, executor, honest, attacked, atk,
                       seed_salt, task_digest, row_index=None):
@@ -1071,7 +1206,8 @@ class BMoESystem:
             claimed = honest + atk.noise_std * rng.standard_normal(
                 honest.shape).astype(honest.dtype)
         return protocol.commit(rid, executor, claimed,
-                               task_digest=task_digest, row_index=row_index)
+                               task_digest=task_digest, row_index=row_index,
+                               num_shards=self.mesh_shards)
 
     def _court_publish(self, ctx, claimed, seed_salt):
         """The dispute court's input: every edge's copy of every expert's
@@ -1102,8 +1238,10 @@ class BMoESystem:
         concatenate row-wise, and ``VerifierPool.audit_rounds`` fuses
         every sampled leaf of every drained round into one recompute
         (one ``audit_mlp`` launch for the MLP bank) + one hash pass.
-        Fetch-by-manifest is kept per (round, sampled expert)."""
-        cfg = self.cfg
+        Fetch-by-manifest is kept per (round, sampled expert).  The
+        snapshots are this rank's bank slices, so the stack is its
+        ``(slots*E_l, ...)`` share, and each rank recomputes the sampled
+        leaves of its own experts (``_sharded_multi``)."""
         ctxs = [ctx_store[j.round_id] for j in jobs]
         coms = [protocol.rounds[j.round_id].commitment for j in jobs]
         banks = [c["prev"][1] for c in ctxs]
@@ -1131,20 +1269,34 @@ class BMoESystem:
                 if (k, e) not in fetched:
                     self._fetch_expert_manifest(ctxs[k]["manifests"][e])
                     fetched.add((k, e))
-            # merged drains bucket the sample count to a power of two
-            bucket = 8
-            while bucket < len(experts):
-                bucket *= 2
-            idx, gid, n = pack_audit_batch_multi(slot_ids, experts, slices,
-                                                 row_off, cfg.num_experts,
-                                                 bucket=bucket,
-                                                 row_maps=row_maps)
             self._count_audit_call("drain")
-            return as_numpy(self._batched_recompute_call(
-                stacked_bank, xcat, idx, gid,
-                [sl.stop - sl.start for sl in slices]))
+            return self._sharded_multi(stacked_bank, xcat, row_off, row_maps,
+                                       slot_ids, experts, slices)
 
         return protocol.verifiers.audit_rounds(coms, multi_fn)
+
+    def _sharded_multi(self, stacked_bank, xcat, row_off, row_maps,
+                       slot_ids, experts, slices) -> np.ndarray:
+        """The merged drain: every sampled leaf recomputes on the shard
+        owning its expert, against that shard's ``(slots*E_l)`` stack of
+        round snapshots with local expert ids and its rows of each
+        round's routing (``_shard_local``); the sample count buckets to
+        a power of two."""
+        e_l = self.cfg.num_experts // self.mesh_shards
+
+        def recompute(sel, e_lo):
+            idx, gid, n = pack_audit_batch_multi(
+                [slot_ids[i] for i in sel],
+                [int(experts[i]) - e_lo for i in sel],
+                [slices[i] for i in sel], row_off, e_l,
+                bucket=_pow2_bucket(len(sel)),
+                row_maps=[None if rm is None else rm[e_lo:e_lo + e_l]
+                          for rm in row_maps])
+            return self._batched_recompute_call(
+                stacked_bank, xcat, idx, gid,
+                [slices[i].stop - slices[i].start for i in sel])[:n]
+
+        return self._shard_local(experts, slices, recompute)
 
     def _drain_trust(self, protocol, ctx_store, cid_store, now,
                      domain: str) -> Dict:
@@ -1267,7 +1419,7 @@ class BMoESystem:
                 ctx["noise"].to(self.device), ctx["atk"].noise_std,
                 ctx["gate_bias"],
                 torch.from_numpy(ctx["active"]).to(self.device),
-                cfg=self.cfg, executor=ctx["executor"])
+                cfg=self.cfg, executor=ctx["executor"], mesh=self.mesh)
             metrics = {k: as_numpy(v) for k, v in metrics.items()}
             self.obs.metrics.counter("bmoe.replayed_rounds").add(1)
             self.verify_stats["base_evals"] += \
@@ -1353,6 +1505,14 @@ class BMoESystem:
 
 
 # ---------------------------------------------------------------- steps
+def _pow2_bucket(n: int) -> int:
+    """Merged drains bucket the sample count to a power of two (>= 8)."""
+    bucket = 8
+    while bucket < n:
+        bucket *= 2
+    return bucket
+
+
 def _flatten_for_gate(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape[0], -1)
 
@@ -1368,23 +1528,29 @@ def sparse_capacity(cfg, batch: int) -> int:
 
 
 def _sparse_dispatch(xin: torch.Tensor, topi: torch.Tensor, cfg,
-                     capacity: int):
+                     capacity: int, rows=None):
     """Scatter the top-k assignments into per-expert capacity buckets.
 
     Returns (buf (N, capacity, *xin.shape[1:]), eid (B*k,), pos (B*k,),
     keep (B*k,)): slot ``pos[j]`` of expert ``eid[j]``'s bucket holds
     token ``j // k``'s input (overflowing assignments are dropped — the
-    bucket row stays zero and the combine masks the slot out)."""
-    B, k = xin.shape[0], cfg.top_k
+    bucket row stays zero and the combine masks the slot out).  The slots
+    come from the whole batch ``topi`` routes; ``rows=(lo, hi)`` means
+    ``xin`` holds only tokens ``[lo, hi)``, scattered at their global
+    slots (an edge shard's send buffer)."""
+    k = cfg.top_k
     eid = topi.reshape(-1)                              # (B*k,) row-major
     pos, keep, _ = capacity_positions(eid[None], cfg.num_experts, capacity)
     pos, keep = pos[0], keep[0]
     posc = torch.where(keep, pos, capacity - 1)         # clamp drops
-    kshape = (B * k,) + (1,) * (xin.dim() - 1)
-    gath = xin.repeat_interleave(k, dim=0) * keep.reshape(kshape).to(xin.dtype)
+    lo, hi = rows if rows is not None else (0, topi.shape[0])
+    mine = slice(lo * k, hi * k)
+    kshape = ((hi - lo) * k,) + (1,) * (xin.dim() - 1)
+    gath = xin.repeat_interleave(k, dim=0) * keep[mine].reshape(kshape).to(
+        xin.dtype)
     buf = torch.zeros((cfg.num_experts, capacity) + tuple(xin.shape[1:]),
                       dtype=xin.dtype, device=xin.device)
-    buf.index_put_((eid, posc), gath, accumulate=True)
+    buf.index_put_((eid[mine], posc[mine]), gath, accumulate=True)
     return buf, eid, posc, keep
 
 
@@ -1400,10 +1566,17 @@ def _route_for_commit(gate, x, gate_bias, *, cfg):
 
 
 def _trust_outputs(outs, mask_e, noise, noise_std, cfg, active,
-                   executor=0):
+                   executor=0, shard=None):
     """Framework-specific corruption + consensus over the per-expert
     outputs ``outs`` (N, R, C): R is the capacity bucket under sparse
     dispatch, the whole batch under dense.
+
+    ``shard=(s, E_l)`` (sparse dispatch, on a mesh of any shard count):
+    ``outs`` is edge shard ``s``'s local experts ``(E_l, R, C)``.  The noise still comes drawn
+    at the full shape and is sliced to the local experts (so each edge's
+    corrupted bytes are the one-device system's), and the vote runs over
+    the local experts only: it is independent per expert, so the local
+    verdicts concatenate to the global ones.
 
     ``optimistic``: the round's result is whatever the rotating
     ``executor`` published — corrupted with ``noise`` (N, R, C) iff
@@ -1415,14 +1588,18 @@ def _trust_outputs(outs, mask_e, noise, noise_std, cfg, active,
     edge's copy is bitwise ``outs``, and the vote over the M copies (one
     kernel launch on the card) picks the trusted one.  Returns (trusted,
     support, flags)."""
-    N, M = cfg.num_experts, cfg.num_edges
+    N, M = outs.shape[0], cfg.num_edges
+    lo = 0 if shard is None else shard[0] * shard[1]
+    if shard is not None:
+        noise = (noise[:, lo:lo + N] if cfg.framework == "bmoe"
+                 else noise[lo:lo + N])
     if cfg.framework == "optimistic":
         trusted = outs + noise_std * noise * mask_e[executor]
         support = torch.ones(N, device=outs.device)
         flags = torch.ones((N, M), dtype=torch.int32, device=outs.device)
         return trusted, support, flags
     if cfg.framework == "traditional":
-        m = mask_e[:N].reshape((N,) + (1,) * (outs.dim() - 1))
+        m = mask_e[lo:lo + N].reshape((N,) + (1,) * (outs.dim() - 1))
         trusted = outs + noise_std * noise * m
         support = torch.ones(N, device=outs.device)
         flags = torch.ones((N, M), dtype=torch.int32, device=outs.device)
@@ -1436,12 +1613,92 @@ def _trust_outputs(outs, mask_e, noise, noise_std, cfg, active,
     return trusted.reshape(outs.shape), support, flags
 
 
+def _mesh_sparse_forward(experts, xin, topi, weights, capacity, mask_e,
+                         noise, noise_std, cfg, active, executor,
+                         mesh: EdgeMesh):
+    """Sparse dispatch on the edge mesh, run by every rank on the
+    replicated gate's routing (off the mesh, a one-shard mesh whose
+    exchanges are the identity).
+
+    Rank ``s`` owns tokens ``[s*B_l, (s+1)*B_l)`` (``B_l = ceil(B/m)``)
+    and scatters only those into a full ``(N, capacity, d)`` send buffer
+    at their global bucket positions; the buffers cross the mesh by
+    all-to-all and the ``(m, E_l, capacity, d)`` partials are summed over
+    the senders.  That sum is exact: every bucket slot has at most one
+    nonzero contributor (its one token) and 0 + x = x, so the
+    ``(E_l, capacity, d)`` buckets the rank's experts run on are bitwise
+    the one-device buckets' rows.  Wire bytes a rank sends are about
+    ``capacity_factor*B*top_k*d``, whatever the expert count.
+
+    The trust step runs on the local experts (``_trust_outputs`` with
+    ``shard``), and the return exchange hands every bucket row back to
+    the shard owning its token, masked by ``slot_src`` (the token shard
+    of each filled slot, from the replicated routing, so it needs no
+    exchange): the receiver's sum again has one contributor per slot.
+    Each rank combines its own tokens with their gate weights (the
+    paper's weighted sum over the top-K), and the rows are gathered to
+    ``(B, C)`` on every rank, so every rank computes the one-device
+    loss.  Backward: the exchanges reverse, the gather keeps this rank's
+    rows of the (replicated) cotangent, and the replicated ``wk`` and
+    ``xin`` enter through ``slice_rows``, whose cotangent slices are
+    gathered whole, so the gate's backward runs on the full batch on
+    every rank, as the one-device step's does; bank gradients stay on
+    their shard.  Returns (y (B, C), support (N,), flags (N, M),
+    dropped ())."""
+    N, k, m = cfg.num_experts, cfg.top_k, mesh.shards
+    E_l = N // m
+    B = xin.shape[0]
+    B_l = -(-B // m)
+    dev = xin.device
+
+    # this rank's tokens, scattered at their GLOBAL bucket positions
+    b_lo, b_hi = mesh.row_range(B, B_l)
+    send, eid, posc, keep = _sparse_dispatch(mesh.slice_rows(xin, B_l),
+                                             topi, cfg, capacity,
+                                             rows=(b_lo, b_hi))
+    dropped = (B * k) - keep.sum().float()
+    recv = mesh.all_to_all(send.reshape((m, E_l) + tuple(send.shape[1:])),
+                           "dispatch")
+    buf_l = recv.sum(dim=0)                       # (E_l, capacity, *tail)
+
+    outs_l = ex.grouped_apply_fn(cfg.expert_kind)(experts, buf_l)
+    trusted_l, support_l, flags_l = _trust_outputs(
+        outs_l, mask_e, noise, noise_std, cfg, active, executor,
+        shard=(mesh.shard, E_l))
+
+    # return exchange, masked by ownership: slot_src is the token shard
+    # of each filled slot, -1 for an empty one (a dropped assignment
+    # adds 0, a kept one its shard + 1: one contributor a slot)
+    towner = torch.arange(B, device=dev).repeat_interleave(k) // B_l
+    slot_src = torch.zeros(N * capacity, dtype=torch.long, device=dev)
+    slot_src.scatter_add_(0, eid * capacity + posc, (towner + 1) * keep)
+    e_lo = mesh.shard * E_l
+    own = slot_src.view(N, capacity)[e_lo:e_lo + E_l][None] - 1 == \
+        torch.arange(m, device=dev)[:, None, None]     # (m, E_l, cap)
+    back = torch.where(own.reshape(own.shape + (1,) * (trusted_l.dim() - 2)),
+                       trusted_l[None], trusted_l.new_zeros(()))
+    ret = mesh.all_to_all(back, "return").reshape(
+        (N, capacity) + tuple(trusted_l.shape[2:]))
+    mine = slice(b_lo * k, b_hi * k)
+    yk = ret[eid[mine], posc[mine]]                    # (B_l*k, C)
+    wk = weights.gather(1, topi).reshape(-1)
+    wk = mesh.slice_rows(wk * keep.to(wk.dtype), B_l * k)  # drops give 0
+    y_l = (yk * wk[:, None]).reshape(-1, k, yk.shape[-1]).sum(dim=1)
+    y = mesh.gather_rows(y_l, B, B_l)
+    support = mesh.all_gather(support_l).reshape(N)
+    flags = mesh.all_gather(flags_l).reshape(N, cfg.num_edges)
+    return y, support, flags, dropped
+
+
 def _moe_forward(gate, experts, x, mask_e, noise, noise_std, cfg,
-                 gate_bias=None, active=None, executor=0):
+                 gate_bias=None, active=None, executor=0, mesh=None):
     """Shared forward: returns (trusted_out (B,C), weights (B,N),
     activation (N,), support (N,), flags (N,M), logits (B,N),
     dropped ()).  The gate reads the flattened task; the experts read
-    flattened rows (MLP bank) or NHWC images (CNN bank)."""
+    flattened rows (MLP bank) or NHWC images (CNN bank).  Sparse dispatch
+    runs on the edge ``mesh`` (``_mesh_sparse_forward``, ``experts`` this
+    rank's slice; ``None``: one shard on the task's device) — bitwise the
+    same outputs on any shard count."""
     flat = _flatten_for_gate(x)
     xin = x if cfg.expert_kind == "cnn" else flat
     logits = ex.gate_apply(gate, flat)
@@ -1449,23 +1706,14 @@ def _moe_forward(gate, experts, x, mask_e, noise, noise_std, cfg,
         # §VI-C workload-balance bias: steers routing, carries no gradient
         logits = logits + gate_bias.detach()[None, :]
     weights, topi = ex.sparse_gate_weights(logits, cfg.top_k)
-    B = flat.shape[0]
     if active is None:
         active = torch.ones(cfg.num_edges, device=flat.device)
     if cfg.dispatch == "sparse":
-        capacity = sparse_capacity(cfg, B)
         # top-k scatter-dispatch: only routed tokens reach an expert
-        buf, eid, posc, keep = _sparse_dispatch(xin, topi, cfg, capacity)
-        outs = ex.grouped_apply_fn(cfg.expert_kind)(experts, buf)
-        dropped = (B * cfg.top_k) - keep.sum().float()
-        trusted, support, flags = _trust_outputs(outs, mask_e, noise,
-                                                 noise_std, cfg, active,
-                                                 executor)
-        # aggregate with gate weights (paper: weighted sum over top-K)
-        yk = trusted[eid, posc]                         # (B*k, C)
-        wk = weights.gather(1, topi).reshape(-1)
-        wk = wk * keep.to(wk.dtype)                     # drops contribute 0
-        y = (yk * wk[:, None]).reshape(B, cfg.top_k, -1).sum(dim=1)
+        y, support, flags, dropped = _mesh_sparse_forward(
+            experts, xin, topi, weights, sparse_capacity(cfg, flat.shape[0]),
+            mask_e, noise, noise_std, cfg, active, executor,
+            mesh if mesh is not None else local_mesh(flat.device))
     else:
         # dense dispatch: every expert on the whole batch; the top-k
         # weights zero the unrouted experts' share of the combine
@@ -1480,7 +1728,7 @@ def _moe_forward(gate, experts, x, mask_e, noise, noise_std, cfg,
 
 
 def _loss_and_grads(gate, experts, x, y, mask_e, noise, noise_std,
-                    gate_bias, active, *, cfg, executor=0):
+                    gate_bias, active, *, cfg, executor=0, mesh=None):
     """The training step's loss and gradients: the shared forward,
     log-softmax, the mean NLL of the labels ``y`` (B,), and the gradient
     over the gate and the bank by ``torch.autograd`` (the expert MLP's
@@ -1498,7 +1746,7 @@ def _loss_and_grads(gate, experts, x, y, mask_e, noise, noise_std,
         ep = {k: v for (tree, k), v in params.items() if tree == "experts"}
         out, _, activation, support, flags, _, dropped = _moe_forward(
             gp, ep, x, mask_e, noise, noise_std, cfg, gate_bias, active,
-            executor)
+            executor, mesh)
         logp = torch.log_softmax(out, dim=-1)
         loss = -logp.gather(1, y[:, None]).mean()
         grads = dict(zip(params, torch.autograd.grad(loss,
@@ -1510,22 +1758,24 @@ def _loss_and_grads(gate, experts, x, y, mask_e, noise, noise_std,
 
 
 def _train_step(gate, experts, x, y, mask_e, noise, noise_std, gate_bias,
-                active, *, cfg, executor=0):
+                active, *, cfg, executor=0, mesh=None):
     """One SGD step (the counterpart of JAX's ``_train_step``):
     ``_loss_and_grads``, then ``p - lr * g``.  The attack mask and noise
-    come in as tensors.  Returns (gate, experts, metrics)."""
+    come in as tensors.  Under the mesh the gate's update is replicated
+    and the bank's stays on its shard.  Returns (gate, experts,
+    metrics)."""
     g_gate, g_exp, metrics = _loss_and_grads(
         gate, experts, x, y, mask_e, noise, noise_std, gate_bias, active,
-        cfg=cfg, executor=executor)
+        cfg=cfg, executor=executor, mesh=mesh)
     return ({k: v.detach() - cfg.lr * g_gate[k] for k, v in gate.items()},
             {k: v.detach() - cfg.lr * g_exp[k] for k, v in experts.items()},
             metrics)
 
 
 def _infer_step(gate, experts, x, mask_e, noise, noise_std, gate_bias,
-                active, *, cfg, executor=0):
+                active, *, cfg, executor=0, mesh=None):
     with ex.cnn_numerics():
         out, _, activation, support, _, _, _ = _moe_forward(
             gate, experts, x, mask_e, noise, noise_std, cfg, gate_bias,
-            active, executor)
+            active, executor, mesh)
     return out, activation, support

@@ -198,22 +198,15 @@ def cnn_expert_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
 def cnn_expert_apply_grouped(params: Params,
                              buf: torch.Tensor) -> torch.Tensor:
     """buf: (N, C, 32, 32, ch) -> (N, C, out): every expert's CNN on its
-    own rows — the JAX package's ``vmap(cnn_expert_apply)`` — as one
-    grouped ``conv2d`` a layer (groups=N over the experts' stacked
-    channels) and batched products for the two dense layers."""
-    n, c = buf.shape[:2]
-    with cnn_numerics():
-        # (N, C, H, W, ch) -> (C, N*ch, H, W): expert e owns channel group e
-        h = buf.permute(1, 0, 4, 2, 3).reshape(c, -1, *buf.shape[2:4])
-        for k in ("c1", "c2", "c3"):
-            w = params[k]                                # (N, 3, 3, i, o)
-            w = w.permute(0, 4, 3, 1, 2).reshape(-1, w.shape[3], 3, 3)
-            h = torch.relu(_conv_same(h, w, groups=n))
-        hh, ww = h.shape[2:]
-        h = h.reshape(c, n, -1, hh, ww).permute(1, 0, 3, 4, 2) \
-            .reshape(n, c, -1)                           # NHWC flatten
-        h = torch.relu(torch.bmm(h, params["w1"]) + params["b1"][:, None])
-        return torch.bmm(h, params["w2"]) + params["b2"][:, None]
+    own rows — the JAX package's ``vmap(cnn_expert_apply)`` — one
+    ``cnn_expert_apply`` call an expert.  A call's bytes depend on that
+    expert's parameters and rows alone, so an expert's output is the same
+    in a bank of any size (a grouped convolution over the whole bank
+    rounds apart with the group count, and so would the edge mesh's
+    shards)."""
+    return torch.stack([cnn_expert_apply({k: v[e] for k, v in
+                                          params.items()}, buf[e])
+                        for e in range(buf.shape[0])])
 
 
 def mlp_apply_all(params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -245,7 +238,16 @@ class _GroupedMLP(torch.autograd.Function):
     """The grouped expert MLP with the backward of JAX's ``custom_vjp``
     (``repro.core.experts._mlp_grouped_bwd``): its four products are
     ``ops.moe_gemm`` launches on contiguous transposed copies (the kernel
-    takes contiguous operands), the bias gradients plain sums over C."""
+    takes contiguous operands), the bias gradients plain sums over C.
+
+    Every expert's gradient bytes depend on that expert's rows alone,
+    whatever the number of experts (the edge mesh's shards hold the
+    one-device bank's experts to it): the products are per-expert
+    kernel tiles, and both bias sums are ONE reduction along the
+    contiguous last axis of ``(E, f + out, C)`` rows.  There the device
+    reduction's thread layout depends on the row length C alone (at
+    E*(f + out) >= 16 rows, always), where summing over axis 1 of
+    ``(E, C, out)`` lays threads out by E*out."""
 
     @staticmethod
     def forward(ctx, w1, b1, w2, b2, buf):
@@ -264,7 +266,10 @@ class _GroupedMLP(torch.autograd.Function):
         # buf comes from the data on the B-MoE step: no product for it
         dbuf = (kops.moe_gemm(dh, w1.transpose(1, 2).contiguous())
                 if ctx.needs_input_grad[4] else None)
-        return dw1, dh.sum(dim=1), dw2, g.sum(dim=1), dbuf
+        db = torch.cat([dh.transpose(1, 2), g.transpose(1, 2)],
+                       dim=1).sum(dim=-1)
+        f = dh.shape[-1]
+        return dw1, db[:, :f], dw2, db[:, f:], dbuf
 
 
 def mlp_expert_apply_grouped(params: Params,
@@ -283,7 +288,7 @@ def grouped_apply_fn(kind: str) -> Callable[[Params, torch.Tensor],
     """apply(stacked_params, buf (N, C, ...)) -> (N, C, out): each expert
     on its own capacity bucket, the sparse-dispatch counterpart of
     ``apply_all_fn``.  The MLP bank runs the grouped GEMM kernel; the CNN
-    bank one grouped convolution a layer."""
+    bank one network call an expert."""
     if kind == "mlp":
         return mlp_expert_apply_grouped
     if kind == "cnn":

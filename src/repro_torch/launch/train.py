@@ -6,7 +6,7 @@ Trains a config (its smoke width unless ``--full``) on synthetic LM
 batches through ``train.loop.train`` and prints the loss as it falls.  The
 model runs on ``--device`` (default ``cuda``; the CPU only when asked
 for).  An encoder-decoder model is fed stub frames as long as its tokens.
-``--mesh`` is not ported (ROADMAP A7) and raises.
+``--mesh`` is not ported (ROADMAP A7b) and raises.
 """
 from __future__ import annotations
 
@@ -38,13 +38,13 @@ def main(argv=None):
     ap.add_argument("--full", action="store_true",
                     help="use the full (not smoke) config")
     ap.add_argument("--mesh", default=None,
-                    help="'data,model' sizes (not ported: ROADMAP A7)")
+                    help="'data,model' sizes (not ported: ROADMAP A7b)")
     ap.add_argument("--device", default="cuda",
                     help="device the model trains on (default: cuda)")
     args = ap.parse_args(argv)
 
     if args.mesh:
-        raise NotImplementedError("--mesh is not ported yet (ROADMAP A7): "
+        raise NotImplementedError("--mesh is not ported yet (ROADMAP A7b): "
                                   "the port trains on one device")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=not args.full)

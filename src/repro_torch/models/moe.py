@@ -10,7 +10,7 @@ capacity buffer (B, E, C, d), run through the experts' SwiGLU as three
 
 ``capacity_positions`` is shared with the B-MoE system's sparse dispatch.
 The JAX package's ``route_masked`` and the ``trust`` hook serve the mesh
-(expert parallelism, the LM-scale vote) and wait for ROADMAP A7.
+(expert parallelism, the LM-scale vote) and wait for ROADMAP A7b.
 """
 from __future__ import annotations
 

@@ -21,7 +21,7 @@ counterpart of ``repro.train.step``).
 On the card the training step's attention, RG-LRU, SSD and MoE products
 run their kernels forward and backward (``kernels.ops``); the federated
 step's dense mixture is plain products, as in the JAX package.  A mesh
-(ROADMAP A7) is not ported.
+(ROADMAP A7b) is not ported.
 """
 from __future__ import annotations
 
@@ -43,7 +43,7 @@ _STACKED = ("blocks", "enc_blocks", "dec_blocks")
 def _refuse_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError("a device mesh is not ported yet (ROADMAP "
-                                  "A7): the port trains on one device")
+                                  "A7b): the port trains on one device")
 
 
 def model_forward(params, batch, cfg: ModelConfig, remat: bool = False):
@@ -137,7 +137,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     ``make_loss_and_grads`` then ``adamw.update``, which overwrites the
     parameters and the moments in place.  Metrics: loss, aux_loss,
     grad_norm, lr (0-dim float32 tensors on the device).  ``mesh`` must be
-    None (ROADMAP A7).  The update is a ``torch.profiler`` region named
+    None (ROADMAP A7b).  The update is a ``torch.profiler`` region named
     ``adamw.update``, so a profiled step shows the optimizer's share of
     the device time (a few microseconds of host time a step otherwise)."""
     _refuse_mesh(mesh)

@@ -6,6 +6,8 @@ machine with a GPU and no JAX:
 
 Without a CUDA device every test skips (decided at run time, in the
 fixture, so every test collects the same everywhere)."""
+import pickle
+
 import numpy as np
 import pytest
 import torch
@@ -1594,3 +1596,27 @@ def test_fed_card_runs_are_bitwise_and_replay_to_the_clean_twin(cuda):
     for other in (b, clean):
         assert fed.tree_to_flat(a.global_params).tobytes() == \
             fed.tree_to_flat(other.global_params).tobytes()
+
+
+def test_edge_mesh_on_the_card_is_bitwise_mesh_off(cuda, tmp_path):
+    """B-MoE on a 2-shard edge mesh, two ranks sharing the card over gloo
+    (``spawn_edges``), 4 experts: ``bmoe`` under 3 colluders and
+    ``optimistic`` with a cheating executor (audited, convicted, replayed)
+    hold the one-device system's parameters, roots, chain, counters and
+    logits bit for bit.  The kernel library is built here first, so the
+    ranks only load it."""
+    import torch_mesh_ranks as ranks
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import spawn_edges
+    build.library()
+    spawn_edges(ranks.card_rank, 2, args=(str(tmp_path),), device="cuda",
+                rendezvous_dir=str(tmp_path), timeout_s=300)
+    got = []
+    for r in range(2):
+        with open(tmp_path / f"rank{r}.pkl", "rb") as f:
+            got.append(pickle.load(f))
+    for fw in ("bmoe", "optimistic"):
+        want = ranks.card_case(fw, "off")
+        for res in got:
+            assert res[fw] == want, fw
+    assert got[0]["optimistic"]["host"]["stats"]["rolled_back"] >= 1

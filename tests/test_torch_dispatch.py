@@ -209,7 +209,7 @@ def test_same_padded_conv_matches_jax(size, cin, cout):
 
 
 def test_cnn_expert_apply_matches_jax(cifar):
-    """One expert and the grouped bank (one grouped conv a layer) against
+    """One expert and the grouped bank (one call an expert) against
     JAX's apply and its vmap, at 1e-5; HWIO kernels and NHWC images as
     stored."""
     params, _ = jex.make_expert_bank("cnn", 3, jax.random.PRNGKey(1),
@@ -466,13 +466,19 @@ def _jax_standard_contracts():
 
 
 def test_only_mesh_is_refused():
+    """Every option constructs (``mesh="on"`` without a process group is
+    one edge shard); the mesh is refused only with dense dispatch."""
     for kw in (dict(dispatch="dense"), dict(expert_kind="cnn", in_ch=3),
                dict(workload_balance=True),
                dict(framework="optimistic",
                     trust=TrustConfig(audit_backend="eager",
-                                      scheduling="synchronous"))):
+                                      scheduling="synchronous")),
+               dict(mesh="on")):
         bmoe.BMoESystem(bmoe.BMoEConfig(num_experts=4, num_edges=5,
                                         top_k=2, **kw), device="cpu")
+    with pytest.raises(ValueError, match="sparse"):
+        bmoe.BMoESystem(bmoe.BMoEConfig(mesh="on", dispatch="dense"),
+                        device="cpu")
     with pytest.raises(ValueError, match="dispatch"):
         bmoe.BMoESystem(bmoe.BMoEConfig(dispatch="ragged"), device="cpu")
     with pytest.raises(ValueError, match="expert_kind"):
