@@ -96,7 +96,24 @@ capacity 376, edge cache on):
   (5 ``moe_gemm`` and, under bmoe, 1 vote a round; ``audit_mlp`` as
   the records count); N5, round walls on and off and each exchange's
   bytes a rank.  The ranks load the library this process built, print
-  nothing and are all joined; a failing rank fails the path.
+  nothing and are all joined; a failing rank fails the path;
+- the LM stack on a mesh (path O, ``launch.mesh.LMMesh``, ranks sharing
+  the card over gloo, full width, depth cut): O1, qwen2-moe-a2.7b's
+  expert-parallel prefill (4 of 24 layers, 1 x 4096) on (data 1, model
+  4), its logits and next token bitwise the one-device prefill's at
+  capacity factor 8, and at the config's 1.25 each rank's dispatch equal
+  to ``route_masked`` on its logit rows; O2, the trusted EP prefill
+  (TRUSTED_FAITHFUL and TRUSTED_DIGEST, r = 4, 2 layers, 1 x 2048) on
+  (1, 4, 2): a minority (replica 3) repaired bitwise, a majority
+  (replicas 0-2) moving the logits; O3, bmoe-paper's trusted
+  training (2 of 12 layers, 2 steps of (4, 2048)) on (2, 2, 1): the
+  attacked run bitwise the clean one on every rank, the first step's
+  loss within 1e-6 of one device and its gradients within 1e-5 of each
+  leaf's largest magnitude; O4, qwen2-moe-a2.7b's
+  EP training (2 layers, (1, 2048), capacity factor 8) on (1, 2)
+  against one device.  Each rank's launches are held to the records (3
+  ``moe_gemm`` a MoE layer forward, 6 backward, a flash a attention
+  layer, 2 votes a MoE layer under faithful EP, 1 under the vote hook).
 
 Each path's launch counts are set to 0 just before it and read just
 after it.
@@ -107,6 +124,7 @@ after it.
     python3 chip_smoke.py --training
     python3 chip_smoke.py --federated
     python3 chip_smoke.py --mesh
+    python3 chip_smoke.py --lm-mesh
 
 The second form builds, then checks and times only the named kernels'
 cases (``moe_gemm``, ``flash_attention``, ``flash_attention_bwd``,
@@ -115,8 +133,9 @@ cases (``moe_gemm``, ``flash_attention``, ``flash_attention_bwd``,
 line): run from two trees in one call, it compares two versions of a
 kernel on one card.
 The third runs path K alone, the fourth path L alone (their models
-initialised from seed 0 as the main run's are), the fifth path M alone
-and the sixth path N alone, and stop the same way.
+initialised from seed 0 as the main run's are), the fifth path M alone,
+the sixth path N alone and the seventh path O alone, and stop the same
+way.
 
 Prints, in order: the card's name and power limit (nvidia-smi), the
 build time, one JSON line per kernel case, the main-path lines, one
@@ -3907,6 +3926,534 @@ def mesh_path(torch, np, ops, mg, rv, am, ref):
     return {"ranks": launches, "gemm": gemm, "vote": vote, "audit": audit}
 
 
+# ------------------------------------------------ path O: the LM mesh
+LM_MESH_AXES = {2: ("data", "model"), 3: ("data", "replica", "model")}
+LM_MESH_SHAPES = {"O1": (1, 4), "O2": (1, 4, 2), "O3": (2, 2, 1),
+                  "O4": (1, 2)}
+
+
+def _cut(cfg, layers: int, **kw):
+    """``cfg`` at its full width, cut to its first ``layers`` layers."""
+    import dataclasses
+    return dataclasses.replace(cfg, num_layers=layers, num_blocks=layers,
+                               **kw).validate()
+
+
+def lm_mesh_cfg(sub: str, mode: str = "faithful"):
+    """Path O's configs: O1 qwen2-moe-a2.7b, 4 of 24 layers, capacity
+    factor 8; O2 its TRUSTED_* variant (r = 4), 2 layers, the config's
+    capacity; O3 bmoe-paper (faithful, r = 2), 2 of 12 layers (four
+    ranks training 4 layers at 2 x 2048 rows each outgrow the card); O4
+    qwen2-moe-a2.7b, 2 layers, capacity factor 8, one microbatch."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs import qwen2_moe_a2_7b as qwen
+    if sub == "O1":
+        return _cut(get_config("qwen2-moe-a2.7b"), 4, capacity_factor=8.0)
+    if sub == "O2":
+        return _cut(qwen.TRUSTED_FAITHFUL if mode == "faithful"
+                    else qwen.TRUSTED_DIGEST, 2)
+    if sub == "O3":
+        return _cut(get_config("bmoe-paper"), 2)
+    return _cut(get_config("qwen2-moe-a2.7b"), 2, capacity_factor=8.0,
+                train_microbatches=1)
+
+
+def fingerprint(torch, t) -> int:
+    """An exact fingerprint of a float32 tensor's bits, on its device:
+    the int64 sum of its 32-bit words, each times a weight by position,
+    in chunks (equal bits give equal fingerprints; any one changed bit
+    changes it)."""
+    flat = t.detach().contiguous().view(-1).view(torch.int32)
+    total, step = 0, 1 << 24
+    for i in range(0, flat.numel(), step):
+        w = torch.arange(i, min(i + step, flat.numel()), device=t.device,
+                         dtype=torch.int64) % 65521 + 1
+        total += int((flat[i:i + step].to(torch.int64) * w).sum())
+    return total
+
+
+def fingerprint_tree(torch, tree):
+    from repro_torch.core.ledger import tree_flatten
+    return [fingerprint(torch, t) for t in tree_flatten(tree)[0]]
+
+
+def _max_diff_chunked(torch, a, b_host, rows: int = 256) -> float:
+    """max |a - b| of a (1, S, V) device tensor and a host copy, S in
+    chunks (the second copy is never whole on the card)."""
+    out = 0.0
+    for i in range(0, a.shape[1], rows):
+        d = (a[:, i:i + rows] - b_host[:, i:i + rows].to(a.device)).abs()
+        out = max(out, float(d.max()))
+    return out
+
+
+def _mesh_logits(torch, cfg, params, tokens, mesh, attack=None):
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import Sharder, logical_rules
+    shard = (None if mesh is None else
+             Sharder(mesh, logical_rules(mesh, cfg), attack=attack))
+    with torch.no_grad():
+        logits, _ = tfm.forward_train(params, tokens, cfg, shard=shard)
+    return logits
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+class EPRouteRecorder:
+    """Records each EP layer's router logits (``moe_ep.router_probs``'
+    input) and its dispatch (``moe_ep.route_probs``' outputs) while
+    installed."""
+
+    def __init__(self):
+        self.logits, self.routes = [], []
+
+    def __enter__(self):
+        from repro_torch.models import moe_ep
+        self.mod = moe_ep
+        self.probs, self.route = moe_ep.router_probs, moe_ep.route_probs
+
+        def probs(logits, num_real=0):
+            self.logits.append(logits.detach().clone())
+            return self.probs(logits, num_real)
+
+        def route(pr, k, cap, valid=None):
+            out = self.route(pr, k, cap, valid)
+            self.routes.append((cap, None if valid is None else
+                                valid.clone(), [t.clone() for t in out[1:4]]))
+            return out
+
+        moe_ep.router_probs, moe_ep.route_probs = probs, route
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.router_probs, self.mod.route_probs = self.probs, self.route
+
+
+def _o1(torch, ops, mesh):
+    """O1 on a rank: the EP prefill at capacity factor 8 (logits' bits
+    against the one-device run's), walls and launches; then at the
+    config's 1.25, each layer's dispatch against ``route_masked`` on this
+    rank's logit rows, and the share dropped."""
+    import dataclasses
+    from repro_torch.models.moe import route_masked
+    from repro_torch.train.loop import init_model
+    from repro_torch.train.step import make_prefill_step
+    cfg = lm_mesh_cfg("O1")
+    params = init_model(cfg, 0, mesh.device, mesh=mesh)
+    tokens = prefill_batch(torch, cfg, 4096)["tokens"]
+    logits = _mesh_logits(torch, cfg, params, tokens, mesh)
+    out = {"fingerprint": fingerprint(torch, logits),
+           "last_row": logits[0, -1].cpu(),
+           "next": int(logits[0, -1].argmax())}
+    del logits
+    prefill = make_prefill_step(cfg, mesh)
+    ops.reset_launch_counts()
+    mesh.wire_bytes.clear()
+    nxt, wall = _timed(torch, lambda: prefill(params, {"tokens": tokens}))
+    out.update(launches=ops.launch_counts(), wire=dict(mesh.wire_bytes),
+               walls_ms=[wall] + [_timed(torch, lambda: prefill(
+                   params, {"tokens": tokens}))[1] for _ in range(2)],
+               next_step=nxt.tolist())
+    low = dataclasses.replace(cfg, capacity_factor=1.25)
+    with EPRouteRecorder() as rec:
+        make_prefill_step(low, mesh)(params, {"tokens": tokens})
+    same, dropped = [], []
+    T = tokens.numel()
+    k = cfg.num_experts_per_tok
+    for lg, (cap, valid, got) in zip(rec.logits, rec.routes):
+        T_l = -(-T // mesh.model.shards)
+        lo, hi = mesh.model.row_range(T, T_l)
+        rows = torch.cat([lg[lo:hi], lg.new_zeros((T_l - (hi - lo),
+                                                   lg.shape[1]))])
+        want = route_masked(rows[None], k, cap, cfg.num_experts, valid)
+        same.append(all(torch.equal(a, b) for a, b in zip(got, want[1:4])))
+        dropped.append(1.0 - float(got[2].sum()) / ((hi - lo) * k))
+    out.update(route_same=same, dropped_share=dropped,
+               capacity=rec.routes[0][0])
+    return out
+
+
+def _o2(torch, ops, mesh):
+    """O2 on a rank: the trusted EP prefill under ``faithful`` and
+    ``digest`` (r = 4), clean, with replica 3 adding noise and with
+    replicas 0-2 colluding; logits against the clean run's."""
+    from repro_torch.core.trusted_moe import LMAttack
+    from repro_torch.train.loop import init_model
+    params = init_model(lm_mesh_cfg("O2"), 0, mesh.device,
+                        mesh=mesh)
+    tokens = prefill_batch(torch, lm_mesh_cfg("O2"), 2048)["tokens"]
+    out = {}
+    for mode in ("faithful", "digest"):
+        cfg = lm_mesh_cfg("O2", mode)
+        ops.reset_launch_counts()
+        mesh.wire_bytes.clear()
+        clean, wall = _timed(torch, lambda: _mesh_logits(
+            torch, cfg, params, tokens, mesh))
+        row = {"launches": ops.launch_counts(), "wire": dict(mesh.wire_bytes),
+               "wall_ms": wall, "fingerprint": fingerprint(torch, clean),
+               "next": int(clean[0, -1].argmax()),
+               "max_abs_logit": float(clean.abs().max())}
+        clean = clean.cpu()
+        for who, mal in (("minority", (3,)), ("majority", (0, 1, 2))):
+            got = _mesh_logits(torch, cfg, params, tokens, mesh,
+                               LMAttack(malicious_replicas=mal,
+                                        noise_std=4.0))
+            row[who] = {"fingerprint": fingerprint(torch, got),
+                        "max_abs_diff": _max_diff_chunked(torch, got, clean)}
+            del got
+        out[mode] = row
+    return out
+
+
+def _leaf_paths(tree, prefix=""):
+    """Each leaf's path, in ``tree_flatten``'s order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _leaf_paths(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, list):
+        return [p for i, v in enumerate(tree)
+                for p in _leaf_paths(v, f"{prefix}/{i}")]
+    return [prefix]
+
+
+def _grads_vs_one_device(torch, cfg, mesh, g_mesh, batch):
+    """This rank's gradients against the one-device step's, computed here
+    in this rank's turn (one rank at a time on the card): bitwise by
+    leaf, and the largest difference relative to each leaf's largest
+    magnitude.  Returns (the comparison, the one-device wall ms)."""
+    import torch.distributed as dist
+    from repro_torch.core.ledger import tree_flatten
+    from repro_torch.sharding import shard_params
+    from repro_torch.train.loop import init_model
+    from repro_torch.train.step import make_loss_and_grads
+    out = None
+    for turn in range(mesh.world):
+        dist.barrier()
+        if turn != mesh.rank:
+            continue
+        p1 = init_model(cfg, 0, device=mesh.device)
+        (loss1, _, g1), wall = _timed(torch, lambda: make_loss_and_grads(
+            cfg, remat=False)(p1, batch))
+        del p1
+        g1 = shard_params(g1, cfg, mesh)
+        a, b = tree_flatten(g_mesh)[0], tree_flatten(g1)[0]
+        rel = [float((x - y).abs().max() / y.abs().max().clamp(min=1e-30))
+               for x, y in zip(a, b)]
+        out = ({"loss_one_device": float(loss1),
+                "leaves": len(a),
+                "leaves_bitwise": sum(torch.equal(x, y)
+                                      for x, y in zip(a, b)),
+                "max_rel_diff": max(rel),
+                "rel_diff_by_leaf": dict(zip(_leaf_paths(g_mesh), rel))},
+               wall)
+        del g1, a, b
+        gc.collect()                 # the step's tensors sit in cycles
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _o3(torch, ops, mesh):
+    """O3 on a rank: bmoe-paper's trusted training (faithful, r = 2) on
+    (data 2, replica 2, model 1), 2 steps of (4, 2048), clean and with
+    replica 1 adding noise (sigma 5); the first step's loss and gradients
+    against the one-device step's."""
+    from repro_torch.core.trusted_moe import LMAttack
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import init_model
+    from repro_torch.train.step import make_loss_and_grads, make_train_step
+    cfg = lm_mesh_cfg("O3")
+    batch = _lm_train_batch(torch, cfg, 4, 2048)
+    out = {}
+    for who, atk in (("clean", None),
+                     ("minority", LMAttack(malicious_replicas=(1,),
+                                           noise_std=5.0))):
+        params = init_model(cfg, 0, mesh.device, mesh=mesh)
+        state = adamw.init(params)
+        step = make_train_step(cfg, adamw.AdamWConfig(), mesh, attack=atk,
+                               remat=False)
+        torch.cuda.reset_peak_memory_stats()
+        losses, walls, counts = [], [], None
+        for s in range(2):
+            ops.reset_launch_counts()
+            mesh.wire_bytes.clear()
+            (params, state, m), wall = _timed(torch, lambda: step(
+                params, state, batch))
+            counts = counts or ops.launch_counts()
+            losses.append(float(m["loss"]))
+            walls.append(wall)
+        out[who] = {"losses": losses, "walls_ms": walls, "launches": counts,
+                    "wire": dict(mesh.wire_bytes),
+                    "step_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "params": fingerprint_tree(torch, params)}
+        del params, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    params = init_model(cfg, 0, mesh.device, mesh=mesh)
+    loss, _, g = make_loss_and_grads(cfg, remat=False, mesh=mesh)(params,
+                                                                  batch)
+    del params
+    cmp, wall = _grads_vs_one_device(torch, cfg, mesh, g, batch)
+    out["vs_one_device"] = {**cmp, "loss_mesh": float(loss),
+                            "one_device_wall_ms": wall}
+    return out
+
+
+def _o4(torch, ops, mesh):
+    """O4 on a rank: qwen2-moe-a2.7b's EP training at capacity factor 8 on
+    (1, 2), one step at (1, 2048): gradients against the one-device
+    step's, then the step's wall and peak memory."""
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import init_model
+    from repro_torch.train.step import make_loss_and_grads, make_train_step
+    cfg = lm_mesh_cfg("O4")
+    batch = _lm_train_batch(torch, cfg, 1, 2048)
+    params = init_model(cfg, 0, mesh.device, mesh=mesh)
+    ops.reset_launch_counts()
+    mesh.wire_bytes.clear()
+    (loss, _, g), wall = _timed(torch, lambda: make_loss_and_grads(
+        cfg, remat=False, mesh=mesh)(params, batch))
+    out = {"launches": ops.launch_counts(), "wire": dict(mesh.wire_bytes),
+           "loss_and_grads_wall_ms": wall}
+    cmp, wall1 = _grads_vs_one_device(torch, cfg, mesh, g, batch)
+    out["vs_one_device"] = {**cmp, "loss_mesh": float(loss),
+                            "one_device_wall_ms": wall1}
+    del g
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = adamw.init(params)
+    step = make_train_step(cfg, adamw.AdamWConfig(), mesh, remat=False)
+    torch.cuda.reset_peak_memory_stats()
+    (_, _, m), out["step_wall_ms"] = _timed(torch, lambda: step(
+        params, state, batch))
+    out["step_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["step_loss"] = float(m["loss"])
+    return out
+
+
+def lm_mesh_rank(rank: int, world: int, sub: str, out_dir: str) -> None:
+    """One rank of a path O world (spawned by ``spawn_edges``, its process
+    group and card set): loads the kernel library the parent built, runs
+    its sub-path on its ``LMMesh`` and writes the results to
+    ``<out_dir>/<sub>-rank<r>.pkl``.  It prints nothing."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch.mesh import make_lm_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.library()
+    shape = LM_MESH_SHAPES[sub]
+    mesh = make_lm_mesh(shape, LM_MESH_AXES[len(shape)])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = {"O1": _o1, "O2": _o2, "O3": _o3, "O4": _o4}[sub](torch, ops, mesh)
+    res.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               backend=dist.get_backend(), coords=mesh.coords,
+               device=torch.cuda.current_device(),
+               cases_s=time.perf_counter() - t0)
+    with open(os.path.join(out_dir, f"{sub}-rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def _lm_mesh_world(sub: str, out_dir: str):
+    """Runs sub-path ``sub``'s world and returns its ranks' results."""
+    import pickle
+    from repro_torch.launch.mesh import spawn_edges
+    world = math.prod(LM_MESH_SHAPES[sub])
+    t0 = time.perf_counter()
+    spawn_edges(lm_mesh_rank, world, args=(sub, out_dir),
+                device="cuda", rendezvous_dir=out_dir, timeout_s=300)
+    res = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"{sub}-rank{r}.pkl"), "rb") as f:
+            res.append(pickle.load(f))
+    return res, time.perf_counter() - t0
+
+
+def lm_mesh_kernel_cases(torch, mg, rv, ref):
+    """``moe_gemm`` and the vote at path O's per-rank shapes: O1's local
+    experts at the config's capacity (E_l 16, 4 x 80 rows), and O2's
+    routed vote (E_l 32 of 4 copies of 160 rows x 2048)."""
+    gemm = [check_moe_gemm(torch, mg, ref, 80, "lm_mesh_gate_up", 16, 320,
+                           2048, 1408, torch.float32, w_scale=2048 ** -0.5),
+            check_moe_gemm(torch, mg, ref, 81, "lm_mesh_down", 16, 320,
+                           1408, 2048, torch.float32, w_scale=1408 ** -0.5)]
+    vote = check_vote(torch, rv, ref, 82, "lm_mesh_routed", 32, 4,
+                      160 * 2048, n_bad=1)
+    return gemm, vote
+
+
+def lm_mesh_path(torch, np, ops, mg, rv, ref):
+    """Path O: the LM stack on a mesh, ranks sharing the one card over
+    gloo, at full width (depth cut): O1 qwen2-moe-a2.7b's EP prefill on
+    (1, 4) bitwise the one-device prefill run here first; O2 the trusted
+    EP prefill on (1, 4, 2), a minority repaired and a majority seen; O3
+    bmoe-paper's trusted training on (2, 2, 1), attacked = clean bitwise;
+    O4 qwen2-moe's EP training on (1, 2) against one device.  Each rank's
+    launches are held to the records."""
+    from repro_torch.train.loop import init_model
+    from repro_torch.train.step import make_prefill_step
+    t_start = time.perf_counter()
+    gemm, vote = lm_mesh_kernel_cases(torch, mg, rv, ref)
+
+    # O1's one-device reference, freed before the ranks start
+    cfg = lm_mesh_cfg("O1")
+    params = init_model(cfg, 0)
+    tokens = prefill_batch(torch, cfg, 4096)["tokens"]
+    logits = _mesh_logits(torch, cfg, params, tokens, None)
+    one = {"fingerprint": fingerprint(torch, logits),
+           "last_row": logits[0, -1].cpu(),
+           "next": int(logits[0, -1].argmax())}
+    del logits
+    prefill = make_prefill_step(cfg)
+    one["walls_ms"] = [_timed(torch, lambda: prefill(
+        params, {"tokens": tokens}))[1] for _ in range(3)]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(here, "build", f"lm-mesh-{os.getpid()}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    o1, o1_s = _lm_mesh_world("O1", out_dir)
+    # O1: bitwise the one-device prefill; dispatch = route_masked
+    want1 = lm_counts(moe_gemm=12, flash_attention=4)
+    o1_ok = {"logits_bitwise": all(r["fingerprint"] == one["fingerprint"]
+                                   and torch.equal(r["last_row"],
+                                                   one["last_row"])
+                                   for r in o1),
+             "next_token": all(r["next"] == one["next"]
+                               and r["next_step"] == [[one["next"]]]
+                               for r in o1),
+             "route_masked_exact": all(all(r["route_same"]) for r in o1),
+             "launches": all(r["launches"] == want1 for r in o1)}
+    emit({"phase": "lm_mesh", "path": "O1", "model": "qwen2-moe-a2.7b",
+          "mesh": {"data": 1, "model": 4}, "reduced": "4 of 24 layers",
+          "prefill": "1 x 4096, capacity factor 8 (nothing dropped)",
+          "checks": o1_ok, "next_token": one["next"],
+          "walls_ms": {"one_device": one["walls_ms"],
+                       "mesh_rank0": o1[0]["walls_ms"]},
+          "launches_rank0": o1[0]["launches"], "want": want1,
+          "wire_bytes_rank0": o1[0]["wire"],
+          "at_1_25": {"capacity": o1[0]["capacity"],
+                      "dropped_share_by_rank_layer": [r["dropped_share"]
+                                                      for r in o1]},
+          "peak_gb": [r["peak_gb"] for r in o1], "world_s": o1_s})
+    require(all(o1_ok.values()), f"O1 failed: {o1_ok}")
+
+    # O2: minority repaired, majority seen, votes as the records say
+    o2, o2_s = _lm_mesh_world("O2", out_dir)
+    o2_ok = {}
+    for mode, votes in (("faithful", 4), ("digest", 0)):
+        want = lm_counts(moe_gemm=6, flash_attention=2,
+                         redundancy_vote=votes)
+        o2_ok[mode] = {
+            "minority_repaired": all(
+                r[mode]["minority"]["fingerprint"] == r[mode]["fingerprint"]
+                for r in o2),
+            "majority_seen": all(r[mode]["majority"]["max_abs_diff"] > 1e-2
+                                 for r in o2),
+            "ranks_agree": len({r[mode]["fingerprint"] for r in o2}) == 1,
+            "launches": all(r[mode]["launches"] == want for r in o2)}
+    emit({"phase": "lm_mesh", "path": "O2", "model": "qwen2-moe-a2.7b "
+          "TRUSTED_FAITHFUL / TRUSTED_DIGEST (r = 4)",
+          "mesh": {"data": 1, "replica": 4, "model": 2},
+          "reduced": "2 of 24 layers", "prefill": "1 x 2048, capacity 1.25",
+          "checks": o2_ok,
+          "max_abs_logit_rank0": {m: o2[0][m]["max_abs_logit"]
+                                  for m in ("faithful", "digest")},
+          "max_abs_diff": {m: {w: [r[m][w]["max_abs_diff"] for r in o2]
+                               for w in ("minority", "majority")}
+                           for m in ("faithful", "digest")},
+          "walls_ms_rank0": {m: o2[0][m]["wall_ms"]
+                             for m in ("faithful", "digest")},
+          "launches_rank0": {m: o2[0][m]["launches"]
+                             for m in ("faithful", "digest")},
+          "wire_bytes_rank0": {m: o2[0][m]["wire"]
+                               for m in ("faithful", "digest")},
+          "peak_gb": [r["peak_gb"] for r in o2], "world_s": o2_s})
+    require(all(all(v.values()) for v in o2_ok.values()),
+            f"O2 failed: {o2_ok}")
+
+    # O3: attacked = clean bitwise, every rank alike; one device's loss at
+    # 1e-6, its gradients at 1e-5 of each leaf's largest magnitude (the
+    # batch split sums each weight gradient's 8,192 rows as two halves
+    # and an all-reduce: 4.1e-6 of it on an H100)
+    o3, o3_s = _lm_mesh_world("O3", out_dir)
+    want3 = lm_counts(moe_gemm=18, flash_attention=2, flash_attention_bwd=2,
+                      redundancy_vote=2)
+    cmp3 = [r["vs_one_device"] for r in o3]
+    o3_ok = {"attacked_is_clean": all(
+                 r["minority"]["losses"] == r["clean"]["losses"]
+                 and r["minority"]["params"] == r["clean"]["params"]
+                 for r in o3),
+             "ranks_agree": all(r["clean"]["params"] == o3[0]["clean"][
+                 "params"] for r in o3),
+             "loss_vs_one_device": all(
+                 abs(c["loss_mesh"] - c["loss_one_device"])
+                 <= 1e-6 * abs(c["loss_one_device"]) for c in cmp3),
+             "grads_vs_one_device": all(c["max_rel_diff"] <= 1e-5
+                                        for c in cmp3),
+             "launches": all(r[w]["launches"] == want3 for r in o3
+                             for w in ("clean", "minority"))}
+    emit({"phase": "lm_mesh", "path": "O3", "model": "bmoe-paper "
+          "(faithful, r = 2)", "mesh": {"data": 2, "replica": 2, "model": 1},
+          "reduced": "2 of 12 layers", "steps": "2 of (4, 2048)",
+          "checks": o3_ok, "losses_rank0": o3[0]["clean"]["losses"],
+          "vs_one_device": cmp3,
+          "walls_ms_rank0": {w: o3[0][w]["walls_ms"]
+                             for w in ("clean", "minority")},
+          "launches_rank0": o3[0]["clean"]["launches"], "want": want3,
+          "wire_bytes_rank0": o3[0]["clean"]["wire"],
+          "step_peak_gb": [r["clean"]["step_peak_gb"] for r in o3],
+          "peak_gb": [r["peak_gb"] for r in o3], "world_s": o3_s})
+    require(all(o3_ok.values()), f"O3 failed: {o3_ok}")
+
+    # O4: EP training against one device
+    o4, o4_s = _lm_mesh_world("O4", out_dir)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    want4 = lm_counts(moe_gemm=18, flash_attention=2, flash_attention_bwd=2)
+    cmp4 = [r["vs_one_device"] for r in o4]
+    o4_ok = {"loss_vs_one_device": all(
+                 abs(c["loss_mesh"] - c["loss_one_device"])
+                 <= 1e-6 * abs(c["loss_one_device"]) for c in cmp4),
+             "grads_vs_one_device": all(c["max_rel_diff"] <= 1e-6
+                                        for c in cmp4),
+             "launches": all(r["launches"] == want4 for r in o4)}
+    emit({"phase": "lm_mesh", "path": "O4", "model": "qwen2-moe-a2.7b",
+          "mesh": {"data": 1, "model": 2}, "reduced": "2 of 24 layers",
+          "step": "1 x 2048, capacity factor 8", "checks": o4_ok,
+          "vs_one_device": cmp4,
+          "grads_bitwise": all(c["leaves_bitwise"] == c["leaves"]
+                               for c in cmp4),
+          "walls_ms_rank0": {"loss_and_grads": o4[0][
+                                 "loss_and_grads_wall_ms"],
+                             "step": o4[0]["step_wall_ms"],
+                             "one_device_loss_and_grads": cmp4[0][
+                                 "one_device_wall_ms"]},
+          "step_peak_gb": [r["step_peak_gb"] for r in o4],
+          "launches_rank0": o4[0]["launches"], "want": want4,
+          "wire_bytes_rank0": o4[0]["wire"],
+          "peak_gb": [r["peak_gb"] for r in o4], "world_s": o4_s,
+          "path_s": time.perf_counter() - t_start})
+    require(all(o4_ok.values()), f"O4 failed: {o4_ok}")
+    return {"O1": o1[0]["launches"],
+            "O2_faithful": o2[0]["faithful"]["launches"],
+            "O2_digest": o2[0]["digest"]["launches"],
+            "O3": o3[0]["clean"]["launches"], "O4": o4[0]["launches"],
+            "gemm": gemm, "vote": vote}
+
+
 def profile_batch(torch, run, cpu: bool = True, spans=()):
     """Device time by kernel (and copy) over one warm call of ``run``,
     from torch.profiler's CUDA activities: the eight largest rows, the
@@ -4144,6 +4691,11 @@ def main() -> int:
         mesh_path(torch, np, ops, mg, rv, am, ref)
         return 0
 
+    if "--lm-mesh" in sys.argv:
+        # path O alone
+        lm_mesh_path(torch, np, ops, mg, rv, ref)
+        return 0
+
     if "--kernels" in sys.argv:
         # only the named kernels' cases, e.g. to time two trees in one call
         cases = {"moe_gemm": lambda: moe_gemm_cases(torch, mg, ref),
@@ -4263,6 +4815,8 @@ def main() -> int:
     mesh = mesh_path(torch, np, ops, mg, rv, am, ref)
     mesh_n1 = mesh["ranks"][0]["N1"]
     mesh_n2 = mesh["ranks"][0]["N2_bmoe"]
+    # path O: the LM stack on a mesh, its worlds of ranks on the card
+    lm_mesh = lm_mesh_path(torch, np, ops, mg, rv, ref)
 
     kernels = [
         {"name": "moe_gemm", "route": "cuda",
@@ -4285,7 +4839,18 @@ def main() -> int:
              "backward a step)": counts_l1["moe_gemm"],
              "edge mesh, a rank, 5 optimistic rounds + replays (N1)":
                  mesh_n1["moe_gemm"],
-             "edge mesh, a rank, 3 bmoe rounds (N2)": mesh_n2["moe_gemm"]},
+             "edge mesh, a rank, 3 bmoe rounds (N2)": mesh_n2["moe_gemm"],
+             "LM mesh, a rank, qwen2-moe EP prefill, 4 layers (O1)":
+                 lm_mesh["O1"]["moe_gemm"],
+             "LM mesh, a rank, trusted EP prefill, 2 layers (O2)":
+                 lm_mesh["O2_faithful"]["moe_gemm"],
+             "LM mesh, a rank, bmoe-paper training step, 2 layers (O3)":
+                 lm_mesh["O3"]["moe_gemm"],
+             "LM mesh, a rank, qwen2-moe EP loss and gradients, 2 layers "
+             "(O4)": lm_mesh["O4"]["moe_gemm"]},
+         "lm_mesh_shapes": [{k: r[k] for k in (
+             "case", "shape", "max_abs_err", "kernel_ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms")} for r in lm_mesh["gemm"]],
          "mesh_shard_shapes": [{k: r[k] for k in (
              "case", "shape", "max_abs_err", "kernel_ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms")} for r in mesh["gemm"]],
@@ -4348,7 +4913,16 @@ def main() -> int:
              "edge mesh, a rank, 3 bmoe rounds (N2)": mesh_n2[
                  "redundancy_vote"],
              "edge mesh, a rank, optimistic courts (N1)": mesh_n1[
-                 "redundancy_vote"]},
+                 "redundancy_vote"],
+             "LM mesh, a rank, trusted EP prefill, faithful (O2)": lm_mesh[
+                 "O2_faithful"]["redundancy_vote"],
+             "LM mesh, a rank, trusted EP prefill, digest (O2)": lm_mesh[
+                 "O2_digest"]["redundancy_vote"],
+             "LM mesh, a rank, bmoe-paper training step (O3)": lm_mesh[
+                 "O3"]["redundancy_vote"]},
+         "lm_mesh_shape": {k: lm_mesh["vote"][k] for k in (
+             "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+             "launch_floor_ms")},
          "mesh_shard_shape": {k: mesh["vote"][k] for k in (
              "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
              "launch_floor_ms")},
@@ -4403,7 +4977,9 @@ def main() -> int:
              "recurrentgemma-2b training, 2 steps of 2 microbatches, "
              "remat (L2)": counts_l2["flash_attention"],
              "seamless-m4t-medium training, 2 steps (L3)": counts_l3[
-                 "flash_attention"]},
+                 "flash_attention"],
+             **{f"LM mesh, a rank ({p})": lm_mesh[p]["flash_attention"]
+                for p in ("O1", "O2_faithful", "O3", "O4")}},
          "non_causal_shape": {k: flash[2][k] for k in (
              "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "library_backend")},
@@ -4523,6 +5099,10 @@ def main() -> int:
         k["launches_mesh_path_n_rank0"] = sum(
             lr[k["name"]] for ph, lr in mesh["ranks"][0].items()
             if ph != "N1_want")
+        # path O, rank 0 of each world: the counted run of each sub-path
+        k["launches_lm_mesh_path_o_rank0"] = {
+            p: lm_mesh[p][k["name"]] for p in ("O1", "O2_faithful",
+                                                "O2_digest", "O3", "O4")}
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,8 @@ redundancy enabled (faithful mode, r=2 by default).
 
 This is the config used to demonstrate the paper's technique inside the
 transformer framework; the paper's *original* MLP/CNN-expert experiments
-live in ``repro_torch.core.bmoe``.  The redundancy setting is declared,
-not run: the LM-scale vote needs a mesh (ROADMAP A7b).
+live in ``repro_torch.core.bmoe``.  The redundancy vote runs on a mesh
+with a ``replica`` axis (``core.trusted_moe.make_trust``).
 """
 import dataclasses
 

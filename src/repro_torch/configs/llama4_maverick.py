@@ -2,8 +2,9 @@
 expert, GQA (kv=8), early fusion. [hf:meta-llama/Llama-4-Scout-17B-16E]
 
 Native target of the paper's B-MoE technique: per-expert redundancy +
-consensus vote.  The ``TRUSTED_*`` variants are declared, not run: the
-LM-scale vote needs a mesh (ROADMAP A7b)."""
+consensus vote.  The ``TRUSTED_*`` variants vote over a mesh's
+``replica`` axis (``models.moe_ep``); at full width its MoE layers are
+64 GB each in float32, so it runs only sharded."""
 import dataclasses
 
 from repro_torch.models.config import LayerSpec, ModelConfig, RedundancyConfig

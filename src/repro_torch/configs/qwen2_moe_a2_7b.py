@@ -4,7 +4,9 @@
 60 experts do not divide the 16-wide model axis, so the sharding rules
 fall back to tensor parallelism inside each expert (moe_ff axis).  On
 one card ``moe_impl="ep"`` means nothing, as in the JAX package without
-a mesh; the ``TRUSTED_*`` variants are declared, not run (ROADMAP A7b)."""
+a mesh; on a mesh (``launch.mesh.LMMesh``) its MoE layers run
+expert-parallel (``models.moe_ep``), and the ``TRUSTED_*`` variants vote
+over the mesh's ``replica`` axis."""
 import dataclasses
 
 from repro_torch.models.config import LayerSpec, ModelConfig, RedundancyConfig

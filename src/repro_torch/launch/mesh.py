@@ -1,8 +1,9 @@
-"""The B-MoE edge mesh over ``torch.distributed`` (the counterpart of
-``repro.launch.mesh.make_edge_mesh``).
+"""Meshes over ``torch.distributed``: the B-MoE edge mesh (the counterpart
+of ``repro.launch.mesh.make_edge_mesh``) and the LM meshes (``make_lm_mesh``,
+``make_host_mesh``, ``make_trusted_mesh``, ``make_production_mesh``).
 
 The JAX package runs one controller over a mesh of devices; the port runs
-SPMD instead: one process (a rank) per edge shard, every rank running the
+SPMD instead: one process (a rank) per device, every rank running the
 same script.  ``make_edge_mesh`` reads the process group the caller set up
 and returns an ``EdgeMesh``: the ``model`` axis is the edge-shard axis
 (rank ``r`` is edge shard ``r % shards`` and owns a contiguous
@@ -18,24 +19,39 @@ The exchanges are ``EdgeMesh`` methods over the model-axis group:
 out; differentiable for a loss every rank computes alike: the backward
 takes this rank's rows of the cotangent, it does not sum over ranks),
 ``slice_rows`` (a replicated tensor's rows for this rank; its backward
-all-gathers the disjoint cotangent slices) and ``all_gather`` (no
-gradient).  ``wire_bytes`` counts, per exchange, the bytes this rank sends
-to the other ranks of its group.
+all-gathers the disjoint cotangent slices), ``all_gather`` and
+``all_reduce`` (no gradient) and ``psum`` (a sum whose backward passes
+the cotangent through: for a quantity each rank adds once into a loss
+whose gradients are then summed over the same ranks).  ``wire_bytes``
+counts, per exchange, the bytes this rank sends to the other ranks of its
+group.
+
+An ``LMMesh`` is the LM stack's mesh, axes ``(pod, data, replica,
+model)`` (any of them may be absent), ranks laid out row-major as
+``jax.make_mesh`` orders devices.  Each rank holds its coordinates and an
+``EdgeMesh`` view over each of three groups: ``model`` (expert
+parallelism's exchanges), ``replica`` (the B-MoE vote) and ``batch``
+(pod x data at equal replica and model: the batch split, the gradient
+sum and the routing statistics); the three share one ``wire_bytes``.  The
+factories derive the widths from the world size exactly as the JAX
+package's derive them from the device count.
 
 ``spawn_edges`` starts a world of ranks on one host (``torch.
 multiprocessing`` with a ``file://`` rendezvous, so concurrent worlds
-cannot collide on a port) and fails when any rank fails or overruns.
-The backend is NCCL only when every rank has a card of its own; ranks
-that share a card (or the CPU) use gloo.
+cannot collide on a port) and fails when any rank fails or overruns; it
+starts the ranks of an LM mesh too.  The backend is NCCL only when every
+rank has a card of its own; ranks that share a card (or the CPU) use
+gloo.
 """
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import os
 import time
 import uuid
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -110,6 +126,19 @@ class _SliceRows(torch.autograd.Function):
                 None)
 
 
+class _PSum(torch.autograd.Function):
+    """The sum over the group; the backward passes the cotangent through
+    unchanged (every rank then holds the gradient of its own share)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, kind):
+        return mesh.all_reduce(x.detach().contiguous().clone(), kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
 @dataclasses.dataclass
 class EdgeMesh:
     """One rank's view of the edge mesh: ``shard`` is its edge index on
@@ -170,6 +199,20 @@ class EdgeMesh:
         dist.all_gather(parts, x, group=self.group)
         self._count(kind, x.numel() * x.element_size() * self.shards)
         return torch.stack(parts)
+
+    def all_reduce(self, x: torch.Tensor, kind: str = "reduce"
+                   ) -> torch.Tensor:
+        """Sums the contiguous ``x`` over the group in place, on every
+        rank, and returns it.  No gradient.  Every rank holds the same
+        bits (the ring sums each element once and sends it on)."""
+        if self.shards > 1:
+            dist.all_reduce(x, group=self.group)
+            self._count(kind, 2 * x.numel() * x.element_size())
+        return x
+
+    def psum(self, x: torch.Tensor, kind: str = "reduce") -> torch.Tensor:
+        """``all_reduce`` whose backward passes the cotangent through."""
+        return _PSum.apply(x, self, kind)
 
     def all_to_all(self, x: torch.Tensor, kind: str) -> torch.Tensor:
         """(shards, ...) -> (shards, ...): chunk j goes to shard j, and
@@ -236,6 +279,194 @@ def make_edge_mesh(num_experts: int, *, shards: Optional[int] = None,
     return EdgeMesh(rank=rank, world=world, shards=shards,
                     data=world // shards, shard=rank % shards, group=group,
                     device=dev)
+
+
+LM_AXES = ("pod", "data", "replica", "model")
+
+
+@dataclasses.dataclass
+class LMMesh:
+    """One rank's view of an LM mesh: ``axis_names`` (in ``LM_AXES``
+    order) and their widths ``shape``, this rank's coordinate on each,
+    and an ``EdgeMesh`` over each group: ``model``, ``replica`` and
+    ``batch`` (pod x data), whose ``shards`` is the group's width and
+    ``shard`` this rank's index in it.  A mesh of one rank is the
+    identity for every exchange."""
+    axis_names: Tuple[str, ...]
+    shape: Tuple[int, ...]
+    rank: int
+    coords: Dict[str, int]
+    device: torch.device
+    model: EdgeMesh
+    replica: EdgeMesh
+    batch: EdgeMesh
+    wire_bytes: Dict[str, int]
+
+    @property
+    def axes(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.shape))
+
+    @property
+    def world(self) -> int:
+        return math.prod(self.shape)
+
+    def size(self, name: str) -> int:
+        """The width of axis ``name`` (1 when the mesh lacks it)."""
+        return self.axes.get(name, 1)
+
+    def batch_rows(self, n: int):
+        """[lo, hi) of this rank's rows of a global batch of ``n`` rows
+        (split over pod x data, as a batch dimension sharded over
+        ``("pod", "data")`` is)."""
+        if n % self.batch.shards:
+            raise ValueError(f"batch of {n} rows does not split over "
+                             f"{self.batch.shards} batch ranks")
+        per = n // self.batch.shards
+        return self.batch.shard * per, (self.batch.shard + 1) * per
+
+
+def _axis_groups(names, shape, members, rank):
+    """This rank's process group over the axes ``members``: the ranks
+    that share every other coordinate.  Every rank creates every such
+    group, in one order (``new_group`` is collective over the world)."""
+    width = math.prod(w for n, w in zip(names, shape) if n in members)
+    world = math.prod(shape)
+    if width == 1:
+        return None
+    if width == world:
+        return dist.group.WORLD
+    strides = [math.prod(shape[i + 1:]) for i in range(len(shape))]
+    others = [i for i, n in enumerate(names) if n not in members]
+    inside = [i for i, n in enumerate(names) if n in members]
+    mine = None
+    for o in _coords([shape[i] for i in others]):
+        base = sum(c * strides[i] for c, i in zip(o, others))
+        ranks = sorted(base + sum(c * strides[i] for c, i in zip(m, inside))
+                       for m in _coords([shape[i] for i in inside]))
+        group = dist.new_group(ranks)
+        if rank in ranks:
+            mine = group
+    return mine
+
+
+def _coords(widths):
+    """Every coordinate tuple of ``widths``, row-major."""
+    out = [()]
+    for w in widths:
+        out = [c + (i,) for c in out for i in range(w)]
+    return out
+
+
+def make_lm_mesh(shape: Sequence[int], axis_names: Optional[Sequence[str]]
+                 = None, *, device=None) -> LMMesh:
+    """The LM mesh of ``shape`` over the process group the caller set up
+    (``jax.make_mesh(shape, axis_names)``'s counterpart).  ``axis_names``
+    defaults to ("data", "model"), ("data", "replica", "model") or
+    ``LM_AXES`` by the number of axes; names keep ``LM_AXES``' order.  The
+    world size must be the product of the widths; without a process group
+    the world is one rank.  The rank's device is ``cuda:{rank %
+    device_count}`` (``device=None``; raises without a card) unless the
+    caller asks for ``device="cpu"``."""
+    shape = tuple(int(w) for w in shape)
+    if axis_names is None:
+        axis_names = {2: ("data", "model"), 3: ("data", "replica", "model"),
+                      4: LM_AXES}.get(len(shape))
+    axis_names = tuple(axis_names or ())
+    if (len(axis_names) != len(shape)
+            or list(axis_names) != [a for a in LM_AXES if a in axis_names]):
+        raise ValueError(f"axes {axis_names} for shape {shape}: want a "
+                         f"subsequence of {LM_AXES}, one name a width")
+    on = dist.is_available() and dist.is_initialized()
+    world = dist.get_world_size() if on else 1
+    rank = dist.get_rank() if on else 0
+    if math.prod(shape) != world or min(shape) < 1:
+        raise ValueError(f"mesh {dict(zip(axis_names, shape))} needs "
+                         f"{math.prod(shape)} ranks, the world has {world}")
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+    coords = dict(zip(axis_names, _coords(shape)[rank]))
+    wire: Dict[str, int] = {}
+
+    def view(members):
+        width = math.prod(w for n, w in zip(axis_names, shape)
+                          if n in members)
+        index = 0
+        for n, w in zip(axis_names, shape):
+            if n in members:
+                index = index * w + coords[n]
+        group = (_axis_groups(axis_names, shape, members, rank)
+                 if on else None)
+        return EdgeMesh(rank=rank, world=world, shards=width,
+                        data=world // width, shard=index, group=group,
+                        device=dev, wire_bytes=wire)
+
+    return LMMesh(axis_names=axis_names, shape=shape, rank=rank,
+                  coords=coords, device=dev, model=view(("model",)),
+                  replica=view(("replica",)), batch=view(("pod", "data")),
+                  wire_bytes=wire)
+
+
+def _world() -> int:
+    on = dist.is_available() and dist.is_initialized()
+    return dist.get_world_size() if on else 1
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> LMMesh:
+    """Single pod: (data=16, model=16), 256 ranks; multi-pod: (pod=2,
+    data=16, model=16), 512 ranks (the pod axis folds into the batch).
+    A fixed geometry: raises unless the world is that size."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if _world() != math.prod(shape):
+        raise ValueError(f"the production mesh needs {math.prod(shape)} "
+                         f"ranks, the world has {_world()}")
+    return make_lm_mesh(shape, axes, device=device)
+
+
+def trusted_mesh_shape(n: int, r: int, *, multi_pod: bool = False):
+    """(shape, axis names) of the B-MoE redundancy mesh over ``n`` ranks,
+    as the JAX package derives it from the device count: the replica
+    axis first, the model axis the widest divisor up to 16 of what is
+    left, every leftover rank in the data axis."""
+    pods = 2 if multi_pod else 1
+    if n % pods:
+        raise ValueError(f"multi_pod needs an even device count, got {n}")
+    per_pod = n // pods
+    if r < 1 or per_pod % r:
+        raise ValueError(
+            f"redundancy r={r} must divide the per-pod device count "
+            f"{per_pod} ({n} devices / {pods} pod(s))")
+    rest = per_pod // r
+    model = _model_width(rest, cap=16)
+    data = rest // model
+    if multi_pod:
+        return (2, data, r, model), LM_AXES
+    return (data, r, model), ("data", "replica", "model")
+
+
+def make_trusted_mesh(r: int, *, multi_pod: bool = False,
+                      device=None) -> LMMesh:
+    """B-MoE redundancy mesh: (data/r groups, r replicas, model), widths
+    from the world size (``trusted_mesh_shape``)."""
+    shape, axes = trusted_mesh_shape(_world(), r, multi_pod=multi_pod)
+    return make_lm_mesh(shape, axes, device=device)
+
+
+def host_mesh_shape(n: int, num_experts: Optional[int] = None):
+    """(data, model) over ``n`` ranks: with ``num_experts`` the model axis
+    is the widest divisor of ``n`` that also divides the expert count
+    (what ``moe_mlp_ep`` needs), leftover ranks in data."""
+    model = _model_width(n, divides=num_experts)
+    return (n // model, model)
+
+
+def make_host_mesh(num_experts: Optional[int] = None, *,
+                   device=None) -> LMMesh:
+    """(data, model) over the whole world (``host_mesh_shape``); a world
+    of one is (1, 1)."""
+    return make_lm_mesh(host_mesh_shape(_world(), num_experts),
+                        ("data", "model"), device=device)
 
 
 def _edge_main(rank: int, fn: Callable, world: int, device: str,

@@ -4,8 +4,9 @@
 Models declare their parameters once as a nested dict of :class:`Leaf`
 (shape + logical axes + init law); ``materialize`` turns a declaration
 into tensors.  The logical axes are kept so that a declaration compares
-equal with the JAX package's; the port does not shard yet (``abstract``
-and ``partition_specs`` are dry-run tooling, ROADMAP A8).
+equal with the JAX package's; ``materialize``'s ``place`` keeps a rank's
+part of each leaf (``sharding.place_leaf``).  ``abstract`` and
+``partition_specs`` (dry-run tooling) are not ported (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -82,17 +83,25 @@ def _init_leaf(leaf: Leaf, seed: int, path: str, device: torch.device,
 
 
 def materialize(decl: Tree, seed: int = 0, device=None,
-                dtype: torch.dtype = torch.float32) -> Tree:
+                dtype: torch.dtype = torch.float32,
+                place: Callable[[str, torch.Tensor], torch.Tensor] = None
+                ) -> Tree:
     """Tensors for every leaf of ``decl`` on ``device`` (``None``: the
     CUDA device).  Each normal leaf is drawn on the device from its own
     ``torch.Generator``, seeded from ``seed`` and the leaf's path, so a
     leaf's values do not depend on the other leaves, and nothing is drawn
     on the host and copied.  The values differ from the JAX package's
     (threefry keys are not reproduced): parity tests carry JAX weights
-    across with ``convert.lm_params_from_numpy``."""
+    across with ``convert.lm_params_from_numpy``.  ``place(path, leaf)``
+    returns what is kept of each leaf as it is drawn (a rank's rows), so
+    the whole leaf is freed before the next is drawn."""
     dev = resolve_device(device)
-    return _walk(decl, lambda p, l: _init_leaf(l, seed, p, dev,
-                                               _leaf_dtype(l, dtype)))
+
+    def init(path, leaf):
+        t = _init_leaf(leaf, seed, path, dev, _leaf_dtype(leaf, dtype))
+        return t if place is None else place(path, t)
+
+    return _walk(decl, init)
 
 
 def count_params(decl: Tree) -> int:

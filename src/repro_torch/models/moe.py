@@ -9,8 +9,14 @@ capacity buffer (B, E, C, d), run through the experts' SwiGLU as three
 (E, B*C, d), and combined back with their gate weights.
 
 ``capacity_positions`` is shared with the B-MoE system's sparse dispatch.
-The JAX package's ``route_masked`` and the ``trust`` hook serve the mesh
-(expert parallelism, the LM-scale vote) and wait for ROADMAP A7b.
+``route_masked`` routes a token axis that may carry pad rows and returns
+the routing statistics a sharded caller sums over its token shards
+(``models.moe_ep``, expert parallelism on a mesh).  ``moe_mlp``'s
+``trust`` hook (``core.trusted_moe.make_trust``: the B-MoE redundancy
+vote over the mesh's ``replica`` axis) takes the (B, E, C, d) expert
+output buffer; under a mesh with a batch axis wider than one the aux loss
+is formed from the routing statistics summed over the batch ranks, so it
+is the global batch's.
 """
 from __future__ import annotations
 
@@ -99,6 +105,98 @@ def route(logits: torch.Tensor, k: int, capacity: int, num_real: int = 0):
     return weights, expert_id, position, keep, aux
 
 
+def router_probs(logits: torch.Tensor, num_real: int = 0) -> torch.Tensor:
+    """The router's softmax in float32, the padded experts (index >=
+    ``num_real``) masked out."""
+    E = logits.shape[-1]
+    if num_real and num_real < E:
+        pad = torch.arange(E, device=logits.device) >= num_real
+        logits = logits.masked_fill(pad, -1e30)
+    return torch.softmax(logits.float(), dim=-1)
+
+
+def route_masked(logits: torch.Tensor, k: int, capacity: int,
+                 num_real: int = 0, valid=None):
+    """``route`` for a token axis that may carry pad rows, returning the
+    routing statistics instead of a local aux loss.
+
+    ``valid``: (B, S) bool (None: every row real).  Pad rows route to the
+    sentinel expert E: zero gate weight, no capacity slot (their one-hot
+    row is all zero, so they move no real assignment's position) and
+    ``keep`` False; they are not counted in the statistics.  Returns
+    weights (B,S,k), expert_id (B,S,k), position (B,S,k), keep (B,S,k)
+    and ``(tok_counts (E,), prob_sums (E,), n_valid ())`` float32, which a
+    sharded caller sums over its token shards before ``aux_from_stats``.
+    With ``valid=None`` the first four equal ``route``'s bit for bit."""
+    return route_probs(router_probs(logits, num_real), k, capacity, valid)
+
+
+def route_probs(probs: torch.Tensor, k: int, capacity: int, valid=None):
+    """``route_masked`` from the router's probabilities (B, S, E)
+    (``router_probs``)."""
+    B, S, E = probs.shape
+    weights, expert_id = top_k(probs, k)
+    weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
+    if valid is None:
+        position, keep, onehot = capacity_positions(
+            expert_id.reshape(B, S * k), E, capacity)
+        prob_sums = probs.sum(dim=(0, 1))
+        n_valid = torch.tensor(float(B * S), device=probs.device)
+    else:
+        valid = torch.as_tensor(valid, device=probs.device)
+        expert_id = torch.where(valid[:, :, None], expert_id, E)
+        weights = weights * valid[:, :, None].to(weights.dtype)
+        # the sentinel takes a column of its own, dropped after the
+        # cumsum: a real expert's positions never count a pad row, and a
+        # pad row's (its one-hot row is zero in JAX's) is 0
+        position, keep, onehot = capacity_positions(
+            expert_id.reshape(B, S * k), E + 1, capacity)
+        onehot = onehot[..., :E]
+        real = valid.repeat_interleave(k, dim=1)
+        position = position * real
+        keep = keep & real
+        prob_sums = (probs * valid[:, :, None].to(probs.dtype)).sum(
+            dim=(0, 1))
+        n_valid = valid.sum().float()
+    tok_counts = onehot.sum(dim=(0, 1)).float()
+    return (weights, expert_id, position.reshape(B, S, k),
+            keep.reshape(B, S, k), (tok_counts, prob_sums, n_valid))
+
+
+def routing_stats(probs: torch.Tensor, k: int):
+    """``route_masked``'s statistics of every row of the router's
+    probabilities (..., E), without the capacity positions: (tok_counts
+    (E,), prob_sums (E,), n_valid ()) float32."""
+    E = probs.shape[-1]
+    probs = probs.reshape(-1, E)
+    _, expert_id = top_k(probs, k)
+    counts = probs.new_zeros(E).index_add_(
+        0, expert_id.reshape(-1), probs.new_ones(expert_id.numel()))
+    return (counts, probs.sum(dim=0),
+            torch.tensor(float(probs.shape[0]), device=probs.device))
+
+
+def sum_stats(view, stats):
+    """``route_masked``'s statistics summed over the ranks of one mesh
+    axis (``view``, a ``launch.mesh.EdgeMesh`` over that axis's group) in
+    one differentiable all-reduce (``EdgeMesh.psum``)."""
+    counts, prob_sums, n_valid = stats
+    E = counts.shape[0]
+    flat = view.psum(torch.cat([counts, prob_sums, n_valid.reshape(1)]),
+                     "aux_stats")
+    return flat[:E], flat[E:2 * E], flat[2 * E]
+
+
+def aux_from_stats(stats, num_experts: int, k: int) -> torch.Tensor:
+    """The GShard load-balance loss of the tokens the statistics count
+    (``route_masked``'s, summed over shards): E * sum(counts / (T * k) *
+    prob_sums / T), T = n_valid.  On one shard's statistics it equals
+    ``route``'s aux."""
+    counts, prob_sums, n_valid = stats
+    T = torch.clamp(n_valid, min=1.0)
+    return num_experts * torch.sum((counts / (T * k)) * (prob_sums / T))
+
+
 def grouped_mlp(buf, w_gate, w_up, w_down):
     """buf: (B, E, C, d) -> (B, E, C, d) through each expert's SwiGLU.
 
@@ -114,8 +212,22 @@ def grouped_mlp(buf, w_gate, w_up, w_down):
     return out.reshape(E, B, C, d).transpose(0, 1)
 
 
-def moe_mlp(params, x, cfg, return_stats: bool = False):
+def _batch_mesh(shard):
+    """The mesh whose batch ranks must sum routing statistics, or None."""
+    mesh = getattr(shard, "mesh", None)
+    return mesh if mesh is not None and mesh.batch.shards > 1 else None
+
+
+def moe_mlp(params, x, cfg, shard=None, trust=None,
+            return_stats: bool = False):
     """x: (B, S, d) -> (B, S, d), plus the aux loss (weighted).
+
+    ``trust``: an optional hook applied to the (B, E, C, d) expert output
+    buffer, the B-MoE redundancy vote (``core.trusted_moe.make_trust``).
+    ``shard``: the ``sharding.Sharder`` of a mesh this rank runs on; the
+    layer runs on the rank's batch rows, and with a batch axis wider than
+    one its aux loss comes from the routing statistics summed over the
+    batch ranks (the global batch's, as GSPMD computes it).
 
     ``return_stats``: also return the per-expert routed-token counts
     (E,) int32, every row's assignments counted, dropped ones and the
@@ -127,8 +239,14 @@ def moe_mlp(params, x, cfg, return_stats: bool = False):
     C = capacity_for(cfg, S)
 
     logits = x @ params["router"]
-    weights, expert_id, position, keep, aux = route(logits, k, C,
-                                                    cfg.num_experts)
+    mesh = _batch_mesh(shard)
+    if mesh is None:
+        weights, expert_id, position, keep, aux = route(logits, k, C,
+                                                        cfg.num_experts)
+    else:
+        weights, expert_id, position, keep, stats = route_masked(
+            logits, k, C, cfg.num_experts)
+        aux = aux_from_stats(sum_stats(mesh.batch, stats), E, k)
 
     # ---- dispatch: per-row scatter into (B, E, C, d) capacity buffers.
     # jnp.repeat(x, k, axis=1) repeats each token k times in a row; a
@@ -144,6 +262,8 @@ def moe_mlp(params, x, cfg, return_stats: bool = False):
 
     out_buf = grouped_mlp(buf, params["w_gate"], params["w_up"],
                           params["w_down"])
+    if trust is not None:          # B-MoE consensus on the expert outputs
+        out_buf = trust(out_buf)
 
     # ---- combine: gather back and weight
     yk = out_buf[row, eid, pos]                          # (B, S*k, d)

@@ -6,9 +6,13 @@ Parameters and KV-caches are declared with ``repro_torch.models.builder``
 exactly as the JAX package declares them (blocks stacked on a leading
 axis), so a JAX tree carried across by ``convert.lm_params_from_numpy``
 drops in.  Where JAX scans over the stacked blocks, the port loops in
-Python over views of the leading axis.  ``moe_impl="ep"`` (expert
-parallelism) needs a mesh, as in the JAX package: on one device every
-MoE layer runs ``moe.moe_mlp``.
+Python over views of the leading axis.  ``forward_train`` takes the
+``sharding.Sharder`` of a mesh and a ``trust`` hook: under a mesh a MoE
+layer of a ``moe_impl="ep"`` config runs expert-parallel
+(``moe_ep.moe_mlp_ep``, on this rank's expert rows), any other MoE layer
+``moe.moe_mlp`` with the hook (the B-MoE vote) on this rank's batch rows;
+on one device every MoE layer runs ``moe.moe_mlp``, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import moe_ep
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.builder import Leaf, stack
@@ -213,19 +218,26 @@ def _layer_params(tree, key, i):
         tree["blocks"][key], i)
 
 
-def _mlp(spec: LayerSpec, p, x, cfg, expert_stats=False):
+def _mlp(spec: LayerSpec, p, x, cfg, expert_stats=False, shard=None,
+         trust=None):
     """The layer's MLP on the normed residual: (y, aux, counts); aux and
     counts are None where no MoE layer gives them."""
     h = rmsnorm(x, p["norm2"], cfg.norm_eps)
     if spec.mlp == "moe":
         if expert_stats:
             return moe_lib.moe_mlp(p["moe"], h, cfg, return_stats=True)
-        return (*moe_lib.moe_mlp(p["moe"], h, cfg), None)
+        mesh = getattr(shard, "mesh", None)
+        if cfg.moe_impl == "ep" and mesh is not None:
+            return (*moe_ep.moe_mlp_ep(p["moe"], h, cfg, mesh,
+                                       attack=shard.attack), None)
+        return (*moe_lib.moe_mlp(p["moe"], h, cfg, shard=shard,
+                                 trust=trust), None)
     y = swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
     return y, None, None
 
 
-def _layer_train(spec: LayerSpec, p, x, cfg, chunks):
+def _layer_train(spec: LayerSpec, p, x, cfg, chunks, shard=None,
+                 trust=None):
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
     if spec.kind in ("attn", "local_attn"):
         window = cfg.sliding_window if spec.kind == "local_attn" else 0
@@ -240,28 +252,32 @@ def _layer_train(spec: LayerSpec, p, x, cfg, chunks):
     x = x + y
     aux = None
     if spec.mlp != "none":
-        y, aux, _ = _mlp(spec, p, x, cfg)
+        y, aux, _ = _mlp(spec, p, x, cfg, shard=shard, trust=trust)
         x = x + y
     return x, aux
 
 
-def _block_train(params, b: int, x, aux, cfg: ModelConfig, chunks):
+def _block_train(params, b: int, x, aux, cfg: ModelConfig, chunks,
+                 shard=None, trust=None):
     """Stacked block ``b``: every layer of the pattern, in order."""
     for i, spec in enumerate(cfg.block_pattern):
         x, a = _layer_train(spec, _index(params["blocks"][str(i)], b), x,
-                            cfg, chunks)
+                            cfg, chunks, shard, trust)
         if a is not None:
             aux = aux + a
     return x, aux
 
 
-def forward_train(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
-                  remat=False, q_chunk=512, kv_chunk=512):
+def forward_train(params, tokens, cfg: ModelConfig, *, shard=None,
+                  trust=None, prefix_embeds=None, remat=False, q_chunk=512,
+                  kv_chunk=512):
     """tokens: (B, S_text) integer; prefix_embeds: optional (B, P, d)
     stub modality embeddings prepended to the sequence (VLM early
     fusion).  Returns (logits (B, S, padded_vocab), aux_loss): aux is the
     sum of the MoE layers' weighted load-balance losses, a zero scalar
-    without MoE layers.
+    without MoE layers.  ``shard``, ``trust``: the mesh's sharder and the
+    MoE layers' vote hook (see the module's docstring); under a mesh
+    ``tokens`` are this rank's batch rows.
 
     ``remat``: each stacked block of the pattern runs under
     ``torch.utils.checkpoint`` (non-reentrant), the counterpart of JAX's
@@ -276,11 +292,13 @@ def forward_train(params, tokens, cfg: ModelConfig, *, prefix_embeds=None,
     for b in range(cfg.resolved_num_blocks):
         if remat:
             x, aux = checkpoint(_block_train, params, b, x, aux, cfg, chunks,
-                                use_reentrant=False)
+                                shard, trust, use_reentrant=False)
         else:
-            x, aux = _block_train(params, b, x, aux, cfg, chunks)
+            x, aux = _block_train(params, b, x, aux, cfg, chunks, shard,
+                                  trust)
     for i, spec in enumerate(cfg.remainder):
-        x, a = _layer_train(spec, params["remainder"][i], x, cfg, chunks)
+        x, a = _layer_train(spec, params["remainder"][i], x, cfg, chunks,
+                            shard, trust)
         if a is not None:
             aux = aux + a
     return _head(params, x, cfg), aux

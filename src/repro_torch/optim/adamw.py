@@ -80,11 +80,14 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def update(cfg: AdamWConfig, grads, state: AdamWState, params):
+def update(cfg: AdamWConfig, grads, state: AdamWState, params,
+           gnorm: torch.Tensor = None):
     """One AdamW step with global-norm clipping.  Returns (params, state,
     metrics) with metrics {grad_norm, lr} as 0-dim float32 tensors.  The
     parameters and the state's moments are updated in place (the returned
-    trees are the same tensors); ``grads`` is read only."""
+    trees are the same tensors); ``grads`` is read only.  ``gnorm``: the
+    global norm when ``grads`` is one rank's part of a sharded tree
+    (``global_norm(grads)`` otherwise)."""
     flat_p, _ = tree_flatten(params)
     flat_g, _ = tree_flatten(grads)
     flat_m, _ = tree_flatten(state.m)
@@ -92,7 +95,8 @@ def update(cfg: AdamWConfig, grads, state: AdamWState, params):
     if not len(flat_p) == len(flat_g) == len(flat_m) == len(flat_v):
         raise ValueError("params, grads and the state's moments must have "
                          "one structure")
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                          max=1.0) if cfg.grad_clip else None)
     step = state.step + 1

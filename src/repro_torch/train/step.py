@@ -1,27 +1,41 @@
 """Train, prefill and decode step builders for the LM stack (the
 counterpart of ``repro.train.step``).
 
-- ``make_train_step(cfg, opt_cfg, remat=True)``: ``(params, opt_state,
-  batch) -> (params, opt_state, metrics)``, the loss (``lm_loss`` plus
-  the MoE aux loss), its gradients over ``train_microbatches``
-  microbatches and one AdamW update, in place;
-- ``make_loss_and_grads(cfg, remat=True)``: ``(params, batch) -> (loss,
-  aux, grads)``, the step without the update;
-- ``make_prefill_step(cfg)``: ``(params, batch) -> next token (B, 1)``,
-  the full-sequence forward and the argmax of the last position;
+- ``make_train_step(cfg, opt_cfg, mesh=None, attack=None, remat=True)``:
+  ``(params, opt_state, batch) -> (params, opt_state, metrics)``, the
+  loss (``lm_loss`` plus the MoE aux loss), its gradients over
+  ``train_microbatches`` microbatches and one AdamW update, in place;
+- ``make_loss_and_grads(cfg, remat=True, mesh=None, attack=None)``:
+  ``(params, batch) -> (loss, aux, grads)``, the step without the update;
+- ``make_prefill_step(cfg, mesh=None, attack=None)``: ``(params, batch)
+  -> next token (B, 1)``, the full-sequence forward and the argmax of the
+  last position;
 - ``make_decode_step(cfg, expert_stats=False)``: ``(params, caches,
   batch) -> (next token (B,), caches)``, one token through the caches,
   and with ``expert_stats`` also the per-MoE-layer routed-token counts;
 - ``make_serve_chunk_step(cfg, expert_stats=False)``: the serving
   engine's fused macro-step, C masked greedy decode micro-steps;
-- ``make_step(cfg, kind)``: one of the first three by name;
+- ``make_step(cfg, kind, mesh=None)``: one of the first three by name;
 - ``make_fed_local_step(num_experts, top_k, lr, apply_all)``: a federated
   edge's SGD step on the B-MoE gate and expert bank (``repro_torch.fed``).
 
 On the card the training step's attention, RG-LRU, SSD and MoE products
 run their kernels forward and backward (``kernels.ops``); the federated
-step's dense mixture is plain products, as in the JAX package.  A mesh
-(ROADMAP A7b) is not ported.
+step's dense mixture is plain products, as in the JAX package.
+
+Under a mesh (``launch.mesh.LMMesh``) every rank runs the same step
+(SPMD): it is given the whole global batch and keeps its rows of each
+microbatch (split over pod x data); ``params`` is this rank's tree
+(``sharding.shard_params``: an expert-parallel layer's experts cut to
+the rank's rows).  MoE layers run expert-parallel (``moe_impl="ep"``) or
+with the B-MoE vote hook (``core.trusted_moe.make_trust``, built when
+the config's redundancy is on).  Each rank's objective is its rows' mean
+cross-entropy over the batch ranks plus the aux loss (the global
+batch's, from summed routing statistics); the gradients are summed over
+the batch ranks, so every leaf holds the global batch's gradient;
+replicas and model ranks are not reduced (their replicated leaves'
+gradients are already equal).  The reported loss is the global batch's.
+Decode and the serving chunk take no mesh (ROADMAP A7c).
 """
 from __future__ import annotations
 
@@ -31,10 +45,13 @@ import torch
 
 from repro_torch.core import experts as ex
 from repro_torch.core.ledger import tree_flatten, tree_unflatten
+from repro_torch.core.trusted_moe import make_trust
 from repro_torch.models import encdec
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
+from repro_torch.sharding import (Sharder, is_expert_parallel, logical_rules,
+                                  map_expert_leaves, use_fsdp)
 
 # the parameter subtrees whose leaves stack layers on their leading axis
 _STACKED = ("blocks", "enc_blocks", "dec_blocks")
@@ -42,16 +59,44 @@ _STACKED = ("blocks", "enc_blocks", "dec_blocks")
 
 def _refuse_mesh(mesh) -> None:
     if mesh is not None:
-        raise NotImplementedError("a device mesh is not ported yet (ROADMAP "
-                                  "A7b): the port trains on one device")
+        raise NotImplementedError("decode and the serving chunk take no "
+                                  "mesh yet (ROADMAP A7c)")
 
 
-def model_forward(params, batch, cfg: ModelConfig, remat: bool = False):
+def _mesh_hooks(cfg: ModelConfig, mesh, attack, kind: str):
+    """(sharder, trust hook) of a step of ``kind`` on ``mesh``; (None,
+    None) without one.  The hook is built for training only, as in the
+    JAX package."""
+    if mesh is None:
+        return None, None
+    shard = Sharder(mesh, logical_rules(mesh, cfg),
+                    fsdp=use_fsdp(cfg, kind, mesh.shape[-1]), attack=attack)
+    trust = None
+    if kind == "train" and cfg.redundancy.mode != "off":
+        expert_sharded = cfg.num_experts % mesh.shape[-1] == 0
+        trust = make_trust(mesh, cfg.redundancy, expert_sharded, attack)
+    return shard, trust
+
+
+def _local_rows(batch, mesh):
+    """This rank's rows of every tensor of a global ``batch``."""
+    if mesh is None:
+        return batch
+    n = next(iter(batch.values())).shape[0]
+    lo, hi = mesh.batch_rows(n)
+    return {k: v[lo:hi] for k, v in batch.items()}
+
+
+def model_forward(params, batch, cfg: ModelConfig, remat: bool = False,
+                  shard=None, trust=None):
     """Dispatch on architecture family: the encoder-decoder takes
     ``frames``, a VLM the ``patches`` prefix.  Returns (logits, aux,
     labels); a VLM's labels gain -1 (no loss) over the prefix.
     ``remat`` checkpoints each stacked block (the training step's
-    choice; prefill and decode have no backward)."""
+    choice; prefill and decode have no backward).  ``shard`` and
+    ``trust``: a mesh's sharder and vote hook (``tfm.forward_train``);
+    ``batch`` is then this rank's rows, and the encoder-decoder runs
+    data-parallel."""
     if cfg.is_encoder_decoder:
         logits, aux = encdec.forward_train(params, batch["frames"],
                                            batch["tokens"], cfg,
@@ -59,6 +104,7 @@ def model_forward(params, batch, cfg: ModelConfig, remat: bool = False):
         return logits, aux, batch.get("labels")
     prefix = batch.get("patches")
     logits, aux = tfm.forward_train(params, batch["tokens"], cfg,
+                                    shard=shard, trust=trust,
                                     prefix_embeds=prefix, remat=remat)
     labels = batch.get("labels")
     if prefix is not None and labels is not None:
@@ -95,7 +141,8 @@ def _layer_leaves(params, grads):
     return walk(params, grads, False)
 
 
-def make_loss_and_grads(cfg: ModelConfig, remat: bool = True):
+def make_loss_and_grads(cfg: ModelConfig, remat: bool = True, mesh=None,
+                        attack=None):
     """``(params, batch) -> (loss, aux, grads)``: the training loss
     (``lm_loss`` + aux) and its gradients, a tree shaped like ``params``
     (float32, as ``init_model`` draws them).  With ``train_microbatches`` K > 1
@@ -103,8 +150,12 @@ def make_loss_and_grads(cfg: ModelConfig, remat: bool = True):
     order, each adding its gradient / K into the accumulator (the backward of
     loss / K, JAX's ``acc + g / K`` exactly when K is a power of two) and its
     loss and aux / K into theirs, as JAX's ``scan`` does.  The parameters are
-    not modified."""
+    not modified.  Under ``mesh`` (see the module's docstring) the batch is
+    the global one, ``params`` and ``grads`` this rank's trees, and the
+    loss the global batch's."""
     K = max(cfg.train_microbatches, 1)
+    shard, trust = _mesh_hooks(cfg, mesh, attack, "train")
+    nb = mesh.batch.shards if mesh is not None else 1
 
     def loss_and_grads(params, batch):
         flat, _ = tree_flatten(params)
@@ -115,48 +166,95 @@ def make_loss_and_grads(cfg: ModelConfig, remat: bool = True):
              for k, v in batch.items()} for i in range(K)]
         loss_acc = aux_acc = None
         for mb in micro:
-            logits, aux, labels = model_forward(leaves, mb, cfg, remat)
-            loss = tfm.lm_loss(logits, labels) + aux
+            logits, aux, labels = model_forward(
+                leaves, _local_rows(mb, mesh), cfg, remat, shard, trust)
+            ce = tfm.lm_loss(logits, labels)
             del logits
+            if nb > 1:
+                ce = ce / nb
+            loss = ce + aux
             (loss if K == 1 else loss / K).backward()
             loss, aux = loss.detach(), aux.detach()
+            if nb > 1:
+                loss = mesh.batch.all_reduce(ce.detach().clone(),
+                                             "loss") + aux
             if K == 1:
                 loss_acc, aux_acc = loss, aux
             else:
                 loss_acc = (loss / K if loss_acc is None
                             else loss_acc + loss / K)
                 aux_acc = aux / K if aux_acc is None else aux_acc + aux / K
+        if nb > 1:
+            for g in tree_flatten(grads)[0]:
+                mesh.batch.all_reduce(g, "grads")
         return loss_acc, aux_acc, grads
 
     return loss_and_grads
 
 
+def _global_norm(grads, cfg: ModelConfig, mesh) -> torch.Tensor:
+    """The global norm of the whole gradient tree from this rank's part:
+    ``adamw.global_norm``'s sum in flatten order, the squares of the
+    expert-parallel leaves summed over the model ranks first."""
+    if not is_expert_parallel(cfg, mesh) or mesh.model.shards == 1:
+        return adamw.global_norm(grads)
+    flat, _ = tree_flatten(grads)
+    expert, _ = tree_flatten(map_expert_leaves(grads, lambda t, a: True,
+                                               lambda t: False))
+    sq = torch.stack([torch.sum(torch.square(g.float())) for g in flat])
+    idx = torch.tensor([i for i, e in enumerate(expert) if e],
+                       device=sq.device)
+    sq[idx] = mesh.model.all_reduce(sq[idx].contiguous(), "grad_norm")
+    total = sq[0]
+    for i in range(1, len(flat)):
+        total = total + sq[i]
+    return torch.sqrt(total)
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
-                    mesh=None, remat: bool = True):
+                    mesh=None, attack=None, remat: bool = True):
     """``(params, opt_state, batch) -> (params, opt_state, metrics)``:
     ``make_loss_and_grads`` then ``adamw.update``, which overwrites the
     parameters and the moments in place.  Metrics: loss, aux_loss,
-    grad_norm, lr (0-dim float32 tensors on the device).  ``mesh`` must be
-    None (ROADMAP A7b).  The update is a ``torch.profiler`` region named
-    ``adamw.update``, so a profiled step shows the optimizer's share of
-    the device time (a few microseconds of host time a step otherwise)."""
-    _refuse_mesh(mesh)
-    loss_and_grads = make_loss_and_grads(cfg, remat)
+    grad_norm, lr (0-dim float32 tensors on the device).  Under ``mesh``
+    every rank applies the update to its tree, so the replicated leaves
+    stay equal on every rank; ``attack`` (``core.trusted_moe.LMAttack``)
+    corrupts the malicious replicas' expert outputs before the vote.  The
+    update is a ``torch.profiler`` region named ``adamw.update``, so a
+    profiled step shows the optimizer's share of the device time (a few
+    microseconds of host time a step otherwise)."""
+    loss_and_grads = make_loss_and_grads(cfg, remat, mesh, attack)
 
     def train_step(params, opt_state, batch):
         loss, aux, grads = loss_and_grads(params, batch)
+        kw = {} if mesh is None else {"gnorm": _global_norm(grads, cfg,
+                                                            mesh)}
         with torch.profiler.record_function("adamw.update"):
             params, opt_state, om = adamw.update(opt_cfg, grads, opt_state,
-                                                 params)
+                                                 params, **kw)
         return params, opt_state, {"loss": loss, "aux_loss": aux, **om}
 
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(cfg: ModelConfig, mesh=None, attack=None):
+    """``(params, batch) -> next token (B, 1)``.  Under ``mesh`` every rank
+    is given the global batch, runs its rows and returns the global
+    batch's next tokens (gathered over the batch ranks); MoE layers run
+    expert-parallel where the config says so, and the vote runs inside
+    them when its redundancy is on (``attack`` then corrupts the
+    malicious replicas), as in the JAX package, whose prefill builds no
+    trust hook for the other MoE layers."""
+    shard, _ = _mesh_hooks(cfg, mesh, attack, "prefill")
+
     def prefill_step(params, batch):
-        logits, _aux, _ = model_forward(params, batch, cfg)
-        return logits[:, -1:].argmax(dim=-1)
+        logits, _aux, _ = model_forward(params, _local_rows(batch, mesh),
+                                        cfg, shard=shard)
+        nxt = logits[:, -1:].argmax(dim=-1)
+        if mesh is not None and mesh.batch.shards > 1:
+            nxt = mesh.batch.all_gather(nxt, "next_tokens").reshape(
+                -1, nxt.shape[1])
+        return nxt
 
     return prefill_step
 
@@ -216,15 +314,16 @@ def make_serve_chunk_step(cfg: ModelConfig, expert_stats: bool = False):
 
 def make_step(cfg: ModelConfig, kind: str, mesh=None,
               opt_cfg: Optional[adamw.AdamWConfig] = None,
-              remat: bool = True):
-    """The step of ``kind``: "train", "prefill" or "decode"."""
-    _refuse_mesh(mesh)
+              remat: bool = True, attack=None):
+    """The step of ``kind``: "train", "prefill" or "decode" (decode takes
+    no mesh)."""
     if kind == "train":
-        return make_train_step(cfg, opt_cfg or adamw.AdamWConfig(),
-                               remat=remat)
+        return make_train_step(cfg, opt_cfg or adamw.AdamWConfig(), mesh,
+                               attack, remat=remat)
     if kind == "prefill":
-        return make_prefill_step(cfg)
+        return make_prefill_step(cfg, mesh, attack)
     if kind == "decode":
+        _refuse_mesh(mesh)
         return make_decode_step(cfg)
     raise ValueError(kind)
 

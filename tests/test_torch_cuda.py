@@ -1620,3 +1620,27 @@ def test_edge_mesh_on_the_card_is_bitwise_mesh_off(cuda, tmp_path):
         for res in got:
             assert res[fw] == want, fw
     assert got[0]["optimistic"]["host"]["stats"]["rolled_back"] >= 1
+
+
+def test_lm_expert_parallel_mesh_on_the_card(cuda, tmp_path):
+    """qwen2-moe-a2.7b at smoke width on a (data 1, model 2) mesh, two
+    ranks sharing the card over gloo, capacity factor 8: the prefill's
+    logits bitwise the one-device forward's, loss and aux too, the
+    gradients within 1e-6 of each leaf's largest magnitude (the expert
+    weights' gradients sum capacity rows padded to another count), and
+    3 ``moe_gemm`` a MoE layer and a flash an attention layer a rank."""
+    import torch_lm_mesh_ranks as ranks
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import spawn_edges
+    build.library()
+    spawn_edges(ranks.card_rank, 2, args=(str(tmp_path),), device="cuda",
+                rendezvous_dir=str(tmp_path), timeout_s=300)
+    for r in range(2):
+        with open(tmp_path / f"rank{r}.pkl", "rb") as f:
+            res = pickle.load(f)
+        assert res["logits_bitwise"]
+        assert res["loss"][0] == res["loss"][1]
+        assert res["aux"][0] == res["aux"][1]
+        assert res["grads_rel"] <= 1e-6
+        assert res["launches"]["moe_gemm"] == 6
+        assert res["launches"]["flash_attention"] == 2

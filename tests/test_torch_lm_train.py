@@ -233,11 +233,19 @@ def test_train_step_update_is_adamw_on_the_step_gradients():
 
 
 def test_train_step_refuses_a_mesh():
+    """Training takes a mesh (``tests/test_torch_lm_mesh.py``); what is
+    refused is decode on a mesh (ROADMAP A7c) and the B-MoE vote on a
+    mesh without a replica axis, as the JAX package's ``make_trust``."""
+    from repro_torch.launch.mesh import make_lm_mesh
     cfg = get_config("smollm-360m", smoke=True)
     with pytest.raises(NotImplementedError, match="A7"):
-        step.make_train_step(cfg, adamw.AdamWConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="A7"):
-        step.make_step(cfg, "train", mesh=object())
+        step.make_step(cfg, "decode", mesh=object())
+    mesh = make_lm_mesh((1, 1), device="cpu")
+    trusted = get_config("bmoe-paper", smoke=True)
+    with pytest.raises(ValueError, match="replica"):
+        step.make_train_step(trusted, adamw.AdamWConfig(), mesh=mesh)
+    with pytest.raises(ValueError, match="replica"):
+        step.make_step(trusted, "train", mesh=mesh)
 
 
 # ------------------------------------------------- backward versions
@@ -409,7 +417,10 @@ def test_train_launcher_runs_on_the_cpu(arch, capsys):
 
 
 def test_train_launcher_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="A7"):
+    """``--mesh d,m`` trains (``tests/test_torch_lm_mesh.py``) unless the
+    config cannot use the mesh: bmoe-paper's vote needs a replica axis,
+    and it is refused before any rank starts."""
+    with pytest.raises(ValueError, match="replica"):
         launch_train.main(["--device", "cpu", "--mesh", "2,4"])
 
 
