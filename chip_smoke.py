@@ -113,7 +113,17 @@ capacity 376, edge cache on):
   EP training (2 layers, (1, 2048), capacity factor 8) on (1, 2)
   against one device.  Each rank's launches are held to the records (3
   ``moe_gemm`` a MoE layer forward, 6 backward, a flash a attention
-  layer, 2 votes a MoE layer under faithful EP, 1 under the vote hook).
+  layer, 2 votes a MoE layer under faithful EP, 1 under the vote hook);
+- the dry run held to the card (path P, ``launch.dryrun``, after O):
+  P1, inside paths C, H and L1 on the weights they hold, one extra
+  counted run each (qwen2.5-3b's and qwen2-moe-a2.7b's prefill at (1,
+  4096), bmoe-paper's training step at (2, 2048)) against the same step
+  on the meta device: dot FLOPs by route and kernel equal, kernel calls
+  equal the launches, argument bytes equal the tensors held; the
+  estimated peak beside ``max_memory_allocated``, and one timed run's
+  device time beside the roofline's terms (achieved TFLOP/s, roofline
+  share); P2, O1's configuration on the abstract (1, 4) mesh: its bytes
+  by exchange equal O1's rank 0's.
 
 Each path's launch counts are set to 0 just before it and read just
 after it.
@@ -125,6 +135,7 @@ after it.
     python3 chip_smoke.py --federated
     python3 chip_smoke.py --mesh
     python3 chip_smoke.py --lm-mesh
+    python3 chip_smoke.py --dryrun
 
 The second form builds, then checks and times only the named kernels'
 cases (``moe_gemm``, ``flash_attention``, ``flash_attention_bwd``,
@@ -134,8 +145,8 @@ line): run from two trees in one call, it compares two versions of a
 kernel on one card.
 The third runs path K alone, the fourth path L alone (their models
 initialised from seed 0 as the main run's are), the fifth path M alone,
-the sixth path N alone and the seventh path O alone, and stop the same
-way.
+the sixth path N alone, the seventh path O alone and the eighth path P
+alone (O1's world run again for P2), and stop the same way.
 
 Prints, in order: the card's name and power limit (nvidia-smi), the
 build time, one JSON line per kernel case, the main-path lines, one
@@ -162,6 +173,7 @@ TF32X3_PEAK = 495e12 / 3  # dense TF32 tensor cores, 3 products per fp32 one
 BF16_PEAK = 989e12       # H100 SXM, dense bf16 tensor cores
 HBM_BYTES_PER_S = 3.35e12
 STARTED = time.perf_counter()
+CARD = ""                # nvidia-smi's name and power limit, set in main
 
 
 def require(cond: bool, what: str) -> None:
@@ -205,6 +217,11 @@ def time_ms(fn, iters: int = 20, reps: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (iters * reps)
+
+
+def ops_ssd_flops(x, Bmat, chunk: int, backward: bool) -> int:
+    from repro_torch.kernels.ops import ssd_flops
+    return ssd_flops(x, Bmat, chunk, backward)
 
 
 def bound(flops: float, nbytes: float, peak: float):
@@ -537,11 +554,10 @@ def check_audit_invariance(torch, am):
 # ------------------------------------------------ LM stack kernels
 def attention_pairs(np, Sq: int, Sk: int, causal: bool, window: int,
                     q_offset: int = 0) -> int:
-    """Unmasked (query, key) pairs: the work this call's masks leave."""
-    qpos = q_offset + np.arange(Sq, dtype=np.int64)
-    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros_like(qpos)
-    hi = np.minimum(qpos, Sk - 1) if causal else np.full_like(qpos, Sk - 1)
-    return int(np.maximum(hi - lo + 1, 0).sum())
+    """Unmasked (query, key) pairs: the work this call's masks leave (the
+    count the kernel wrappers book, ``ops.attention_pairs``)."""
+    from repro_torch.kernels.ops import attention_pairs as pairs
+    return pairs(Sq, Sk, causal, window, q_offset)
 
 
 def top_kernel(torch, run) -> str:
@@ -944,14 +960,8 @@ def check_ssd(torch, ss, ref, seed: int, name: str, B: int, S: int, H: int,
     err = float((got - want).abs().max())
     ok = bool(torch.allclose(got, want, rtol=2e-4, atol=2e-4))
     Q = min(chunk, S)
-    nc = S // Q
-    pairs = Q * (Q + 1) // 2             # causal (i, j): j <= i in a chunk
-    # per (b, chunk): the scores times x per head (pairs * P) and C B^T
-    # once, shared by the heads (pairs * N); per (b, h): C state^T where
-    # the state is not zero (chunks 1..nc-1) and the state update where
-    # a later chunk reads it (chunks 0..nc-2), Q*N*P each
-    flops = 2.0 * B * (nc * (H * pairs * P + pairs * N)
-                       + H * (nc - 1) * 2 * Q * N * P)
+    # the chunked form's products (``ops.ssd_flops``: causal pairs)
+    flops = float(ops_ssd_flops(x, Bm, chunk, backward=False))
     nbytes = 4.0 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * N)
     # the four products run as 3xTF32 on the tensor cores
     b_ms, b_by = bound(flops, nbytes, TF32X3_PEAK)
@@ -1061,11 +1071,8 @@ def check_ssd_bwd(torch, ss, ref, seed: int, name: str, B: int, S: int,
     vs_plain = max(float((a - b).abs().max()) for a, b in zip(got, want))
     nc = S // Q
     pairs = Q * (Q + 1) // 2
-    # recomputed C B^T and chunk states; the local gradient states; per
-    # (chunk, head) C s^T, B G^T, (CB o L)^T dy and dy x^T; the head sums
-    # dCB, dC and dB
-    flops = 2.0 * B * (6 * H * (nc - 1) * Q * N * P + 2 * H * nc * pairs * P
-                       + 3 * nc * pairs * N)
+    # the products the gradient needs (``ops.ssd_flops``)
+    flops = float(ops_ssd_flops(args[0], args[3], chunk, backward=True))
     HG = ss.default_head_group(H, S, Q, N)
     NG = -(-H // HG)
     # dCB B and dCB^T C once per head group
@@ -1781,6 +1788,9 @@ def train_l1(torch, ops, cfg):
     step_fn(params, st, batch)          # warm: the cache emptied above
     prof = _train_profile(torch, step_fn, params, st, batch,
                           n_fwd_gemm=36)
+    # P1: the dry run of this step against a counted run of it (last:
+    # its timed step updates the weights)
+    dryrun_p1(torch, ops, "L1", cfg, params, batch)
     del params, st
     gc.collect()
     torch.cuda.empty_cache()
@@ -4451,7 +4461,140 @@ def lm_mesh_path(torch, np, ops, mg, rv, ref):
             "O2_faithful": o2[0]["faithful"]["launches"],
             "O2_digest": o2[0]["digest"]["launches"],
             "O3": o3[0]["clean"]["launches"], "O4": o4[0]["launches"],
-            "gemm": gemm, "vote": vote}
+            "O1_wire": o1[0]["wire"], "gemm": gemm, "vote": vote}
+
+
+# ------------------------------------- path P: the dry run, held to runs
+P1_ROWS = []          # P1's checks, made inside paths C, H and L1
+
+
+def dryrun_p1(torch, ops, sub: str, cfg, params, batch):
+    """P1 on weights in memory (``sub``: the path that holds them): the
+    dry run of the same step on the meta device (``launch.dryrun``, one
+    device, remat off, as the paths run it) against one counted run on
+    the card (``launch.opanalysis``, untimed): dot FLOPs equal by route
+    and kernel, kernel calls equal the launches, argument bytes equal
+    the tensors the run holds.  Then one run timed by CUDA events (a
+    training step updates the weights in place: P1 runs last in its
+    path), for the achieved TFLOP/s and the roofline share; the
+    estimated peak beside ``max_memory_allocated``.  The launch counts
+    are set to 0 around the counted run and left at 0 (each path sets
+    its own to 0 before it runs)."""
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.optim import adamw
+    t0 = time.perf_counter()
+    kind = "train" if "labels" in batch else "prefill"
+    B, S = batch["tokens"].shape
+    rec = dryrun.run_one(cfg.name, dict(kind=kind, seq=S, batch=B),
+                         mesh_shape=None, cfg=cfg, remat=False,
+                         verbose=False)
+    step = dryrun.make_step_fn(cfg, kind, remat=False)
+    opt = adamw.init(params) if kind == "train" else None
+    held = dryrun.nbytes((params, opt, (batch,)))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    real = dryrun.count_step(step, params, opt, (batch,))
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated() - before
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    step(params, *(() if opt is None else (opt,)), batch)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    ops.reset_launch_counts()
+    row = roofline.roofline_row(rec)
+    bound_ms = max(row["compute_s"], row["memory_s"]) * 1e3
+    out = {"phase": "dryrun", "path": "P1", "in_path": sub,
+           "model": cfg.name, "step": kind, "batch": [B, S], "card": CARD,
+           "dot_flops": {"meta": rec["dot_flops"], "cuda": real.dot_flops},
+           "dot_flops_by_route": {"meta": rec["dot_flops_by_route"],
+                                  "cuda": real.dot_flops_by_route},
+           "kernel_flops": {"meta": rec["kernel_flops"],
+                            "cuda": real.kernel_flops},
+           "kernel_calls_meta": rec["kernel_calls"],
+           "launches_cuda": launches,
+           "argument_bytes": {"meta": rec["argument_size_in_bytes"],
+                              "cuda": held},
+           "peak_gb": {"estimate_meta": rec["peak_bytes_estimate"] / 1e9,
+                       "max_memory_allocated_step":
+                           (held + grew) / 1e9},
+           "device_ms_cuda_events": ms,
+           "achieved_tflops": real.dot_flops / (ms / 1e3) / 1e12,
+           "roofline_ms": {"compute": row["compute_s"] * 1e3,
+                           "memory": row["memory_s"] * 1e3,
+                           "dominant": row["dominant"]},
+           "roofline_share": bound_ms / ms,
+           "meta_run_s": rec["run_s"], "p1_s": time.perf_counter() - t0}
+    P1_ROWS.append(out)
+    ok = {"dot_flops": rec["dot_flops"] == real.dot_flops > 0,
+          "by_route": rec["dot_flops_by_route"] == real.dot_flops_by_route,
+          "by_kernel": rec["kernel_flops"] == real.kernel_flops,
+          "calls_are_launches": rec["kernel_calls"] == launches,
+          "argument_bytes": rec["argument_size_in_bytes"] == held}
+    out["checks"] = ok
+    require(all(ok.values()), f"P1 ({sub}) dry run against the card: {ok}")
+
+
+def dryrun_path(torch, o1_wire, p1_s: float):
+    """Path P: P1's checks (made in paths C, H and L1) and P2, O1's
+    configuration on the abstract (1, 4) mesh as rank 0: its bytes by
+    exchange equal what O1's rank 0 sent."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    for row in P1_ROWS:
+        emit(row)
+    require(sorted(r["in_path"] for r in P1_ROWS) == ["C", "H", "L1"],
+            f"P1 ran in {[r['in_path'] for r in P1_ROWS]}")
+    cfg = lm_mesh_cfg("O1")
+    rec = dryrun.run_one(cfg.name, dict(kind="prefill", seq=4096, batch=1),
+                         cfg=cfg, mesh_shape=LM_MESH_SHAPES["O1"], rank=0,
+                         verbose=False)
+    ok = rec["wire_bytes"] == o1_wire
+    emit({"phase": "dryrun", "path": "P2", "model": cfg.name,
+          "mesh": {"data": 1, "model": 4}, "reduced": "4 of 24 layers",
+          "prefill": "1 x 4096, capacity factor 8",
+          "wire_bytes": {"abstract_rank0": rec["wire_bytes"],
+                         "o1_rank0": o1_wire},
+          "collective_bytes": rec["collective_bytes"],
+          "collective_counts": rec["collective_counts"],
+          "dot_flops_rank0": rec["dot_flops"],
+          "argument_bytes_rank0": rec["argument_size_in_bytes"],
+          "peak_estimate_gb_rank0": rec["peak_bytes_estimate"] / 1e9,
+          "checks": {"wire_bytes_equal": ok},
+          "path_s": p1_s + time.perf_counter() - t0})
+    require(ok, f"P2: the abstract mesh's bytes {rec['wire_bytes']} are "
+                f"not O1's {o1_wire}")
+
+
+def dryrun_alone(torch, ops):
+    """``--dryrun``: path P by itself, each model initialised here from
+    seed 0 and O1's world run again for its rank 0's bytes."""
+    from repro_torch.configs import get_config
+    from repro_torch.train.loop import init_model
+    t0 = time.perf_counter()
+    for sub, arch in (("C", "qwen2.5-3b"), ("H", "qwen2-moe-a2.7b"),
+                      ("L1", "bmoe-paper")):
+        cfg = get_config(arch)
+        params = init_model(cfg, 0)
+        batch = (_lm_train_batch(torch, cfg, 2, 2048) if sub == "L1"
+                 else prefill_batch(torch, cfg, 4096))
+        dryrun_p1(torch, ops, sub, cfg, params, batch)
+        del params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    p1_s = time.perf_counter() - t0
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(here, "build", f"dryrun-{os.getpid()}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    o1, _ = _lm_mesh_world("O1", out_dir)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    dryrun_path(torch, o1[0]["wire"], p1_s)
 
 
 def profile_batch(torch, run, cpu: bool = True, spans=()):
@@ -4633,6 +4776,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)
     print(smi.stdout.strip(), flush=True)
+    global CARD
+    CARD = smi.stdout.strip()
 
     t0 = time.perf_counter()
     build.library()
@@ -4696,6 +4841,11 @@ def main() -> int:
         lm_mesh_path(torch, np, ops, mg, rv, ref)
         return 0
 
+    if "--dryrun" in sys.argv:
+        # path P alone
+        dryrun_alone(torch, ops)
+        return 0
+
     if "--kernels" in sys.argv:
         # only the named kernels' cases, e.g. to time two trees in one call
         cases = {"moe_gemm": lambda: moe_gemm_cases(torch, mg, ref),
@@ -4746,7 +4896,10 @@ def main() -> int:
     counts_c, _, _ = lm_path(torch, ops, "qwen2.5-3b",
                              lm_counts(flash_attention=36), decode_seq=128,
                              serving=True, width1_tol=1e-4, then=lambda
-                             cfg, p: serving_k3(torch, ops, cfg, p))
+                             cfg, p: (serving_k3(torch, ops, cfg, p),
+                                      dryrun_p1(torch, ops, "C", cfg, p,
+                                                prefill_batch(torch, cfg,
+                                                              4096)))[0])
     # path L (LM training): L2 and L3 run on the weights of paths D and J
     # while they are on the card, L1 (after K2) on H's seed-0 weights
     # drawn again by ``train``
@@ -4774,7 +4927,12 @@ def main() -> int:
              lambda t, o, cfg, p: (serving_k2(t, o, cfg, p),
                                    trained_lm.setdefault(
                                        "L1", train_l1(t, o, cfg)))[0]),
-            ("qwen2-moe-a2.7b", 24, 24, 64, False, serving_k1),
+            # P1 after K1, on the same weights
+            ("qwen2-moe-a2.7b", 24, 24, 64, False,
+             lambda t, o, cfg, p: (serving_k1(t, o, cfg, p),
+                                   dryrun_p1(t, o, "H", cfg, p,
+                                             prefill_batch(t, cfg,
+                                                           4096)))[0]),
             # one MoE layer of 128 experts is 64 GB in fp32
             ("llama4-maverick-400b-a17b", 1, 2, 128, True, None)):
         counts_h[arch], _, after = lm_path(
@@ -4817,6 +4975,9 @@ def main() -> int:
     mesh_n2 = mesh["ranks"][0]["N2_bmoe"]
     # path O: the LM stack on a mesh, its worlds of ranks on the card
     lm_mesh = lm_mesh_path(torch, np, ops, mg, rv, ref)
+    # path P: the dry run held to the card (P1 ran inside C, H and L1)
+    dryrun_path(torch, lm_mesh["O1_wire"],
+                sum(r["p1_s"] for r in P1_ROWS))
 
     kernels = [
         {"name": "moe_gemm", "route": "cuda",

@@ -64,7 +64,7 @@ def _inject(y: torch.Tensor, attack: Optional[LMAttack], mesh
         return y
     seed = attack.seed if attack.colluding else (
         attack.seed * 1_000_003 + rid)
-    gen = torch.Generator(device=y.device).manual_seed(seed)
+    gen = _generator(y.device, seed)
     noise = torch.randn(y.shape, generator=gen, dtype=torch.float32,
                         device=y.device).to(y.dtype)
     return y + attack.noise_std * noise
@@ -80,8 +80,16 @@ def _faithful(y: torch.Tensor, mesh) -> torch.Tensor:
     return trusted.reshape(y.shape)
 
 
+def _generator(device, seed: int) -> torch.Generator:
+    """A generator on ``device`` seeded ``seed`` (the meta device has
+    none: a dry run's draws take the CPU's and make no values)."""
+    device = torch.device(device)
+    return torch.Generator(
+        device="cpu" if device.type == "meta" else device).manual_seed(seed)
+
+
 def _digest_direction(C: int, d: int, device) -> torch.Tensor:
-    gen = torch.Generator(device=device).manual_seed(DIGEST_SEED)
+    gen = _generator(device, DIGEST_SEED)
     return torch.randn((C, d), generator=gen, dtype=torch.float32,
                        device=device)
 

@@ -3,7 +3,19 @@
 The route follows the tensor's device, nothing else: a CUDA tensor
 launches the hand-written kernel (or the wrapper raises — there is no
 fallback), a CPU tensor runs the kernel's plain PyTorch version from
-``kernels.ref``.  No environment variable changes the route.
+``kernels.ref``, and a meta tensor (only the dry run makes them,
+``launch.dryrun``) gets empty meta outputs of the kernel's shapes: it
+runs neither the kernel nor the plain version and computes nothing.  Any
+other device raises.  No environment variable changes the route.
+
+Every call books its kernel's work with ``launch.opanalysis`` (FLOPs by
+formula: 2·E·C·d·f for ``moe_gemm``; 4·B·H·D per (query, key) pair the
+mask keeps for attention, 10 for its backward's five products; the
+chunked form's products for the SSD scan and its gradient; 2·S·C·(d·h +
+h·o) for ``audit_mlp``; none for the vote and the RG-LRU scan) and pauses
+the library counting inside itself, so a step counts the same on every
+route.  The launch counters are the kernels' own, and the meta route
+leaves them alone.
 
 Where autograd records the call (grad mode on, an operand that requires
 a gradient), ``moe_gemm``, ``flash_attention``, ``rglru_scan`` and
@@ -26,12 +38,13 @@ from repro_torch.kernels import redundancy_vote as _rv
 from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import ssd_scan as _ss
 from repro_torch.kernels import ref
+from repro_torch.launch import opanalysis
 from repro_torch.obs import annotate
 
 __all__ = ["resolve_device", "kernel_route", "moe_gemm",
            "redundancy_vote_masked", "audit_mlp", "flash_attention",
            "rglru_scan", "ssd_scan", "launch_counts",
-           "reset_launch_counts"]
+           "reset_launch_counts", "attention_pairs", "ssd_flops"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -48,12 +61,55 @@ def resolve_device(device=None) -> torch.device:
 
 
 def kernel_route(t: torch.Tensor) -> str:
-    """The path a tensor on this device takes: "cuda" or "plain"."""
+    """The path a tensor on this device takes: "cuda", "plain" (CPU) or
+    "meta" (shapes only)."""
     if t.device.type == "cuda":
         return "cuda"
     if t.device.type == "cpu":
         return "plain"
+    if t.device.type == "meta":
+        return "meta"
     raise ValueError(f"no kernel route for device {t.device}")
+
+
+def _book(name: str, flops, dtype: torch.dtype) -> None:
+    """Book one call of kernel ``name`` while a count is open;
+    ``flops()`` (its work, from the operands' shapes) is only evaluated
+    then."""
+    if opanalysis.counting():
+        opanalysis.book_kernel(name, flops(), dtype)
+
+
+def attention_pairs(Sq: int, Sk: int, causal: bool, window: int,
+                    q_offset: int = 0) -> int:
+    """The (query, key) pairs the masks keep: query i at absolute
+    position q_offset + i sees keys (p - window, p] (all when window is
+    0), and none after p when causal."""
+    q = torch.arange(q_offset, q_offset + Sq, dtype=torch.int64)
+    lo = (q - window + 1).clamp(min=0) if window else torch.zeros_like(q)
+    hi = q.clamp(max=Sk - 1) if causal else torch.full_like(q, Sk - 1)
+    return int((hi - lo + 1).clamp(min=0).sum())
+
+
+def ssd_flops(x: torch.Tensor, Bmat: torch.Tensor, chunk: int,
+              backward: bool) -> int:
+    """The SSD scan's (or with ``backward`` its gradient's) FLOPs, from
+    the operands' shapes: the chunked form's products.  Forward, per (b, chunk): the
+    scores times x per head and C B^T once (causal pairs); per (b, h):
+    C state^T where the state is not zero and the state update where a
+    later chunk reads it.  Backward: the recomputed C B^T and chunk
+    states, the local gradient states, per (chunk, head) C s^T, B G^T,
+    (CB o L)^T dy and dy x^T, and the head sums dCB, dC and dB."""
+    B, S, H, P = x.shape
+    N = Bmat.shape[-1]
+    Q = min(chunk, S)
+    nc = S // Q
+    pairs = Q * (Q + 1) // 2
+    if backward:
+        return 2 * B * (6 * H * (nc - 1) * Q * N * P
+                        + 2 * H * nc * pairs * P + 3 * nc * pairs * N)
+    return 2 * B * (nc * (H * pairs * P + pairs * N)
+                    + H * (nc - 1) * 2 * Q * N * P)
 
 
 def _recorded(*ts: torch.Tensor) -> bool:
@@ -63,10 +119,14 @@ def _recorded(*ts: torch.Tensor) -> bool:
 
 def _moe_gemm(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     route = kernel_route(buf)
-    with annotate(f"moe_gemm[{route}]"):
+    _book("moe_gemm", lambda: 2 * buf.shape[:3].numel() * w.shape[-1],
+          buf.dtype)
+    with annotate(f"moe_gemm[{route}]"), opanalysis.paused():
         if route == "cuda":
             return _mg.moe_gemm(buf, w)
         _mg.check_operands(buf, w)
+        if route == "meta":
+            return buf.new_empty(buf.shape[:2] + w.shape[-1:])
         return ref.moe_gemm_ref(buf, w)
 
 
@@ -108,10 +168,17 @@ class _Vote(torch.autograd.Function):
     @staticmethod
     def forward(ctx, pub, active, atol):
         route = kernel_route(pub)
-        with annotate(f"redundancy_vote[{route}]"):
+        _book("redundancy_vote", lambda: 0, pub.dtype)
+        with annotate(f"redundancy_vote[{route}]"), opanalysis.paused():
             if route == "cuda":
                 trusted, support, flags, winner = _rv.redundancy_vote_masked(
                     pub, active, atol)
+            elif route == "meta":
+                E, M = pub.shape[:2]
+                trusted = pub.new_empty((E,) + tuple(pub.shape[2:]))
+                support, winner = (pub.new_empty((E,), dtype=torch.int32)
+                                   for _ in range(2))
+                flags = pub.new_empty((E, M), dtype=torch.int32)
             else:
                 trusted, support, flags, winner = \
                     ref.redundancy_vote_winner_ref(pub, active, atol)
@@ -144,20 +211,37 @@ def audit_mlp(params: Dict[str, torch.Tensor], x: torch.Tensor,
     params: stacked {w1, b1, w2, b2}; x (S, C, d); gid (S,) -> (S, C, o).
     Both routes give a row bytes that depend on that row alone."""
     route = kernel_route(x)
-    with annotate(f"audit_mlp[{route}]"):
+    w2 = params["w2"]
+    _book("audit_mlp", lambda: 2 * x.shape[:2].numel() * w2.shape[1] * (
+        x.shape[2] + w2.shape[2]), x.dtype)
+    with annotate(f"audit_mlp[{route}]"), opanalysis.paused():
         if route == "cuda":
             return _am.audit_mlp(params, x, gid)
         _am.check_operands(params, x, gid)
+        if route == "meta":
+            return x.new_empty(x.shape[:2] + w2.shape[-1:])
         return ref.audit_mlp_ref(params, x, gid)
+
+
+def _attention_flops(q, k, kw, per_pair: int) -> int:
+    B, Sq, H, D = q.shape
+    return per_pair * B * H * D * attention_pairs(
+        Sq, k.shape[1], kw["causal"], kw["window"], kw["q_offset"])
 
 
 def _flash(q, k, v, kw, return_lse):
     route = kernel_route(q)
-    with annotate(f"flash_attention[{route}]"):
+    _book("flash_attention", lambda: _attention_flops(q, k, kw, 4), q.dtype)
+    with annotate(f"flash_attention[{route}]"), opanalysis.paused():
         if route == "cuda":
             return _fa.flash_attention(q, k, v, return_lse=return_lse, **kw)
         _fa.check_operands(q, k, v, window=kw["window"],
                            q_offset=kw["q_offset"])
+        if route == "meta":
+            B, Sq, H, _ = q.shape
+            out = torch.empty_like(q)
+            lse = q.new_empty((B, H, Sq), dtype=torch.float32)
+            return (out, lse) if return_lse else out
         return ref.attention_ref(q, k, v, return_lse=return_lse, **kw)
 
 
@@ -179,10 +263,14 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         route = kernel_route(q)
-        with annotate(f"flash_attention_bwd[{route}]"):
+        _book("flash_attention_bwd",
+              lambda: _attention_flops(q, k, ctx.kw, 10), q.dtype)
+        with annotate(f"flash_attention_bwd[{route}]"), opanalysis.paused():
             if route == "cuda":
                 dq, dk, dv = _fa.flash_attention_bwd(q, k, v, o, do, lse,
                                                      **ctx.kw)
+            elif route == "meta":
+                dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
             else:
                 dq, dk, dv = ref.attention_bwd_ref(q, k, v, o, do, lse,
                                                    **ctx.kw)
@@ -207,10 +295,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _rglru(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     route = kernel_route(a)
-    with annotate(f"rglru_scan[{route}]"):
+    _book("rglru_scan", lambda: 0, a.dtype)
+    with annotate(f"rglru_scan[{route}]"), opanalysis.paused():
         if route == "cuda":
             return _rg.rglru_scan(a, b)
         _rg.check_operands(a, b)
+        if route == "meta":
+            return torch.empty_like(a)
         return ref.rglru_scan_ref(a, b)
 
 
@@ -229,9 +320,12 @@ class _RGLRUScan(torch.autograd.Function):
         a, h = ctx.saved_tensors
         dh = dh.contiguous()
         route = kernel_route(a)
-        with annotate(f"rglru_scan_bwd[{route}]"):
+        _book("rglru_scan_bwd", lambda: 0, a.dtype)
+        with annotate(f"rglru_scan_bwd[{route}]"), opanalysis.paused():
             if route == "cuda":
                 return _rg.rglru_scan_bwd(a, h, dh)
+            if route == "meta":
+                return torch.empty_like(a), torch.empty_like(a)
             return ref.rglru_scan_bwd_ref(a, h, dh)
 
 
@@ -245,10 +339,13 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _ssd(x, dt, A, Bmat, Cmat, chunk):
     route = kernel_route(x)
-    with annotate(f"ssd_scan[{route}]"):
+    _book("ssd_scan", lambda: ssd_flops(x, Bmat, chunk, False), x.dtype)
+    with annotate(f"ssd_scan[{route}]"), opanalysis.paused():
         if route == "cuda":
             return _ss.ssd_scan(x, dt, A, Bmat, Cmat, chunk)
         _ss.check_operands(x, dt, A, Bmat, Cmat, chunk)
+        if route == "meta":
+            return x.new_empty(x.shape, dtype=torch.float32)
         B, _, H, P = x.shape
         state0 = torch.zeros((B, H, P, Bmat.shape[-1]), dtype=torch.float32,
                              device=x.device)
@@ -270,9 +367,14 @@ class _SSDScan(torch.autograd.Function):
     def backward(ctx, dy):
         x, dt, A, Bmat, Cmat = ctx.saved_tensors
         route = kernel_route(x)
-        with annotate(f"ssd_scan_bwd[{route}]"):
+        _book("ssd_scan_bwd", lambda: ssd_flops(x, Bmat, ctx.chunk, True),
+              x.dtype)
+        with annotate(f"ssd_scan_bwd[{route}]"), opanalysis.paused():
             if route == "cuda":
                 grads = _ss.ssd_scan_bwd(x, dt, A, Bmat, Cmat, dy, ctx.chunk)
+            elif route == "meta":
+                grads = tuple(torch.empty_like(t)
+                              for t in (x, dt, A, Bmat, Cmat))
             else:
                 grads = ref.ssd_scan_bwd_ref(x, dt, A, Bmat, Cmat, dy,
                                              ctx.chunk)

@@ -24,7 +24,8 @@ all-gathers the disjoint cotangent slices), ``all_gather`` and
 the cotangent through: for a quantity each rank adds once into a loss
 whose gradients are then summed over the same ranks).  ``wire_bytes``
 counts, per exchange, the bytes this rank sends to the other ranks of its
-group.
+group, and each exchange also books them with ``launch.opanalysis``
+under JAX's op name (all-to-all, all-gather, all-reduce).
 
 An ``LMMesh`` is the LM stack's mesh, axes ``(pod, data, replica,
 model)`` (any of them may be absent), ranks laid out row-major as
@@ -34,7 +35,11 @@ parallelism's exchanges), ``replica`` (the B-MoE vote) and ``batch``
 (pod x data at equal replica and model: the batch split, the gradient
 sum and the routing statistics); the three share one ``wire_bytes``.  The
 factories derive the widths from the world size exactly as the JAX
-package's derive them from the device count.
+package's derive them from the device count.  ``abstract_lm_mesh`` is
+one rank's view of a mesh of any shape with no process group, on the
+meta device (the dry run's, ``launch.dryrun``): its exchanges return meta
+tensors of the shapes the real ones return, through the same
+differentiable ``Function``s, and count ``wire_bytes`` by the same code.
 
 ``spawn_edges`` starts a world of ranks on one host (``torch.
 multiprocessing`` with a ``file://`` rendezvous, so concurrent worlds
@@ -57,6 +62,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.kernels.ops import resolve_device
+from repro_torch.launch import opanalysis
 
 
 def _model_width(n: int, divides: Optional[int] = None,
@@ -144,7 +150,9 @@ class EdgeMesh:
     """One rank's view of the edge mesh: ``shard`` is its edge index on
     the ``model`` axis (``shards`` wide, ``data`` replicas of it);
     ``group`` is its model-axis process group (None in a one-shard mesh)
-    and ``device`` where its bank slice lives."""
+    and ``device`` where its bank slice lives.  ``abstract``: no group
+    and meta tensors; an exchange makes its result's shape and counts
+    its bytes."""
     rank: int
     world: int
     shards: int
@@ -153,6 +161,7 @@ class EdgeMesh:
     group: Optional[object]
     device: torch.device
     wire_bytes: Dict[str, int] = dataclasses.field(default_factory=dict)
+    abstract: bool = False
 
     # ---------------------------------------------------------- layout
     def expert_range(self, num_experts: int):
@@ -166,17 +175,19 @@ class EdgeMesh:
         return min(self.shard * per, n), min((self.shard + 1) * per, n)
 
     # -------------------------------------------------------- exchanges
-    def _count(self, kind: str, nbytes: int) -> None:
+    def _count(self, kind: str, op: str, nbytes: int) -> None:
         sent = nbytes * (self.shards - 1) // self.shards
         self.wire_bytes[kind] = self.wire_bytes.get(kind, 0) + sent
+        opanalysis.book_collective(op, kind, sent)
 
     def _all_to_all(self, x: torch.Tensor, kind: str) -> torch.Tensor:
         x = x.contiguous()
         if self.shards == 1:
             return x.clone()
         out = torch.empty_like(x)
-        dist.all_to_all_single(out, x, group=self.group)
-        self._count(kind, x.numel() * x.element_size())
+        if not self.abstract:
+            dist.all_to_all_single(out, x, group=self.group)
+        self._count(kind, "all-to-all", x.numel() * x.element_size())
         return out
 
     def _gather_padded(self, x: torch.Tensor, per: int,
@@ -195,9 +206,12 @@ class EdgeMesh:
         x = x.detach().contiguous()
         if self.shards == 1:
             return x[None].clone()
+        self._count(kind, "all-gather",
+                    x.numel() * x.element_size() * self.shards)
+        if self.abstract:
+            return x.new_empty((self.shards,) + tuple(x.shape))
         parts = [torch.empty_like(x) for _ in range(self.shards)]
         dist.all_gather(parts, x, group=self.group)
-        self._count(kind, x.numel() * x.element_size() * self.shards)
         return torch.stack(parts)
 
     def all_reduce(self, x: torch.Tensor, kind: str = "reduce"
@@ -206,8 +220,9 @@ class EdgeMesh:
         rank, and returns it.  No gradient.  Every rank holds the same
         bits (the ring sums each element once and sends it on)."""
         if self.shards > 1:
-            dist.all_reduce(x, group=self.group)
-            self._count(kind, 2 * x.numel() * x.element_size())
+            if not self.abstract:
+                dist.all_reduce(x, group=self.group)
+            self._count(kind, "all-reduce", 2 * x.numel() * x.element_size())
         return x
 
     def psum(self, x: torch.Tensor, kind: str = "reduce") -> torch.Tensor:
@@ -367,15 +382,7 @@ def make_lm_mesh(shape: Sequence[int], axis_names: Optional[Sequence[str]]
     the world is one rank.  The rank's device is ``cuda:{rank %
     device_count}`` (``device=None``; raises without a card) unless the
     caller asks for ``device="cpu"``."""
-    shape = tuple(int(w) for w in shape)
-    if axis_names is None:
-        axis_names = {2: ("data", "model"), 3: ("data", "replica", "model"),
-                      4: LM_AXES}.get(len(shape))
-    axis_names = tuple(axis_names or ())
-    if (len(axis_names) != len(shape)
-            or list(axis_names) != [a for a in LM_AXES if a in axis_names]):
-        raise ValueError(f"axes {axis_names} for shape {shape}: want a "
-                         f"subsequence of {LM_AXES}, one name a width")
+    shape, axis_names = _check_axes(shape, axis_names)
     on = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if on else 1
     rank = dist.get_rank() if on else 0
@@ -385,6 +392,27 @@ def make_lm_mesh(shape: Sequence[int], axis_names: Optional[Sequence[str]]
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", rank % torch.cuda.device_count())
+    return _lm_mesh(shape, axis_names, rank, dev, on, abstract=False)
+
+
+def _check_axes(shape, axis_names):
+    shape = tuple(int(w) for w in shape)
+    if axis_names is None:
+        axis_names = {2: ("data", "model"), 3: ("data", "replica", "model"),
+                      4: LM_AXES}.get(len(shape))
+    axis_names = tuple(axis_names or ())
+    if (len(axis_names) != len(shape)
+            or list(axis_names) != [a for a in LM_AXES if a in axis_names]):
+        raise ValueError(f"axes {axis_names} for shape {shape}: want a "
+                         f"subsequence of {LM_AXES}, one name a width")
+    return shape, axis_names
+
+
+def _lm_mesh(shape, axis_names, rank: int, dev, on: bool,
+             abstract: bool) -> LMMesh:
+    """Rank ``rank``'s view; its groups are made when ``on`` (every rank
+    of the world makes every group)."""
+    world = math.prod(shape)
     coords = dict(zip(axis_names, _coords(shape)[rank]))
     wire: Dict[str, int] = {}
 
@@ -399,7 +427,7 @@ def make_lm_mesh(shape: Sequence[int], axis_names: Optional[Sequence[str]]
                  if on else None)
         return EdgeMesh(rank=rank, world=world, shards=width,
                         data=world // width, shard=index, group=group,
-                        device=dev, wire_bytes=wire)
+                        device=dev, wire_bytes=wire, abstract=abstract)
 
     return LMMesh(axis_names=axis_names, shape=shape, rank=rank,
                   coords=coords, device=dev, model=view(("model",)),
@@ -407,17 +435,41 @@ def make_lm_mesh(shape: Sequence[int], axis_names: Optional[Sequence[str]]
                   wire_bytes=wire)
 
 
+def abstract_lm_mesh(shape: Sequence[int],
+                     axis_names: Optional[Sequence[str]] = None, *,
+                     rank: int = 0) -> LMMesh:
+    """Rank ``rank``'s view of the LM mesh of ``shape`` (axis names as
+    ``make_lm_mesh`` defaults them) with no process group, on the meta
+    device: every exchange returns a meta tensor of the real exchange's
+    shape and counts this rank's ``wire_bytes``, so the training and
+    prefill steps take it unchanged and a meta run of them books the
+    bytes a real world's rank ``rank`` sends."""
+    shape, axis_names = _check_axes(shape, axis_names)
+    if not 0 <= rank < math.prod(shape):
+        raise ValueError(f"rank {rank} outside a mesh of "
+                         f"{math.prod(shape)} ranks")
+    return _lm_mesh(shape, axis_names, rank, torch.device("meta"), False,
+                    abstract=True)
+
+
 def _world() -> int:
     on = dist.is_available() and dist.is_initialized()
     return dist.get_world_size() if on else 1
+
+
+def production_mesh_shape(multi_pod: bool = False):
+    """(shape, axis names) of the production mesh: (data=16, model=16),
+    or (pod=2, data=16, model=16) multi-pod."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None) -> LMMesh:
     """Single pod: (data=16, model=16), 256 ranks; multi-pod: (pod=2,
     data=16, model=16), 512 ranks (the pod axis folds into the batch).
     A fixed geometry: raises unless the world is that size."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    shape, axes = production_mesh_shape(multi_pod)
     if _world() != math.prod(shape):
         raise ValueError(f"the production mesh needs {math.prod(shape)} "
                          f"ranks, the world has {_world()}")

@@ -3,10 +3,12 @@
 
 Models declare their parameters once as a nested dict of :class:`Leaf`
 (shape + logical axes + init law); ``materialize`` turns a declaration
-into tensors.  The logical axes are kept so that a declaration compares
-equal with the JAX package's; ``materialize``'s ``place`` keeps a rank's
-part of each leaf (``sharding.place_leaf``).  ``abstract`` and
-``partition_specs`` (dry-run tooling) are not ported (ROADMAP A8).
+into tensors, ``abstract`` into meta tensors of each leaf's shape and
+dtype (the dry run's stand-ins: nothing is allocated), and
+``partition_specs`` into each leaf's mesh axes under a rules dict.  The
+logical axes are kept so that a declaration compares equal with the JAX
+package's; ``materialize``'s ``place`` keeps a rank's part of each leaf
+(``sharding.place_leaf``).
 """
 from __future__ import annotations
 
@@ -102,6 +104,21 @@ def materialize(decl: Tree, seed: int = 0, device=None,
         return t if place is None else place(path, t)
 
     return _walk(decl, init)
+
+
+def abstract(decl: Tree, dtype: torch.dtype = torch.bfloat16) -> Tree:
+    """Meta tensors with each leaf's shape and dtype (the leaf's own
+    dtype where it names one, else ``dtype``; JAX's default is kept)."""
+    return _walk(decl, lambda p, l: torch.empty(
+        l.shape, dtype=_leaf_dtype(l, dtype), device="meta"))
+
+
+def partition_specs(decl: Tree, rules: Mapping[str, Any]) -> Tree:
+    """Each leaf's logical axes mapped to mesh axes: a tuple with, per
+    dimension, ``rules[name]`` (a mesh axis name, a tuple of names or
+    None), the form ``sharding.Sharder.spec`` returns."""
+    return _walk(decl, lambda _, l: tuple(
+        rules.get(a) if a is not None else None for a in l.axes))
 
 
 def count_params(decl: Tree) -> int:

@@ -1644,3 +1644,26 @@ def test_lm_expert_parallel_mesh_on_the_card(cuda, tmp_path):
         assert res["grads_rel"] <= 1e-6
         assert res["launches"]["moe_gemm"] == 6
         assert res["launches"]["flash_attention"] == 2
+
+
+def test_dry_run_counts_a_card_prefill(cuda):
+    """qwen2-moe-a2.7b's prefill at smoke width, (2, 32): the dry run on
+    the meta device counts the dot FLOPs (by route and kernel) and the
+    argument bytes a counted run on the card gives, and books one call
+    for each kernel launch the card made."""
+    from repro_torch.launch import dryrun
+    cfg = get_config("qwen2-moe-a2.7b", smoke=True)
+    shape = dict(kind="prefill", seq=32, batch=2)
+    rec = dryrun.run_one(cfg.name, shape, mesh_shape=None, smoke=True,
+                         verbose=False)
+    params, opt, args = dryrun.inputs(cfg, shape, device=cuda, seed=0)
+    ops.reset_launch_counts()
+    real = dryrun.count_step(dryrun.make_step_fn(cfg, "prefill"), params,
+                             opt, args)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    assert rec["dot_flops"] == real.dot_flops > 0
+    assert rec["dot_flops_by_route"] == real.dot_flops_by_route
+    assert rec["kernel_flops"] == real.kernel_flops
+    assert rec["kernel_calls"] == real.kernel_calls == launches
+    assert rec["argument_size_in_bytes"] == dryrun.nbytes((params, args))

@@ -39,8 +39,11 @@ NO_DROPS = 4.0          # capacity_factor = N/k: capacity == batch, 0 drops
 
 @pytest.fixture(scope="module", autouse=True)
 def few_threads():
+    """One intra-op thread while this file runs: its rounds are small
+    ops, which more threads only slow on a CPU shared by several test
+    workers."""
     n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 4))
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
 

@@ -43,6 +43,18 @@ from repro_torch.train.step import make_fed_local_step
 from repro_torch.trust import protocol
 from repro_torch.trust.protocol import RoundPhase, TrustConfig
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_intra_op_thread():
+    """One intra-op thread while this file runs: its ops are small, and
+    on a CPU shared by several test workers more threads only contend
+    (a federated round of this file's size runs several times slower on
+    eight threads than on one)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 TRUST = dict(chunks_per_expert=4, audit_rate=1.0, challenge_window=2)
 SMALL = dict(num_edges=6, num_experts=6, hidden=16, local_steps=3,
              local_batch=32, seed=0)

@@ -11,7 +11,9 @@ with ``AxisType.Auto`` axes (the reference's own ``jax.make_mesh`` gives
 Explicit axes, which its ``with_sharding_constraint`` refuses on jax
 0.9); both sides take the same numpy inputs.  The port is held to JAX at
 1e-5 (y, steps) and 1e-6 (aux), and to its own one-device run: bitwise
-where the expert buffers' layouts coincide, within 1e-6 elsewhere."""
+where the expert buffers' layouts coincide, within 1e-6 elsewhere.  The
+dry run's abstract mesh is held to the world's counts of one EP prefill
+and training step, rank by rank."""
 import pickle
 import threading
 import types
@@ -33,6 +35,7 @@ from repro_torch import sharding
 from repro_torch.configs import get_config
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.core.ledger import digest_tree
+from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as lmesh
 from repro_torch.launch import train as launch_train
 from repro_torch.models import moe as moe_lib
@@ -295,6 +298,28 @@ def test_prefill_step_matches_jax(world, case):
     for r in res:
         np.testing.assert_array_equal(r["step/" + case]["next"],
                                       ref["step/" + case]["next"])
+
+
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+def test_abstract_mesh_counts_equal_the_world(world, kind):
+    """The dry run of one qwen2-moe EP step on the abstract (2, 2) mesh,
+    as each rank of the world: its ``wire_bytes`` by exchange, its
+    collective bytes and counts by op and its dot FLOPs equal what that
+    rank of the gloo world sent and counted, exactly."""
+    res, _, _ = world
+    cfg = ranks.step_cfg("qwen_ep")
+    B, S = ranks.TOKENS
+    for r, got in enumerate(res):
+        rec = dryrun.run_one(cfg.name, dict(kind=kind, seq=S, batch=B),
+                             cfg=cfg, mesh_shape=(2, 2), rank=r,
+                             remat=False, verbose=False)
+        real = got["counted_steps"][kind]
+        assert real["wire"] and rec["wire_bytes"] == real["wire"], r
+        assert real["count"]["wire_bytes"] == real["wire"]
+        for key in ("collective_bytes", "collective_counts",
+                    "total_collective_bytes", "dot_flops",
+                    "dot_flops_by_route", "kernel_calls"):
+            assert rec[key] == real["count"][key], (r, key)
 
 
 # ------------------------------------------- against the one device

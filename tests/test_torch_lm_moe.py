@@ -37,6 +37,18 @@ from repro_torch.models import builder, moe, transformer
 from repro_torch.train import step
 from repro_torch.train.loop import init_model
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_intra_op_thread():
+    """One intra-op thread while this file runs: its ops are at smoke
+    width, and on a CPU shared by several test workers more threads only
+    contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MOE_ARCHS = ("bmoe-paper", "qwen2-moe-a2.7b", "llama4-maverick-400b-a17b")
 ATTN_ARCHS = ("qwen3-32b", "gemma3-27b", "pixtral-12b")
 

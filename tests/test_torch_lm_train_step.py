@@ -43,6 +43,17 @@ from repro_torch.train import step
 from test_arch_smoke import _batch_for
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_intra_op_thread():
+    """One intra-op thread while this file runs: its ops are at smoke
+    width, and on a CPU shared by several test workers more threads only
+    contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 

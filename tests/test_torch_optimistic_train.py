@@ -44,10 +44,11 @@ REP = dict(init=0.5, gain=0.01, slash=0.4, exclusion_threshold=0.2)
 
 @pytest.fixture(scope="module", autouse=True)
 def few_threads():
-    """At most 4 intra-op threads while this file runs: its rounds are
-    small ops, which more threads only slow on a shared CPU."""
+    """One intra-op thread while this file runs: its rounds are small
+    ops, which more threads only slow on a CPU shared by several test
+    workers."""
     n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 4))
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
 

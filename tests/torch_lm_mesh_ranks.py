@@ -5,7 +5,9 @@
 seeded initialiser (the same arrays go to the JAX package's functions and
 to the port's); ``lm_rank`` is one rank of the test's world of 4: it runs
 every case on the CPU, each on its own ``LMMesh`` over the world, and
-writes what the test compares to ``<out>/rank<r>.pkl``.  The cases that
+writes what the test compares to ``<out>/rank<r>.pkl``, the counts of
+one EP prefill and training step included (the dry run's abstract mesh
+is held to them).  The cases that
 hold the mesh to the port's own one-device run (bitwise, or 1e-6 with a
 data axis of 2) run that run on rank 0, which broadcasts it."""
 from __future__ import annotations
@@ -22,6 +24,7 @@ from repro_torch.configs import get_config
 from repro_torch.convert import lm_params_from_numpy, tree_to_numpy
 from repro_torch.core.ledger import digest_tree, tree_flatten
 from repro_torch.core.trusted_moe import LMAttack, make_trust
+from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_lm_mesh
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import transformer as tfm
@@ -247,6 +250,27 @@ def _against_one_device(inp, res):
         res[f"one_device/{name}"] = out
 
 
+def _counted_steps(inp, res):
+    """One qwen2-moe EP prefill and one training step on (2, 2), each on
+    a fresh mesh and counted (``launch.opanalysis``): this rank's
+    ``wire_bytes`` and the count, which the abstract mesh's dry run of
+    the same steps must give."""
+    cfg = step_cfg("qwen_ep")
+    batch = _batch(inp)
+    full = lm_params_from_numpy(inp["models"]["qwen_ep"], device="cpu")
+    out = {}
+    for kind in ("prefill", "train"):       # the step updates in place
+        mesh = _mesh((2, 2))
+        p = shard_params(full, cfg, mesh)
+        opt = adamw.init(p) if kind == "train" else None
+        args = (batch if kind == "train" else {"tokens": batch["tokens"]},)
+        rec = dryrun.count_step(dryrun.make_step_fn(cfg, kind, mesh,
+                                                    remat=False),
+                                p, opt, args)
+        out[kind] = {"wire": dict(mesh.wire_bytes), "count": rec.as_dict()}
+    res["counted_steps"] = out
+
+
 def lm_rank(rank: int, world: int, in_path: str, out_dir: str) -> None:
     """A rank of the test's world: every case, results to
     ``<out_dir>/rank<r>.pkl``."""
@@ -254,7 +278,8 @@ def lm_rank(rank: int, world: int, in_path: str, out_dir: str) -> None:
     with open(in_path, "rb") as f:
         inp = pickle.load(f)
     res = {}
-    for case in (_ep_layer, _trust, _steps, _against_one_device):
+    for case in (_ep_layer, _trust, _steps, _against_one_device,
+                 _counted_steps):
         case(inp, res)
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(res, f)
