@@ -99,14 +99,14 @@ capacity 376, edge cache on):
   nothing and are all joined; a failing rank fails the path;
 - the LM stack on a mesh (path O, ``launch.mesh.LMMesh``, ranks sharing
   the card over gloo, full width, depth cut): O1, qwen2-moe-a2.7b's
-  expert-parallel prefill (4 of 24 layers, 1 x 4096) on (data 1, model
+  expert-parallel prefill (2 of 24 layers, 1 x 4096) on (data 1, model
   4), its logits and next token bitwise the one-device prefill's at
   capacity factor 8, and at the config's 1.25 each rank's dispatch equal
   to ``route_masked`` on its logit rows; O2, the trusted EP prefill
-  (TRUSTED_FAITHFUL and TRUSTED_DIGEST, r = 4, 2 layers, 1 x 2048) on
+  (TRUSTED_FAITHFUL and TRUSTED_DIGEST, r = 4, 1 layer, 1 x 2048) on
   (1, 4, 2): a minority (replica 3) repaired bitwise, a majority
   (replicas 0-2) moving the logits; O3, bmoe-paper's trusted
-  training (2 of 12 layers, 2 steps of (4, 2048)) on (2, 2, 1): the
+  training (1 of 12 layers, 2 steps of (4, 2048)) on (2, 2, 1): the
   attacked run bitwise the clean one on every rank, the first step's
   loss within 1e-6 of one device and its gradients within 1e-5 of each
   leaf's largest magnitude; O4, qwen2-moe-a2.7b's
@@ -123,7 +123,21 @@ capacity 376, edge cache on):
   estimated peak beside ``max_memory_allocated``, and one timed run's
   device time beside the roofline's terms (achieved TFLOP/s, roofline
   share); P2, O1's configuration on the abstract (1, 4) mesh: its bytes
-  by exchange equal O1's rank 0's.
+  by exchange equal O1's rank 0's;
+- decode and the serving engine on a mesh (path Q, after P; four ranks
+  on the card over gloo, each one-device reference run first): Q1,
+  qwen2-moe-a2.7b (1 of 24 layers, capacity factor 8) through
+  ``ServingEngine(mesh=)`` on (1, 4), 4 slots, cache 4,096, chunks up to
+  16, verified sessions, edge expert storage and KV paging, 6 requests
+  of 16-96 prompt tokens and 16 new (two admitted mid-run): streams,
+  tick commitments, sealed KV block CIDs and the storage report equal
+  the one-device engine's, every rank the same; Q2, qwen2.5-3b (8 of 36 layers) at batch 1 on (2, 2), a
+  cache of 131,072 positions split over data x model, filled from a seed
+  to 120,000, 8 decode steps: tokens equal, logits within 1e-5 of the
+  largest, each rank's part the one-device cache's; Q3, the launches
+  (3 ``moe_gemm`` a MoE layer a micro-step, no flash), ``moe_gemm`` at a
+  rank's decode shape, bytes and walls; P3, Q2's step on the abstract
+  (2, 2) mesh books Q2 rank 0's bytes.
 
 Each path's launch counts are set to 0 just before it and read just
 after it.
@@ -136,6 +150,7 @@ after it.
     python3 chip_smoke.py --mesh
     python3 chip_smoke.py --lm-mesh
     python3 chip_smoke.py --dryrun
+    python3 chip_smoke.py --decode-mesh
 
 The second form builds, then checks and times only the named kernels'
 cases (``moe_gemm``, ``flash_attention``, ``flash_attention_bwd``,
@@ -145,8 +160,9 @@ line): run from two trees in one call, it compares two versions of a
 kernel on one card.
 The third runs path K alone, the fourth path L alone (their models
 initialised from seed 0 as the main run's are), the fifth path M alone,
-the sixth path N alone, the seventh path O alone and the eighth path P
-alone (O1's world run again for P2), and stop the same way.
+the sixth path N alone, the seventh path O alone, the eighth path P
+alone (O1's world run again for P2) and the ninth path Q alone (with
+P3), and stop the same way.
 
 Prints, in order: the card's name and power limit (nvidia-smi), the
 build time, one JSON line per kernel case, the main-path lines, one
@@ -3938,6 +3954,9 @@ def mesh_path(torch, np, ops, mg, rv, am, ref):
 
 # ------------------------------------------------ path O: the LM mesh
 LM_MESH_AXES = {2: ("data", "model"), 3: ("data", "replica", "model")}
+# path O's depths (O1 4, O2 and O3 2 layers before path Q joined the
+# script, which keeps the whole run near 830 s)
+LM_MESH_LAYERS = {"O1": 2, "O2": 1, "O3": 1, "O4": 2}
 LM_MESH_SHAPES = {"O1": (1, 4), "O2": (1, 4, 2), "O3": (2, 2, 1),
                   "O4": (1, 2)}
 
@@ -3950,21 +3969,22 @@ def _cut(cfg, layers: int, **kw):
 
 
 def lm_mesh_cfg(sub: str, mode: str = "faithful"):
-    """Path O's configs: O1 qwen2-moe-a2.7b, 4 of 24 layers, capacity
-    factor 8; O2 its TRUSTED_* variant (r = 4), 2 layers, the config's
-    capacity; O3 bmoe-paper (faithful, r = 2), 2 of 12 layers (four
-    ranks training 4 layers at 2 x 2048 rows each outgrow the card); O4
-    qwen2-moe-a2.7b, 2 layers, capacity factor 8, one microbatch."""
+    """Path O's configs, cut to ``LM_MESH_LAYERS``: O1 qwen2-moe-a2.7b,
+    capacity factor 8; O2 its TRUSTED_* variant (r = 4), the config's
+    capacity; O3 bmoe-paper (faithful, r = 2; four ranks training 4
+    layers at 2 x 2048 rows each outgrow the card); O4 qwen2-moe-a2.7b,
+    capacity factor 8, one microbatch."""
     from repro_torch.configs import get_config
     from repro_torch.configs import qwen2_moe_a2_7b as qwen
+    n = LM_MESH_LAYERS[sub]
     if sub == "O1":
-        return _cut(get_config("qwen2-moe-a2.7b"), 4, capacity_factor=8.0)
+        return _cut(get_config("qwen2-moe-a2.7b"), n, capacity_factor=8.0)
     if sub == "O2":
         return _cut(qwen.TRUSTED_FAITHFUL if mode == "faithful"
-                    else qwen.TRUSTED_DIGEST, 2)
+                    else qwen.TRUSTED_DIGEST, n)
     if sub == "O3":
-        return _cut(get_config("bmoe-paper"), 2)
-    return _cut(get_config("qwen2-moe-a2.7b"), 2, capacity_factor=8.0,
+        return _cut(get_config("bmoe-paper"), n)
+    return _cut(get_config("qwen2-moe-a2.7b"), n, capacity_factor=8.0,
                 train_microbatches=1)
 
 
@@ -4337,7 +4357,8 @@ def lm_mesh_path(torch, np, ops, mg, rv, ref):
     os.makedirs(out_dir)
     o1, o1_s = _lm_mesh_world("O1", out_dir)
     # O1: bitwise the one-device prefill; dispatch = route_masked
-    want1 = lm_counts(moe_gemm=12, flash_attention=4)
+    n1 = LM_MESH_LAYERS["O1"]
+    want1 = lm_counts(moe_gemm=3 * n1, flash_attention=n1)
     o1_ok = {"logits_bitwise": all(r["fingerprint"] == one["fingerprint"]
                                    and torch.equal(r["last_row"],
                                                    one["last_row"])
@@ -4348,7 +4369,8 @@ def lm_mesh_path(torch, np, ops, mg, rv, ref):
              "route_masked_exact": all(all(r["route_same"]) for r in o1),
              "launches": all(r["launches"] == want1 for r in o1)}
     emit({"phase": "lm_mesh", "path": "O1", "model": "qwen2-moe-a2.7b",
-          "mesh": {"data": 1, "model": 4}, "reduced": "4 of 24 layers",
+          "mesh": {"data": 1, "model": 4},
+          "reduced": f"{n1} of 24 layers",
           "prefill": "1 x 4096, capacity factor 8 (nothing dropped)",
           "checks": o1_ok, "next_token": one["next"],
           "walls_ms": {"one_device": one["walls_ms"],
@@ -4364,8 +4386,9 @@ def lm_mesh_path(torch, np, ops, mg, rv, ref):
     # O2: minority repaired, majority seen, votes as the records say
     o2, o2_s = _lm_mesh_world("O2", out_dir)
     o2_ok = {}
-    for mode, votes in (("faithful", 4), ("digest", 0)):
-        want = lm_counts(moe_gemm=6, flash_attention=2,
+    n2 = LM_MESH_LAYERS["O2"]
+    for mode, votes in (("faithful", 2 * n2), ("digest", 0)):
+        want = lm_counts(moe_gemm=3 * n2, flash_attention=n2,
                          redundancy_vote=votes)
         o2_ok[mode] = {
             "minority_repaired": all(
@@ -4378,7 +4401,8 @@ def lm_mesh_path(torch, np, ops, mg, rv, ref):
     emit({"phase": "lm_mesh", "path": "O2", "model": "qwen2-moe-a2.7b "
           "TRUSTED_FAITHFUL / TRUSTED_DIGEST (r = 4)",
           "mesh": {"data": 1, "replica": 4, "model": 2},
-          "reduced": "2 of 24 layers", "prefill": "1 x 2048, capacity 1.25",
+          "reduced": f"{n2} of 24 layers",
+          "prefill": "1 x 2048, capacity 1.25",
           "checks": o2_ok,
           "max_abs_logit_rank0": {m: o2[0][m]["max_abs_logit"]
                                   for m in ("faithful", "digest")},
@@ -4400,8 +4424,9 @@ def lm_mesh_path(torch, np, ops, mg, rv, ref):
     # batch split sums each weight gradient's 8,192 rows as two halves
     # and an all-reduce: 4.1e-6 of it on an H100)
     o3, o3_s = _lm_mesh_world("O3", out_dir)
-    want3 = lm_counts(moe_gemm=18, flash_attention=2, flash_attention_bwd=2,
-                      redundancy_vote=2)
+    n3 = LM_MESH_LAYERS["O3"]
+    want3 = lm_counts(moe_gemm=9 * n3, flash_attention=n3,
+                      flash_attention_bwd=n3, redundancy_vote=n3)
     cmp3 = [r["vs_one_device"] for r in o3]
     o3_ok = {"attacked_is_clean": all(
                  r["minority"]["losses"] == r["clean"]["losses"]
@@ -4418,7 +4443,8 @@ def lm_mesh_path(torch, np, ops, mg, rv, ref):
                              for w in ("clean", "minority"))}
     emit({"phase": "lm_mesh", "path": "O3", "model": "bmoe-paper "
           "(faithful, r = 2)", "mesh": {"data": 2, "replica": 2, "model": 1},
-          "reduced": "2 of 12 layers", "steps": "2 of (4, 2048)",
+          "reduced": f"{LM_MESH_LAYERS['O3']} of 12 layers",
+          "steps": "2 of (4, 2048)",
           "checks": o3_ok, "losses_rank0": o3[0]["clean"]["losses"],
           "vs_one_device": cmp3,
           "walls_ms_rank0": {w: o3[0][w]["walls_ms"]
@@ -4556,7 +4582,8 @@ def dryrun_path(torch, o1_wire, p1_s: float):
                          verbose=False)
     ok = rec["wire_bytes"] == o1_wire
     emit({"phase": "dryrun", "path": "P2", "model": cfg.name,
-          "mesh": {"data": 1, "model": 4}, "reduced": "4 of 24 layers",
+          "mesh": {"data": 1, "model": 4},
+          "reduced": f"{LM_MESH_LAYERS['O1']} of 24 layers",
           "prefill": "1 x 4096, capacity factor 8",
           "wire_bytes": {"abstract_rank0": rec["wire_bytes"],
                          "o1_rank0": o1_wire},
@@ -4595,6 +4622,358 @@ def dryrun_alone(torch, ops):
     o1, _ = _lm_mesh_world("O1", out_dir)
     shutil.rmtree(out_dir, ignore_errors=True)
     dryrun_path(torch, o1[0]["wire"], p1_s)
+
+
+# ------------------------- path Q: decode and the serving engine on a mesh
+Q_SHAPES = {"Q1": (1, 4), "Q2": (2, 2)}
+Q1_PROMPTS = (16, 96, 40, 64, 24, 80)     # 6 requests through 4 slots
+Q1_NEW = 16
+Q2_CACHE, Q2_FILL, Q2_STEPS = 131072, 120000, 8
+Q2_BLOCK = 4096                             # positions a fill draw covers
+
+
+def decode_mesh_cfg(sub: str):
+    """Q1: qwen2-moe-a2.7b at full width, 1 of 24 layers (each rank's
+    edge store holds and hashes every routed expert of every layer: 2.1
+    GB a layer), capacity factor 8; Q2: qwen2.5-3b, 8 of 36 layers, as a
+    batch-1 decode sets it (the cache over data x model, the batch not
+    split)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.shapes import shape_config
+    if sub == "Q1":
+        return _cut(get_config("qwen2-moe-a2.7b"), 1, capacity_factor=8.0)
+    return shape_config(_cut(get_config("qwen2.5-3b"), 8),
+                        dict(kind="decode", seq=Q2_CACHE, batch=1))
+
+
+def q1_requests(cfg):
+    import numpy as np
+    rng = np.random.default_rng(7)
+    return [{"id": i, "prompt": rng.integers(0, cfg.vocab_size, n).astype(
+        np.int32), "max_new_tokens": Q1_NEW}
+        for i, n in enumerate(Q1_PROMPTS)]
+
+
+def q1_serve(torch, ops, cfg, params, mesh):
+    """Q1's engine (4 slots, cache 4,096, chunks up to 16, verified
+    sessions, edge expert storage with an unbounded cache (a budget makes
+    every macro-step fetch and hash evicted experts again: 54 s of a
+    4-layer engine run on an H100's host) and KV paging in the same
+    store) serving ``q1_requests`` to the end; what the path compares,
+    its launches and walls."""
+    from repro_torch.serve.engine import EdgeStorageConfig, ServingEngine
+    from repro_torch.storage.kv import KVStorageConfig
+    t0 = time.perf_counter()
+    eng = ServingEngine(
+        cfg, params, mesh=mesh, batch_slots=4, cache_len=4096,
+        prefill_chunk=16, trust=_k_trust(4),
+        expert_storage=EdgeStorageConfig(chunk_bytes=1 << 22),
+        kv_storage=KVStorageConfig(block_tokens=16))
+    register_s = time.perf_counter() - t0
+    eng.submit(q1_requests(cfg))
+    if mesh is not None:
+        mesh.wire_bytes.clear()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rep = eng.report()
+    meta = eng.request_meta
+    out = {"done": {k: list(map(int, v)) for k, v in done.items()},
+           "ticks": [(t.tick, t.root, tuple(t.request_ids), bool(t.kv_root))
+                     for t in eng.tick_commitments],
+           "kv_roots": [t.kv_root for t in eng.tick_commitments],
+           "cids": list(eng.kvrt.kv.sealed_cids()),
+           "edge": rep["edge"], "kv": rep["kv"],
+           "admitted_tick": [meta[i]["admitted_tick"]
+                             for i in range(len(Q1_PROMPTS))],
+           "launches": ops.launch_counts(), "micro_steps": eng.micro_steps,
+           "macro_steps": eng.steps, "wall_s": wall,
+           "register_s": register_s,
+           "wire": dict(mesh.wire_bytes) if mesh is not None else {}}
+    del eng
+    gc.collect()
+    return out
+
+
+def q2_fill(torch, caches, lo: int):
+    """Positions [lo, lo + the part's length) below ``Q2_FILL`` of every
+    leaf of a Q2 cache part, drawn per ``Q2_BLOCK`` positions from a
+    generator seeded by the leaf and the block (a part's values are the
+    whole cache's at its positions, whichever rank draws them)."""
+    from repro_torch.core.ledger import tree_flatten
+    for li, t in enumerate(tree_flatten(caches)[0]):
+        n = t.shape[2]
+        for p0 in range(lo, min(lo + n, Q2_FILL), Q2_BLOCK):
+            g = torch.Generator("cuda").manual_seed(1_000_003 * li
+                                                    + p0 // Q2_BLOCK)
+            shape = t.shape[:2] + (Q2_BLOCK,) + t.shape[3:]
+            k = min(Q2_BLOCK, Q2_FILL - p0)
+            t[:, :, p0 - lo:p0 - lo + k] = torch.randn(
+                shape, generator=g, device=t.device)[:, :, :k]
+
+
+def q2_slices(torch, caches, parts: int, lo: int = 0):
+    """Per part of ``parts`` equal position ranges of a Q2 cache holding
+    positions from ``lo`` on (the whole one, or a rank's with ``parts`` =
+    1): the decoded rows (host) and a fingerprint of the rest (the
+    filled and empty positions)."""
+    from repro_torch.core.ledger import tree_flatten
+    out = []
+    leaves = tree_flatten(caches)[0]
+    n = leaves[0].shape[2] // parts
+    for r in range(parts):
+        rows, prints = [], []
+        for t in leaves:
+            part = t[:, :, r * n:(r + 1) * n].clone()
+            a = max(Q2_FILL - lo - r * n, 0)
+            b = min(Q2_FILL + Q2_STEPS - lo - r * n, n)
+            if a < b:
+                rows.append(part[:, :, a:b].cpu())
+                part[:, :, a:b] = 0
+            prints.append(fingerprint(torch, part))
+        out.append({"rows": rows, "fingerprint": prints})
+    return out
+
+
+def q2_decode(torch, cfg, params, mesh):
+    """Q2: the cache of ``Q2_CACHE`` positions (the rank's part on a
+    mesh) filled up to ``Q2_FILL``, then ``Q2_STEPS`` decode steps at
+    positions ``Q2_FILL`` on: each step's logits (by ``forward_decode``
+    on the step's input caches) and next token (by ``make_decode_step``),
+    its wall, the first step's bytes by exchange, and the cache's
+    slices."""
+    import numpy as np
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.builder import materialize
+    from repro_torch.sharding import Sharder, logical_rules, place_cache
+    from repro_torch.train.step import make_decode_step
+    caches = materialize(place_cache(tfm.cache_decl(cfg, 1, Q2_CACHE), cfg,
+                                     mesh), 0, "cuda")
+    lo = 0
+    if mesh is not None:
+        lo = mesh.cache_group(cfg).span(Q2_CACHE)[0]
+    q2_fill(torch, caches, lo)
+    step = make_decode_step(cfg, mesh=mesh)
+    shard = None if mesh is None else Sharder(mesh, logical_rules(mesh, cfg))
+    toks = np.random.default_rng(8).integers(0, cfg.vocab_size, Q2_STEPS)
+    out = {"next": [], "logits": [], "walls_ms": [], "wire_step": None}
+    for t in range(Q2_STEPS):
+        batch = {"tokens": torch.tensor([[int(toks[t])]], device="cuda"),
+                 "pos": Q2_FILL + t}
+        with torch.no_grad():
+            logits = tfm.forward_decode(params, caches, batch["tokens"],
+                                        batch["pos"], cfg, shard=shard)[0]
+        out["logits"].append(logits[0, -1].cpu())
+        if mesh is not None:
+            mesh.wire_bytes.clear()
+        nxt, wall = _timed(torch, lambda: step(params, caches, batch))
+        nxt, caches = nxt
+        if mesh is not None and t == 0:
+            out["wire_step"] = dict(mesh.wire_bytes)
+        out["next"].append(int(nxt[0]))
+        out["walls_ms"].append(wall)
+    out["slices"] = q2_slices(torch, caches, 1 if mesh is not None else
+                              math.prod(Q_SHAPES["Q2"]), lo)
+    del caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def decode_mesh_rank(rank: int, world: int, out_dir: str) -> None:
+    """One rank of path Q's world of 4 (spawned by ``spawn_edges``, its
+    process group and card set): Q1 on (1, 4), then Q2 on (2, 2), each
+    with its launch counts from 0; results to ``<out_dir>/Q-rank<r>.pkl``.
+    It prints nothing."""
+    import pickle
+
+    import torch
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.train.loop import init_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.library()
+    res = {}
+    for sub in ("Q1", "Q2"):
+        mesh = make_lm_mesh(Q_SHAPES[sub], ("data", "model"))
+        cfg = decode_mesh_cfg(sub)
+        params = init_model(cfg, 0, mesh.device, mesh=mesh)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        if sub == "Q1":
+            res[sub] = q1_serve(torch, ops, cfg, params, mesh)
+        else:
+            res[sub] = q2_decode(torch, cfg, params, mesh)
+            res[sub]["launches"] = ops.launch_counts()
+            res[sub]["position_range"] = mesh.cache_group(cfg).span(
+                Q2_CACHE)
+        res[sub]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"Q-rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def decode_mesh_kernel_cases(torch, mg, ref):
+    """``moe_gemm`` at a Q1 rank's decode shape: its E_l = 16 experts'
+    rows from 4 model ranks of ``ep_capacity`` (8) each, at the model's
+    fan-in weight scale."""
+    from repro_torch.models.moe_ep import ep_capacity
+    cfg = decode_mesh_cfg("Q1")
+    m = Q_SHAPES["Q1"][1]
+    e_l = cfg.resolved_padded_experts // m
+    rows = m * ep_capacity(cfg, 1)       # 4 slots: one token a model rank
+    d, f = cfg.d_model, cfg.moe_d_ff
+    return [check_moe_gemm(torch, mg, ref, 90, "lm_decode_mesh_gate_up",
+                           e_l, rows, d, f, torch.float32,
+                           w_scale=d ** -0.5),
+            check_moe_gemm(torch, mg, ref, 91, "lm_decode_mesh_down", e_l,
+                           rows, f, d, torch.float32, w_scale=f ** -0.5)]
+
+
+def decode_mesh_path(torch, np, ops, mg, ref):
+    """Path Q: decode and the serving engine on a mesh, four ranks on the
+    card over gloo, each one-device reference run here first.  Q1, the
+    engine on (1, 4); Q2, batch-1 long-context decode on (2, 2) with the
+    cache over data x model; Q3, each rank's launches held to the
+    records (3 ``moe_gemm`` a MoE layer a micro-step, no flash), the
+    kernel at a rank's decode shape, bytes and walls; P3, Q2's step on
+    the abstract (2, 2) mesh books Q2 rank 0's bytes."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import spawn_edges
+    from repro_torch.train.loop import init_model
+    t_start = time.perf_counter()
+    gemm = decode_mesh_kernel_cases(torch, mg, ref)
+
+    cfg1, cfg2 = decode_mesh_cfg("Q1"), decode_mesh_cfg("Q2")
+    params = init_model(cfg1, 0)
+    one1 = q1_serve(torch, ops, cfg1, params, None)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_model(cfg2, 0)
+    ops.reset_launch_counts()
+    one2 = q2_decode(torch, cfg2, params, None)
+    one2["launches"] = ops.launch_counts()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t_start
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(here, "build", f"decode-mesh-{os.getpid()}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    import pickle
+    spawn_edges(decode_mesh_rank, 4, args=(out_dir,), device="cuda",
+                rendezvous_dir=out_dir, timeout_s=300)
+    res = []
+    for r in range(4):
+        with open(os.path.join(out_dir, f"Q-rank{r}.pkl"), "rb") as f:
+            res.append(pickle.load(f))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    world_s = time.perf_counter() - t0
+
+    # Q1: the one-device engine's streams, commitments, CIDs and report
+    keys = ("done", "ticks", "cids", "edge", "kv")
+    n_moe = _k_moe_layers(cfg1)
+    q1 = [r["Q1"] for r in res]
+    want1 = lm_counts(moe_gemm=3 * n_moe * one1["micro_steps"])
+    q1_ok = {"equal_one_device": all(q[k] == one1[k] for q in q1
+                                     for k in keys),
+             "ranks_identical": all(
+                 all(q[k] == q1[0][k] for k in keys + ("kv_roots",))
+                 for q in q1),
+             "two_admitted_mid_run": sorted(q1[0]["admitted_tick"])[-2] > 0,
+             "launches": one1["launches"] == want1 and all(
+                 q["launches"] == want1 for q in q1)}
+    emit({"phase": "decode_mesh", "path": "Q1", "model": cfg1.name,
+          "mesh": {"data": 1, "model": 4}, "card": CARD,
+          "reduced": "1 of 24 layers, capacity factor 8",
+          "engine": "4 slots, cache 4096, chunks up to 16, verified "
+                    "sessions, edge expert storage (unbounded cache) and "
+                    "KV paging (blocks of 16) in one store",
+          "requests": [list(Q1_PROMPTS), Q1_NEW], "checks": q1_ok,
+          "admitted_tick": q1[0]["admitted_tick"],
+          "micro_steps": one1["micro_steps"],
+          "macro_steps": one1["macro_steps"],
+          "sealed_blocks": len(one1["cids"]),
+          "kv_roots_equal_one_device": sum(
+              a == b for a, b in zip(q1[0]["kv_roots"], one1["kv_roots"])),
+          "walls_s": {"one_device": one1["wall_s"],
+                      "mesh_rank0": q1[0]["wall_s"]},
+          "register_s": {"one_device": one1["register_s"],
+                         "mesh_rank0": q1[0]["register_s"]},
+          "launches_rank0": q1[0]["launches"], "want": want1,
+          "wire_bytes_rank0": q1[0]["wire"],
+          "peak_gb": [r["Q1"]["peak_gb"] for r in res]})
+    require(all(q1_ok.values()), f"Q1 failed: {q1_ok}")
+
+    # Q2: tokens equal, logits within 1e-5 of the largest magnitude, each
+    # rank's part of the cache the one-device cache's part
+    q2 = [r["Q2"] for r in res]
+    scale = max(float(l.abs().max()) for l in one2["logits"])
+    diff = max(float((a - b).abs().max()) for q in q2
+               for a, b in zip(q["logits"], one2["logits"]))
+    parts = one2["slices"]
+    rows_diff, prints_equal = 0.0, True
+    for q in q2:
+        idx = q["position_range"][0] // (Q2_CACHE // len(parts))
+        mine, want = q["slices"][0], parts[idx]
+        prints_equal &= mine["fingerprint"] == want["fingerprint"]
+        for a, b in zip(mine["rows"], want["rows"]):
+            rows_diff = max(rows_diff, float((a - b).abs().max()))
+    cache_scale = max(float(b.abs().max()) for p in parts
+                      for b in p["rows"])
+    q2_ok = {"tokens": all(q["next"] == one2["next"] for q in q2),
+             "logits": diff <= 1e-5 * scale,
+             "cache_parts_untouched_bitwise": prints_equal,
+             "decoded_rows": rows_diff <= 1e-5 * cache_scale,
+             "launches": one2["launches"] == lm_counts() and all(
+                 q["launches"] == lm_counts() for q in q2)}
+    emit({"phase": "decode_mesh", "path": "Q2", "model": cfg2.name,
+          "mesh": {"data": 2, "model": 2}, "card": CARD,
+          "reduced": "8 of 36 layers",
+          "cache": f"{Q2_CACHE} positions ({Q2_CACHE // 4} a rank over "
+                   f"data x model), filled to {Q2_FILL}, {Q2_STEPS} steps",
+          "checks": q2_ok, "next": one2["next"],
+          "max_abs_logit_diff": diff, "max_abs_logit": scale,
+          "max_abs_decoded_row_diff": rows_diff,
+          "walls_ms": {"one_device": one2["walls_ms"],
+                       "mesh_rank0": q2[0]["walls_ms"]},
+          "wire_bytes_rank0_step": q2[0]["wire_step"],
+          "launches_rank0": q2[0]["launches"],
+          "peak_gb": [r["Q2"]["peak_gb"] for r in res]})
+    require(all(q2_ok.values()), f"Q2 failed: {q2_ok}")
+
+    # P3: Q2's configuration on the abstract (2, 2) mesh as rank 0
+    rec = dryrun.run_one(cfg2.name, dict(kind="decode", seq=Q2_CACHE,
+                                         batch=1), cfg=cfg2,
+                         mesh_shape=Q_SHAPES["Q2"], rank=0, verbose=False)
+    p3 = rec["wire_bytes"] == q2[0]["wire_step"]
+    emit({"phase": "dryrun", "path": "P3", "model": cfg2.name,
+          "mesh": {"data": 2, "model": 2}, "reduced": "8 of 36 layers",
+          "decode": f"1 x 1 over a cache of {Q2_CACHE}",
+          "wire_bytes": {"abstract_rank0": rec["wire_bytes"],
+                         "q2_rank0": q2[0]["wire_step"]},
+          "argument_bytes_rank0": rec["argument_size_in_bytes"],
+          "jax_argument_bytes_rank0": rec["jax_argument_size_in_bytes"],
+          "checks": {"wire_bytes_equal": p3}})
+    require(p3, f"P3: the abstract mesh's bytes {rec['wire_bytes']} are "
+                f"not Q2 rank 0's {q2[0]['wire_step']}")
+    emit({"phase": "decode_mesh", "path": "Q3", "card": CARD,
+          "launches_by_rank": {"Q1": [q["launches"] for q in q1],
+                               "Q2": [q["launches"] for q in q2]},
+          "one_device_s": one_s, "world_s": world_s,
+          "path_s": time.perf_counter() - t_start})
+    return {"Q1": q1[0]["launches"], "Q1_one_device": one1["launches"],
+            "Q1_micro_steps": one1["micro_steps"], "gemm": gemm}
 
 
 def profile_batch(torch, run, cpu: bool = True, spans=()):
@@ -4846,6 +5225,11 @@ def main() -> int:
         dryrun_alone(torch, ops)
         return 0
 
+    if "--decode-mesh" in sys.argv:
+        # path Q alone (P3 with it)
+        decode_mesh_path(torch, np, ops, mg, ref)
+        return 0
+
     if "--kernels" in sys.argv:
         # only the named kernels' cases, e.g. to time two trees in one call
         cases = {"moe_gemm": lambda: moe_gemm_cases(torch, mg, ref),
@@ -4978,6 +5362,8 @@ def main() -> int:
     # path P: the dry run held to the card (P1 ran inside C, H and L1)
     dryrun_path(torch, lm_mesh["O1_wire"],
                 sum(r["p1_s"] for r in P1_ROWS))
+    # path Q: decode and the serving engine on a mesh (P3 inside it)
+    dec_mesh = decode_mesh_path(torch, np, ops, mg, ref)
 
     kernels = [
         {"name": "moe_gemm", "route": "cuda",
@@ -5001,14 +5387,26 @@ def main() -> int:
              "edge mesh, a rank, 5 optimistic rounds + replays (N1)":
                  mesh_n1["moe_gemm"],
              "edge mesh, a rank, 3 bmoe rounds (N2)": mesh_n2["moe_gemm"],
-             "LM mesh, a rank, qwen2-moe EP prefill, 4 layers (O1)":
+             f"LM mesh, a rank, qwen2-moe EP prefill, "
+             f"{LM_MESH_LAYERS['O1']} layers (O1)":
                  lm_mesh["O1"]["moe_gemm"],
-             "LM mesh, a rank, trusted EP prefill, 2 layers (O2)":
+             f"LM mesh, a rank, trusted EP prefill, "
+             f"{LM_MESH_LAYERS['O2']} layer (O2)":
                  lm_mesh["O2_faithful"]["moe_gemm"],
-             "LM mesh, a rank, bmoe-paper training step, 2 layers (O3)":
+             f"LM mesh, a rank, bmoe-paper training step, "
+             f"{LM_MESH_LAYERS['O3']} layer (O3)":
                  lm_mesh["O3"]["moe_gemm"],
              "LM mesh, a rank, qwen2-moe EP loss and gradients, 2 layers "
-             "(O4)": lm_mesh["O4"]["moe_gemm"]},
+             "(O4)": lm_mesh["O4"]["moe_gemm"],
+             f"decode mesh, a rank, qwen2-moe engine, 1 layer, "
+             f"{dec_mesh['Q1_micro_steps']} micro-steps (Q1)":
+                 dec_mesh["Q1"]["moe_gemm"],
+             "the same engine on one device (Q1)":
+                 dec_mesh["Q1_one_device"]["moe_gemm"]},
+         "lm_decode_mesh_shapes": [{k: r[k] for k in (
+             "case", "shape", "max_abs_err", "kernel_ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms")}
+             for r in dec_mesh["gemm"]],
          "lm_mesh_shapes": [{k: r[k] for k in (
              "case", "shape", "max_abs_err", "kernel_ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms")} for r in lm_mesh["gemm"]],
@@ -5264,6 +5662,8 @@ def main() -> int:
         k["launches_lm_mesh_path_o_rank0"] = {
             p: lm_mesh[p][k["name"]] for p in ("O1", "O2_faithful",
                                                 "O2_digest", "O3", "O4")}
+        # path Q, rank 0 of 4: Q1's engine run (Q2 launches no kernel)
+        k["launches_decode_mesh_path_q_rank0"] = dec_mesh["Q1"][k["name"]]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,9 @@ reads XLA's analyses.  The port runs SPMD, one process a device, so the
 dry run runs one rank's step itself, on the meta device: the inputs are
 ``launch.shapes``' meta stand-ins in float32 (the dtype the port runs),
 the parameters cut to the rank's part (``sharding.shard_params``: expert
-rows over ``model``, dense leaves whole), the mesh an abstract one
+rows over ``model``, dense leaves whole), a decode step's caches too
+(``sharding.shard_caches``: batch rows, positions over the config's
+cache axes), the mesh an abstract one
 (``launch.mesh.abstract_lm_mesh``: exchanges make shapes and count
 bytes), the kernels their meta route (``kernels.ops``: shapes and a FLOP
 count, no work), and ``launch.opanalysis`` counts the step's dot FLOPs
@@ -27,9 +29,10 @@ Each record holds the JAX package's keys where they apply
   ``max_memory_allocated`` (no allocator rounding, no kernel scratch),
   and ``fits``: the estimate within the card's 80 GB.
 
-Decode takes no mesh yet (``train.step._refuse_mesh``, ROADMAP A7c):
-decode shapes on a mesh give ``{"pending": ...}``.  ``long_500k`` is
-skipped for quadratic architectures (``shapes.applicable``).  Steps run
+A decode record books the exchanges of the cache combine (the split
+cache's log-sum-exp merge) and of expert parallelism beside the rest.
+``long_500k`` is skipped for quadratic architectures
+(``shapes.applicable``).  Steps run
 with remat on, as the JAX package's do; ``--no-unroll`` has no
 counterpart (the port's layers are a loop).
 
@@ -53,9 +56,6 @@ from repro_torch.core.ledger import tree_flatten
 from repro_torch.launch import opanalysis
 from repro_torch.launch import shapes as shp
 from repro_torch.launch.costmodel import HW
-
-PENDING_DECODE = "A7c: decode on a mesh"
-
 
 def mesh_for(mesh_shape="production", *, multi_pod: bool = False,
              trusted: str = "off", redundancy_r: int = 4, rank: int = 0):
@@ -87,11 +87,11 @@ def inputs(cfg, shape, mesh=None, device="meta", seed: int = 0):
     abstract stand-ins, on a real device tensors drawn from ``seed``
     (parameters by ``train.loop.init_model``, tokens uniform over the
     vocabulary, embeddings normal).  Float32 throughout; the batch is the
-    global one (every rank is given it); decode's ``pos`` is the int
-    ``seq - 1``."""
+    global one (every rank is given it), a decode step's caches the
+    rank's part; decode's ``pos`` is the int ``seq - 1``."""
     from repro_torch.core.ledger import tree_unflatten
     from repro_torch.optim import adamw
-    from repro_torch.sharding import shard_params
+    from repro_torch.sharding import shard_caches, shard_params
     from repro_torch.train.loop import init_model
     info = shp.shape_info(shape)
     device = torch.device(device)
@@ -111,6 +111,7 @@ def inputs(cfg, shape, mesh=None, device="meta", seed: int = 0):
             for t in leaves])
     opt = adamw.init(params) if info["kind"] == "train" else None
     if info["kind"] == "decode":
+        args = (shard_caches(args[0], cfg, mesh), args[1])
         args[1]["pos"] = info["seq"] - 1
     return params, opt, args
 
@@ -125,7 +126,7 @@ def make_step_fn(cfg, kind: str, mesh=None, remat: bool = True):
                                remat=remat)
     if kind == "prefill":
         return make_prefill_step(cfg, mesh)
-    return make_decode_step(cfg)
+    return make_decode_step(cfg, mesh=mesh)
 
 
 def nbytes(tree) -> int:
@@ -157,6 +158,8 @@ def jax_argument_bytes(cfg, shape, mesh, args, kind: str) -> int:
             return _spec_bytes(tree, specs, axes)
         if isinstance(tree, dict):
             return sum(walk(tree[k], specs[k]) for k in tree)
+        if not isinstance(tree, (list, tuple)):
+            return 0                   # decode's int ``pos``
         return sum(walk(t, s) for t, s in zip(tree, specs))
 
     params = walk(p_abs, p_spec)
@@ -211,9 +214,6 @@ def run_one(arch: str, shape="train_4k", *, multi_pod: bool = False,
                 num_devices=mesh.world if mesh is not None else 1,
                 rank=rank, shape_dims=info, smoke=smoke,
                 model_shards=mesh.size("model") if mesh is not None else 1)
-    if kind == "decode" and mesh is not None:
-        return {**head, "pending": PENDING_DECODE}
-
     params, opt, args = inputs(cfg, info, mesh)
     arg_bytes = nbytes((params, opt, args))
     step = make_step_fn(cfg, kind, mesh, remat=remat)
@@ -275,9 +275,9 @@ def main(argv: Optional[list] = None):
         except Exception as e:  # a failure here is a bug in the system
             rec = {"arch": arch, "shape": shape_name, "error": repr(e)[:500]}
             print(f"[dryrun] {arch} x {shape_name}: FAILED {e!r}")
-        for why in ("skipped", "pending"):
-            if why in rec:
-                print(f"[dryrun] {arch} x {shape_name}: {why} ({rec[why]})")
+        if "skipped" in rec:
+            print(f"[dryrun] {arch} x {shape_name}: skipped "
+                  f"({rec['skipped']})")
         records.append(rec)
 
     if args.out:

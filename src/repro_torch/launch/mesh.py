@@ -30,10 +30,15 @@ under JAX's op name (all-to-all, all-gather, all-reduce).
 An ``LMMesh`` is the LM stack's mesh, axes ``(pod, data, replica,
 model)`` (any of them may be absent), ranks laid out row-major as
 ``jax.make_mesh`` orders devices.  Each rank holds its coordinates and an
-``EdgeMesh`` view over each of three groups: ``model`` (expert
-parallelism's exchanges), ``replica`` (the B-MoE vote) and ``batch``
+``EdgeMesh`` view over each of four groups: ``model`` (expert
+parallelism's exchanges), ``replica`` (the B-MoE vote), ``batch``
 (pod x data at equal replica and model: the batch split, the gradient
-sum and the routing statistics); the three share one ``wire_bytes``.  The
+sum and the routing statistics) and ``data_model`` (data x model at
+equal pod and replica: a batch-1 decode cache's positions); the four
+share one ``wire_bytes``.  ``cache_group(cfg)`` is the view a config's
+decode cache splits its positions over (``cache_seq_axes``), and
+``batch_rows(n, cfg)`` leaves every rank all rows of a config that is
+not ``batch_shardable``, as the JAX package's rules do.  The
 factories derive the widths from the world size exactly as the JAX
 package's derive them from the device count.  ``abstract_lm_mesh`` is
 one rank's view of a mesh of any shape with no process group, on the
@@ -173,6 +178,17 @@ class EdgeMesh:
         """[lo, hi) of this rank's rows when ``n`` rows are dealt ``per``
         to a shard (the last shards may hold fewer, or none)."""
         return min(self.shard * per, n), min((self.shard + 1) * per, n)
+
+    def span(self, n: int, what: str = "an axis"):
+        """[lo, hi) of this rank's contiguous part of an axis of ``n``
+        (a cache's positions, a batch's rows) split evenly over the
+        group; raises, naming the numbers, when the group does not
+        divide ``n`` (nothing is padded)."""
+        if n % self.shards:
+            raise ValueError(f"{what} of {n} does not split over "
+                             f"{self.shards} ranks")
+        per = n // self.shards
+        return self.shard * per, (self.shard + 1) * per
 
     # -------------------------------------------------------- exchanges
     def _count(self, kind: str, op: str, nbytes: int) -> None:
@@ -315,6 +331,7 @@ class LMMesh:
     model: EdgeMesh
     replica: EdgeMesh
     batch: EdgeMesh
+    data_model: EdgeMesh
     wire_bytes: Dict[str, int]
 
     @property
@@ -329,15 +346,56 @@ class LMMesh:
         """The width of axis ``name`` (1 when the mesh lacks it)."""
         return self.axes.get(name, 1)
 
-    def batch_rows(self, n: int):
+    def batch_split(self, cfg=None) -> bool:
+        """Is a batch split over pod x data (a batch axis wider than one,
+        and ``cfg``, when given, ``batch_shardable``)?"""
+        return self.batch.shards > 1 and (
+            cfg is None or getattr(cfg, "batch_shardable", True))
+
+    def batch_rows(self, n: int, cfg=None):
         """[lo, hi) of this rank's rows of a global batch of ``n`` rows
         (split over pod x data, as a batch dimension sharded over
-        ``("pod", "data")`` is)."""
+        ``("pod", "data")`` is); all ``n`` when ``cfg`` is not
+        ``batch_shardable`` (batch-1 long-context decode)."""
+        if not self.batch_split(cfg):
+            return 0, n
         if n % self.batch.shards:
             raise ValueError(f"batch of {n} rows does not split over "
                              f"{self.batch.shards} batch ranks")
         per = n // self.batch.shards
         return self.batch.shard * per, (self.batch.shard + 1) * per
+
+    def check_replicated(self, t: torch.Tensor, kind: str) -> None:
+        """Raises unless ``t`` holds the same bits on every rank of the
+        world (what host state replicated on every rank may branch on).
+        One all-gather over the world, booked under ``kind``."""
+        if self.world == 1 or self.model.abstract:
+            return
+        t = t.detach().contiguous()
+        sent = t.numel() * t.element_size() * (self.world - 1)
+        self.wire_bytes[kind] = self.wire_bytes.get(kind, 0) + sent
+        opanalysis.book_collective("all-gather", kind, sent)
+        parts = [torch.empty_like(t) for _ in range(self.world)]
+        dist.all_gather(parts, t)
+        bad = [r for r, p in enumerate(parts) if not torch.equal(p, t)]
+        if bad:
+            raise RuntimeError(f"{kind}: ranks {bad} differ from rank "
+                               f"{self.rank}")
+
+    def cache_group(self, cfg) -> Optional[EdgeMesh]:
+        """The view a decode cache of ``cfg`` splits its positions over:
+        its ``cache_seq_axes`` that this mesh has, ``("model",)`` (the
+        ``model`` view) or ``("data", "model")`` (``data_model``, within
+        a pod); None when it names none of them."""
+        axes = tuple(a for a in getattr(cfg, "cache_seq_axes", ("model",))
+                     if a in self.axis_names)
+        if not axes:
+            return None
+        views = {("model",): self.model, ("data", "model"): self.data_model}
+        if axes not in views:
+            raise ValueError(f"cache_seq_axes {axes}: the port splits a "
+                             f"cache over ('model',) or ('data', 'model')")
+        return views[axes]
 
 
 def _axis_groups(names, shape, members, rank):
@@ -432,7 +490,7 @@ def _lm_mesh(shape, axis_names, rank: int, dev, on: bool,
     return LMMesh(axis_names=axis_names, shape=shape, rank=rank,
                   coords=coords, device=dev, model=view(("model",)),
                   replica=view(("replica",)), batch=view(("pod", "data")),
-                  wire_bytes=wire)
+                  data_model=view(("data", "model")), wire_bytes=wire)
 
 
 def abstract_lm_mesh(shape: Sequence[int],
@@ -441,9 +499,9 @@ def abstract_lm_mesh(shape: Sequence[int],
     """Rank ``rank``'s view of the LM mesh of ``shape`` (axis names as
     ``make_lm_mesh`` defaults them) with no process group, on the meta
     device: every exchange returns a meta tensor of the real exchange's
-    shape and counts this rank's ``wire_bytes``, so the training and
-    prefill steps take it unchanged and a meta run of them books the
-    bytes a real world's rank ``rank`` sends."""
+    shape and counts this rank's ``wire_bytes``, so the training,
+    prefill and decode steps take it unchanged and a meta run of them
+    books the bytes a real world's rank ``rank`` sends."""
     shape, axis_names = _check_axes(shape, axis_names)
     if not 0 <= rank < math.prod(shape):
         raise ValueError(f"rank {rank} outside a mesh of "

@@ -52,8 +52,8 @@ def _shape(rec: dict) -> dict:
 
 def roofline_row(rec: dict) -> Optional[dict]:
     """One dry-run record -> its roofline terms (None for a record that
-    did not run: skipped, pending or failed)."""
-    if any(k in rec for k in ("error", "skipped", "pending")):
+    did not run: skipped or failed)."""
+    if any(k in rec for k in ("error", "skipped")):
         return None
     from repro_torch.configs import get_config
     from repro_torch.launch.shapes import shape_config
@@ -111,7 +111,7 @@ def to_markdown(rows, title="Roofline", records=()) -> str:
             f"| {r['collective_s']:.2e} | **{r['dominant']}** "
             f"| {r['model_flops_total']:.2e} | {r['useful_ratio']:.2f} |")
     for rec in records:
-        for why in ("skipped", "pending", "error"):
+        for why in ("skipped", "error"):
             if why in rec:
                 out.append(f"| {rec['arch']} | {rec['shape']} | "
                            f"{rec.get('mesh', '')} | {why}: "

@@ -21,6 +21,7 @@ from repro_torch.models.layers import (attn_decl, attn_decode, attn_train,
                                        decode_attention, mlp_decl, rmsnorm,
                                        swiglu)
 from repro_torch.models.transformer import _embed, _index
+from repro_torch.sharding import cache_split
 
 
 def _enc_layer_decl(cfg):
@@ -136,21 +137,25 @@ def forward_train(params, frames, tokens, cfg: ModelConfig, *,
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
-def forward_decode(params, caches, tokens, pos, cfg: ModelConfig):
+def forward_decode(params, caches, tokens, pos, cfg: ModelConfig, *,
+                   shard=None):
     """One decoder step against the cached self K/V and the precomputed
     cross K/V (the whole memory attended, no mask).  tokens: (B, 1).
     Returns (logits, new_caches); the caches passed in are not
-    modified."""
+    modified.  ``shard``: a mesh's sharder; ``tokens`` are then this
+    rank's batch rows and ``caches`` its part (``sharding.shard_caches``:
+    the self K/V split over ``cache_seq``, the cross K/V by rows only)."""
     B = tokens.shape[0]
     x = _embed(params, tokens)
     hd = cfg.resolved_head_dim
+    split = cache_split(shard, cfg, 0, caches["self_k"].shape[2])
     new_k, new_v = [], []
     for i in range(cfg.num_layers):
         p = _index(params["dec_blocks"], i)
         h = rmsnorm(x, p["norm1"], cfg.norm_eps)
         y, nc = attn_decode(p["attn"], h, {"k": caches["self_k"][i],
                                            "v": caches["self_v"][i]},
-                            pos, cfg)
+                            pos, cfg, split=split)
         x = x + y
         new_k.append(nc["k"])
         new_v.append(nc["v"])

@@ -5,6 +5,14 @@ Attention over a whole sequence (training forward, prefill) goes through
 ``kernels.ops.flash_attention``: the hand-written CUDA kernel on the card,
 its plain PyTorch version on the CPU.  Single-token decode attention is
 plain PyTorch, as it is plain jnp in the JAX package.
+
+On a mesh a decode cache may hold only this rank's contiguous part of
+the positions (``sharding.cache_split``): the new K/V row is written by
+the rank that owns its slot, each rank scores its own slots masked by
+their global index and keeps its row max, sum of exponentials and
+unnormalised output, and the group all-gathers these and merges them in
+rank order (a log-sum-exp combine), so every rank of the group returns
+the same bits.
 """
 from __future__ import annotations
 
@@ -66,7 +74,8 @@ def blockwise_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                                softcap=softcap, q_offset=q_offset)
 
 
-def decode_attention(q, k_cache, v_cache, pos, *, window=0, softcap=0.0):
+def decode_attention(q, k_cache, v_cache, pos, *, window=0, softcap=0.0,
+                     split=None):
     """Single-token attention against a cache.
 
     q: (B, 1, H, D); caches: (B, cap, KH, D); pos: int scalar, 0-dim or
@@ -75,7 +84,12 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=0, softcap=0.0):
     (linear).  A vector ``pos`` gives every batch row its own decode
     position.  Entries with absolute index > pos or <= pos - window are
     masked.  The ring's absolute index uses floor-mod (``%`` on tensors
-    is ``torch.remainder``), as jnp's ``%`` does."""
+    is ``torch.remainder``), as jnp's ``%`` does.
+
+    ``split`` = (view, lo, global capacity): the caches hold positions
+    [lo, lo + cap) of a cache split over ``view``'s group; the slots are
+    masked by their global index and the group's partial softmaxes are
+    merged (``_combine``).  None: the caches are whole."""
     B, cap, KH, D = k_cache.shape
     H = q.shape[2]
     G = H // KH
@@ -83,18 +97,46 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=0, softcap=0.0):
     qh = q.reshape(B, KH, G, D)
     s = torch.einsum("bhgd,bkhd->bhgk", qh.float(), k_cache.float()) * scale
     s = _softcap(s, softcap)
-    slot = torch.arange(cap, device=q.device)
+    lo, total = (0, cap) if split is None else split[1:]
+    slot = lo + torch.arange(cap, device=q.device)
     p_ = torch.as_tensor(pos, device=q.device).reshape(-1, 1)  # (B|1, 1)
     if window:  # ring buffer: absolute index of slot i
-        absidx = p_ - ((p_ - slot[None, :]) % cap)
+        absidx = p_ - ((p_ - slot[None, :]) % total)
         valid = (absidx >= 0) & (absidx <= p_) & (absidx > p_ - window)
     else:
         valid = slot[None, :] <= p_
-    s = torch.where(valid[:, None, None, :], s,
-                    torch.full((), NEG_INF, device=q.device))
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype), v_cache)
-    return out.reshape(B, 1, H, D)
+    valid = valid[:, None, None, :]
+    s = torch.where(valid, s, torch.full((), NEG_INF, device=q.device))
+    if split is None:
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype), v_cache)
+        return out.reshape(B, 1, H, D)
+    # this rank's partial softmax: its row max, sum of exponentials and
+    # unnormalised output; a rank whose slots are all masked gives zeros
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.where(valid, torch.exp(s - m), torch.zeros((), device=q.device))
+    o = torch.einsum("bhgk,bkhd->bhgd", e.to(v_cache.dtype), v_cache)
+    out = _combine(split[0], m, e.sum(dim=-1, keepdim=True), o.float())
+    return out.to(v_cache.dtype).reshape(B, 1, H, D)
+
+
+def _combine(view, m, l, o):
+    """The log-sum-exp merge of the group's partial softmaxes: (B, KH, G,
+    1) row max ``m`` and sum ``l``, (B, KH, G, D) unnormalised output
+    ``o`` on each rank -> the normalised output.  One all-gather; the
+    ranks' parts are summed in rank order, so every rank computes the same
+    bits.  A part whose slots were all masked (max ``NEG_INF``, sum and
+    output zero) adds exactly zero: its weight exp(NEG_INF - max) is 0."""
+    parts = view.all_gather(torch.cat([m, l, o], dim=-1), "cache_combine")
+    top = parts[..., :1].amax(dim=0)
+    num = den = None
+    for w in range(parts.shape[0]):
+        a = torch.exp(parts[w, ..., :1] - top)
+        den = a * parts[w, ..., 1:2] if den is None else \
+            den + a * parts[w, ..., 1:2]
+        num = a * parts[w, ..., 2:] if num is None else \
+            num + a * parts[w, ..., 2:]
+    return num / den
 
 
 # ----------------------------------------------------------------- MLP
@@ -174,7 +216,7 @@ def _quantize_kv(t):
     return q, scale
 
 
-def attn_decode(params, x, cache, pos, cfg, *, window=0):
+def attn_decode(params, x, cache, pos, cfg, *, window=0, split=None):
     """One-token decode. cache: {"k": (B,cap,KH,D), "v": ...} (+ int8
     "k_scale"/"v_scale" when cfg.kv_cache_dtype == "int8").
 
@@ -182,19 +224,27 @@ def attn_decode(params, x, cache, pos, cfg, *, window=0):
     integer tensor (continuous batching: each row writes and reads its own
     cache slot).  The linear cache writes at ``min(pos, cap - 1)``, the
     ring at ``pos % cap``.  The old cache is left as it was: the new one
-    is a copy with the row written.  Returns (out, new_cache)."""
+    is a copy with the row written.  ``split`` (``sharding.cache_split``):
+    the cache holds this rank's positions of a split one; the slot is
+    taken in the global cache and written only by the rank that holds it
+    (``decode_attention`` merges the ranks' scores).  Returns (out,
+    new_cache)."""
     B = x.shape[0]
     pos_t = torch.as_tensor(pos, device=x.device).long()
     positions = pos_t.reshape(-1, 1).expand(B, 1)
     q, k, v = attn_qkv(params, x, positions, cfg)
     cap = cache["k"].shape[1]
-    slot = (pos_t % cap) if window else torch.clamp(pos_t, max=cap - 1)
+    lo, total = (0, cap) if split is None else split[1:]
+    slot = (pos_t % total) if window else torch.clamp(pos_t, max=total - 1)
     slot = slot.reshape(-1).expand(B)
     rows = torch.arange(B, device=x.device)
+    own = (slot >= lo) & (slot < lo + cap)      # every row on one device
+    local = torch.clamp(slot - lo, 0, cap - 1)
 
-    def put(buf, val):           # row b writes slot[b]
+    def put(buf, val):           # row b writes slot[b] where this rank holds it
         out = buf.clone()
-        out[rows, slot] = val[:, 0]
+        keep = own.reshape((B,) + (1,) * (val.dim() - 2))
+        out[rows, local] = torch.where(keep, val[:, 0], out[rows, local])
         return out
 
     if "k_scale" in cache:      # int8 cache: absmax values + scales
@@ -215,6 +265,6 @@ def attn_decode(params, x, cache, pos, cfg, *, window=0):
         v_cache = put(cache["v"], v)
         new_cache = {"k": k_cache, "v": v_cache}
     out = decode_attention(q, k_cache, v_cache, pos_t, window=window,
-                           softcap=cfg.attn_logit_softcap)
+                           softcap=cfg.attn_logit_softcap, split=split)
     out = out.reshape(B, 1, cfg.q_dim) @ params["wo"]
     return out, new_cache

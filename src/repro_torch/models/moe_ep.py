@@ -57,7 +57,7 @@ def _swiglu_experts(buf, w_gate, w_up, w_down):
     return ops.moe_gemm(h, w_down)
 
 
-def _routed(params, x, cfg, mesh, attack):
+def _routed(params, x, cfg, mesh, attack, vote_on: bool = True):
     """The routed experts on this rank: (B, S, d) -> ((B, S, d), stats of
     the whole token set)."""
     B, S, d = x.shape
@@ -99,7 +99,7 @@ def _routed(params, x, cfg, mesh, attack):
     buf = recv.transpose(0, 1).reshape(E_l, m.shards * cap, d)
     out = _swiglu_experts(buf, params["w_gate"], params["w_up"],
                           params["w_down"])
-    if cfg.redundancy.mode != "off":
+    if vote_on and cfg.redundancy.mode != "off":
         out = vote(out, cfg.redundancy.mode, mesh, attack)
     back = out.reshape(E_l, m.shards, cap, d).transpose(0, 1)
     ret = m.all_to_all(back, "ep_return").reshape(E, cap, d)
@@ -111,15 +111,23 @@ def _routed(params, x, cfg, mesh, attack):
     return y.reshape(B, S, d), stats
 
 
-def moe_mlp_ep(params, x, cfg, mesh, attack: Optional[LMAttack] = None):
+def moe_mlp_ep(params, x, cfg, mesh, attack: Optional[LMAttack] = None,
+               decode: bool = False, return_stats: bool = False):
     """``moe_mlp`` under a mesh: (B, S, d) -> ((B, S, d), aux weighted).
 
     ``params``: this rank's layer, the router whole and ``w_gate``,
     ``w_up``, ``w_down`` its ``E / model`` expert rows
-    (``sharding.shard_params``); ``x``: this rank's batch rows.  Raises
-    when the model axis does not divide the (padded) expert count.  The
-    shared experts run on the whole rows and, under redundancy, are voted
-    too, as one pseudo-expert row."""
+    (``sharding.shard_params``); ``x``: this rank's batch rows (every
+    row when ``cfg`` is not ``batch_shardable``: the statistics are then
+    not summed over the batch ranks).  Raises when the model axis does
+    not divide the (padded) expert count.  The shared experts run on the
+    whole rows and, under redundancy, are voted too, as one pseudo-expert
+    row.  ``decode``: a decode step's layer, with no vote (the JAX
+    package's decode builds no trust hook) and no aux loss (decode
+    discards it: 0 is returned, and the statistics are summed over the
+    batch ranks only for the counts).  ``return_stats``: also the
+    routed-token counts (E,) int32 of the global batch's tokens, every
+    top-k assignment counted, dropped ones included, as ``moe_mlp``'s."""
     E = cfg.resolved_padded_experts
     msize = mesh.model.shards
     if E % msize:
@@ -128,16 +136,20 @@ def moe_mlp_ep(params, x, cfg, mesh, attack: Optional[LMAttack] = None):
         raise ValueError(f"this rank holds {params['w_gate'].shape[0]} "
                          f"experts, the mesh deals it {E // msize}: pass "
                          f"sharding.shard_params' tree")
-    y, stats = _routed(params, x, cfg, mesh, attack)
-    if mesh.batch.shards > 1:
+    y, stats = _routed(params, x, cfg, mesh, attack, not decode)
+    if mesh.batch_split(cfg) and (return_stats or not decode):
         stats = sum_stats(mesh.batch, stats)
-    aux = aux_from_stats(stats, E, cfg.num_experts_per_tok)
+    aux = (x.new_zeros(()) if decode
+           else aux_from_stats(stats, E, cfg.num_experts_per_tok))
     if cfg.num_shared_experts:
         sp = params["shared"]
         y_sh = (F.silu(x @ sp["w_gate"]) * (x @ sp["w_up"])) @ sp["w_down"]
-        if cfg.redundancy.mode != "off" and "replica" in mesh.axis_names:
+        if not decode and cfg.redundancy.mode != "off" \
+                and "replica" in mesh.axis_names:
             B, S, d = y_sh.shape
             y_sh = vote(y_sh.reshape(1, B * S, d), cfg.redundancy.mode,
-                        mesh, attack).reshape(B, S, d)
+                         mesh, attack).reshape(B, S, d)
         y = y + y_sh
+    if return_stats:
+        return y, aux * cfg.router_aux_weight, stats[0].to(torch.int32)
     return y, aux * cfg.router_aux_weight

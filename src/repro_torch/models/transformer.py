@@ -12,7 +12,11 @@ layer of a ``moe_impl="ep"`` config runs expert-parallel
 (``moe_ep.moe_mlp_ep``, on this rank's expert rows), any other MoE layer
 ``moe.moe_mlp`` with the hook (the B-MoE vote) on this rank's batch rows;
 on one device every MoE layer runs ``moe.moe_mlp``, as in the JAX
-package.
+package.  ``forward_decode`` and ``forward_serve_chunk`` take the
+sharder too: the caches are then this rank's (``sharding.shard_caches``),
+attention merges the ranks' parts of a split cache, and the MoE layers
+run as in training but never vote (the JAX package's decode builds no
+trust hook), their routed-token counts those of the global batch.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from repro_torch.models.builder import Leaf, stack
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import (attn_decl, attn_decode, attn_train,
                                        mlp_decl, rmsnorm, swiglu)
+from repro_torch.sharding import cache_split, cache_views
 
 
 # ------------------------------------------------------------- decls
@@ -139,32 +144,102 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
-def slice_kv_block(caches, slot: int, start: int, end: int) -> dict:
+def _block_views(cfg, mesh):
+    """(batch view, position view) a KV leaf of an all-'attn' cache is
+    split over on ``mesh``, each None when whole."""
+    if mesh is None:
+        return None, None
+    return tuple(cache_views(cfg, mesh, ("batch", "cache_seq")))
+
+
+def _placed_rows(a, lead: int, slot: int, start: int, end: int, views):
+    """Global slot ``slot``'s positions [start, end) of a placed KV leaf
+    ``a`` (batch at dim ``lead``, positions after it) on every rank: each
+    rank sends what it holds (zeros elsewhere), the position group's
+    parts are pieced together in rank order, then the batch group's part
+    that holds the slot is taken.  Collective over both groups."""
+    bview, sview = views
+    n_rows, cap = a.shape[lead], a.shape[lead + 1]
+    r = slot - (bview.shard * n_rows if bview is not None else 0)
+    shape = a.shape[:lead] + a.shape[lead + 1:]
+    row = (a.select(lead, r) if 0 <= r < n_rows
+           else a.new_zeros(shape))
+    if sview is None:
+        out = row.narrow(lead, start, end - start)
+    else:
+        def clip(w):               # [lo, hi) of the block rank w holds
+            return max(start, w * cap), min(end, (w + 1) * cap)
+
+        piece = row.new_zeros(shape[:lead] + (end - start,)
+                              + shape[lead + 1:])
+        lo, hi = clip(sview.shard)
+        if lo < hi:
+            piece.narrow(lead, lo - start, hi - lo).copy_(
+                row.narrow(lead, lo - sview.shard * cap, hi - lo))
+        parts = sview.all_gather(piece, "kv_block")
+        out = torch.empty_like(piece)
+        for w in range(sview.shards):
+            lo, hi = clip(w)
+            if lo < hi:
+                out.narrow(lead, lo - start, hi - lo).copy_(
+                    parts[w].narrow(lead, lo - start, hi - lo))
+    if bview is not None:
+        out = bview.all_gather(out, "kv_block")[slot // n_rows]
+    return out
+
+
+def slice_kv_block(caches, slot: int, start: int, end: int, cfg=None,
+                   mesh=None) -> dict:
     """Copy one slot's cache rows [start, end) out of every layer's KV
     leaves (the int8 ``k_scale``/``v_scale`` leaves included) as host
     numpy arrays: the tree a sealed KV block stores.  Stacked block
     caches carry a leading layer axis (batch is axis 1); remainder
-    caches lead with batch."""
-    block = {"blocks": _tree_map(
-        lambda a: a[:, slot, start:end].cpu().numpy(), caches["blocks"])}
+    caches lead with batch.  Under ``mesh`` (with ``cfg``) ``caches`` are
+    this rank's part (``sharding.shard_caches``) and ``slot`` a global
+    row: the block is gathered from the ranks that hold its row and
+    positions, and every rank returns it whole (collective: every rank
+    calls it alike)."""
+    if mesh is not None:
+        views = _block_views(cfg, mesh)
+
+        def take(lead):
+            return lambda a: _placed_rows(a, lead, slot, start, end,
+                                          views).cpu().numpy()
+    else:
+        def take(lead):
+            return lambda a: (a[:, slot, start:end] if lead else
+                              a[slot, start:end]).cpu().numpy()
+    block = {"blocks": _tree_map(take(1), caches["blocks"])}
     if "remainder" in caches:
-        block["remainder"] = _tree_map(
-            lambda a: a[slot, start:end].cpu().numpy(), caches["remainder"])
+        block["remainder"] = _tree_map(take(0), caches["remainder"])
     return block
 
 
-def restore_kv_block(caches, slot: int, start: int, block: dict) -> dict:
+def restore_kv_block(caches, slot: int, start: int, block: dict, cfg=None,
+                     mesh=None) -> dict:
     """Functional inverse of ``slice_kv_block``: a copy of ``caches``
     with a fetched block's numpy rows written into one slot at
-    ``start``, on the caches' device.  ``caches`` is left as it was."""
+    ``start``, on the caches' device.  ``caches`` is left as it was.
+    Under ``mesh`` each rank writes the rows and positions it holds (no
+    exchange: every rank has the whole block)."""
+    bview, sview = _block_views(cfg, mesh)
+
     def put(stacked):
+        lead = 1 if stacked else 0
+
         def f(a, b):
             out = a.clone()
             rows = torch.from_numpy(np.array(b)).to(a.device, a.dtype)
-            if stacked:              # (layers, batch, seq, ...)
-                out[:, slot, start:start + rows.shape[1]] = rows
-            else:                    # (batch, seq, ...)
-                out[slot, start:start + rows.shape[0]] = rows
+            n_rows, cap = a.shape[lead], a.shape[lead + 1]
+            r = slot - (bview.shard * n_rows if bview is not None else 0)
+            if not 0 <= r < n_rows:
+                return out
+            lo = sview.shard * cap if sview is not None else 0
+            a0 = max(start, lo)
+            b0 = min(start + rows.shape[lead], lo + cap)
+            if a0 < b0:
+                out.select(lead, r).narrow(lead, a0 - lo, b0 - a0).copy_(
+                    rows.narrow(lead, a0 - start, b0 - a0))
             return out
         return f
 
@@ -219,17 +294,28 @@ def _layer_params(tree, key, i):
 
 
 def _mlp(spec: LayerSpec, p, x, cfg, expert_stats=False, shard=None,
-         trust=None):
+         trust=None, decode=False):
     """The layer's MLP on the normed residual: (y, aux, counts); aux and
-    counts are None where no MoE layer gives them."""
+    counts are None where no MoE layer gives them.  ``decode``: a decode
+    step's layer, which never votes, whose aux loss decode discards and
+    whose counts (``expert_stats``) are the global batch's."""
     h = rmsnorm(x, p["norm2"], cfg.norm_eps)
     if spec.mlp == "moe":
-        if expert_stats:
-            return moe_lib.moe_mlp(p["moe"], h, cfg, return_stats=True)
         mesh = getattr(shard, "mesh", None)
         if cfg.moe_impl == "ep" and mesh is not None:
-            return (*moe_ep.moe_mlp_ep(p["moe"], h, cfg, mesh,
-                                       attack=shard.attack), None)
+            out = moe_ep.moe_mlp_ep(p["moe"], h, cfg, mesh,
+                                    attack=None if decode else shard.attack,
+                                    decode=decode, return_stats=expert_stats)
+            return out if expert_stats else (*out, None)
+        if decode:
+            out = moe_lib.moe_mlp(p["moe"], h, cfg,
+                                  return_stats=expert_stats)
+            if not expert_stats:
+                return (*out, None)
+            if mesh is not None and mesh.batch_split(cfg):
+                out = (*out[:2], mesh.batch.all_reduce(out[2],
+                                                       "expert_stats"))
+            return out
         return (*moe_lib.moe_mlp(p["moe"], h, cfg, shard=shard,
                                  trust=trust), None)
     y = swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
@@ -312,12 +398,13 @@ def _mask_rows(mask, new, old):
 
 
 def _layer_decode(spec: LayerSpec, p, cache, x, pos, cfg, expert_stats=False,
-                  write_mask=None):
+                  write_mask=None, shard=None):
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
     if spec.kind in ("attn", "local_attn"):
         window = cfg.sliding_window if spec.kind == "local_attn" else 0
-        y, new_cache = attn_decode(p["attn"], h, cache, pos, cfg,
-                                   window=window)
+        y, new_cache = attn_decode(
+            p["attn"], h, cache, pos, cfg, window=window,
+            split=cache_split(shard, cfg, window, cache["k"].shape[1]))
     elif spec.kind == "rglru":
         y, new_cache = rglru_lib.rglru_decode(p["rglru"], h, cache, cfg)
     elif spec.kind == "ssm":
@@ -331,13 +418,14 @@ def _layer_decode(spec: LayerSpec, p, cache, x, pos, cfg, expert_stats=False,
     x = x + y
     counts = None
     if spec.mlp != "none":
-        y, _, counts = _mlp(spec, p, x, cfg, expert_stats)
+        y, _, counts = _mlp(spec, p, x, cfg, expert_stats, shard=shard,
+                            decode=True)
         x = x + y
     return x, new_cache, counts
 
 
 def forward_decode(params, caches, tokens, pos, cfg: ModelConfig, *,
-                   expert_stats=False, write_mask=None):
+                   shard=None, expert_stats=False, write_mask=None):
     """One decode step.  tokens: (B, 1); pos: int scalar (all rows at the
     same absolute position) or (B,) integer tensor (per-slot positions).
     Returns (logits (B, 1, padded_vocab), new_caches); the caches passed
@@ -347,7 +435,12 @@ def forward_decode(params, caches, tokens, pos, cfg: ModelConfig, *,
     inactive ones too): what a serving edge's expert cache is fed with.
 
     ``write_mask`` (B,) bool: rows where it is False run the (padded)
-    compute but leave their KV rows and recurrent state untouched."""
+    compute but leave their KV rows and recurrent state untouched.
+
+    ``shard``: a mesh's sharder; ``tokens``, ``pos`` (a vector) and
+    ``write_mask`` are then this rank's batch rows and ``caches`` its
+    part (``sharding.shard_caches``); the counts are the global
+    batch's."""
     x = _embed(params, tokens)
     if write_mask is not None:
         write_mask = torch.as_tensor(write_mask, device=x.device).bool()
@@ -356,7 +449,7 @@ def forward_decode(params, caches, tokens, pos, cfg: ModelConfig, *,
     for spec, key, i in _layers(cfg):
         x, nc, c = _layer_decode(spec, _layer_params(params, key, i),
                                  _layer_params(caches, key, i), x, pos, cfg,
-                                 expert_stats, write_mask)
+                                 expert_stats, write_mask, shard)
         (new_rem if key is None else new_blocks[key]).append(nc)
         if c is not None:
             counts.append(c)
@@ -373,7 +466,7 @@ def forward_decode(params, caches, tokens, pos, cfg: ModelConfig, *,
 
 
 def forward_serve_chunk(params, caches, tokens, start, pos, lengths, adv,
-                        cfg: ModelConfig, *, expert_stats=False):
+                        cfg: ModelConfig, *, shard=None, expert_stats=False):
     """Fused serving macro-step: ``C`` engine ticks in one call, a loop of
     masked greedy ``forward_decode`` micro-steps advancing every batch
     slot one position each.  Prefilling slots consume prompt tokens
@@ -396,7 +489,9 @@ def forward_serve_chunk(params, caches, tokens, start, pos, lengths, adv,
     device: ``out_tokens[t, b]`` is slot b's greedy next token after
     micro-step t.  ``stats`` (with ``expert_stats``) sums the per-MoE-
     layer routed-token counts (num_moe_layers, E) int32 over the chunk's
-    micro-steps.  The caches passed in are not modified."""
+    micro-steps.  The caches passed in are not modified.  ``shard``: a
+    mesh's sharder, as ``forward_decode`` takes it (the (B,) inputs and
+    the outputs' columns this rank's rows)."""
     dev = params["embed"].device
 
     def on_dev(a):
@@ -408,7 +503,8 @@ def forward_serve_chunk(params, caches, tokens, start, pos, lengths, adv,
     for t in range(tokens.shape[1]):
         feed = torch.where(t < lengths, tokens[:, t], cur)
         out = forward_decode(params, caches, feed[:, None], pos + t, cfg,
-                             expert_stats=expert_stats, write_mask=t < adv)
+                             shard=shard, expert_stats=expert_stats,
+                             write_mask=t < adv)
         logits, caches = out[0], out[1]
         if expert_stats:
             total = out[2] if total is None else total + out[2]

@@ -25,6 +25,20 @@ micro-step leaves its input caches untouched and returns new ones
 (``forward_decode``'s contract); only the admission reset zeroes an
 admitted slot's rows in place.
 
+On a mesh (``mesh=``, a ``launch.mesh.LMMesh``; ``params`` this rank's
+tree, ``sharding.shard_params``) every rank runs the same engine on the
+same requests: the scheduler, the sessions, the commitments and the
+storage runtimes are host state replicated on every rank, each rank's
+caches are its part (``sharding.place_cache``), the fused step is the
+mesh's (``make_serve_chunk_step(mesh=)``), and the chunk's tokens, the
+global batch's on every rank, are checked equal across the ranks before
+the host reads them.  Admission resets, KV blocks sealed and restored
+go to the ranks that hold the slot's rows and positions; a KV block's
+bytes are gathered from them (a collective every rank makes in the same
+order).  The edge runtime registers the whole expert bank (an
+expert-parallel layer's rows gathered over ``model``) and is fed the
+global batch's counts.
+
 Verified sessions (``trust=TrustConfig(...)``): the optimistic
 commit-challenge-audit protocol applied to streaming inference.  Every
 emitted token is digested into a session leaf, and the engine appends
@@ -51,6 +65,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.obs import Observability
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.serve.scheduler import SlotScheduler, SlotState
+from repro_torch.sharding import is_expert_parallel, owned_row, place_cache
 from repro_torch.storage import (ExpertCache, ExpertStore, GateEMA,
                                  StorageNetwork)
 from repro_torch.storage.kv import (KV_GENESIS, KVBlockStore,
@@ -98,9 +113,10 @@ class _EdgeExpertRuntime:
     the remainder)."""
 
     def __init__(self, cfg: ModelConfig, params, scfg: EdgeStorageConfig,
-                 metrics: Optional[MetricsRegistry] = None):
+                 metrics: Optional[MetricsRegistry] = None, mesh=None):
         self.cfg = cfg
         self.scfg = scfg
+        self.mesh = mesh
         self.network = StorageNetwork(num_nodes=scfg.num_nodes,
                                       replication=scfg.replication,
                                       seed=scfg.seed, metrics=metrics,
@@ -127,10 +143,19 @@ class _EdgeExpertRuntime:
         """Chunk every (layer, expert) unit into the storage network
         (version 0 — serving weights are frozen).  Router and shared-
         expert weights stay gate-side resident: they run every tick."""
+        ep = is_expert_parallel(self.cfg, self.mesh)
+
+        def whole(t):
+            # an expert-parallel rank holds its rows: gather the bank
+            if ep:
+                t = torch.cat(list(self.mesh.model.all_gather(
+                    t, "gather_params")))
+            return t.detach().cpu().numpy()
+
         def units_of(moe_params, b=None):
             # routed-expert weights only: (E, ...) leading expert axis
-            routed = {k: (moe_params[k] if b is None else moe_params[k][b])
-                      .detach().cpu().numpy()
+            routed = {k: whole(moe_params[k] if b is None
+                               else moe_params[k][b])
                       for k in ("w_gate", "w_up", "w_down")}
             layer = len(self._like)
             # a copy, so the template does not hold the whole layer
@@ -278,8 +303,8 @@ class SessionRecord:
 
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, *, batch_slots: int = 4,
-                 cache_len: int = 256, scheduling: str = "continuous",
-                 prefill_chunk: int = 16,
+                 cache_len: int = 256, mesh=None,
+                 scheduling: str = "continuous", prefill_chunk: int = 16,
                  trust: Optional[TrustConfig] = None,
                  expert_storage: Optional[EdgeStorageConfig] = None,
                  kv_storage: Optional[KVStorageConfig] = None,
@@ -288,13 +313,15 @@ class ServingEngine:
             raise NotImplementedError("engine drives decoder-only archs")
         self.cfg = cfg
         self.params = params
+        self.mesh = mesh
         self.device = params["embed"].device
         self.obs = obs if obs is not None else Observability()
         self.batch = batch_slots
         self.cache_len = cache_len
         self.prefill_chunk = max(1, int(prefill_chunk))
-        self.caches = materialize(
-            tfm.cache_decl(cfg, batch_slots, cache_len), 0, self.device)
+        self.caches = materialize(place_cache(
+            tfm.cache_decl(cfg, batch_slots, cache_len), cfg, mesh), 0,
+            self.device)
         self.sched = SlotScheduler(batch_slots, policy=scheduling)
         # ---- edge expert storage (MoE models): per-step resolution of
         # the activated experts through a bounded ExpertCache, fed by
@@ -307,7 +334,8 @@ class ServingEngine:
             if not has_moe:
                 raise ValueError("expert_storage needs a MoE model")
             self.edge = _EdgeExpertRuntime(cfg, params, expert_storage,
-                                           metrics=self.obs.metrics)
+                                           metrics=self.obs.metrics,
+                                           mesh=mesh)
         # ---- KV paging through the chunked store: sealed prefix-CID
         # blocks, warm-prefix restore on admission, page-out/resume.
         # With BOTH runtimes on, KV shares the edge cache+store — the
@@ -332,7 +360,7 @@ class ServingEngine:
         # one fused step: C engine ticks per call (C=1 pure decode up to
         # C=prefill_chunk while prompts are chunking), C a power of two
         self._step_fn = make_serve_chunk_step(
-            cfg, expert_stats=self.edge is not None)
+            cfg, expert_stats=self.edge is not None, mesh=mesh)
         self.tick = 0
         self.steps = 0                  # fused macro-step invocations
         self.micro_steps = 0            # decode micro-steps they ran
@@ -464,7 +492,12 @@ class ServingEngine:
     def _reset_slot_caches(self, idxs: List[int]) -> None:
         """Zero the admitted slots' cache rows (KV + recurrent state), in
         place: the engine owns its cache tensors (each micro-step returns
-        new ones)."""
+        new ones).  On a mesh each rank zeroes the admitted rows it
+        holds."""
+        idxs = [r for r in (owned_row(self.mesh, self.cfg, self.batch, i)
+                            for i in idxs) if r is not None]
+        if not idxs:
+            return
         sel = torch.tensor(idxs, device=self.device)
 
         def zero(tree, axis):
@@ -480,11 +513,21 @@ class ServingEngine:
             zero(self.caches["remainder"], 0)
 
     # ------------------------------------------------------- KV paging
+    def _slice_kv(self, index: int, start: int, end: int) -> dict:
+        """Slot ``index``'s cache rows [start, end) as host numpy (on a
+        mesh gathered from the ranks that hold them: a collective)."""
+        return tfm.slice_kv_block(self.caches, index, start, end, self.cfg,
+                                  self.mesh)
+
+    def _restore_kv(self, index: int, start: int, block: dict) -> dict:
+        return tfm.restore_kv_block(self.caches, index, start, block,
+                                    self.cfg, self.mesh)
+
     def _kv_template(self):
         """Structure-only template for ``assemble_tree`` (leaf shapes
         come from the manifest, only the treedef must match)."""
         if self.kvrt.like is None:
-            self.kvrt.like = tfm.slice_kv_block(self.caches, 0, 0, 1)
+            self.kvrt.like = self._slice_kv(0, 0, 1)
         return self.kvrt.like
 
     @staticmethod
@@ -513,8 +556,7 @@ class ServingEngine:
         if res is not None:
             for cid, a, b in res["cids"]:
                 block = kv.fetch(cid, self._kv_template())
-                self.caches = tfm.restore_kv_block(self.caches, index,
-                                                   a, block)
+                self.caches = self._restore_kv(index, a, block)
             slot.pos, slot.cursor = res["pos"], res["cursor"]
             slot.generated = list(res["generated"])
             self._kv_chain[index] = {"prev": res["prev"],
@@ -528,8 +570,7 @@ class ServingEngine:
         n = kv.warm_prefix(restorable) if restorable else 0
         for b in range(n):
             block = kv.fetch(chain[b], self._kv_template())
-            self.caches = tfm.restore_kv_block(self.caches, index,
-                                               b * T, block)
+            self.caches = self._restore_kv(index, b * T, block)
         slot.pos = slot.cursor = n * T
         self._kv_chain[index] = {"prev": chain[n - 1] if n else KV_GENESIS,
                                  "sealed": n}
@@ -550,8 +591,7 @@ class ServingEngine:
             if cid in kv:
                 man = kv.seal(cid, None, 0)
             else:
-                block = tfm.slice_kv_block(self.caches, index,
-                                           b * T, (b + 1) * T)
+                block = self._slice_kv(index, b * T, (b + 1) * T)
                 man = kv.seal(cid, block, T)
             st["prev"], st["sealed"] = cid, b + 1
             if self.verified:
@@ -603,7 +643,7 @@ class ServingEngine:
             # with the full block over the same prefix
             tail_cid = prefix_cid(prev,
                                   self._fed_tokens(s, nfull * T, s.pos))
-            block = tfm.slice_kv_block(self.caches, index, nfull * T, s.pos)
+            block = self._slice_kv(index, nfull * T, s.pos)
             man = kv.seal(tail_cid, block, s.pos - nfull * T)
             if self.verified:
                 self._pending_kv_roots.append(man.root)
@@ -725,6 +765,10 @@ class ServingEngine:
             out = self._step_fn(self.params, self.caches, self._device_batch(
                 tokens, start, pos, need, adv))
             self.caches = out[1]
+            if self.mesh is not None:        # the host state must agree
+                self.mesh.check_replicated(out[0], "serve_replicated")
+                if self.edge is not None:
+                    self.mesh.check_replicated(out[2], "serve_replicated")
             outs = out[0].cpu().numpy()      # (C, B) greedy next tokens
         self.micro_steps += C
         if self.edge is not None:

@@ -19,13 +19,18 @@ communicates across it (``core.trusted_moe``).
 Under SPMD the layout is explicit, so the rules are a record (what
 ``Sharder.spec`` reports), and a ``Sharder`` applied to a rank's tensor
 is the identity.  What the port places: the batch over pod x data (each
-rank keeps its rows of the global batch), and the experts of an
+rank keeps its rows of the global batch), the experts of an
 expert-parallel MoE layer over ``model`` (``shard_params``: each rank
 keeps its contiguous ``E / model`` rows of ``w_gate``, ``w_up`` and
-``w_down``).  Every other leaf is whole on every rank (FSDP's
-embed-over-data placement and dense tensor parallelism change memory,
-not results, and are not ported).  ``shard_bank`` places the B-MoE
-system's expert bank on the edge mesh (``BMoESystem(mesh="on")``).
+``w_down``), and the decode caches by the cache declaration's
+``batch``, ``cache_seq`` and ``kv_seq`` dimensions under the JAX
+package's rules (``shard_caches``, ``place_cache``: each rank keeps its
+batch rows and its contiguous part of the positions).  Every other leaf
+and dimension is whole on every rank (FSDP's embed-over-data placement
+and dense tensor parallelism, a recurrent state's inner dimension over
+``model`` among them, change memory, not results, and are not ported).
+``shard_bank`` places the B-MoE system's expert bank on the edge mesh
+(``BMoESystem(mesh="on")``).
 """
 from __future__ import annotations
 
@@ -243,3 +248,161 @@ def shard_bank(bank: Dict[str, torch.Tensor], mesh
     n = next(iter(bank.values())).shape[0]
     lo, hi = mesh.expert_range(n)
     return {k: v[lo:hi].to(mesh.device).clone() for k, v in bank.items()}
+
+
+# ---------------------------------------------------- cache placement
+# the cache declaration's dimensions the port splits; the others (kv
+# heads, recurrent inner dims over model: tensor parallelism) stay whole
+_CACHE_PLACED = ("batch", "cache_seq", "kv_seq")
+
+
+def cache_decl_of(cfg):
+    """The decode cache declaration's logical axes for ``cfg`` (the
+    leaves' shapes at unit sizes; only their axes are read)."""
+    from repro_torch.models import encdec
+    from repro_torch.models import transformer as tfm
+    if cfg.is_encoder_decoder:
+        return encdec.encdec_cache_decl(cfg, 1, 1, 1)
+    return tfm.cache_decl(cfg, 1, 1)
+
+
+def cache_specs(decl, cfg, mesh):
+    """Each cache leaf's partition spec as the port places it: JAX's
+    (``builder.partition_specs`` under ``logical_rules(mesh, cfg)``) on
+    the ``batch``, ``cache_seq`` and ``kv_seq`` dimensions, None on every
+    other."""
+    from repro_torch.models.builder import partition_specs
+    rules = logical_rules(mesh, cfg)
+    return partition_specs(decl, {a: rules.get(a) for a in _CACHE_PLACED})
+
+
+def _dim_view(mesh, cfg, axis: str, rules: dict):
+    """The mesh view a cache dimension of logical ``axis`` splits over,
+    or None (whole on every rank, or a group of one)."""
+    if axis == "batch":
+        view = mesh.batch if rules.get("batch") else None
+    elif axis == "cache_seq":
+        view = mesh.cache_group(cfg) if rules.get("cache_seq") else None
+    elif axis == "kv_seq":
+        view = mesh.model if rules.get("kv_seq") else None
+    else:
+        view = None
+    return view if view is not None and view.shards > 1 else None
+
+
+def cache_views(cfg, mesh, axes):
+    """Per dimension of a cache leaf with logical ``axes``, the mesh view
+    it splits over (``shard_caches``' placement), or None where it is
+    whole."""
+    rules = logical_rules(mesh, cfg)
+    return [_dim_view(mesh, cfg, a, rules) for a in axes]
+
+
+def _zip_map(fn, tree, decl, path=""):
+    """``fn(path, leaf tensor, Leaf)`` over a cache tree and its
+    declaration (the same structure)."""
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, tree[k], decl[k], f"{path}/{k}")
+                for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return [_zip_map(fn, t, d, f"{path}/{i}")
+                for i, (t, d) in enumerate(zip(tree, decl))]
+    return fn(path, tree, decl)
+
+
+def _cut_shape(shape, axes, views, path: str):
+    """(this rank's [lo, hi) per dimension) of a leaf of ``shape``."""
+    out = []
+    for n, a, v in zip(shape, axes, views):
+        out.append((0, n) if v is None else
+                   v.span(n, f"cache leaf {path} dimension '{a}'"))
+    return out
+
+
+def shard_caches(caches, cfg, mesh):
+    """This rank's part of a whole decode-cache tree (``cache_decl`` or
+    ``encdec_cache_decl`` of ``cfg``), as tensors of their own: each
+    leaf's ``batch`` dimension cut to the rank's rows (split over pod x
+    data when ``cfg`` is ``batch_shardable``), ``cache_seq`` to its
+    contiguous positions over ``mesh.cache_group(cfg)`` and ``kv_seq``
+    (a sliding-window ring) over ``model`` where the window divides it,
+    as ``cache_specs`` says.  Raises, naming the numbers, when a group
+    does not divide a dimension.  Identity without a mesh."""
+    if mesh is None:
+        return caches
+
+    def cut(path, t, leaf):
+        vs = cache_views(cfg, mesh, leaf.axes)
+        for d, (lo, hi) in enumerate(_cut_shape(t.shape, leaf.axes, vs,
+                                                path)):
+            if vs[d] is not None:
+                t = t.narrow(d, lo, hi - lo)
+        return t.clone()
+
+    return _zip_map(cut, caches, cache_decl_of(cfg))
+
+
+def gather_caches(caches, cfg, mesh):
+    """The whole cache tree from this rank's (``shard_caches``' inverse):
+    each placed dimension all-gathered over its group, in rank order.
+    Collective: every rank of the mesh calls it.  No gradient."""
+    if mesh is None:
+        return caches
+
+    def whole(path, t, leaf):
+        for d, v in enumerate(cache_views(cfg, mesh, leaf.axes)):
+            if v is not None:
+                t = torch.cat(list(v.all_gather(t, "gather_caches")), dim=d)
+        return t
+
+    return _zip_map(whole, caches, cache_decl_of(cfg))
+
+
+def place_cache(decl, cfg, mesh):
+    """This rank's cache declaration: every leaf of ``decl`` (a
+    ``cache_decl``, zeros) with its shape cut to the rank's part, so
+    ``models.builder.materialize`` draws the rank's slice and the whole
+    cache is never in memory (zeros: the slice of the whole one).
+    ``decl`` itself without a mesh."""
+    import dataclasses as dc
+    from repro_torch.models.builder import Leaf
+    if mesh is None:
+        return decl
+
+    def walk(node, path):
+        if isinstance(node, Leaf):
+            if node.init != "zeros":
+                raise ValueError(f"{path}: place_cache cuts zero-initialised"
+                                 f" cache leaves, not {node.init!r} ones")
+            span = _cut_shape(node.shape, node.axes,
+                              cache_views(cfg, mesh, node.axes), path)
+            return dc.replace(node, shape=tuple(hi - lo for lo, hi in span))
+        if isinstance(node, dict):
+            return {k: walk(v, f"{path}/{k}") for k, v in node.items()}
+        return [walk(v, f"{path}/{i}") for i, v in enumerate(node)]
+
+    return walk(decl, "")
+
+
+def cache_split(shard, cfg, window: int, cap: int):
+    """How a decode attention layer's cache of local capacity ``cap`` is
+    split on the sharder's mesh: ``(view, lo, global capacity)``, this
+    rank holding positions [lo, lo + cap); None when it holds them all
+    (no mesh, or a group of one).  ``window`` > 0: the sliding-window
+    ring (``kv_seq``), else the linear cache (``cache_seq``)."""
+    mesh = getattr(shard, "mesh", None)
+    if mesh is None:
+        return None
+    view = cache_views(cfg, mesh, ("kv_seq" if window else "cache_seq",))[0]
+    if view is None:
+        return None
+    return view, view.shard * cap, cap * view.shards
+
+
+def owned_row(mesh, cfg, batch: int, row: int):
+    """This rank's local index of global batch row ``row`` of a batch of
+    ``batch`` rows, or None when another rank holds it."""
+    if mesh is None:
+        return row
+    lo, hi = mesh.batch_rows(batch, cfg)
+    return row - lo if lo <= row < hi else None

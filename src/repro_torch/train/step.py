@@ -10,11 +10,12 @@ counterpart of ``repro.train.step``).
 - ``make_prefill_step(cfg, mesh=None, attack=None)``: ``(params, batch)
   -> next token (B, 1)``, the full-sequence forward and the argmax of the
   last position;
-- ``make_decode_step(cfg, expert_stats=False)``: ``(params, caches,
-  batch) -> (next token (B,), caches)``, one token through the caches,
-  and with ``expert_stats`` also the per-MoE-layer routed-token counts;
-- ``make_serve_chunk_step(cfg, expert_stats=False)``: the serving
-  engine's fused macro-step, C masked greedy decode micro-steps;
+- ``make_decode_step(cfg, expert_stats=False, mesh=None)``: ``(params,
+  caches, batch) -> (next token (B,), caches)``, one token through the
+  caches, and with ``expert_stats`` also the per-MoE-layer routed-token
+  counts;
+- ``make_serve_chunk_step(cfg, expert_stats=False, mesh=None)``: the
+  serving engine's fused macro-step, C masked greedy decode micro-steps;
 - ``make_step(cfg, kind, mesh=None)``: one of the first three by name;
 - ``make_fed_local_step(num_experts, top_k, lr, apply_all)``: a federated
   edge's SGD step on the B-MoE gate and expert bank (``repro_torch.fed``).
@@ -35,7 +36,11 @@ batch's, from summed routing statistics); the gradients are summed over
 the batch ranks, so every leaf holds the global batch's gradient;
 replicas and model ranks are not reduced (their replicated leaves'
 gradients are already equal).  The reported loss is the global batch's.
-Decode and the serving chunk take no mesh (ROADMAP A7c).
+Decode and the serving chunk take the global batch too and keep its rows
+(all of them when the config is not ``batch_shardable``: batch-1
+long-context decode); their caches are this rank's
+(``sharding.shard_caches``), and the next tokens they return, gathered
+over the batch ranks, are the global batch's on every rank.
 """
 from __future__ import annotations
 
@@ -57,12 +62,6 @@ from repro_torch.sharding import (Sharder, is_expert_parallel, logical_rules,
 _STACKED = ("blocks", "enc_blocks", "dec_blocks")
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("decode and the serving chunk take no "
-                                  "mesh yet (ROADMAP A7c)")
-
-
 def _mesh_hooks(cfg: ModelConfig, mesh, attack, kind: str):
     """(sharder, trust hook) of a step of ``kind`` on ``mesh``; (None,
     None) without one.  The hook is built for training only, as in the
@@ -78,13 +77,25 @@ def _mesh_hooks(cfg: ModelConfig, mesh, attack, kind: str):
     return shard, trust
 
 
-def _local_rows(batch, mesh):
-    """This rank's rows of every tensor of a global ``batch``."""
+def _local_rows(batch, mesh, cfg=None):
+    """This rank's rows of every tensor of a global ``batch`` (a decode
+    batch's scalar ``pos`` is every row's)."""
     if mesh is None:
         return batch
-    n = next(iter(batch.values())).shape[0]
-    lo, hi = mesh.batch_rows(n)
-    return {k: v[lo:hi] for k, v in batch.items()}
+    n = next(v.shape[0] for v in batch.values() if getattr(v, "ndim", 0))
+    lo, hi = mesh.batch_rows(n, cfg)
+    return {k: (v[lo:hi] if getattr(v, "ndim", 0) else v)
+            for k, v in batch.items()}
+
+
+def _gather_rows(t, mesh, cfg, dim: int = 0):
+    """The global batch's ``t`` from this rank's rows along ``dim``
+    (gathered over the batch ranks; ``t`` itself when the batch is not
+    split)."""
+    if mesh is None or not mesh.batch_split(cfg):
+        return t
+    parts = mesh.batch.all_gather(t, "next_tokens")
+    return torch.cat(list(parts), dim=dim)
 
 
 def model_forward(params, batch, cfg: ModelConfig, remat: bool = False,
@@ -259,7 +270,8 @@ def make_prefill_step(cfg: ModelConfig, mesh=None, attack=None):
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, expert_stats: bool = False):
+def make_decode_step(cfg: ModelConfig, expert_stats: bool = False,
+                     mesh=None):
     """The batch carries ``tokens`` (B, 1), ``pos`` as an int (every row
     at the same depth) or a (B,) integer tensor, and an optional (B,)
     bool ``active`` mask: inactive rows run the padded compute but leave
@@ -267,31 +279,40 @@ def make_decode_step(cfg: ModelConfig, expert_stats: bool = False):
     refuses it).  ``expert_stats=True`` (decoder-only models) makes the
     step return ``(next token, caches, counts (num_moe_layers, E))``:
     what a serving edge's expert cache resolves activated experts
-    from."""
+    from.  Under ``mesh`` (see the module's docstring) the batch is the
+    global one, ``params`` and ``caches`` this rank's, the returned caches
+    this rank's too, and the next tokens and counts the global batch's;
+    MoE layers run expert-parallel where the config says so, without the
+    vote (the JAX package's decode builds no trust hook)."""
+    shard, _ = _mesh_hooks(cfg, mesh, None, "decode")
 
     def decode_step(params, caches, batch):
+        batch = _local_rows(batch, mesh, cfg)
         tokens, pos = batch["tokens"], batch["pos"]
         active = batch.get("active")
+        stats = None
         if cfg.is_encoder_decoder:
             if active is not None:
                 raise NotImplementedError(
                     "active-slot masking targets decoder-only archs")
             logits, caches = encdec.forward_decode(params, caches, tokens,
-                                                   pos, cfg)
+                                                   pos, cfg, shard=shard)
         elif expert_stats:
             logits, caches, stats = tfm.forward_decode(
-                params, caches, tokens, pos, cfg, expert_stats=True,
-                write_mask=active)
-            return logits[:, -1].argmax(dim=-1), caches, stats
+                params, caches, tokens, pos, cfg, shard=shard,
+                expert_stats=True, write_mask=active)
         else:
-            logits, caches = tfm.forward_decode(params, caches, tokens, pos,
-                                                cfg, write_mask=active)
-        return logits[:, -1].argmax(dim=-1), caches
+            logits, caches = tfm.forward_decode(
+                params, caches, tokens, pos, cfg, shard=shard,
+                write_mask=active)
+        nxt = _gather_rows(logits[:, -1].argmax(dim=-1), mesh, cfg)
+        return (nxt, caches) if stats is None else (nxt, caches, stats)
 
     return decode_step
 
 
-def make_serve_chunk_step(cfg: ModelConfig, expert_stats: bool = False):
+def make_serve_chunk_step(cfg: ModelConfig, expert_stats: bool = False,
+                          mesh=None):
     """The serving engine's fused macro-step (``tfm.forward_serve_chunk``):
     one call runs C engine ticks, prefilling slots chunk-consuming their
     prompts while decoding slots keep generating.
@@ -300,14 +321,20 @@ def make_serve_chunk_step(cfg: ModelConfig, expert_stats: bool = False):
     slot), ``pos`` (B,), ``lengths`` (B,) (prompt columns consumed),
     ``adv`` (B,) (micro-steps the slot advances at all; 0 = idle
     padding), integer arrays or tensors.  Returns (out_tokens (C, B)
-    int32, caches[, stats]) on the parameters' device."""
+    int32, caches[, stats]) on the parameters' device.  Under ``mesh``
+    as ``make_decode_step``: the global batch in, this rank's caches in
+    and out, the global batch's tokens and counts out."""
     if cfg.is_encoder_decoder:
         raise NotImplementedError("serve chunk drives decoder-only archs")
+    shard, _ = _mesh_hooks(cfg, mesh, None, "decode")
 
     def serve_chunk_step(params, caches, batch):
-        return tfm.forward_serve_chunk(
+        batch = _local_rows(batch, mesh, cfg)
+        out = tfm.forward_serve_chunk(
             params, caches, batch["tokens"], batch["start"], batch["pos"],
-            batch["lengths"], batch["adv"], cfg, expert_stats=expert_stats)
+            batch["lengths"], batch["adv"], cfg, shard=shard,
+            expert_stats=expert_stats)
+        return (_gather_rows(out[0], mesh, cfg, dim=1), *out[1:])
 
     return serve_chunk_step
 
@@ -315,16 +342,14 @@ def make_serve_chunk_step(cfg: ModelConfig, expert_stats: bool = False):
 def make_step(cfg: ModelConfig, kind: str, mesh=None,
               opt_cfg: Optional[adamw.AdamWConfig] = None,
               remat: bool = True, attack=None):
-    """The step of ``kind``: "train", "prefill" or "decode" (decode takes
-    no mesh)."""
+    """The step of ``kind``: "train", "prefill" or "decode"."""
     if kind == "train":
         return make_train_step(cfg, opt_cfg or adamw.AdamWConfig(), mesh,
                                attack, remat=remat)
     if kind == "prefill":
         return make_prefill_step(cfg, mesh, attack)
     if kind == "decode":
-        _refuse_mesh(mesh)
-        return make_decode_step(cfg)
+        return make_decode_step(cfg, mesh=mesh)
     raise ValueError(kind)
 
 

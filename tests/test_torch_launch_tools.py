@@ -334,7 +334,9 @@ def test_dry_run_records_on_the_production_mesh():
     parallelism's exchanges booked under JAX's op names (dispatch and
     return all-to-all, the statistics' all-reduce, the next tokens'
     all-gather), the port's rank bytes above JAX's (dense leaves whole),
-    decode pending and long_500k skipped where JAX skips it."""
+    decode_32k run on the mesh (its cache split over ``model``, the
+    combine's all-gathers and EP's all-to-alls booked) and long_500k
+    skipped where JAX skips it."""
     rec = dryrun.run_one("qwen2-moe-a2.7b", "prefill_32k", verbose=False)
     n_moe = get_config("qwen2-moe-a2.7b").num_layers
     assert rec["num_devices"] == 256 and rec["mesh"] == "16x16"
@@ -345,7 +347,11 @@ def test_dry_run_records_on_the_production_mesh():
     assert rec["dtype"] == "float32" and rec["fits"] in (True, False)
     row = roofline.roofline_row(rec)
     assert row["collective_s"] == rec["total_collective_bytes"] / 450e9
-    md = roofline.to_markdown([row], records=[
-        dryrun.run_one("qwen2-moe-a2.7b", "decode_32k", verbose=False),
+    dec = dryrun.run_one("qwen2-moe-a2.7b", "decode_32k", verbose=False)
+    assert dec["mesh"] == "16x16" and "pending" not in dec
+    assert dec["collective_counts"]["all-to-all"] == 2 * n_moe
+    assert dec["wire_bytes"]["cache_combine"] > 0
+    assert dec["total_collective_bytes"] == sum(dec["wire_bytes"].values())
+    md = roofline.to_markdown([row, roofline.roofline_row(dec)], records=[
         dryrun.run_one("qwen2.5-3b", "long_500k", verbose=False)])
-    assert "pending: A7c" in md and "skipped" in md
+    assert "decode_32k" in md and "skipped" in md

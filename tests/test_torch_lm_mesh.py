@@ -1,7 +1,9 @@
 """The LM stack on a mesh in the port, on the CPU: expert parallelism
 (``models.moe_ep``), ``route_masked``, the LM-scale B-MoE vote
 (``core.trusted_moe``), the mesh layouts and rules (``launch.mesh``,
-``sharding``), and training and prefill under a mesh.
+``sharding``), training and prefill under a mesh, and decode, the
+serving chunk and the serving engine on a mesh with the decode caches
+placed by the JAX package's rules (``sharding.shard_caches``).
 
 One world of 4 ranks over gloo (``launch.mesh.spawn_edges``, one
 intra-op thread a rank, collectives with a time limit) runs every case of
@@ -11,9 +13,14 @@ with ``AxisType.Auto`` axes (the reference's own ``jax.make_mesh`` gives
 Explicit axes, which its ``with_sharding_constraint`` refuses on jax
 0.9); both sides take the same numpy inputs.  The port is held to JAX at
 1e-5 (y, steps) and 1e-6 (aux), and to its own one-device run: bitwise
-where the expert buffers' layouts coincide, within 1e-6 elsewhere.  The
-dry run's abstract mesh is held to the world's counts of one EP prefill
-and training step, rank by rank."""
+where the expert buffers' layouts coincide, within 1e-6 elsewhere.
+Decode is held to JAX's decode on the same mesh (next tokens and expert
+counts exactly, logits and the gathered caches at 1e-5), to the port's
+one-device decode at 1e-5, and bit for bit where the cache group has
+width one.  The dry run's abstract mesh is held to the world's counts of
+one EP prefill, training and decode step, rank by rank."""
+import dataclasses
+import math
 import pickle
 import threading
 import types
@@ -37,6 +44,7 @@ from repro_torch.convert import lm_params_from_numpy
 from repro_torch.core.ledger import digest_tree
 from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as lmesh
+from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.moe_ep import moe_mlp_ep
@@ -57,6 +65,14 @@ from repro.models.moe_ep import moe_mlp_ep
 from repro.optim import adamw
 from repro.sharding import logical_rules
 from repro.train.step import make_prefill_step, make_train_step
+
+from repro.models import encdec as jencdec
+from repro.models import transformer as jtfm
+from repro.serve.engine import EdgeStorageConfig, ServingEngine
+from repro.sharding import Sharder, use_fsdp
+from repro.storage.kv import KVStorageConfig
+from repro.train.step import make_serve_chunk_step
+from repro.trust.protocol import TrustConfig
 
 inp = pickle.load(open({inp!r}, "rb"))
 names = {{2: ("data", "model"), 3: ("data", "replica", "model")}}
@@ -99,6 +115,67 @@ for name, shape in inp["steps"]:
             params, adamw.init(params), {{"tokens": toks, "labels": toks}})
     out["step/" + name] = {{"next": np.asarray(nxt), "params": host(p2),
                           "metrics": {{k: float(v) for k, v in met.items()}}}}
+
+# decode: make_decode_step's body (its sharder, forward_decode, the
+# argmax) with the logits kept
+def decode_fn(cfg, m):
+    shard = Sharder(m, logical_rules(m, cfg),
+                    fsdp=use_fsdp(cfg, "decode", m.devices.shape[-1]))
+    es = cfg.num_experts > 0
+    def fwd(p, c, b):
+        if cfg.is_encoder_decoder:
+            logits, c = jencdec.forward_decode(p, c, b["tokens"], b["pos"],
+                                               cfg, shard=shard)
+            return logits, c, None
+        o = jtfm.forward_decode(p, c, b["tokens"], b["pos"], cfg,
+                                shard=shard, expert_stats=es,
+                                write_mask=b.get("active"))
+        return o if es else (*o, None)
+    return jax.jit(fwd)
+for name, arch, shape, B, L, kw in inp["decode_cases"]:
+    cfg = dataclasses.replace(
+        get_config(arch, smoke=True), batch_shardable=B > 1,
+        cache_seq_axes=("model",) if B > 1 else ("data", "model"), **kw)
+    m, params = mesh(shape), tree(inp["decode_models"][arch])
+    caches, steps = tree(inp["decode"][name]["caches"]), []
+    with m:
+        fn = decode_fn(cfg, m)
+        for b in inp["decode"][name]["batches"]:
+            logits, caches, stats = fn(params, caches, {{
+                k: jnp.asarray(v) for k, v in b.items()}})
+            steps.append({{"logits": np.asarray(logits[:, -1]),
+                          "next": np.asarray(logits[:, -1].argmax(-1)),
+                          "stats": None if stats is None
+                          else np.asarray(stats)}})
+    out["decode/" + name] = {{"steps": steps, "caches": host(caches)}}
+
+# the serve chunk and the engine: qwen2-moe-a2.7b on (2, 2)
+cfg, m = cfgs["qwen_ep"], mesh((2, 2))
+params = tree(inp["models"]["qwen_ep"])
+with m:
+    toks, caches, stats = jax.jit(make_serve_chunk_step(
+        cfg, m, expert_stats=True))(params, tree(inp["serve_chunk"][
+            "caches"]), tree(inp["serve_chunk"]["batch"]))
+out["serve_chunk"] = {{"tokens": np.asarray(toks), "stats": np.asarray(stats),
+                      "caches": host(caches)}}
+eng = ServingEngine(cfg, params, mesh=m, **inp["engine"]["kw"],
+                    trust=TrustConfig(**inp["engine"]["trust"]),
+                    expert_storage=EdgeStorageConfig(),
+                    kv_storage=KVStorageConfig(**inp["engine"]["kv"]))
+with m:
+    eng.submit([dict(r) for r in inp["engine"]["requests"]])
+    while (not eng.sched.slots[1].decoding
+           or len(eng.sched.slots[1].generated) < 3):
+        assert eng.step()
+    eng.page_out(1)
+    done = eng.run()
+rep = eng.report()
+out["engine"] = {{
+    "done": {{k: list(map(int, v)) for k, v in done.items()}},
+    "ticks": [(t.tick, t.root, tuple(t.request_ids), bool(t.kv_root))
+              for t in eng.tick_commitments],
+    "cids": list(eng.kvrt.kv.sealed_cids()),
+    "edge": rep["edge"], "kv": rep["kv"]}}
 pickle.dump(out, open({out!r}, "wb"))
 print("JAX CASES OK")
 """
@@ -120,7 +197,12 @@ def world(tmp_path_factory, repo_src):
     and the JAX subprocess run at the same time."""
     d = tmp_path_factory.mktemp("lm_mesh")
     inp = ranks.make_inputs()
-    inp.update(ep_layer=ranks.EP_LAYER, steps=ranks.STEPS)
+    inp.update(ep_layer=ranks.EP_LAYER, steps=ranks.STEPS,
+               decode_cases=ranks.DECODE,
+               engine={"kw": ranks.ENGINE_KW, "trust": ranks.ENGINE_TRUST,
+                       "kv": ranks.ENGINE_KV,
+                       "requests": ranks.engine_requests(
+                           ranks.ep_cfg().vocab_size)})
     in_path, jax_path = str(d / "in.pkl"), str(d / "jax.pkl")
     with open(in_path, "wb") as f:
         pickle.dump(inp, f)
@@ -300,19 +382,22 @@ def test_prefill_step_matches_jax(world, case):
                                       ref["step/" + case]["next"])
 
 
-@pytest.mark.parametrize("kind", ["prefill", "train"])
+@pytest.mark.parametrize("kind", ["prefill", "train", "decode"])
 def test_abstract_mesh_counts_equal_the_world(world, kind):
     """The dry run of one qwen2-moe EP step on the abstract (2, 2) mesh,
     as each rank of the world: its ``wire_bytes`` by exchange, its
     collective bytes and counts by op and its dot FLOPs equal what that
-    rank of the gloo world sent and counted, exactly."""
+    rank of the gloo world sent and counted, exactly (decode: a batch of
+    4 over a 64-position cache split over ``model``)."""
     res, _, _ = world
     cfg = ranks.step_cfg("qwen_ep")
     B, S = ranks.TOKENS
+    shape = dict(kind=kind, seq=S, batch=B)
+    if kind == "decode":
+        shape = ranks.DECODE_SHAPE
     for r, got in enumerate(res):
-        rec = dryrun.run_one(cfg.name, dict(kind=kind, seq=S, batch=B),
-                             cfg=cfg, mesh_shape=(2, 2), rank=r,
-                             remat=False, verbose=False)
+        rec = dryrun.run_one(cfg.name, shape, cfg=cfg, mesh_shape=(2, 2),
+                             rank=r, remat=False, verbose=False)
         real = got["counted_steps"][kind]
         assert real["wire"] and rec["wire_bytes"] == real["wire"], r
         assert real["count"]["wire_bytes"] == real["wire"]
@@ -320,6 +405,212 @@ def test_abstract_mesh_counts_equal_the_world(world, kind):
                     "total_collective_bytes", "dot_flops",
                     "dot_flops_by_route", "kernel_calls"):
             assert rec[key] == real["count"][key], (r, key)
+
+
+# ------------------------------------------------------ decode on a mesh
+@pytest.mark.parametrize("case", [c[0] for c in ranks.DECODE])
+def test_decode_matches_jax(world, case):
+    """``make_decode_step`` on the case's mesh, its caches placed by
+    ``shard_caches``: every rank's next tokens (the global batch's) and
+    expert counts equal JAX's decode on the same Auto mesh at every step,
+    its rows' logits within 1e-5 of JAX's, the gathered caches within
+    1e-5 of each leaf's largest magnitude (at least 1: mamba2's states
+    reach 7 from the random caches) of JAX's and the same bits on every
+    rank; the port's one-device decode gives the same tokens and counts
+    and is within 1e-5."""
+    res, ref, _ = world
+    want = ref["decode/" + case]
+    for r in res:
+        got = r["decode/" + case]
+        for g, w, one_next, one_stats in zip(
+                got["steps"], want["steps"], got["one_device"]["next"],
+                got["one_device"]["stats"]):
+            np.testing.assert_array_equal(g["next"], w["next"])
+            np.testing.assert_array_equal(g["next"], one_next)
+            np.testing.assert_allclose(g["logits"],
+                                       w["logits"][slice(*g["rows"])],
+                                       rtol=0, atol=1e-5)
+            if w["stats"] is not None:
+                np.testing.assert_array_equal(g["stats"], w["stats"])
+                np.testing.assert_array_equal(g["stats"], one_stats)
+        assert got["one_device"]["logits_diff"] <= 1e-5
+        assert got["one_device"]["caches_diff"] <= 1e-5
+    assert len({r["decode/" + case]["digest"] for r in res}) == 1
+    flat_g = jax.tree_util.tree_leaves(res[0]["decode/" + case]["caches"])
+    flat_w = jax.tree_util.tree_leaves(want["caches"])
+    assert len(flat_g) == len(flat_w)
+    for g, w in zip(flat_g, flat_w):
+        w = w.astype(np.float32)
+        np.testing.assert_allclose(g.astype(np.float32), w, rtol=0,
+                                   atol=1e-5 * max(1.0, np.abs(w).max()))
+
+
+def test_decode_split_cache_exchanges(world):
+    """A split cache's attention layers merge their parts by one
+    all-gather each (``cache_combine``); a cache whose group has width
+    one (mamba2's states) exchanges nothing for attention; EP decode
+    dispatches by all-to-all."""
+    res, _, _ = world
+    for r in res:
+        assert r["decode/qwen25_2x2"]["wire"]["cache_combine"] > 0
+        assert r["decode/qwen25_1x4"]["wire"]["cache_combine"] > 0
+        assert "cache_combine" not in r["decode/mamba2_2x2"]["wire"]
+        assert r["decode/qwen_moe_2x2"]["wire"]["ep_dispatch"] > 0
+
+
+def test_decode_bitwise_where_the_cache_group_has_width_one(world):
+    """On (4, 1) and (1, 4, 1) (a cache group of one) each rank's logits,
+    next tokens and caches equal the one-device decode of its rows bit
+    for bit, for the six configs of ``DECODE`` at batch 4."""
+    res, _, _ = world
+    for r in res:
+        assert r["decode_width1"] and all(r["decode_width1"].values()), \
+            r["decode_width1"]
+
+
+def test_serve_chunk_matches_jax(world):
+    """qwen2-moe-a2.7b's serve chunk on (2, 2) (prefilling, decoding and
+    idle slots, one crossing model rank 1's first position): tokens and
+    counts equal JAX's, the gathered caches within 1e-5, the same bits
+    on every rank."""
+    res, ref, _ = world
+    want = ref["serve_chunk"]
+    for r in res:
+        np.testing.assert_array_equal(r["serve_chunk"]["tokens"],
+                                      want["tokens"])
+        np.testing.assert_array_equal(r["serve_chunk"]["stats"],
+                                      want["stats"])
+    assert len({r["serve_chunk"]["digest"] for r in res}) == 1
+    for g, w in zip(jax.tree_util.tree_leaves(res[0]["serve_chunk"][
+            "caches"]), jax.tree_util.tree_leaves(want["caches"])):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-5)
+
+
+def test_engine_on_a_mesh(world):
+    """``ServingEngine(mesh=)`` on (2, 2) with verified sessions, edge
+    expert storage and KV paging (slot 1 paged out and resumed): the
+    completed streams, tick roots, sealed KV block CIDs and the edge
+    and KV reports equal JAX's engine on the same Auto mesh and the
+    port's one-device engine, and every rank's run is the same, the KV
+    manifests' roots included (those hash the cache's bytes, which the
+    split cache's combine rounds otherwise than one device: they are
+    not held to it)."""
+    res, ref, _ = world
+    want = ref["engine"]
+    for r in res:
+        got, one = r["engine"]["mesh"], r["engine"]["one_device"]
+        for k in ("done", "ticks", "cids", "edge", "kv"):
+            assert got[k] == one[k], k
+            assert got[k] == want[k], k
+        assert got == res[0]["engine"]["mesh"]
+    assert res[0]["engine"]["mesh"]["kv"]["pageouts"] == 1
+
+
+def test_cache_round_trip_in_the_world(world):
+    """``shard_caches`` then ``gather_caches`` gives every config's
+    cache back bit for bit on (2, 2) and (1, 4), and ``place_cache``
+    declares the rank's shapes."""
+    res, _, _ = world
+    for r in res:
+        assert len(r["cache_round_trip"]) == 2 * len(JARCH_IDS)
+        assert all(r["cache_round_trip"].values()), r["cache_round_trip"]
+
+
+# the decode shapes' meshes: (name, mesh shape, axis names, batch)
+CACHE_MESHES = (("2x2", (2, 2), ("data", "model"), 4),
+                ("1x4", (1, 4), ("data", "model"), 1),
+                ("16x16", (16, 16), ("data", "model"), 128),
+                ("16x16_b1", (16, 16), ("data", "model"), 1),
+                ("2x16x16", (2, 16, 16), ("pod", "data", "model"), 128),
+                ("2x2x2", (2, 2, 2), ("data", "replica", "model"), 4))
+
+
+@pytest.mark.parametrize("arch", sorted(JARCH_IDS))
+def test_cache_placement_matches_jax_specs(arch):
+    """For every config's cache declaration and six meshes (no devices:
+    abstract meshes), ``cache_specs`` equals JAX's ``partition_specs``
+    under its ``logical_rules`` leaf by leaf on the ``batch``,
+    ``cache_seq`` and ``kv_seq`` dimensions (None elsewhere: those are
+    tensor parallelism's), and ``place_cache``'s shapes are the shard
+    shapes JAX's specs give those dimensions."""
+    from repro.models import encdec as jencdec
+    from repro.models import transformer as jtfm
+    from repro.models.builder import partition_specs as jspecs
+    for name, shape, names, B in CACHE_MESHES:
+        L = 4096
+        knobs = dict(batch_shardable=B > 1, cache_seq_axes=(
+            ("model",) if B > 1 else ("data", "model")))
+        jcfg = dataclasses.replace(jget_config(arch), **knobs)
+        cfg = dataclasses.replace(get_config(arch), **knobs)
+        jm = types.SimpleNamespace(axis_names=names,
+                                   devices=np.empty(shape))
+        jdecl = (jencdec.encdec_cache_decl(jcfg, B, L, ranks.ENCDEC_MEMORY)
+                 if jcfg.is_encoder_decoder else jtfm.cache_decl(jcfg, B, L))
+        decl = ranks.cache_decl(cfg, B, L)
+        want = jax.tree_util.tree_leaves(
+            jspecs(jdecl, jsharding.logical_rules(jm, jcfg)),
+            is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+        axes = [l.axes for l in jax.tree_util.tree_leaves(
+            jdecl, is_leaf=lambda x: hasattr(x, "axes"))]
+        mesh = lmesh.abstract_lm_mesh(shape, names)
+        got = jax.tree_util.tree_leaves(
+            sharding.cache_specs(decl, cfg, mesh),
+            is_leaf=lambda x: isinstance(x, tuple))
+        placed = jax.tree_util.tree_leaves(
+            sharding.place_cache(decl, cfg, mesh),
+            is_leaf=lambda x: hasattr(x, "axes"))
+        whole = jax.tree_util.tree_leaves(
+            decl, is_leaf=lambda x: hasattr(x, "axes"))
+        widths = dict(zip(names, shape))
+        assert len(got) == len(want) == len(axes) == len(placed)
+        for g, w, ax, pl, wh in zip(got, want, axes, placed, whole):
+            w = tuple(w) + (None,) * (len(ax) - len(w))
+            for a, gs, ws, n_pl, n in zip(ax, g, w, pl.shape, wh.shape):
+                if a in ("batch", "cache_seq", "kv_seq"):
+                    # a PartitionSpec writes a one-name tuple as the name
+                    names_ = (ws,) if isinstance(ws, str) else (ws or ())
+                    assert ((gs,) if isinstance(gs, str) else (gs or ())) \
+                        == names_, (name, ax, g, w)
+                    assert n_pl == n // math.prod(widths[x]
+                                                  for x in names_)
+                else:
+                    assert gs is None and n_pl == n
+
+
+def test_an_indivisible_cache_raises():
+    """A capacity the group does not divide raises and names the
+    numbers (nothing is padded)."""
+    cfg = ranks.decode_cfg("qwen2.5-3b", 1)
+    mesh = lmesh.abstract_lm_mesh((1, 4))
+    with pytest.raises(ValueError, match="of 30 does not split over 4"):
+        sharding.place_cache(ranks.cache_decl(cfg, 1, 30), cfg, mesh)
+    cfg = ranks.decode_cfg("qwen2.5-3b", 4)
+    with pytest.raises(ValueError, match="of 30 does not split over 4"):
+        sharding.shard_caches(materialize_caches(cfg, 4, 30), cfg, mesh)
+    with pytest.raises(ValueError, match="of 6 does not split over 4"):
+        sharding.shard_caches(materialize_caches(cfg, 6, 32), cfg,
+                              lmesh.abstract_lm_mesh((4, 1)))
+
+
+def materialize_caches(cfg, B, L):
+    from repro_torch.models.builder import materialize
+    return materialize(ranks.cache_decl(cfg, B, L), 0, "cpu")
+
+
+def test_make_step_decode_takes_a_mesh():
+    """``make_step(cfg, "decode", mesh)`` builds the mesh's decode step
+    (it raised before the port's decode took a mesh); on a one-rank mesh
+    it is the one-device step bit for bit."""
+    from repro_torch.train.step import make_decode_step, make_step
+    cfg = ranks.decode_cfg("qwen2.5-3b", 2)
+    params = init_model(cfg, 0, "cpu")
+    caches = materialize_caches(cfg, 2, 16)
+    batch = {"tokens": torch.tensor([[3], [5]]), "pos": 4}
+    mesh = lmesh.make_lm_mesh((1, 1), device="cpu")
+    a = make_step(cfg, "decode", mesh)(params, caches, batch)
+    b = make_decode_step(cfg)(params, caches, batch)
+    assert torch.equal(a[0], b[0])
+    assert digest_tree(a[1]) == digest_tree(b[1])
 
 
 # ------------------------------------------- against the one device
@@ -511,3 +802,17 @@ def test_launcher_mesh_matches_one_device():
     for a, b in zip(on, one):
         assert abs(a["loss"] - b["loss"]) <= 1e-5
         assert abs(a["grad_norm"] - b["grad_norm"]) <= 1e-5 * b["grad_norm"]
+
+
+def test_serve_launcher_mesh_matches_one_device():
+    """``python -m repro_torch.launch.serve --mesh 2,2 --device cpu
+    --arch qwen2-moe-a2.7b``: four ranks (EP over model, the slots over
+    data, the cache's positions over model) complete the one-device
+    launcher's requests with the same tokens."""
+    argv = ["--arch", "qwen2-moe-a2.7b", "--requests", "5", "--slots", "4",
+            "--cache-len", "64", "--max-prompt", "20", "--max-new", "6",
+            "--device", "cpu"]
+    one = launch_serve.main(argv)
+    on = launch_serve.main(argv + ["--mesh", "2,2"])
+    assert on == one and len(one) == 5
+

@@ -233,14 +233,22 @@ def test_train_step_update_is_adamw_on_the_step_gradients():
 
 
 def test_train_step_refuses_a_mesh():
-    """Training takes a mesh (``tests/test_torch_lm_mesh.py``); what is
-    refused is decode on a mesh (ROADMAP A7c) and the B-MoE vote on a
-    mesh without a replica axis, as the JAX package's ``make_trust``."""
+    """Training and decode take a mesh (``tests/test_torch_lm_mesh.py``);
+    what is refused is the B-MoE vote on a mesh without a replica axis,
+    as the JAX package's ``make_trust``, and a decode cache over mesh
+    axes the port does not split (only ``model`` or data x model)."""
+    import dataclasses
+
     from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models.builder import materialize
+    from repro_torch.models.transformer import cache_decl
+    from repro_torch.sharding import shard_caches
     cfg = get_config("smollm-360m", smoke=True)
-    with pytest.raises(NotImplementedError, match="A7"):
-        step.make_step(cfg, "decode", mesh=object())
     mesh = make_lm_mesh((1, 1), device="cpu")
+    assert callable(step.make_step(cfg, "decode", mesh=mesh))
+    odd = dataclasses.replace(cfg, cache_seq_axes=("data",))
+    with pytest.raises(ValueError, match="splits a cache"):
+        shard_caches(materialize(cache_decl(odd, 1, 8), 0, "cpu"), odd, mesh)
     trusted = get_config("bmoe-paper", smoke=True)
     with pytest.raises(ValueError, match="replica"):
         step.make_train_step(trusted, adamw.AdamWConfig(), mesh=mesh)

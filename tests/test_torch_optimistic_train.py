@@ -17,6 +17,9 @@ by loss and parameters.
 Inside the port: the chained replay equals a clean twin bit for bit,
 pipelined equals synchronous and batched equals eager by
 ``digest_tree``, and the spans keep the JAX package's algebra."""
+import gc
+import time
+
 import jax
 import numpy as np
 import pytest
@@ -35,6 +38,7 @@ from repro_torch.core.reputation import ReputationConfig
 from repro_torch.data.synthetic import FMNIST, make_image_dataset
 from repro_torch.kernels import ops
 from repro_torch.obs import Observability
+from repro_torch.obs import trace as trace_mod
 from repro_torch.trust import audit, protocol
 from repro_torch.trust.commitments import leaf_digest
 from repro_torch.trust.protocol import RoundPhase, TrustConfig
@@ -410,11 +414,20 @@ def test_adversary_slashed_excluded_and_training_tracks_clean(data):
     assert execs and not set(execs) & {7, 8, 9}
 
 
-def test_audit_spans_off_path_and_replay_under_consensus():
+def test_audit_spans_off_path_and_replay_under_consensus(monkeypatch):
     """tests/test_obs.py:195 and :247 in the port: pipelined drains book
     ``bmoe.audit_s`` off the consensus path, the rollback replay nests
-    under consensus, round spans cover their wall, and every mined block
-    names a live span."""
+    under consensus, round spans cover their work, and every mined block
+    names a live span.
+
+    The spans run on this thread's CPU clock (``time.thread_time``; the
+    file runs one intra-op thread, so the thread does all of a round's
+    work) with the collector paused: "the children cover 95% of the
+    round" then says that the round leaves no host work outside its
+    phases, whatever else the machine runs.  On the wall clock a
+    preemption between two child spans failed it under ``-n 6`` (9 ms
+    of a 139 ms round), where the uncovered work is about 0.6 ms."""
+    monkeypatch.setattr(trace_mod, "_pc", time.thread_time)
     rng = np.random.default_rng(0)
     x = rng.normal(size=(512, 784)).astype(np.float32)
     y = rng.integers(0, 10, 512)
@@ -426,10 +439,14 @@ def test_audit_spans_off_path_and_replay_under_consensus():
                                               noise_std=5.0),
         trust=TrustConfig(audit_rate=0.5, challenge_window=2))
     s = bmoe.BMoESystem(cfg, device="cpu", obs=obs)
-    for _ in range(5):
-        idx = rng.integers(0, len(x), 128)
-        s.train_round(x[idx], y[idx])
-    s.flush_trust()
+    gc.disable()
+    try:
+        for _ in range(5):
+            idx = rng.integers(0, len(x), 128)
+            s.train_round(x[idx], y[idx])
+        s.flush_trust()
+    finally:
+        gc.enable()
     ev = obs.trace.events
     by_id = {e["span_id"]: e for e in ev}
     cons = {e["span_id"] for e in ev if e["name"] == "consensus"}
