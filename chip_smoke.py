@@ -99,9 +99,11 @@ capacity 376, edge cache on):
   nothing and are all joined; a failing rank fails the path;
 - the LM stack on a mesh (path O, ``launch.mesh.LMMesh``, ranks sharing
   the card over gloo, full width, depth cut): O1, qwen2-moe-a2.7b's
-  expert-parallel prefill (2 of 24 layers, 1 x 4096) on (data 1, model
-  4), its logits and next token bitwise the one-device prefill's at
-  capacity factor 8, and at the config's 1.25 each rank's dispatch equal
+  expert-parallel prefill (1 of 24 layers, 1 x 4096) on (data 1, model
+  4), its logits (every 64th position) within 1e-5 of the one-device
+  prefill's largest and its next token equal at capacity factor 8 (the
+  attention and shared expert tensor-parallel), and at the config's
+  1.25 each rank's dispatch equal
   to ``route_masked`` on its logit rows; O2, the trusted EP prefill
   (TRUSTED_FAITHFUL and TRUSTED_DIGEST, r = 4, 1 layer, 1 x 2048) on
   (1, 4, 2): a minority (replica 3) repaired bitwise, a majority
@@ -110,8 +112,8 @@ capacity 376, edge cache on):
   attacked run bitwise the clean one on every rank, the first step's
   loss within 1e-6 of one device and its gradients within 1e-5 of each
   leaf's largest magnitude; O4, qwen2-moe-a2.7b's
-  EP training (2 layers, (1, 2048), capacity factor 8) on (1, 2)
-  against one device.  Each rank's launches are held to the records (3
+  EP training (1 layer, (1, 2048), capacity factor 8) on (1, 2)
+  against one device (gradients within 1e-5).  Each rank's launches are held to the records (3
   ``moe_gemm`` a MoE layer forward, 6 backward, a flash a attention
   layer, 2 votes a MoE layer under faithful EP, 1 under the vote hook);
 - the dry run held to the card (path P, ``launch.dryrun``, after O):
@@ -130,14 +132,31 @@ capacity 376, edge cache on):
   ``ServingEngine(mesh=)`` on (1, 4), 4 slots, cache 4,096, chunks up to
   16, verified sessions, edge expert storage and KV paging, 6 requests
   of 16-96 prompt tokens and 16 new (two admitted mid-run): streams,
-  tick commitments, sealed KV block CIDs and the storage report equal
-  the one-device engine's, every rank the same; Q2, qwen2.5-3b (8 of 36 layers) at batch 1 on (2, 2), a
+  tick commitments and the storage report equal the one-device
+  engine's, as many sealed KV blocks, every rank the same (CIDs too);
+  Q2, qwen2.5-3b (2 of 36 layers) at batch 1 on (2, 2), a
   cache of 131,072 positions split over data x model, filled from a seed
   to 120,000, 8 decode steps: tokens equal, logits within 1e-5 of the
   largest, each rank's part the one-device cache's; Q3, the launches
   (3 ``moe_gemm`` a MoE layer a micro-step, no flash), ``moe_gemm`` at a
   rank's decode shape, bytes and walls; P3, Q2's step on the abstract
-  (2, 2) mesh books Q2 rank 0's bytes.
+  (2, 2) mesh books Q2 rank 0's bytes;
+- FSDP placement and dense tensor parallelism (path R, after Q; four
+  ranks on the card over gloo, each one-device reference run first and
+  freed): R1, qwen3-32b (2 of 64 layers) trained on (2, 2), FSDP over
+  data and tensor parallelism over model, one step of (2, 2048) with
+  remat: loss within 1e-5, gradients within 1e-5 of each leaf's largest
+  magnitude (or twice one device's own noise of splitting the rows),
+  each rank's parameters and moments a quarter of one device's, its
+  peak beside one device's; R2, bmoe-paper's gspmd MoE prefill (2 of 12
+  layers, (2, 2048)) on (1, 4) (``moe_ff`` over model) and (2, 2) (the
+  experts over model, its MoE layer bitwise one device's): logits
+  within 1e-5, next tokens and routing equal; R3, qwen3-32b (4 of 64
+  layers) decoding 64 steps of a batch of 4 on (1, 4), the 4,096-slot
+  cache over model: tokens equal, logits within 1e-5; R4, ``moe_gemm``
+  and the flash forward and backward at a rank's shapes, each rank's
+  launches; P4, R1's step on the abstract (2, 2) mesh books R1 rank 0's
+  bytes by exchange and its parameter-and-moment bytes.
 
 Each path's launch counts are set to 0 just before it and read just
 after it.
@@ -151,6 +170,7 @@ after it.
     python3 chip_smoke.py --lm-mesh
     python3 chip_smoke.py --dryrun
     python3 chip_smoke.py --decode-mesh
+    python3 chip_smoke.py --tensor-parallel
 
 The second form builds, then checks and times only the named kernels'
 cases (``moe_gemm``, ``flash_attention``, ``flash_attention_bwd``,
@@ -161,8 +181,8 @@ kernel on one card.
 The third runs path K alone, the fourth path L alone (their models
 initialised from seed 0 as the main run's are), the fifth path M alone,
 the sixth path N alone, the seventh path O alone, the eighth path P
-alone (O1's world run again for P2) and the ninth path Q alone (with
-P3), and stop the same way.
+alone (O1's world run again for P2), the ninth path Q alone (with P3)
+and the tenth path R alone (with P4), and stop the same way.
 
 Prints, in order: the card's name and power limit (nvidia-smi), the
 build time, one JSON line per kernel case, the main-path lines, one
@@ -2232,13 +2252,18 @@ def _k_tamper(torch, cfg, params, scheduling: str):
                            if e["event"] == "revoke_dependent"]}
 
 
+# K1's requests (two admitted mid-run into the 4 slots), and those
+# served alone too (12 and 4 before path R)
+K1_REQUESTS, K1_ALONE = 6, 1
+
+
 def serving_k1(torch, ops, cfg, params):
-    """K1: qwen2-moe-a2.7b at full width on path H's weights.  Twelve requests
+    """K1: qwen2-moe-a2.7b at full width on path H's weights.  Six requests
     through a continuous-batching engine with verified sessions (4 slots, cache
     512, chunks up to 16), warmed first; the launch counts are set to 0 just
     before ``run`` and read just after, and moe_gemm must have launched 3 times
     a MoE layer for each micro-step the engine ran.  Then: the fixed policy
-    gives the same streams and verdicts; each of the first four requests served
+    gives the same streams and verdicts; the first request served
     alone in a fresh engine gives its stream; a rewritten session is revoked
     with its neighbours; one decode and one prefill chunk profiled, with the
     cache update's bytes and device time and the synchronising calls a
@@ -2247,7 +2272,7 @@ def serving_k1(torch, ops, cfg, params):
     from repro_torch.serve.engine import ServingEngine
     start = time.perf_counter()
     n_moe = _k_moe_layers(cfg)
-    reqs = list(serving_requests(cfg.vocab_size, 12, max_prompt=64,
+    reqs = list(serving_requests(cfg.vocab_size, K1_REQUESTS, max_prompt=64,
                                  max_new=16, seed=0))
     kw = dict(batch_slots=4, cache_len=512, prefill_chunk=16)
     eng = ServingEngine(cfg, params, scheduling="continuous",
@@ -2272,7 +2297,7 @@ def serving_k1(torch, ops, cfg, params):
                                    **kw)
     t0 = time.perf_counter()
     alone_equal, alone_micro_steps = [], 0
-    for r in reqs[:4]:
+    for r in reqs[:K1_ALONE]:
         one_eng, one, _ = _k_serve(torch, cfg, params, [r], **kw)
         alone_equal.append(one.get(r["id"]) == done.get(r["id"]))
         alone_micro_steps += one_eng.micro_steps
@@ -2313,9 +2338,11 @@ def serving_k1(torch, ops, cfg, params):
            "prefill_chunk_profile": prefill}
     emit(row)
     require(buckets == 5, f"K1 warmup ran {buckets} buckets, wanted 5")
-    require(len(done) == 12 and set(verdicts.values()) == {"finalized"}
-            and len(verdicts) == 12,
-            f"K1: {len(done)} of 12 completed, verdicts {verdicts}")
+    require(len(done) == K1_REQUESTS
+            and set(verdicts.values()) == {"finalized"}
+            and len(verdicts) == K1_REQUESTS,
+            f"K1: {len(done)} of {K1_REQUESTS} completed, verdicts "
+            f"{verdicts}")
     require(all(len(done[r["id"]]) == r["max_new_tokens"] for r in reqs)
             and all(0 <= t < cfg.padded_vocab for v in done.values()
                     for t in v), "K1 streams' lengths or token range")
@@ -3955,8 +3982,8 @@ def mesh_path(torch, np, ops, mg, rv, am, ref):
 # ------------------------------------------------ path O: the LM mesh
 LM_MESH_AXES = {2: ("data", "model"), 3: ("data", "replica", "model")}
 # path O's depths (O1 4, O2 and O3 2 layers before path Q joined the
-# script, which keeps the whole run near 830 s)
-LM_MESH_LAYERS = {"O1": 2, "O2": 1, "O3": 1, "O4": 2}
+# script; O1 and O4 2 before path R did)
+LM_MESH_LAYERS = {"O1": 1, "O2": 1, "O3": 1, "O4": 1}
 LM_MESH_SHAPES = {"O1": (1, 4), "O2": (1, 4, 2), "O3": (2, 2, 1),
                   "O4": (1, 2)}
 
@@ -4017,14 +4044,19 @@ def _max_diff_chunked(torch, a, b_host, rows: int = 256) -> float:
     return out
 
 
-def _mesh_logits(torch, cfg, params, tokens, mesh, attack=None):
+def _mesh_logits(torch, cfg, params, tokens, mesh, attack=None,
+                 rows=None, whole=True):
+    """The prefill's forward logits: at positions ``rows`` (all when
+    None), whole (a placed tree's vocabulary columns gathered over
+    ``model``) or, with ``whole=False``, this rank's columns."""
     from repro_torch.models import transformer as tfm
-    from repro_torch.sharding import Sharder, logical_rules
-    shard = (None if mesh is None else
-             Sharder(mesh, logical_rules(mesh, cfg), attack=attack))
+    from repro_torch.sharding import step_sharder
+    shard = step_sharder(cfg, mesh, "prefill", attack)
     with torch.no_grad():
         logits, _ = tfm.forward_train(params, tokens, cfg, shard=shard)
-    return logits
+        if rows is not None:
+            logits = logits[:, rows]
+        return tfm.gather_vocab(logits, shard) if whole else logits
 
 
 def _timed(torch, fn):
@@ -4075,13 +4107,15 @@ def _o1(torch, ops, mesh):
     from repro_torch.train.loop import init_model
     from repro_torch.train.step import make_prefill_step
     cfg = lm_mesh_cfg("O1")
-    params = init_model(cfg, 0, mesh.device, mesh=mesh)
+    params = init_model(cfg, 0, mesh.device, mesh=mesh, kind="prefill")
     tokens = prefill_batch(torch, cfg, 4096)["tokens"]
-    logits = _mesh_logits(torch, cfg, params, tokens, mesh)
-    out = {"fingerprint": fingerprint(torch, logits),
-           "last_row": logits[0, -1].cpu(),
-           "next": int(logits[0, -1].argmax())}
-    del logits
+    rows = _mesh_logits(torch, cfg, params, tokens, mesh, rows=O1_ROWS)
+    one = torch.load(os.path.join(O1_DIR[0], "o1_rows.pt"))
+    rows = rows[0].cpu()
+    out = {"fingerprint": fingerprint(torch, rows),
+           "rows_max_abs_diff": float((rows - one).abs().max()),
+           "rows_max_abs": float(one.abs().max()),
+           "next": int(rows[-1].argmax())}
     prefill = make_prefill_step(cfg, mesh)
     ops.reset_launch_counts()
     mesh.wire_bytes.clear()
@@ -4109,14 +4143,21 @@ def _o1(torch, ops, mesh):
     return out
 
 
+# the positions O1 compares (every 64th and the last), and where the
+# parent leaves the one-device rows for the ranks
+O1_ROWS = list(range(0, 4096, 64)) + [4095]
+O1_DIR = [""]
+
+
 def _o2(torch, ops, mesh):
     """O2 on a rank: the trusted EP prefill under ``faithful`` and
     ``digest`` (r = 4), clean, with replica 3 adding noise and with
-    replicas 0-2 colluding; logits against the clean run's."""
+    replicas 0-2 colluding; this rank's vocabulary columns of the logits
+    against the clean run's."""
     from repro_torch.core.trusted_moe import LMAttack
     from repro_torch.train.loop import init_model
     params = init_model(lm_mesh_cfg("O2"), 0, mesh.device,
-                        mesh=mesh)
+                        mesh=mesh, kind="prefill")
     tokens = prefill_batch(torch, lm_mesh_cfg("O2"), 2048)["tokens"]
     out = {}
     for mode in ("faithful", "digest"):
@@ -4124,16 +4165,16 @@ def _o2(torch, ops, mesh):
         ops.reset_launch_counts()
         mesh.wire_bytes.clear()
         clean, wall = _timed(torch, lambda: _mesh_logits(
-            torch, cfg, params, tokens, mesh))
+            torch, cfg, params, tokens, mesh, whole=False))
         row = {"launches": ops.launch_counts(), "wire": dict(mesh.wire_bytes),
                "wall_ms": wall, "fingerprint": fingerprint(torch, clean),
-               "next": int(clean[0, -1].argmax()),
+               "model_shard": mesh.model.shard,
                "max_abs_logit": float(clean.abs().max())}
         clean = clean.cpu()
         for who, mal in (("minority", (3,)), ("majority", (0, 1, 2))):
             got = _mesh_logits(torch, cfg, params, tokens, mesh,
                                LMAttack(malicious_replicas=mal,
-                                        noise_std=4.0))
+                                        noise_std=4.0), whole=False)
             row[who] = {"fingerprint": fingerprint(torch, got),
                         "max_abs_diff": _max_diff_chunked(torch, got, clean)}
             del got
@@ -4196,6 +4237,7 @@ def _o3(torch, ops, mesh):
     against the one-device step's."""
     from repro_torch.core.trusted_moe import LMAttack
     from repro_torch.optim import adamw
+    from repro_torch.sharding import gather_params
     from repro_torch.train.loop import init_model
     from repro_torch.train.step import make_loss_and_grads, make_train_step
     cfg = lm_mesh_cfg("O3")
@@ -4221,7 +4263,8 @@ def _o3(torch, ops, mesh):
         out[who] = {"losses": losses, "walls_ms": walls, "launches": counts,
                     "wire": dict(mesh.wire_bytes),
                     "step_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-                    "params": fingerprint_tree(torch, params)}
+                    "params": fingerprint_tree(torch, gather_params(
+                        params, cfg, mesh))}
         del params, state
         gc.collect()
         torch.cuda.empty_cache()
@@ -4283,6 +4326,7 @@ def lm_mesh_rank(rank: int, world: int, sub: str, out_dir: str) -> None:
     build.library()
     shape = LM_MESH_SHAPES[sub]
     mesh = make_lm_mesh(shape, LM_MESH_AXES[len(shape)])
+    O1_DIR[0] = out_dir
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = {"O1": _o1, "O2": _o2, "O3": _o3, "O4": _o4}[sub](torch, ops, mesh)
@@ -4339,11 +4383,16 @@ def lm_mesh_path(torch, np, ops, mg, rv, ref):
     cfg = lm_mesh_cfg("O1")
     params = init_model(cfg, 0)
     tokens = prefill_batch(torch, cfg, 4096)["tokens"]
-    logits = _mesh_logits(torch, cfg, params, tokens, None)
-    one = {"fingerprint": fingerprint(torch, logits),
-           "last_row": logits[0, -1].cpu(),
-           "next": int(logits[0, -1].argmax())}
-    del logits
+    rows = _mesh_logits(torch, cfg, params, tokens, None, rows=O1_ROWS)
+    one = {"fingerprint": fingerprint(torch, rows),
+           "next": int(rows[0, -1].argmax())}
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(here, "build", f"lm-mesh-{os.getpid()}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    O1_DIR[0] = out_dir
+    torch.save(rows[0].cpu(), os.path.join(out_dir, "o1_rows.pt"))
+    del rows
     prefill = make_prefill_step(cfg)
     one["walls_ms"] = [_timed(torch, lambda: prefill(
         params, {"tokens": tokens}))[1] for _ in range(3)]
@@ -4351,18 +4400,16 @@ def lm_mesh_path(torch, np, ops, mg, rv, ref):
     gc.collect()
     torch.cuda.empty_cache()
 
-    here = os.path.dirname(os.path.abspath(__file__))
-    out_dir = os.path.join(here, "build", f"lm-mesh-{os.getpid()}")
-    shutil.rmtree(out_dir, ignore_errors=True)
-    os.makedirs(out_dir)
     o1, o1_s = _lm_mesh_world("O1", out_dir)
-    # O1: bitwise the one-device prefill; dispatch = route_masked
+    # O1: the one-device prefill's logits at 1e-5 of their largest
+    # magnitude (every 64th position; the attention and the shared
+    # expert run tensor-parallel over model), the ranks alike; dispatch =
+    # route_masked
     n1 = LM_MESH_LAYERS["O1"]
     want1 = lm_counts(moe_gemm=3 * n1, flash_attention=n1)
-    o1_ok = {"logits_bitwise": all(r["fingerprint"] == one["fingerprint"]
-                                   and torch.equal(r["last_row"],
-                                                   one["last_row"])
-                                   for r in o1),
+    o1_ok = {"logits": all(r["rows_max_abs_diff"] <= 1e-5 * r["rows_max_abs"]
+                           for r in o1),
+             "ranks_agree": len({r["fingerprint"] for r in o1}) == 1,
              "next_token": all(r["next"] == one["next"]
                                and r["next_step"] == [[one["next"]]]
                                for r in o1),
@@ -4373,6 +4420,10 @@ def lm_mesh_path(torch, np, ops, mg, rv, ref):
           "reduced": f"{n1} of 24 layers",
           "prefill": "1 x 4096, capacity factor 8 (nothing dropped)",
           "checks": o1_ok, "next_token": one["next"],
+          "sampled_rows_bitwise_one_device": all(
+              r["fingerprint"] == one["fingerprint"] for r in o1),
+          "max_abs_logit_diff": [r["rows_max_abs_diff"] for r in o1],
+          "max_abs_logit": o1[0]["rows_max_abs"],
           "walls_ms": {"one_device": one["walls_ms"],
                        "mesh_rank0": o1[0]["walls_ms"]},
           "launches_rank0": o1[0]["launches"], "want": want1,
@@ -4396,7 +4447,10 @@ def lm_mesh_path(torch, np, ops, mg, rv, ref):
                 for r in o2),
             "majority_seen": all(r[mode]["majority"]["max_abs_diff"] > 1e-2
                                  for r in o2),
-            "ranks_agree": len({r[mode]["fingerprint"] for r in o2}) == 1,
+            # the replicas of each model rank hold the same columns
+            "ranks_agree": all(len({r[mode]["fingerprint"] for r in o2
+                                    if r[mode]["model_shard"] == m}) == 1
+                               for m in range(LM_MESH_SHAPES["O2"][-1])),
             "launches": all(r[mode]["launches"] == want for r in o2)}
     emit({"phase": "lm_mesh", "path": "O2", "model": "qwen2-moe-a2.7b "
           "TRUSTED_FAITHFUL / TRUSTED_DIGEST (r = 4)",
@@ -4455,19 +4509,23 @@ def lm_mesh_path(torch, np, ops, mg, rv, ref):
           "peak_gb": [r["peak_gb"] for r in o3], "world_s": o3_s})
     require(all(o3_ok.values()), f"O3 failed: {o3_ok}")
 
-    # O4: EP training against one device
+    # O4: EP training against one device (the attention, the shared
+    # expert and the vocabulary tensor-parallel over model = 2: the
+    # gradients at 1e-5 of each leaf's largest magnitude)
     o4, o4_s = _lm_mesh_world("O4", out_dir)
     shutil.rmtree(out_dir, ignore_errors=True)
-    want4 = lm_counts(moe_gemm=18, flash_attention=2, flash_attention_bwd=2)
+    n4 = LM_MESH_LAYERS["O4"]
+    want4 = lm_counts(moe_gemm=9 * n4, flash_attention=n4,
+                      flash_attention_bwd=n4)
     cmp4 = [r["vs_one_device"] for r in o4]
     o4_ok = {"loss_vs_one_device": all(
                  abs(c["loss_mesh"] - c["loss_one_device"])
                  <= 1e-6 * abs(c["loss_one_device"]) for c in cmp4),
-             "grads_vs_one_device": all(c["max_rel_diff"] <= 1e-6
+             "grads_vs_one_device": all(c["max_rel_diff"] <= 1e-5
                                         for c in cmp4),
              "launches": all(r["launches"] == want4 for r in o4)}
     emit({"phase": "lm_mesh", "path": "O4", "model": "qwen2-moe-a2.7b",
-          "mesh": {"data": 1, "model": 2}, "reduced": "2 of 24 layers",
+          "mesh": {"data": 1, "model": 2}, "reduced": f"{n4} of 24 layers",
           "step": "1 x 2048, capacity factor 8", "checks": o4_ok,
           "vs_one_device": cmp4,
           "grads_bitwise": all(c["leaves_bitwise"] == c["leaves"]
@@ -4630,19 +4688,20 @@ Q1_PROMPTS = (16, 96, 40, 64, 24, 80)     # 6 requests through 4 slots
 Q1_NEW = 16
 Q2_CACHE, Q2_FILL, Q2_STEPS = 131072, 120000, 8
 Q2_BLOCK = 4096                             # positions a fill draw covers
+Q2_LAYERS = 2                               # 8 before path R joined
 
 
 def decode_mesh_cfg(sub: str):
     """Q1: qwen2-moe-a2.7b at full width, 1 of 24 layers (each rank's
     edge store holds and hashes every routed expert of every layer: 2.1
-    GB a layer), capacity factor 8; Q2: qwen2.5-3b, 8 of 36 layers, as a
+    GB a layer), capacity factor 8; Q2: qwen2.5-3b, 2 of 36 layers, as a
     batch-1 decode sets it (the cache over data x model, the batch not
     split)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.shapes import shape_config
     if sub == "Q1":
         return _cut(get_config("qwen2-moe-a2.7b"), 1, capacity_factor=8.0)
-    return shape_config(_cut(get_config("qwen2.5-3b"), 8),
+    return shape_config(_cut(get_config("qwen2.5-3b"), Q2_LAYERS),
                         dict(kind="decode", seq=Q2_CACHE, batch=1))
 
 
@@ -4748,7 +4807,7 @@ def q2_decode(torch, cfg, params, mesh):
     import numpy as np
     from repro_torch.models import transformer as tfm
     from repro_torch.models.builder import materialize
-    from repro_torch.sharding import Sharder, logical_rules, place_cache
+    from repro_torch.sharding import place_cache, step_sharder
     from repro_torch.train.step import make_decode_step
     caches = materialize(place_cache(tfm.cache_decl(cfg, 1, Q2_CACHE), cfg,
                                      mesh), 0, "cuda")
@@ -4757,15 +4816,16 @@ def q2_decode(torch, cfg, params, mesh):
         lo = mesh.cache_group(cfg).span(Q2_CACHE)[0]
     q2_fill(torch, caches, lo)
     step = make_decode_step(cfg, mesh=mesh)
-    shard = None if mesh is None else Sharder(mesh, logical_rules(mesh, cfg))
+    shard = step_sharder(cfg, mesh, "decode")
     toks = np.random.default_rng(8).integers(0, cfg.vocab_size, Q2_STEPS)
     out = {"next": [], "logits": [], "walls_ms": [], "wire_step": None}
     for t in range(Q2_STEPS):
         batch = {"tokens": torch.tensor([[int(toks[t])]], device="cuda"),
                  "pos": Q2_FILL + t}
         with torch.no_grad():
-            logits = tfm.forward_decode(params, caches, batch["tokens"],
-                                        batch["pos"], cfg, shard=shard)[0]
+            logits = tfm.gather_vocab(tfm.forward_decode(
+                params, caches, batch["tokens"], batch["pos"], cfg,
+                shard=shard)[0], shard)
         out["logits"].append(logits[0, -1].cpu())
         if mesh is not None:
             mesh.wire_bytes.clear()
@@ -4801,7 +4861,7 @@ def decode_mesh_rank(rank: int, world: int, out_dir: str) -> None:
     for sub in ("Q1", "Q2"):
         mesh = make_lm_mesh(Q_SHAPES[sub], ("data", "model"))
         cfg = decode_mesh_cfg(sub)
-        params = init_model(cfg, 0, mesh.device, mesh=mesh)
+        params = init_model(cfg, 0, mesh.device, mesh=mesh, kind="decode")
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         if sub == "Q1":
@@ -4880,15 +4940,20 @@ def decode_mesh_path(torch, np, ops, mg, ref):
     shutil.rmtree(out_dir, ignore_errors=True)
     world_s = time.perf_counter() - t0
 
-    # Q1: the one-device engine's streams, commitments, CIDs and report
-    keys = ("done", "ticks", "cids", "edge", "kv")
+    # Q1: the one-device engine's streams, commitments and report (the
+    # sealed KV blocks' CIDs hash the cache's bytes, which tensor
+    # parallelism over model rounds otherwise: their count is held, and
+    # the CIDs equal on every rank)
+    keys = ("done", "ticks", "edge", "kv")
     n_moe = _k_moe_layers(cfg1)
     q1 = [r["Q1"] for r in res]
     want1 = lm_counts(moe_gemm=3 * n_moe * one1["micro_steps"])
     q1_ok = {"equal_one_device": all(q[k] == one1[k] for q in q1
                                      for k in keys),
+             "sealed_blocks": all(len(q["cids"]) == len(one1["cids"])
+                                  for q in q1),
              "ranks_identical": all(
-                 all(q[k] == q1[0][k] for k in keys + ("kv_roots",))
+                 all(q[k] == q1[0][k] for k in keys + ("cids", "kv_roots"))
                  for q in q1),
              "two_admitted_mid_run": sorted(q1[0]["admitted_tick"])[-2] > 0,
              "launches": one1["launches"] == want1 and all(
@@ -4904,6 +4969,8 @@ def decode_mesh_path(torch, np, ops, mg, ref):
           "micro_steps": one1["micro_steps"],
           "macro_steps": one1["macro_steps"],
           "sealed_blocks": len(one1["cids"]),
+          "cids_equal_one_device": sum(
+              a == b for a, b in zip(q1[0]["cids"], one1["cids"])),
           "kv_roots_equal_one_device": sum(
               a == b for a, b in zip(q1[0]["kv_roots"], one1["kv_roots"])),
           "walls_s": {"one_device": one1["wall_s"],
@@ -4939,7 +5006,7 @@ def decode_mesh_path(torch, np, ops, mg, ref):
                  q["launches"] == lm_counts() for q in q2)}
     emit({"phase": "decode_mesh", "path": "Q2", "model": cfg2.name,
           "mesh": {"data": 2, "model": 2}, "card": CARD,
-          "reduced": "8 of 36 layers",
+          "reduced": f"{Q2_LAYERS} of 36 layers",
           "cache": f"{Q2_CACHE} positions ({Q2_CACHE // 4} a rank over "
                    f"data x model), filled to {Q2_FILL}, {Q2_STEPS} steps",
           "checks": q2_ok, "next": one2["next"],
@@ -4958,7 +5025,8 @@ def decode_mesh_path(torch, np, ops, mg, ref):
                          mesh_shape=Q_SHAPES["Q2"], rank=0, verbose=False)
     p3 = rec["wire_bytes"] == q2[0]["wire_step"]
     emit({"phase": "dryrun", "path": "P3", "model": cfg2.name,
-          "mesh": {"data": 2, "model": 2}, "reduced": "8 of 36 layers",
+          "mesh": {"data": 2, "model": 2},
+          "reduced": f"{Q2_LAYERS} of 36 layers",
           "decode": f"1 x 1 over a cache of {Q2_CACHE}",
           "wire_bytes": {"abstract_rank0": rec["wire_bytes"],
                          "q2_rank0": q2[0]["wire_step"]},
@@ -4974,6 +5042,566 @@ def decode_mesh_path(torch, np, ops, mg, ref):
           "path_s": time.perf_counter() - t_start})
     return {"Q1": q1[0]["launches"], "Q1_one_device": one1["launches"],
             "Q1_micro_steps": one1["micro_steps"], "gemm": gemm}
+
+
+# --------------------- path R: FSDP placement and tensor parallelism
+R_SHAPES = {"R1": (2, 2), "R2": ((1, 4), (2, 2)), "R3": (1, 4)}
+R1_BATCH = (2, 2048)
+R2_BATCH = (2, 2048)
+R3_BATCH, R3_CACHE, R3_STEPS = 4, 4096, 64
+R3_POS = (1000, 1990, 3050, 4000)       # rows crossing the ranks' parts
+R3_LOGITS_EVERY = 4                      # steps whose whole logits are held
+R_ROUTE_MARGIN = 1e-5
+
+
+def tp_cfg(sub: str):
+    """Path R's configs at full width: R1 qwen3-32b, 2 of 64 layers, one
+    microbatch (the config's 8 are for train_4k's batch of 256); R2
+    bmoe-paper, 2 of 12 layers, its vote off (these meshes have no
+    replica axis); R3 qwen3-32b, 4 of 64 layers, as a batched decode
+    sets it (the cache's positions over ``model``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.shapes import shape_config
+    from repro_torch.models.config import RedundancyConfig
+    if sub == "R1":
+        return _cut(get_config("qwen3-32b"), 2, train_microbatches=1)
+    if sub == "R2":
+        return _cut(get_config("bmoe-paper"), 2,
+                    redundancy=RedundancyConfig(mode="off"))
+    return shape_config(_cut(get_config("qwen3-32b"), 4),
+                        dict(kind="decode", seq=R3_CACHE, batch=R3_BATCH))
+
+
+class RoutingRecorder:
+    """``moe.top_k`` and ``moe.capacity_positions`` wrapped inside a
+    ``with`` block: each routing's top-k margin (the k-th probability
+    less the next) and its expert ids, positions and keep flags, in call
+    order, on the host."""
+
+    def __init__(self, k: int):
+        self.k, self.margins, self.routes = k, [], []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe = moe
+        self.top, self.cap = moe.top_k, moe.capacity_positions
+
+        def top_k(probs, k):
+            vals = probs.sort(dim=-1, descending=True).values
+            self.margins.append((vals[..., k - 1] - vals[..., k]).cpu())
+            return self.top(probs, k)
+
+        def capacity_positions(eid, n, capacity):
+            out = self.cap(eid, n, capacity)
+            self.routes.append((eid.cpu(), out[0].cpu(), out[1].cpu()))
+            return out
+
+        moe.top_k, moe.capacity_positions = top_k, capacity_positions
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.top_k, self.moe.capacity_positions = self.top, self.cap
+
+
+def _routes_equal(got, want, margins, k: int):
+    """Per MoE layer: (assignments that differ, those of them on a token
+    whose one-device top-k margin is under ``R_ROUTE_MARGIN``)."""
+    out = []
+    for g, w, m in zip(got, want, margins):
+        diff = torch_any_row(g, w)
+        tok = diff.reshape(diff.shape[0], -1, k).any(-1)
+        near = m.reshape(tok.shape) < R_ROUTE_MARGIN
+        out.append((int(tok.sum()), int((tok & near).sum())))
+    return out
+
+
+def torch_any_row(g, w):
+    """Where (expert id, position, keep) of two routings differ."""
+    return (g[0] != w[0]) | (g[1] != w[1]) | (g[2] != w[2])
+
+
+def r_fill(torch, caches, lo: int):
+    """R3's caches: every position of the rank's part (from ``lo``)
+    drawn per 1,024 positions from a generator seeded by the leaf and
+    the block, so a part is the whole cache's at its positions."""
+    from repro_torch.core.ledger import tree_flatten
+    for li, t in enumerate(tree_flatten(caches)[0]):
+        n = t.shape[2]
+        for p0 in range(lo, lo + n, 1024):
+            g = torch.Generator("cuda").manual_seed(7_000_003 * li
+                                                    + p0 // 1024)
+            t[:, :, p0 - lo:p0 - lo + 1024] = torch.randn(
+                t.shape[:2] + (1024,) + t.shape[3:], generator=g,
+                device=t.device)
+
+
+def r3_decode(torch, cfg, params, mesh):
+    """R3's ``R3_STEPS`` decode steps of a batch of 4 from ``R3_POS`` on,
+    the caches drawn by ``r_fill``: per step the next tokens of
+    ``make_decode_step`` and, every ``R3_LOGITS_EVERY`` steps, the whole
+    logits of ``forward_decode`` on the step's input (host); walls;
+    launches."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.builder import materialize
+    from repro_torch.sharding import place_cache, step_sharder
+    from repro_torch.train.step import make_decode_step
+    caches = materialize(place_cache(tfm.cache_decl(cfg, R3_BATCH,
+                                                    R3_CACHE), cfg, mesh),
+                         0, "cuda")
+    lo = 0 if mesh is None else mesh.cache_group(cfg).span(R3_CACHE)[0]
+    r_fill(torch, caches, lo)
+    step = make_decode_step(cfg, mesh=mesh)
+    shard = step_sharder(cfg, mesh, "decode")
+    toks = np.random.default_rng(9).integers(0, cfg.vocab_size,
+                                             (R3_STEPS, R3_BATCH))
+    out = {"next": [], "logits": [], "walls_ms": []}
+    ops.reset_launch_counts()
+    for t in range(R3_STEPS):
+        batch = {"tokens": torch.tensor(toks[t], device="cuda")[:, None],
+                 "pos": torch.tensor(R3_POS, device="cuda") + t}
+        if t % R3_LOGITS_EVERY == 0:
+            with torch.no_grad():
+                logits = tfm.gather_vocab(tfm.forward_decode(
+                    params, caches, batch["tokens"], batch["pos"], cfg,
+                    shard=shard)[0], shard)
+            out["logits"].append(logits[:, -1].cpu())
+        (nxt, caches), wall = _timed(torch, lambda: step(params, caches,
+                                                         batch))
+        out["next"].append(nxt.tolist())
+        out["walls_ms"].append(wall)
+    out["launches"] = ops.launch_counts()
+    del caches
+    return out
+
+
+def r2_prefill(torch, cfg, params, tokens, mesh):
+    """R2's prefill: the whole logits at every 16th position and the last
+    (host), the next tokens of ``make_prefill_step``, the routing of the
+    rank's rows, launches and walls."""
+    from repro_torch.kernels import ops
+    from repro_torch.train.step import make_prefill_step
+    lo, hi = (0, tokens.shape[0]) if mesh is None else \
+        mesh.batch_rows(tokens.shape[0])
+    rows = list(range(0, tokens.shape[1], 16)) + [tokens.shape[1] - 1]
+    with RoutingRecorder(cfg.num_experts_per_tok) as rec:
+        logits = _mesh_logits(torch, cfg, params, tokens[lo:hi], mesh,
+                              rows=rows)
+    out = {"rows": logits.cpu(), "batch_rows": (lo, hi),
+           "routes": rec.routes, "margins": rec.margins}
+    del logits
+    step = make_prefill_step(cfg, mesh)
+    ops.reset_launch_counts()
+    (nxt, wall) = _timed(torch, lambda: step(params, {"tokens": tokens}))
+    out.update(next=nxt.tolist(), launches=ops.launch_counts(),
+               wall_ms=wall)
+    return out
+
+
+def r2_moe_layer(torch, cfg, mesh):
+    """R2's bitwise case on (2, 2), the experts over model (5 of 10 a
+    rank): MoE layer 0 on this rank's placed leaves against the whole
+    layer on the same rows (the dispatch, each expert's rows and the
+    combine are the one-device layer's bits)."""
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.sharding import shard_params, step_sharder
+    from repro_torch.train.loop import init_model
+    whole = init_model(cfg, 0, mesh.device)
+    mine = shard_params(whole, cfg, mesh, "prefill")
+    layer = {k: v[0] for k, v in whole["blocks"]["0"]["moe"].items()}
+    placed = {k: v[0] for k, v in mine["blocks"]["0"]["moe"].items()}
+    g = torch.Generator("cuda").manual_seed(11)
+    x = torch.randn(R2_BATCH + (cfg.d_model,), generator=g, device="cuda")
+    lo, hi = mesh.batch_rows(R2_BATCH[0])
+    with torch.no_grad():
+        y1, _ = moe_lib.moe_mlp(layer, x[lo:hi], cfg)
+        y2, _ = moe_lib.moe_mlp(placed, x[lo:hi], cfg,
+                                shard=step_sharder(cfg, mesh, "prefill"))
+    return {"bitwise": bool(torch.equal(y1, y2)),
+            "experts_a_rank": placed["w_gate"].shape[0]}
+
+
+def tp_rank(rank: int, world: int, out_dir: str) -> None:
+    """One rank of path R's world of 4 (spawned by ``spawn_edges``): R1's
+    training step on (2, 2), R2's prefills on (1, 4) and (2, 2) and its
+    MoE layer, R3's decode on (1, 4); results to
+    ``<out_dir>/R-rank<r>.pkl``.  It prints nothing."""
+    import pickle
+
+    import torch
+    from repro_torch.kernels import build, ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.library()
+    try:
+        res = _tp_rank_cases(torch, ops, out_dir)
+    except BaseException:
+        # every rank's own error (spawn reports only the first to fail)
+        import traceback
+        with open(os.path.join(out_dir, f"R-rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    with open(os.path.join(out_dir, f"R-rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def _tp_rank_cases(torch, ops, out_dir: str) -> dict:
+    """``tp_rank``'s cases on this rank; returns what the parent checks."""
+    from repro_torch.launch.dryrun import nbytes
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import init_model
+    from repro_torch.train.step import apply_update, make_loss_and_grads
+    res = {}
+    # R1: one FSDP + TP training step, its bytes, memory and launches
+    cfg = tp_cfg("R1")
+    mesh = make_lm_mesh(R_SHAPES["R1"], ("data", "model"))
+    batch = _lm_train_batch(torch, cfg, *R1_BATCH)
+    params = init_model(cfg, 0, mesh.device, mesh=mesh)
+    state = adamw.init(params)
+    placed = nbytes((params, state))
+    torch.cuda.empty_cache()          # the whole leaves drawn and cut
+    free_gb = torch.cuda.mem_get_info()[0] / 1e9
+    loss_and_grads = make_loss_and_grads(cfg, remat=True, mesh=mesh)
+    opt_cfg = adamw.AdamWConfig(total_steps=1000)
+
+    def step():                       # make_train_step's two calls
+        loss, _, g = loss_and_grads(params, batch)
+        return loss, g, apply_update(opt_cfg, cfg, params, state, g,
+                                     mesh)[2]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    mesh.wire_bytes.clear()
+    (loss, g, m), wall = _timed(torch, step)
+    r1 = {"placed_bytes": placed, "wall_ms": wall,
+          "card_free_before_step_gb": free_gb,
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches": ops.launch_counts(), "wire": dict(mesh.wire_bytes),
+          "loss": float(loss), "grad_norm": float(m["grad_norm"])}
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    cmp, _ = _grads_vs_one_device(torch, cfg, mesh, g, batch)
+    r1["vs_one_device"] = {**cmp, "loss_mesh": float(loss)}
+    del g
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["R1"] = r1
+    # R2: the gspmd MoE prefill, moe_ff over model on (1, 4), the
+    # experts over model on (2, 2)
+    cfg = tp_cfg("R2")
+    tokens = prefill_batch_rows(torch, cfg, *R2_BATCH)
+    for shape in R_SHAPES["R2"]:
+        mesh = make_lm_mesh(shape, ("data", "model"))
+        params = init_model(cfg, 0, mesh.device, mesh=mesh, kind="prefill")
+        res[f"R2/{shape}"] = r2_prefill(torch, cfg, params, tokens, mesh)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["R2/layer"] = r2_moe_layer(torch, cfg, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # R3: tensor-parallel decode
+    cfg = tp_cfg("R3")
+    mesh = make_lm_mesh(R_SHAPES["R3"], ("data", "model"))
+    params = init_model(cfg, 0, mesh.device, mesh=mesh, kind="decode")
+    torch.cuda.reset_peak_memory_stats()
+    res["R3"] = r3_decode(torch, cfg, params, mesh)
+    res["R3"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["R3"]["wire"] = dict(mesh.wire_bytes)
+    return res
+
+
+def prefill_batch_rows(torch, cfg, B: int, S: int):
+    """(B, S) prefill tokens from ``lm_batches``, on the card."""
+    return _lm_train_batch(torch, cfg, B, S)["tokens"]
+
+
+def r1_split_noise(torch, cfg, batch) -> float:
+    """The float32 noise of splitting R1's batch rows on one device: the
+    largest difference, relative to each leaf's largest magnitude,
+    between the gradients of one microbatch of 2 rows and of two of 1
+    (each weight gradient's rows summed as two halves, as the data
+    ranks sum them; the loss over 2 is exact)."""
+    import dataclasses
+    from repro_torch.core.ledger import tree_flatten
+    from repro_torch.train.loop import init_model
+    from repro_torch.train.step import make_loss_and_grads
+    params = init_model(cfg, 0)
+    g = [tree_flatten(make_loss_and_grads(dataclasses.replace(
+        cfg, train_microbatches=k), remat=False)(params, batch)[2])[0]
+        for k in (1, 2)]
+    out = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+              for a, b in zip(*g))
+    del params, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_kernel_cases(torch, np, mg, fa, ref):
+    """The kernels at path R's rank shapes: R2's ``moe_gemm`` with moe_ff
+    over model = 4 (10 experts, 2 rows x capacity 768, 704 hidden
+    columns) and with the experts over model = 2 (5 experts, one row's
+    768), and the flash forward and backward at a qwen3-32b rank's heads
+    on model = 4: (1, 2048, 16 of 2 kv heads, 128)."""
+    from repro_torch.models.moe import capacity_for
+    cfg = tp_cfg("R2")
+    C = capacity_for(cfg, R2_BATCH[1])
+    d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    rows = R2_BATCH[0] * C
+    gemm = [check_moe_gemm(torch, mg, ref, 100, "tp_moe_ff_gate_up", E,
+                           rows, d, f // 4, torch.float32,
+                           w_scale=d ** -0.5),
+            check_moe_gemm(torch, mg, ref, 101, "tp_moe_ff_down", E, rows,
+                           f // 4, d, torch.float32, w_scale=f ** -0.5),
+            check_moe_gemm(torch, mg, ref, 102, "tp_experts_gate_up",
+                           E // 2, C, d, f, torch.float32,
+                           w_scale=d ** -0.5),
+            check_moe_gemm(torch, mg, ref, 103, "tp_experts_down", E // 2,
+                           C, f, d, torch.float32, w_scale=f ** -0.5)]
+    flash = [check_flash(torch, np, fa, ref, 105, "tp_qwen3_model4", 1,
+                         2048, 16, 2, 128, True, iters=5)]
+    flash_bwd = [check_flash_bwd(torch, np, fa, ref, 107, "tp_qwen3_model4",
+                                 1, 2048, 16, 2, 128, True)]
+    return gemm, flash, flash_bwd
+
+
+def tp_path(torch, np, ops, mg, fa, ref):
+    """Path R: FSDP placement and tensor parallelism, four ranks on the
+    card over gloo, each one-device reference run here first and freed.
+    R1 qwen3-32b training on (2, 2), FSDP over data and tensor
+    parallelism over model: loss and gradients against one device (each
+    rank computes it in turn), each rank's parameter-and-moment bytes and
+    peak against one device's; R2 bmoe-paper's gspmd MoE prefill on
+    (1, 4) (moe_ff over model) and (2, 2) (the experts over model, its
+    MoE layer bitwise one device's): logits, next tokens and routing
+    against one device; R3 qwen3-32b decode on (1, 4), 64 steps of a
+    batch of 4 over a 4,096-position cache split over model: tokens equal
+    and logits at the bar; R4 the kernels at a rank's shapes and each
+    rank's launches; P4 R1's step on the abstract (2, 2) mesh as rank 0
+    books R1 rank 0's bytes and its parameter-and-moment bytes."""
+    import pickle
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import spawn_edges
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import init_model
+    from repro_torch.train.step import make_prefill_step, make_train_step
+    t_start = time.perf_counter()
+    gemm, flash, flash_bwd = tp_kernel_cases(torch, np, mg, fa, ref)
+
+    # the one-device references
+    cfg1, cfg2, cfg3 = tp_cfg("R1"), tp_cfg("R2"), tp_cfg("R3")
+    params = init_model(cfg1, 0)
+    state = adamw.init(params)
+    one1 = {"placed_bytes": dryrun.nbytes((params, state))}
+    batch = _lm_train_batch(torch, cfg1, *R1_BATCH)
+    step = make_train_step(cfg1, adamw.AdamWConfig(total_steps=1000),
+                           remat=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out, one1["wall_ms"] = _timed(torch, lambda: step(params, state,
+                                                      batch))
+    one1.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                launches=ops.launch_counts(), loss=float(out[2]["loss"]))
+    del params, state, step, out      # the moments too (20 GB)
+    gc.collect()
+    torch.cuda.empty_cache()
+    one1["split_noise"] = r1_split_noise(torch, cfg1, batch)
+    params = init_model(cfg2, 0)
+    tokens = prefill_batch_rows(torch, cfg2, *R2_BATCH)
+    one2 = r2_prefill(torch, cfg2, params, tokens, None)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_model(cfg3, 0)
+    torch.cuda.reset_peak_memory_stats()
+    one3 = r3_decode(torch, cfg3, params, None)
+    one3["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t_start
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(here, "build", f"tp-{os.getpid()}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    emit({"phase": "tensor_parallel", "path": "R0",
+          "parent_allocated_gb": torch.cuda.memory_allocated() / 1e9,
+          "parent_reserved_gb": torch.cuda.memory_reserved() / 1e9,
+          "card_free_gb": torch.cuda.mem_get_info()[0] / 1e9})
+    t0 = time.perf_counter()
+    # four ranks' caching allocators share the card: segments that grow
+    # and shrink keep each rank's reserve near what it holds
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        spawn_edges(tp_rank, 4, args=(out_dir,), device="cuda",
+                    rendezvous_dir=out_dir, timeout_s=420)
+    except BaseException:
+        for r in range(4):
+            err = os.path.join(out_dir, f"R-rank{r}.err")
+            if os.path.exists(err):
+                print(f"path R rank {r}:\n{open(err).read()}",
+                      file=sys.stderr, flush=True)
+        raise
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    res = []
+    for r in range(4):
+        with open(os.path.join(out_dir, f"R-rank{r}.pkl"), "rb") as f:
+            res.append(pickle.load(f))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    world_s = time.perf_counter() - t0
+
+    # R1: loss at 1e-5 relative; gradients at 1e-5 of each leaf's largest
+    # magnitude, or twice one device's own noise of splitting the rows
+    # where that is larger (at full width float32 sums over 25,600 and
+    # 152,064 terms differ by about 1e-5 between two orders); a quarter
+    # of the bytes
+    r1 = [r["R1"] for r in res]
+    want1 = train_step_counts(cfg1, remat=True)
+    share = [r["placed_bytes"] / one1["placed_bytes"] for r in r1]
+    grad_bar = max(1e-5, 2 * one1["split_noise"])
+    r1_ok = {"loss_vs_one_device": all(
+                 abs(r["vs_one_device"]["loss_mesh"]
+                     - r["vs_one_device"]["loss_one_device"])
+                 <= 1e-5 * abs(r["vs_one_device"]["loss_one_device"])
+                 for r in r1),
+             "grads_vs_one_device": all(
+                 r["vs_one_device"]["max_rel_diff"] <= grad_bar
+                 for r in r1),
+             "step_loss": all(abs(r["loss"] - one1["loss"])
+                              <= 1e-5 * abs(one1["loss"]) for r in r1),
+             "quarter_of_the_bytes": all(0.25 <= s <= 0.26 for s in share),
+             "launches": one1["launches"] == want1 and all(
+                 r["launches"] == want1 for r in r1)}
+    emit({"phase": "tensor_parallel", "path": "R1", "model": cfg1.name,
+          "mesh": {"data": 2, "model": 2}, "card": CARD,
+          "reduced": "2 of 64 layers", "step": "(2, 2048), remat on",
+          "checks": r1_ok, "placed_share": share,
+          "placed_gb": {"one_device": one1["placed_bytes"] / 1e9,
+                        "ranks": [r["placed_bytes"] / 1e9 for r in r1]},
+          "step_peak_gb": {"one_device": one1["peak_gb"],
+                           "ranks": [r["peak_gb"] for r in r1]},
+          "walls_ms": {"one_device": one1["wall_ms"],
+                       "mesh_rank0": r1[0]["wall_ms"]},
+          "max_rel_grad_diff": [r["vs_one_device"]["max_rel_diff"]
+                                for r in r1],
+          "one_device_split_noise": one1["split_noise"],
+          "grad_bar": grad_bar,
+          "rel_grad_diff_top_leaves_rank0": sorted(
+              r1[0]["vs_one_device"]["rel_diff_by_leaf"].items(),
+              key=lambda kv: -kv[1])[:6],
+          "loss": {"one_device": one1["loss"], "ranks": [r["loss"]
+                                                         for r in r1]},
+          "launches_rank0": r1[0]["launches"], "want": want1,
+          "wire_bytes_rank0": r1[0]["wire"]})
+    require(all(r1_ok.values()), f"R1 failed: {r1_ok}")
+
+    # R2: logits at 1e-5 of their largest magnitude, next tokens equal,
+    # routing equal (a token whose top-k margin is under 1e-5 may route
+    # otherwise), the MoE layer with the experts over model bitwise
+    k = cfg2.num_experts_per_tok
+    want2 = lm_counts(moe_gemm=3 * cfg2.num_layers,
+                      flash_attention=cfg2.num_layers)
+    r2_ok, r2_row = {}, {}
+    scale = float(one2["rows"].abs().max())
+    for shape in R_SHAPES["R2"]:
+        rows = [r[f"R2/{shape}"] for r in res]
+        diff = max(float((q["rows"] - one2["rows"][slice(
+            *q["batch_rows"])]).abs().max()) for q in rows)
+        routes = [_routes_equal(q["routes"], [tuple(
+            t[slice(*q["batch_rows"])] for t in w) for w in one2["routes"]],
+            [m[slice(*q["batch_rows"])] for m in one2["margins"]], k)
+            for q in rows]
+        r2_ok[str(shape)] = {
+            "logits": diff <= 1e-5 * scale,
+            "next_tokens": all(q["next"] == one2["next"] for q in rows),
+            "routing": all(n == near for r in routes for n, near in r),
+            "launches": all(q["launches"] == want2 for q in rows)}
+        r2_row[str(shape)] = {"max_abs_logit_diff": diff,
+                              "routing_differs_near_ties": routes[0],
+                              "walls_ms_rank0": rows[0]["wall_ms"],
+                              "launches_rank0": rows[0]["launches"]}
+    r2_ok["moe_layer_experts_over_model_bitwise"] = all(
+        r["R2/layer"]["bitwise"] for r in res)
+    emit({"phase": "tensor_parallel", "path": "R2", "model": cfg2.name,
+          "meshes": {"(1, 4)": "moe_ff over model",
+                     "(2, 2)": "the experts over model"}, "card": CARD,
+          "reduced": f"{cfg2.num_layers} of 12 layers, vote off",
+          "prefill": f"{R2_BATCH}, capacity factor "
+                     f"{cfg2.capacity_factor}",
+          "checks": r2_ok, "by_mesh": r2_row, "max_abs_logit": scale,
+          "want": want2, "one_device_wall_ms": one2["wall_ms"],
+          "next_tokens": one2["next"]})
+    require(all(all(v.values()) if isinstance(v, dict) else v
+                for v in r2_ok.values()), f"R2 failed: {r2_ok}")
+
+    # R3: every step's next tokens equal, logits at 1e-5
+    r3 = [r["R3"] for r in res]
+    scale = max(float(l.abs().max()) for l in one3["logits"])
+    diff = max(float((a - b).abs().max()) for q in r3
+               for a, b in zip(q["logits"], one3["logits"]))
+    r3_ok = {"tokens": all(q["next"] == one3["next"] for q in r3),
+             "logits": diff <= 1e-5 * scale,
+             "launches": one3["launches"] == lm_counts() and all(
+                 q["launches"] == lm_counts() for q in r3)}
+    emit({"phase": "tensor_parallel", "path": "R3", "model": cfg3.name,
+          "mesh": {"data": 1, "model": 4}, "card": CARD,
+          "reduced": "4 of 64 layers",
+          "decode": f"{R3_STEPS} steps of a batch of {R3_BATCH} from "
+                    f"{list(R3_POS)}, cache {R3_CACHE} over model",
+          "checks": r3_ok, "max_abs_logit_diff": diff,
+          "max_abs_logit": scale,
+          "walls_ms_median": {
+              "one_device": sorted(one3["walls_ms"])[R3_STEPS // 2],
+              "mesh_rank0": sorted(r3[0]["walls_ms"])[R3_STEPS // 2]},
+          "peak_gb": {"one_device": one3["peak_gb"],
+                      "ranks": [q["peak_gb"] for q in r3]},
+          "wire_bytes_rank0_64_steps": r3[0]["wire"]})
+    require(all(r3_ok.values()), f"R3 failed: {r3_ok}")
+
+    # P4: R1's step on the abstract (2, 2) mesh as rank 0
+    rec = dryrun.run_one(cfg1.name, dict(kind="train", seq=R1_BATCH[1],
+                                         batch=R1_BATCH[0]), cfg=cfg1,
+                         mesh_shape=R_SHAPES["R1"], rank=0, remat=True,
+                         verbose=False)
+    p4 = {"wire_bytes_equal": rec["wire_bytes"] == r1[0]["wire"],
+          "placed_bytes_equal": rec["placed_argument_size_in_bytes"]
+          == r1[0]["placed_bytes"]}
+    emit({"phase": "dryrun", "path": "P4", "model": cfg1.name,
+          "mesh": {"data": 2, "model": 2}, "reduced": "2 of 64 layers",
+          "step": "train (2, 2048), remat on",
+          "wire_bytes": {"abstract_rank0": rec["wire_bytes"],
+                         "r1_rank0": r1[0]["wire"]},
+          "placed_bytes": {"abstract_rank0": rec[
+              "placed_argument_size_in_bytes"],
+              "jax_specs": rec["jax_placed_argument_size_in_bytes"],
+              "r1_rank0": r1[0]["placed_bytes"]},
+          "peak_estimate_gb_rank0": rec["peak_bytes_estimate"] / 1e9,
+          "checks": p4})
+    require(all(p4.values()), f"P4 failed: {p4}")
+    emit({"phase": "tensor_parallel", "path": "R4", "card": CARD,
+          "launches_by_rank": {"R1": [r["launches"] for r in r1],
+                               "R2": {str(s): [r[f"R2/{s}"]["launches"]
+                                               for r in res]
+                                      for s in R_SHAPES["R2"]},
+                               "R3": [q["launches"] for q in r3]},
+          "one_device_s": one_s, "world_s": world_s,
+          "path_s": time.perf_counter() - t_start})
+    return {"R1": r1[0]["launches"],
+            "R2": {str(s): res[0][f"R2/{s}"]["launches"]
+                   for s in R_SHAPES["R2"]},
+            "gemm": gemm, "flash": flash, "flash_bwd": flash_bwd}
 
 
 def profile_batch(torch, run, cpu: bool = True, spans=()):
@@ -5230,6 +5858,11 @@ def main() -> int:
         decode_mesh_path(torch, np, ops, mg, ref)
         return 0
 
+    if "--tensor-parallel" in sys.argv:
+        # path R alone (P4 with it)
+        tp_path(torch, np, ops, mg, fa, ref)
+        return 0
+
     if "--kernels" in sys.argv:
         # only the named kernels' cases, e.g. to time two trees in one call
         cases = {"moe_gemm": lambda: moe_gemm_cases(torch, mg, ref),
@@ -5364,6 +5997,12 @@ def main() -> int:
                 sum(r["p1_s"] for r in P1_ROWS))
     # path Q: decode and the serving engine on a mesh (P3 inside it)
     dec_mesh = decode_mesh_path(torch, np, ops, mg, ref)
+    # path R: FSDP placement and tensor parallelism (P4 inside it)
+    tp = tp_path(torch, np, ops, mg, fa, ref)
+    tp_shapes = {name: [{k: r[k] for k in (
+        "case", "shape", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
+        "bound_by", "library_ms")} for r in tp[name]]
+        for name in ("gemm", "flash", "flash_bwd")}
 
     kernels = [
         {"name": "moe_gemm", "route": "cuda",
@@ -5396,13 +6035,17 @@ def main() -> int:
              f"LM mesh, a rank, bmoe-paper training step, "
              f"{LM_MESH_LAYERS['O3']} layer (O3)":
                  lm_mesh["O3"]["moe_gemm"],
-             "LM mesh, a rank, qwen2-moe EP loss and gradients, 2 layers "
-             "(O4)": lm_mesh["O4"]["moe_gemm"],
+             f"LM mesh, a rank, qwen2-moe EP loss and gradients, "
+             f"{LM_MESH_LAYERS['O4']} layer(s) (O4)": lm_mesh["O4"][
+                 "moe_gemm"],
              f"decode mesh, a rank, qwen2-moe engine, 1 layer, "
              f"{dec_mesh['Q1_micro_steps']} micro-steps (Q1)":
                  dec_mesh["Q1"]["moe_gemm"],
              "the same engine on one device (Q1)":
-                 dec_mesh["Q1_one_device"]["moe_gemm"]},
+                 dec_mesh["Q1_one_device"]["moe_gemm"],
+             **{f"tensor parallel, a rank, bmoe-paper prefill on {s}, 2 "
+                f"layers (R2)": c["moe_gemm"] for s, c in tp["R2"].items()}},
+         "tp_rank_shapes": tp_shapes["gemm"],
          "lm_decode_mesh_shapes": [{k: r[k] for k in (
              "case", "shape", "max_abs_err", "kernel_ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms")}
@@ -5538,7 +6181,10 @@ def main() -> int:
              "seamless-m4t-medium training, 2 steps (L3)": counts_l3[
                  "flash_attention"],
              **{f"LM mesh, a rank ({p})": lm_mesh[p]["flash_attention"]
-                for p in ("O1", "O2_faithful", "O3", "O4")}},
+                for p in ("O1", "O2_faithful", "O3", "O4")},
+             "tensor parallel, a rank, qwen3-32b training step, 2 layers, "
+             "remat (R1)": tp["R1"]["flash_attention"]},
+         "tp_rank_shapes": tp_shapes["flash"],
          "non_causal_shape": {k: flash[2][k] for k in (
              "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "library_backend")},
@@ -5560,7 +6206,10 @@ def main() -> int:
              "recurrentgemma-2b training, 2 steps of 2 microbatches (L2)":
                  counts_l2["flash_attention_bwd"],
              "seamless-m4t-medium training, 2 steps (L3)": counts_l3[
-                 "flash_attention_bwd"]},
+                 "flash_attention_bwd"],
+             "tensor parallel, a rank, qwen3-32b training step, 2 layers "
+             "(R1)": tp["R1"]["flash_attention_bwd"]},
+         "tp_rank_shapes": tp_shapes["flash_bwd"],
          "cuda_launches_per_call": flash_bwd[0]["cuda_launches_per_call"],
          "per": "one qwen2.5-3b layer's backward at (1, 4096): q "
                 "(1,4096,16,128), kv heads 2, causal, fp32",
@@ -5664,6 +6313,11 @@ def main() -> int:
                                                 "O2_digest", "O3", "O4")}
         # path Q, rank 0 of 4: Q1's engine run (Q2 launches no kernel)
         k["launches_decode_mesh_path_q_rank0"] = dec_mesh["Q1"][k["name"]]
+        # path R, rank 0 of 4: R1's step and R2's prefills (R3's decode
+        # launches no kernel)
+        k["launches_tp_path_r_rank0"] = {
+            "R1": tp["R1"][k["name"]],
+            **{f"R2 {s}": c[k["name"]] for s, c in tp["R2"].items()}}
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -33,19 +33,39 @@ def _like(tree, like):
     return tree_unflatten(like, out)
 
 
-def save(path: str, tree: Any) -> str:
-    """Save a tree to ``path`` (npz).  Returns the content digest."""
+def save(path: str, tree: Any, cfg=None, mesh=None) -> str:
+    """Save a tree to ``path`` (npz).  Returns the content digest.  Under
+    ``mesh`` (with ``cfg``) ``tree`` is this rank's placed parameter tree
+    (or a tree shaped like it, AdamW's moments): it is gathered whole
+    first (collective: every rank calls ``save``) and rank 0 writes, so a
+    checkpoint is the same bytes whatever the mesh."""
+    from repro_torch.sharding import gather_params
+    if mesh is not None:
+        tree = gather_params(tree, cfg, mesh)
     data = serialize_tree(tree)
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    with open(path, "wb") as f:
-        f.write(data)
+    if mesh is None or mesh.rank == 0:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(data)
     return digest_bytes(data)
 
 
-def restore(path: str, like: Any) -> Any:
+def restore(path: str, like: Any, cfg=None, mesh=None,
+            kind: str = "train") -> Any:
+    """The tree saved at ``path``, each leaf placed as ``like``'s is.
+    Under ``mesh`` (with ``cfg``) ``like`` is a rank's placed tree for a
+    ``kind`` step and each whole leaf is cut to the rank's part
+    (``sharding.shard_params``)."""
+    from repro_torch.sharding import shard_params
     with open(path, "rb") as f:
         data = f.read()
-    return _like(deserialize_tree(data, like), like)
+    if mesh is None:
+        return _like(deserialize_tree(data, like), like)
+    whole = deserialize_tree(data, like)
+    flat, _ = tree_flatten(whole)
+    tensors = tree_unflatten(whole, [torch.from_numpy(np.array(a))
+                                     for a in flat])
+    return _like(shard_params(tensors, cfg, mesh, kind), like)
 
 
 def save_to_storage(storage: StorageNetwork, tree: Any,

@@ -6,8 +6,10 @@ JAX lowers and compiles each combination for 256 or 512 host devices and
 reads XLA's analyses.  The port runs SPMD, one process a device, so the
 dry run runs one rank's step itself, on the meta device: the inputs are
 ``launch.shapes``' meta stand-ins in float32 (the dtype the port runs),
-the parameters cut to the rank's part (``sharding.shard_params``: expert
-rows over ``model``, dense leaves whole), a decode step's caches too
+the parameters and AdamW's moments cut to the rank's part as the step's
+kind places them (``sharding.shard_params``: FSDP's ``embed`` over pod x
+data, tensor and expert parallelism over ``model``), a decode step's
+caches too
 (``sharding.shard_caches``: batch rows, positions over the config's
 cache axes), the mesh an abstract one
 (``launch.mesh.abstract_lm_mesh``: exchanges make shapes and count
@@ -24,13 +26,18 @@ Each record holds the JAX package's keys where they apply
 - ``argument_size_in_bytes``: the rank's inputs under the port's
   placement; ``jax_argument_size_in_bytes``: the same inputs split by the
   JAX package's partition specs (FSDP and tensor parallelism included);
+  ``placed_argument_size_in_bytes`` and
+  ``jax_placed_argument_size_in_bytes``: their parameters and moments
+  alone (equal but for the leaves ``sharding.unplaced_leaves`` lists);
 - ``peak_bytes_estimate``: the inputs plus the most bytes the step's own
   storages held at once on the meta device, an estimate of the card's
   ``max_memory_allocated`` (no allocator rounding, no kernel scratch),
   and ``fits``: the estimate within the card's 80 GB.
 
-A decode record books the exchanges of the cache combine (the split
-cache's log-sum-exp merge) and of expert parallelism beside the rest.
+A record books every exchange by kind (``wire_bytes``): FSDP's gathers
+(``fsdp_gather``) and gradient reduce-scatters (``fsdp_gather_bwd``),
+tensor parallelism's sums and gathers, the cache combine (the split
+cache's log-sum-exp merge) and expert parallelism's all-to-alls.
 ``long_500k`` is skipped for quadratic architectures
 (``shapes.applicable``).  Steps run
 with remat on, as the JAX package's do; ``--no-unroll`` has no
@@ -95,11 +102,12 @@ def inputs(cfg, shape, mesh=None, device="meta", seed: int = 0):
     from repro_torch.train.loop import init_model
     info = shp.shape_info(shape)
     device = torch.device(device)
+    kind = info["kind"]
     if device.type == "meta":
         params = shard_params(shp.abstract_params(cfg, dtype=torch.float32)[0],
-                              cfg, mesh)
+                              cfg, mesh, kind)
     else:
-        params = init_model(cfg, seed, device, mesh=mesh)
+        params = init_model(cfg, seed, device, mesh=mesh, kind=kind)
     args, _ = shp.input_specs(cfg, shape, mesh=None, dtype=torch.float32)
     if device.type != "meta":
         gen = torch.Generator().manual_seed(seed)
@@ -144,10 +152,12 @@ def _spec_bytes(t: torch.Tensor, spec, axes) -> int:
     return n
 
 
-def jax_argument_bytes(cfg, shape, mesh, args, kind: str) -> int:
+def jax_argument_bytes(cfg, shape, mesh, args, kind: str,
+                       placed_only: bool = False) -> int:
     """One device's bytes of the step's inputs in float32 under the JAX
     package's partition specs (``shapes.abstract_params`` and
-    ``input_specs``; the optimizer's moments as the parameters)."""
+    ``input_specs``; the optimizer's moments as the parameters);
+    ``placed_only``: the parameters and moments alone."""
     axes = dict(zip(mesh.axis_names, mesh.shape))
     p_abs, p_spec = shp.abstract_params(cfg, mesh=mesh, dtype=torch.float32,
                                         kind=kind)
@@ -164,6 +174,8 @@ def jax_argument_bytes(cfg, shape, mesh, args, kind: str) -> int:
 
     params = walk(p_abs, p_spec)
     moments = 2 * params + 4 if kind == "train" else 0
+    if placed_only:
+        return params + moments
     return params + moments + walk(args, a_spec)
 
 
@@ -216,6 +228,7 @@ def run_one(arch: str, shape="train_4k", *, multi_pod: bool = False,
                 model_shards=mesh.size("model") if mesh is not None else 1)
     params, opt, args = inputs(cfg, info, mesh)
     arg_bytes = nbytes((params, opt, args))
+    placed_bytes = nbytes((params, opt))
     step = make_step_fn(cfg, kind, mesh, remat=remat)
     t0 = time.perf_counter()
     rec = count_step(step, params, opt, args, track_memory=True)
@@ -226,6 +239,10 @@ def run_one(arch: str, shape="train_4k", *, multi_pod: bool = False,
               "jax_argument_size_in_bytes": (
                   jax_argument_bytes(cfg, info, mesh, args, kind)
                   if mesh is not None else arg_bytes),
+              "placed_argument_size_in_bytes": placed_bytes,
+              "jax_placed_argument_size_in_bytes": (
+                  jax_argument_bytes(cfg, info, mesh, args, kind, True)
+                  if mesh is not None else placed_bytes),
               "peak_bytes_estimate": peak,
               "fits": peak <= HW["hbm_per_chip"],
               "remat": remat, "run_s": round(run_s, 2)}
@@ -233,7 +250,9 @@ def run_one(arch: str, shape="train_4k", *, multi_pod: bool = False,
         print(f"[dryrun] {arch} x {name} x {record['mesh']} "
               f"(trusted={trusted}): RAN on meta in {run_s:.1f}s")
         print(f"  args={arg_bytes:.3e} B (JAX specs "
-              f"{record['jax_argument_size_in_bytes']:.3e}), peak "
+              f"{record['jax_argument_size_in_bytes']:.3e}; parameters and "
+              f"moments {placed_bytes:.3e}, JAX specs "
+              f"{record['jax_placed_argument_size_in_bytes']:.3e}), peak "
               f"estimate {peak:.3e} B, fits={record['fits']}")
         print(f"  dot_flops={record['dot_flops']:.3e} "
               f"{record['dot_flops_by_route']}")

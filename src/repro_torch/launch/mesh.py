@@ -22,10 +22,18 @@ takes this rank's rows of the cotangent, it does not sum over ranks),
 all-gathers the disjoint cotangent slices), ``all_gather`` and
 ``all_reduce`` (no gradient) and ``psum`` (a sum whose backward passes
 the cotangent through: for a quantity each rank adds once into a loss
-whose gradients are then summed over the same ranks).  ``wire_bytes``
-counts, per exchange, the bytes this rank sends to the other ranks of its
-group, and each exchange also books them with ``launch.opanalysis``
-under JAX's op name (all-to-all, all-gather, all-reduce).
+whose gradients are then summed over the same ranks).  The placement
+of a model's leaves (``sharding.placed_specs``) adds ``gather_dim`` (an
+FSDP leaf's parts gathered over the batch ranks, its backward
+``reduce_scatter``, one reduce-scatter, on two ranks the all-reduce's
+bits; or a tensor-parallel value's parts gathered over ``model``, its
+backward this rank's part), ``copy_to`` (Megatron's "f": identity, the
+backward an all-reduce) and ``slice_dim`` (a replicated value's part,
+the backward an all-gather); ``psum`` is Megatron's "g".
+``wire_bytes`` counts, per exchange, the bytes this rank sends to the
+other ranks of its group, and each exchange also books them with
+``launch.opanalysis`` under JAX's op name (all-to-all, all-gather,
+all-reduce, reduce-scatter).
 
 An ``LMMesh`` is the LM stack's mesh, axes ``(pod, data, replica,
 model)`` (any of them may be absent), ranks laid out row-major as
@@ -137,6 +145,22 @@ class _SliceRows(torch.autograd.Function):
                 None)
 
 
+class _SliceDim(torch.autograd.Function):
+    """A replicated tensor -> this rank's contiguous part of ``dim``; the
+    backward all-gathers the parts' cotangents along ``dim``."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim, kind):
+        ctx.mesh, ctx.dim, ctx.kind = mesh, dim, kind
+        lo, hi = mesh.span(x.shape[dim], f"dimension {dim}")
+        return x.narrow(dim, lo, hi - lo).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        parts = ctx.mesh.all_gather(g, ctx.kind + "_bwd")
+        return torch.cat(list(parts), dim=ctx.dim), None, None, None
+
+
 class _PSum(torch.autograd.Function):
     """The sum over the group; the backward passes the cotangent through
     unchanged (every rank then holds the gradient of its own share)."""
@@ -148,6 +172,49 @@ class _PSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None, None
+
+
+class _GatherDim(torch.autograd.Function):
+    """This rank's part of ``dim`` -> the parts of the group concatenated
+    along ``dim`` in shard order, on every rank.  The backward is a
+    reduce-scatter (``reduce``: the cotangents differ by rank, as an FSDP
+    leaf's do, whose ranks see other rows) or this rank's part of the
+    cotangent (every rank holds the same one, as a value used alike on
+    every model rank does)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim, kind, reduce):
+        ctx.mesh, ctx.dim, ctx.kind, ctx.reduce = mesh, dim, kind, reduce
+        ctx.n = x.shape[dim]
+        parts = mesh.all_gather(x, kind)
+        if dim % x.dim() == 0:           # the parts are already in place
+            return parts.reshape((-1,) + tuple(x.shape[1:]))
+        return torch.cat(list(parts), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.reduce:
+            out = ctx.mesh.reduce_scatter(g, ctx.dim, ctx.kind + "_bwd")
+        else:
+            out = g.narrow(ctx.dim, ctx.mesh.shard * ctx.n,
+                           ctx.n).contiguous()
+        return out, None, None, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    """The identity into a computation split over the group (Megatron's
+    "f"): every rank's cotangent holds its part's share only, so the
+    backward sums them over the group."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, kind):
+        ctx.mesh, ctx.kind = mesh, kind
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.mesh.all_reduce(g.contiguous().clone(), ctx.kind),
+                None, None)
 
 
 @dataclasses.dataclass
@@ -224,11 +291,10 @@ class EdgeMesh:
             return x[None].clone()
         self._count(kind, "all-gather",
                     x.numel() * x.element_size() * self.shards)
-        if self.abstract:
-            return x.new_empty((self.shards,) + tuple(x.shape))
-        parts = [torch.empty_like(x) for _ in range(self.shards)]
-        dist.all_gather(parts, x, group=self.group)
-        return torch.stack(parts)
+        out = x.new_empty((self.shards,) + tuple(x.shape))
+        if not self.abstract:      # each part gathered in place
+            dist.all_gather(list(out.unbind(0)), x, group=self.group)
+        return out
 
     def all_reduce(self, x: torch.Tensor, kind: str = "reduce"
                    ) -> torch.Tensor:
@@ -241,9 +307,62 @@ class EdgeMesh:
             self._count(kind, "all-reduce", 2 * x.numel() * x.element_size())
         return x
 
+    def reduce_scatter(self, x: torch.Tensor, dim: int,
+                       kind: str = "reduce_scatter") -> torch.Tensor:
+        """The sum of ``x`` over the group, this rank's contiguous part of
+        ``dim`` kept (a tensor of its own).  No gradient.  One
+        ``reduce_scatter_tensor`` (``dim`` moved first, so each rank's
+        part is contiguous): each rank sends the other parts once, half
+        of an all-reduce's bytes.  On two ranks each element is one
+        addition, a + b = b + a, so the part is the same bits as the
+        slice of the all-reduced tensor (FSDP's gradient is then the
+        replicated step's bit for bit); on more ranks the backend's order
+        of sums decides."""
+        n = x.shape[dim] // self.shards
+        if self.shards == 1:
+            return x.detach().contiguous().clone()
+        xm = x.detach().movedim(dim, 0).contiguous()
+        out = xm.new_empty((n,) + tuple(xm.shape[1:]))
+        if not self.abstract:
+            dist.reduce_scatter_tensor(out, xm, group=self.group)
+        self._count(kind, "reduce-scatter", xm.numel() * xm.element_size())
+        return out.movedim(0, dim).contiguous()
+
     def psum(self, x: torch.Tensor, kind: str = "reduce") -> torch.Tensor:
-        """``all_reduce`` whose backward passes the cotangent through."""
+        """``all_reduce`` whose backward passes the cotangent through
+        (Megatron's "g": a row-parallel product's partial sums)."""
+        if self.shards == 1:
+            return x
         return _PSum.apply(x, self, kind)
+
+    def copy_to(self, x: torch.Tensor, kind: str = "tp_copy"
+                ) -> torch.Tensor:
+        """The identity whose backward all-reduces the cotangent
+        (Megatron's "f": a replicated value entering a computation split
+        over the group)."""
+        if self.shards == 1:
+            return x
+        return _CopyTo.apply(x, self, kind)
+
+    def gather_dim(self, x: torch.Tensor, dim: int, kind: str,
+                   reduce: bool) -> torch.Tensor:
+        """The group's parts of ``dim`` concatenated in shard order, on
+        every rank.  Differentiable: the backward reduce-scatters the
+        cotangent (``reduce``, an FSDP leaf's gather over the batch
+        ranks) or keeps this rank's part of it (a value every rank of
+        the group then uses alike)."""
+        if self.shards == 1:
+            return x
+        return _GatherDim.apply(x, self, dim, kind, reduce)
+
+    def slice_dim(self, x: torch.Tensor, dim: int, kind: str
+                  ) -> torch.Tensor:
+        """A replicated tensor's contiguous part of ``dim`` for this rank.
+        Differentiable: the backward all-gathers the ranks' cotangent
+        parts (disjoint) into the whole cotangent on every rank."""
+        if self.shards == 1:
+            return x
+        return _SliceDim.apply(x, self, dim, kind)
 
     def all_to_all(self, x: torch.Tensor, kind: str) -> torch.Tensor:
         """(shards, ...) -> (shards, ...): chunk j goes to shard j, and

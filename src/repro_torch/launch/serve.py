@@ -59,7 +59,7 @@ def _serve(args, mesh=None, verbose=True):
     if cfg.is_encoder_decoder:
         raise SystemExit("the serving launcher takes decoder-only archs")
     dev = mesh.device if mesh is not None else args.device
-    params = init_model(cfg, seed=0, device=dev, mesh=mesh)
+    params = init_model(cfg, seed=0, device=dev, mesh=mesh, kind="decode")
     engine = ServingEngine(cfg, params, batch_slots=args.slots,
                            cache_len=args.cache_len, mesh=mesh,
                            scheduling=args.scheduling,

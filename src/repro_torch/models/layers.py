@@ -13,6 +13,21 @@ their global index and keeps its row max, sum of exponentials and
 unnormalised output, and the group all-gathers these and merges them in
 rank order (a log-sum-exp combine), so every rank of the group returns
 the same bits.
+
+Tensor parallelism over ``model`` (a placed tree, ``sharding.Sharder.tp``)
+is Megatron's: the input enters through ``EdgeMesh.copy_to`` ("f": its
+backward sums the cotangent over ``model``), ``wq``/``wk``/``wv`` (and
+their biases), ``w_gate`` and ``w_up`` are column-parallel, ``wo`` and
+``w_down`` row-parallel, their partial products summed by
+``EdgeMesh.psum`` ("g").  Attention needs whole heads: where ``model``
+splits the q heads but not the kv heads (qwen2.5-3b's 2 kv heads on 4
+ranks: half a head a rank), k and v are gathered whole (the backward
+reduce-scatters) and each rank keeps the kv heads its q heads read;
+where it splits neither, q, k and v are gathered whole, every rank
+attends over every head and keeps its ``q_dim`` columns of the output
+for ``wo``.  Decode gathers the new token's q, k and v whole on every
+rank (one all-gather), runs the cache attention on every head and keeps
+its columns for ``wo``: the cache holds every kv head of its positions.
 """
 from __future__ import annotations
 
@@ -140,9 +155,16 @@ def _combine(view, m, l, o):
 
 
 # ----------------------------------------------------------------- MLP
-def swiglu(x, w_gate, w_up, w_down):
+def swiglu(x, w_gate, w_up, w_down, tp=None):
+    """SwiGLU; ``tp`` (the ``model`` view of a placed tree): the rank's
+    ``ff`` columns of ``w_gate``/``w_up`` and rows of ``w_down``, the
+    partial products summed over the group."""
+    if tp is not None:
+        x = tp.copy_to(x, "mlp_in")
     h = F.silu(x @ w_gate) * (x @ w_up)
-    return h @ w_down
+    if tp is None:
+        return h @ w_down
+    return tp.psum(h @ w_down, "mlp_sum")
 
 
 # ------------------------------------------------------- declarations
@@ -174,9 +196,9 @@ def mlp_decl(cfg) -> dict:
 
 
 # -------------------------------------------------------------- apply
-def attn_qkv(params, x, positions, cfg):
-    B, S, _ = x.shape
-    hd = cfg.resolved_head_dim
+def _project(params, x, cfg):
+    """x @ wq, wk, wv plus the biases: (B, S, columns) each (the rank's
+    columns of a placed tree)."""
     q = x @ params["wq"]
     k = x @ params["wk"]
     v = x @ params["wv"]
@@ -184,26 +206,78 @@ def attn_qkv(params, x, positions, cfg):
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
-    q = q.reshape(B, S, cfg.num_heads, hd)
-    k = k.reshape(B, S, cfg.num_kv_heads, hd)
-    v = v.reshape(B, S, cfg.num_kv_heads, hd)
-    if cfg.qk_norm:
-        q = rmsnorm(q, params["q_norm"], cfg.norm_eps)
-        k = rmsnorm(k, params["k_norm"], cfg.norm_eps)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
+def _heads(params, t, positions, cfg, norm: str):
+    """(B, S, n * hd) -> (B, S, n, hd), normed (``qk_norm``) and
+    rotated."""
+    B, S, _ = t.shape
+    t = t.reshape(B, S, -1, cfg.resolved_head_dim)
+    if cfg.qk_norm:
+        t = rmsnorm(t, params[norm], cfg.norm_eps)
+    return rope(t, positions, cfg.rope_theta)
+
+
+def attn_qkv(params, x, positions, cfg):
+    q, k, v = _project(params, x, cfg)
+    B, S, _ = x.shape
+    return (_heads(params, q, positions, cfg, "q_norm"),
+            _heads(params, k, positions, cfg, "k_norm"),
+            v.reshape(B, S, cfg.num_kv_heads, cfg.resolved_head_dim))
+
+
+def _kv_for_heads(k, v, lo: int, n: int, cfg):
+    """The kv heads of whole (B, S, KH, D) ``k`` and ``v`` that q heads
+    [lo, lo + n) read, laid out for grouped attention over them."""
+    G = cfg.num_heads // cfg.num_kv_heads
+    first = lo // G
+    if G % n == 0 and lo % G + n <= G:       # the rank's heads in one group
+        return k[:, :, first:first + 1], v[:, :, first:first + 1]
+    if n % G == 0 and lo % G == 0:           # whole groups
+        return (k[:, :, first:first + n // G],
+                v[:, :, first:first + n // G])
+    idx = torch.arange(lo, lo + n, device=k.device) // G
+    return k[:, :, idx], v[:, :, idx]        # one kv head a q head
+
+
 def attn_train(params, x, cfg, *, window=0, causal=True, q_chunk=512,
-               kv_chunk=512):
+               kv_chunk=512, shard=None):
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
-    q, k, v = attn_qkv(params, x, positions, cfg)
+    tp = shard.tp("q_dim") if shard is not None else None
+    if tp is None:
+        q, k, v = attn_qkv(params, x, positions, cfg)
+        out = blockwise_attention(q, k, v, causal=causal, window=window,
+                                  softcap=cfg.attn_logit_softcap,
+                                  q_chunk=q_chunk, kv_chunk=kv_chunk)
+        return out.reshape(B, S, cfg.q_dim) @ params["wo"]
+    m = tp.shards
+    q, k, v = _project(params, tp.copy_to(x, "attn_in"), cfg)
+    whole_heads = cfg.num_heads % m == 0
+    if not whole_heads:                      # every rank attends every head
+        q = tp.gather_dim(q, -1, "attn_gather", reduce=False)
+    if cfg.num_kv_heads % m:                 # part of a kv head a rank
+        k = tp.gather_dim(k, -1, "attn_gather", reduce=whole_heads)
+        v = tp.gather_dim(v, -1, "attn_gather", reduce=whole_heads)
+    if cfg.qk_norm and whole_heads:
+        # the norms act on this rank's heads only: "f" sums their
+        # gradients over the group
+        params = dict(params, q_norm=tp.copy_to(params["q_norm"], "qk_norm"),
+                      k_norm=tp.copy_to(params["k_norm"], "qk_norm"))
+    q = _heads(params, q, positions, cfg, "q_norm")
+    k = _heads(params, k, positions, cfg, "k_norm")
+    v = v.reshape(B, S, -1, cfg.resolved_head_dim)
+    if whole_heads and cfg.num_kv_heads % m:
+        n = q.shape[2]
+        k, v = _kv_for_heads(k, v, tp.shard * n, n, cfg)
     out = blockwise_attention(q, k, v, causal=causal, window=window,
                               softcap=cfg.attn_logit_softcap,
                               q_chunk=q_chunk, kv_chunk=kv_chunk)
-    return out.reshape(B, S, cfg.q_dim) @ params["wo"]
+    out = out.reshape(B, S, -1)
+    if not whole_heads:
+        out = tp.slice_dim(out, -1, "attn_slice")
+    return tp.psum(out @ params["wo"], "attn_sum")
 
 
 def _quantize_kv(t):
@@ -216,7 +290,21 @@ def _quantize_kv(t):
     return q, scale
 
 
-def attn_decode(params, x, cache, pos, cfg, *, window=0, split=None):
+def _gather_columns(tp, parts):
+    """Each of ``parts`` (..., the rank's columns) whole on every rank of
+    ``tp``, by one all-gather of their concatenation."""
+    widths = [p.shape[-1] for p in parts]
+    got = tp.all_gather(torch.cat(parts, dim=-1), "attn_decode_gather")
+    out, at = [], 0
+    for w in widths:
+        out.append(torch.cat([got[r, ..., at:at + w]
+                              for r in range(tp.shards)], dim=-1))
+        at += w
+    return out
+
+
+def attn_decode(params, x, cache, pos, cfg, *, window=0, split=None,
+                shard=None):
     """One-token decode. cache: {"k": (B,cap,KH,D), "v": ...} (+ int8
     "k_scale"/"v_scale" when cfg.kv_cache_dtype == "int8").
 
@@ -227,12 +315,22 @@ def attn_decode(params, x, cache, pos, cfg, *, window=0, split=None):
     is a copy with the row written.  ``split`` (``sharding.cache_split``):
     the cache holds this rank's positions of a split one; the slot is
     taken in the global cache and written only by the rank that holds it
-    (``decode_attention`` merges the ranks' scores).  Returns (out,
+    (``decode_attention`` merges the ranks' scores).  ``shard``: the
+    sharder of a placed tree; under tensor parallelism the new token's
+    q, k and v are gathered whole first, and the output's ``q_dim``
+    columns of this rank go through its rows of ``wo``.  Returns (out,
     new_cache)."""
     B = x.shape[0]
     pos_t = torch.as_tensor(pos, device=x.device).long()
     positions = pos_t.reshape(-1, 1).expand(B, 1)
-    q, k, v = attn_qkv(params, x, positions, cfg)
+    tp = shard.tp("q_dim") if shard is not None else None
+    if tp is None:
+        q, k, v = attn_qkv(params, x, positions, cfg)
+    else:
+        q, k, v = _gather_columns(tp, list(_project(params, x, cfg)))
+        q = _heads(params, q, positions, cfg, "q_norm")
+        k = _heads(params, k, positions, cfg, "k_norm")
+        v = v.reshape(B, 1, cfg.num_kv_heads, cfg.resolved_head_dim)
     cap = cache["k"].shape[1]
     lo, total = (0, cap) if split is None else split[1:]
     slot = (pos_t % total) if window else torch.clamp(pos_t, max=total - 1)
@@ -266,5 +364,9 @@ def attn_decode(params, x, cache, pos, cfg, *, window=0, split=None):
         new_cache = {"k": k_cache, "v": v_cache}
     out = decode_attention(q, k_cache, v_cache, pos_t, window=window,
                            softcap=cfg.attn_logit_softcap, split=split)
-    out = out.reshape(B, 1, cfg.q_dim) @ params["wo"]
-    return out, new_cache
+    out = out.reshape(B, 1, cfg.q_dim)
+    if tp is None:
+        return out @ params["wo"], new_cache
+    n = cfg.q_dim // tp.shards
+    out = out.narrow(-1, tp.shard * n, n)
+    return tp.psum(out @ params["wo"], "attn_sum"), new_cache

@@ -17,6 +17,17 @@ vote over the mesh's ``replica`` axis) takes the (B, E, C, d) expert
 output buffer; under a mesh with a batch axis wider than one the aux loss
 is formed from the routing statistics summed over the batch ranks, so it
 is the global batch's.
+
+Over a placed tree (``sharding.Sharder.tp``) the router is gathered
+whole over ``model`` (so routing, capacity and the aux statistics are
+the one-device ones) and the experts run split over ``model``: with
+``experts`` over it each rank runs its ``E / model`` experts on their
+rows of the whole dispatch buffer and the outputs are all-gathered
+before the combine (each expert's bytes do not depend on how many share
+a launch, so the layer is the one-device layer's bits); with ``moe_ff``
+over it each rank runs every expert on its hidden columns and the
+partial down products are summed over ``model``.  The shared experts run
+as the dense MLP does.
 """
 from __future__ import annotations
 
@@ -25,6 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.builder import Leaf
+from repro_torch.models.layers import swiglu
 
 
 def moe_decl(cfg) -> dict:
@@ -218,8 +230,42 @@ def _batch_mesh(shard):
     return mesh if mesh is not None and mesh.batch.shards > 1 else None
 
 
+def whole_router(params, shard):
+    """The router (d, E), gathered over ``model`` where the placement
+    splits its experts (the backward keeps this rank's columns: every
+    model rank routes the same tokens alike)."""
+    tp = shard.tp("experts") if shard is not None else None
+    if tp is None:
+        return params["router"]
+    return tp.gather_dim(params["router"], 1, "router_gather", reduce=False)
+
+
+def placed_experts(buf, params, shard):
+    """``grouped_mlp`` of the (B, E, C, d) dispatch buffer on this rank's
+    placed expert leaves; the whole output on every rank."""
+    tp_e = shard.tp("experts") if shard is not None else None
+    tp_f = shard.tp("moe_ff") if shard is not None else None
+    w = (params["w_gate"], params["w_up"], params["w_down"])
+    if tp_e is not None:
+        mine = tp_e.slice_dim(buf, 1, "moe_dispatch_slice")
+        out = grouped_mlp(mine, *w).contiguous()
+        return tp_e.gather_dim(out, 1, "moe_experts_gather", reduce=False)
+    if tp_f is not None:
+        out = grouped_mlp(tp_f.copy_to(buf, "moe_in"), *w)
+        return tp_f.psum(out.contiguous(), "moe_sum")
+    return grouped_mlp(buf, *w)
+
+
+def shared_experts(params, x, shard):
+    """The shared experts' SwiGLU (``ff`` split over ``model`` over a
+    placed tree, as the dense MLP)."""
+    sp = params["shared"]
+    return swiglu(x, sp["w_gate"], sp["w_up"], sp["w_down"],
+                  tp=shard.tp("ff") if shard is not None else None)
+
+
 def moe_mlp(params, x, cfg, shard=None, trust=None,
-            return_stats: bool = False):
+            return_stats: bool = False, decode: bool = False):
     """x: (B, S, d) -> (B, S, d), plus the aux loss (weighted).
 
     ``trust``: an optional hook applied to the (B, E, C, d) expert output
@@ -232,14 +278,16 @@ def moe_mlp(params, x, cfg, shard=None, trust=None,
     ``return_stats``: also return the per-expert routed-token counts
     (E,) int32, every row's assignments counted, dropped ones and the
     inactive rows of a decode batch included: the gate statistic a
-    serving edge's expert cache is fed with."""
+    serving edge's expert cache is fed with.  ``decode``: a decode
+    step's layer, whose aux loss decode discards (its statistics are not
+    summed over the batch ranks)."""
     B, S, d = x.shape
     k = cfg.num_experts_per_tok
     E = cfg.resolved_padded_experts
     C = capacity_for(cfg, S)
 
-    logits = x @ params["router"]
-    mesh = _batch_mesh(shard)
+    logits = x @ whole_router(params, shard)
+    mesh = None if decode else _batch_mesh(shard)
     if mesh is None:
         weights, expert_id, position, keep, aux = route(logits, k, C,
                                                         cfg.num_experts)
@@ -260,8 +308,7 @@ def moe_mlp(params, x, cfg, shard=None, trust=None,
     buf = x.new_zeros((B, E, C, d)).index_put_((row, eid, pos), gath,
                                                accumulate=True)
 
-    out_buf = grouped_mlp(buf, params["w_gate"], params["w_up"],
-                          params["w_down"])
+    out_buf = placed_experts(buf, params, shard)
     if trust is not None:          # B-MoE consensus on the expert outputs
         out_buf = trust(out_buf)
 
@@ -271,8 +318,7 @@ def moe_mlp(params, x, cfg, shard=None, trust=None,
     y = (yk * wk).reshape(B, S, k, d).sum(dim=2)
 
     if cfg.num_shared_experts:
-        sp = params["shared"]
-        y = y + (F.silu(x @ sp["w_gate"]) * (x @ sp["w_up"])) @ sp["w_down"]
+        y = y + shared_experts(params, x, shard)
     if return_stats:
         counts = torch.bincount(eid.reshape(-1), minlength=E).to(torch.int32)
         return y, aux * cfg.router_aux_weight, counts

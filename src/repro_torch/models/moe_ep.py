@@ -37,7 +37,8 @@ import torch.nn.functional as F
 from repro_torch.core.trusted_moe import LMAttack, vote
 from repro_torch.kernels import ops
 from repro_torch.models.moe import (aux_from_stats, route_probs,
-                                    router_probs, routing_stats, sum_stats)
+                                    router_probs, routing_stats,
+                                    shared_experts, sum_stats, whole_router)
 
 
 def ep_capacity(cfg, tokens_per_shard: int) -> int:
@@ -57,7 +58,8 @@ def _swiglu_experts(buf, w_gate, w_up, w_down):
     return ops.moe_gemm(h, w_down)
 
 
-def _routed(params, x, cfg, mesh, attack, vote_on: bool = True):
+def _routed(params, x, cfg, mesh, attack, vote_on: bool = True,
+            shard=None):
     """The routed experts on this rank: (B, S, d) -> ((B, S, d), stats of
     the whole token set)."""
     B, S, d = x.shape
@@ -74,7 +76,7 @@ def _routed(params, x, cfg, mesh, attack, vote_on: bool = True):
     # statistics from it on every model rank, the dispatch from this
     # rank's slice of it (one softmax, so one softmax backward, as on one
     # device)
-    probs = router_probs((x @ params["router"]).reshape(T, E),
+    probs = router_probs((x @ whole_router(params, shard)).reshape(T, E),
                          cfg.num_experts)
     stats = routing_stats(probs, k)
     pr = m.slice_rows(probs, T_l)
@@ -112,7 +114,8 @@ def _routed(params, x, cfg, mesh, attack, vote_on: bool = True):
 
 
 def moe_mlp_ep(params, x, cfg, mesh, attack: Optional[LMAttack] = None,
-               decode: bool = False, return_stats: bool = False):
+               decode: bool = False, return_stats: bool = False,
+               shard=None):
     """``moe_mlp`` under a mesh: (B, S, d) -> ((B, S, d), aux weighted).
 
     ``params``: this rank's layer, the router whole and ``w_gate``,
@@ -127,7 +130,10 @@ def moe_mlp_ep(params, x, cfg, mesh, attack: Optional[LMAttack] = None,
     discards it: 0 is returned, and the statistics are summed over the
     batch ranks only for the counts).  ``return_stats``: also the
     routed-token counts (E,) int32 of the global batch's tokens, every
-    top-k assignment counted, dropped ones included, as ``moe_mlp``'s."""
+    top-k assignment counted, dropped ones included, as ``moe_mlp``'s.
+    ``shard``: the sharder of a placed tree (the router's experts split
+    over ``model``, gathered whole here; the shared experts' ``ff`` split
+    as the dense MLP's)."""
     E = cfg.resolved_padded_experts
     msize = mesh.model.shards
     if E % msize:
@@ -136,14 +142,13 @@ def moe_mlp_ep(params, x, cfg, mesh, attack: Optional[LMAttack] = None,
         raise ValueError(f"this rank holds {params['w_gate'].shape[0]} "
                          f"experts, the mesh deals it {E // msize}: pass "
                          f"sharding.shard_params' tree")
-    y, stats = _routed(params, x, cfg, mesh, attack, not decode)
+    y, stats = _routed(params, x, cfg, mesh, attack, not decode, shard)
     if mesh.batch_split(cfg) and (return_stats or not decode):
         stats = sum_stats(mesh.batch, stats)
     aux = (x.new_zeros(()) if decode
            else aux_from_stats(stats, E, cfg.num_experts_per_tok))
     if cfg.num_shared_experts:
-        sp = params["shared"]
-        y_sh = (F.silu(x @ sp["w_gate"]) * (x @ sp["w_up"])) @ sp["w_down"]
+        y_sh = shared_experts(params, x, shard)
         if not decode and cfg.redundancy.mode != "off" \
                 and "replica" in mesh.axis_names:
             B, S, d = y_sh.shape

@@ -17,6 +17,18 @@ sharder too: the caches are then this rank's (``sharding.shard_caches``),
 attention merges the ranks' parts of a split cache, and the MoE layers
 run as in training but never vote (the JAX package's decode builds no
 trust hook), their routed-token counts those of the global batch.
+
+Over a placed tree (``sharding.step_sharder``) each layer gathers its
+leaves' ``embed`` dimension whole over the batch ranks first
+(``sharding.fsdp_gather``, inside a block's remat region, so the
+backward gathers again instead of keeping whole leaves alive), and the
+layers run tensor-parallel over ``model`` (``models.layers``,
+``models.moe``).  The vocabulary is split over ``model`` too: the
+embedding looks up the rank's rows (zeros elsewhere) and sums over the
+group, which adds one value to zeros and is exact; the head gives this
+rank's vocabulary columns of the logits, which ``lm_loss`` (its
+cross-entropy reduced over the group) and ``vocab_argmax`` take as they
+are, and ``gather_vocab`` pieces together whole.
 """
 from __future__ import annotations
 
@@ -32,7 +44,7 @@ from repro_torch.models.builder import Leaf, stack
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import (attn_decl, attn_decode, attn_train,
                                        mlp_decl, rmsnorm, swiglu)
-from repro_torch.sharding import cache_split, cache_views
+from repro_torch.sharding import cache_split, cache_views, fsdp_gather
 
 
 # ------------------------------------------------------------- decls
@@ -269,15 +281,87 @@ def _map2(fn, new, old):
                 else fn(new[k], old[k])) for k in new}
 
 
-def _embed(params, tokens):
-    return params["embed"][torch.as_tensor(tokens).to(
-        params["embed"].device, torch.long)]
+def _top(params, cfg: ModelConfig, shard, keys):
+    """The top-level leaves ``keys``, FSDP-gathered whole.  The forward
+    gathers the embedding for its lookup (whose backward needs only the
+    token ids, so the gathered table is freed after it; a tied table is
+    kept for the head, and its two uses add their gradients before one
+    reduce-scatter), then the final norm and head after the layers."""
+    keys = [k for k in keys if k in params]
+    if getattr(shard, "fsdp_view", None) is None:
+        return {k: params[k] for k in keys}
+    decl = model_decl(cfg)
+    return fsdp_gather({k: params[k] for k in keys},
+                       {k: decl[k] for k in keys}, shard)
 
 
-def _head(params, x, cfg: ModelConfig):
+def _embed_and_head(params, cfg: ModelConfig, shard):
+    """(the embedding table for the lookup, a function giving the final
+    norm and head's leaves after the layers)."""
+    emb = _top(params, cfg, shard, ("embed",))
+    tied = emb["embed"] if cfg.tie_embeddings else None
+
+    def head():
+        out = _top(params, cfg, shard, ("final_norm", "lm_head"))
+        if tied is not None:
+            out["embed"] = tied
+        return out
+
+    return emb, head
+
+
+def _embed(params, tokens, shard=None):
+    """The token embeddings; over a vocabulary split over ``model`` each
+    rank looks up its rows (zeros for the others') and the group sums,
+    an exact sum of one value and zeros."""
+    emb = params["embed"]
+    tokens = torch.as_tensor(tokens).to(emb.device, torch.long)
+    tp = shard.tp("vocab") if shard is not None else None
+    if tp is None:
+        return emb[tokens]
+    n = emb.shape[0]
+    local = tokens - tp.shard * n
+    own = (local >= 0) & (local < n)
+    x = torch.where(own[..., None], emb[local.clamp(0, n - 1)],
+                    torch.zeros((), dtype=emb.dtype, device=emb.device))
+    return tp.psum(x, "vocab_embed")
+
+
+def _head(params, x, cfg: ModelConfig, shard=None):
+    """Logits: every column, or this rank's vocabulary columns when
+    ``model`` splits the vocabulary."""
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    tp = shard.tp("vocab") if shard is not None else None
+    if tp is not None:
+        x = tp.copy_to(x, "head_in")
     return x @ head
+
+
+def gather_vocab(logits, shard=None):
+    """Whole logits from this rank's vocabulary columns (``_head``'s
+    output on a split vocabulary), on every rank.  No gradient."""
+    tp = shard.tp("vocab") if shard is not None else None
+    if tp is None:
+        return logits
+    return torch.cat(list(tp.all_gather(logits, "gather_vocab")), dim=-1)
+
+
+def vocab_argmax(logits, shard=None):
+    """``logits.argmax(-1)`` over the whole vocabulary from this rank's
+    columns: the ranks' (max, index) pairs are gathered and the largest
+    taken, a tie going to the lowest global index as ``torch.argmax``
+    breaks it (the ranks hold contiguous columns in rank order)."""
+    tp = shard.tp("vocab") if shard is not None else None
+    if tp is None:
+        return logits.argmax(dim=-1)
+    idx = logits.argmax(dim=-1)
+    val = logits.gather(-1, idx[..., None])[..., 0]
+    glob = (idx + tp.shard * logits.shape[-1]).to(val.dtype)
+    parts = tp.all_gather(torch.stack([val, glob]), "vocab_argmax")
+    best = parts[:, 0].amax(dim=0)
+    first = (parts[:, 0] == best).to(torch.int8).argmax(dim=0)
+    return parts[:, 1].gather(0, first[None])[0].long()
 
 
 def _layers(cfg: ModelConfig):
@@ -305,11 +389,12 @@ def _mlp(spec: LayerSpec, p, x, cfg, expert_stats=False, shard=None,
         if cfg.moe_impl == "ep" and mesh is not None:
             out = moe_ep.moe_mlp_ep(p["moe"], h, cfg, mesh,
                                     attack=None if decode else shard.attack,
-                                    decode=decode, return_stats=expert_stats)
+                                    decode=decode, return_stats=expert_stats,
+                                    shard=shard)
             return out if expert_stats else (*out, None)
         if decode:
-            out = moe_lib.moe_mlp(p["moe"], h, cfg,
-                                  return_stats=expert_stats)
+            out = moe_lib.moe_mlp(p["moe"], h, cfg, shard=shard,
+                                  return_stats=expert_stats, decode=True)
             if not expert_stats:
                 return (*out, None)
             if mesh is not None and mesh.batch_split(cfg):
@@ -318,17 +403,26 @@ def _mlp(spec: LayerSpec, p, x, cfg, expert_stats=False, shard=None,
             return out
         return (*moe_lib.moe_mlp(p["moe"], h, cfg, shard=shard,
                                  trust=trust), None)
-    y = swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+    y = swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"],
+               tp=shard.tp("ff") if shard is not None else None)
     return y, None, None
+
+
+def _gathered(spec: LayerSpec, p, cfg, shard):
+    """A layer's leaves with their FSDP parts gathered whole."""
+    if getattr(shard, "fsdp_view", None) is None:
+        return p
+    return fsdp_gather(p, layer_decl(spec, cfg), shard)
 
 
 def _layer_train(spec: LayerSpec, p, x, cfg, chunks, shard=None,
                  trust=None):
+    p = _gathered(spec, p, cfg, shard)
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
     if spec.kind in ("attn", "local_attn"):
         window = cfg.sliding_window if spec.kind == "local_attn" else 0
         y = attn_train(p["attn"], h, cfg, window=window,
-                       q_chunk=chunks[0], kv_chunk=chunks[1])
+                       q_chunk=chunks[0], kv_chunk=chunks[1], shard=shard)
     elif spec.kind == "rglru":
         y = rglru_lib.rglru_train(p["rglru"], h, cfg)
     elif spec.kind == "ssm":
@@ -368,9 +462,13 @@ def forward_train(params, tokens, cfg: ModelConfig, *, shard=None,
     ``remat``: each stacked block of the pattern runs under
     ``torch.utils.checkpoint`` (non-reentrant), the counterpart of JAX's
     ``jax.checkpoint`` over its scan body: the backward recomputes the
-    block's activations from its input, and the remainder layers keep
-    theirs.  The values are the same bits either way."""
-    x = _embed(params, tokens)
+    block's activations (and its FSDP gathers) from its input, and the
+    remainder layers keep theirs.  The values are the same bits either
+    way.  Over a placed tree the logits are this rank's vocabulary
+    columns (see the module's docstring)."""
+    emb, head = _embed_and_head(params, cfg, shard)
+    x = _embed(emb, tokens, shard)
+    del emb
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     chunks = (q_chunk, kv_chunk)
@@ -387,7 +485,7 @@ def forward_train(params, tokens, cfg: ModelConfig, *, shard=None,
                             shard, trust)
         if a is not None:
             aux = aux + a
-    return _head(params, x, cfg), aux
+    return _head(head(), x, cfg, shard), aux
 
 
 def _mask_rows(mask, new, old):
@@ -399,12 +497,14 @@ def _mask_rows(mask, new, old):
 
 def _layer_decode(spec: LayerSpec, p, cache, x, pos, cfg, expert_stats=False,
                   write_mask=None, shard=None):
+    p = _gathered(spec, p, cfg, shard)
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
     if spec.kind in ("attn", "local_attn"):
         window = cfg.sliding_window if spec.kind == "local_attn" else 0
         y, new_cache = attn_decode(
             p["attn"], h, cache, pos, cfg, window=window,
-            split=cache_split(shard, cfg, window, cache["k"].shape[1]))
+            split=cache_split(shard, cfg, window, cache["k"].shape[1]),
+            shard=shard)
     elif spec.kind == "rglru":
         y, new_cache = rglru_lib.rglru_decode(p["rglru"], h, cache, cfg)
     elif spec.kind == "ssm":
@@ -440,8 +540,11 @@ def forward_decode(params, caches, tokens, pos, cfg: ModelConfig, *,
     ``shard``: a mesh's sharder; ``tokens``, ``pos`` (a vector) and
     ``write_mask`` are then this rank's batch rows and ``caches`` its
     part (``sharding.shard_caches``); the counts are the global
-    batch's."""
-    x = _embed(params, tokens)
+    batch's, and over a placed tree the logits are this rank's
+    vocabulary columns."""
+    emb, head = _embed_and_head(params, cfg, shard)
+    x = _embed(emb, tokens, shard)
+    del emb
     if write_mask is not None:
         write_mask = torch.as_tensor(write_mask, device=x.device).bool()
     new_blocks = {str(i): [] for i in range(len(cfg.block_pattern))}
@@ -456,7 +559,7 @@ def forward_decode(params, caches, tokens, pos, cfg: ModelConfig, *,
     new_caches = {"blocks": {k: _stack(v) for k, v in new_blocks.items()}}
     if cfg.remainder:
         new_caches["remainder"] = new_rem
-    logits = _head(params, x, cfg)
+    logits = _head(head(), x, cfg, shard)
     if not expert_stats:
         return logits, new_caches
     stats = (torch.stack(counts) if counts else torch.zeros(
@@ -508,7 +611,7 @@ def forward_serve_chunk(params, caches, tokens, start, pos, lengths, adv,
         logits, caches = out[0], out[1]
         if expert_stats:
             total = out[2] if total is None else total + out[2]
-        cur = logits[:, -1].argmax(dim=-1)
+        cur = vocab_argmax(logits[:, -1], shard)
         outs.append(cur)
     outs = torch.stack(outs).to(torch.int32)
     if expert_stats:
@@ -541,16 +644,59 @@ class _LMLoss(torch.autograd.Function):
         return grad.to(logits.dtype), None, None
 
 
-def lm_loss(logits, labels, mask=None):
+class _VocabLMLoss(torch.autograd.Function):
+    """``_LMLoss`` over logits whose vocabulary is split over ``tp``'s
+    group (this rank's contiguous columns): the row max (a gather), the
+    sum of exponentials and the label's logit (its owner's, zeros
+    elsewhere: exact) are reduced over the group, so every rank holds
+    the same loss; the backward writes this rank's columns of (softmax -
+    one-hot) * valid / denom."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, valid, tp):
+        lf = logits.float()
+        n = lf.shape[-1]
+        top = tp.all_gather(lf.amax(dim=-1), "vocab_max").amax(dim=0)
+        local = labels - tp.shard * n
+        own = (local >= 0) & (local < n)
+        picked = torch.where(
+            own, lf.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0],
+            torch.zeros((), device=lf.device))
+        sums = torch.stack([torch.exp(lf - top[..., None]).sum(dim=-1),
+                            picked])
+        sums = tp.all_reduce(sums.contiguous(), "vocab_sums")
+        lse = top + torch.log(sums[0])
+        denom = torch.clamp(valid.sum(), min=1)
+        ctx.tp = tp
+        ctx.save_for_backward(logits, local, own, valid, lse, denom)
+        return -((sums[1] - lse) * valid).sum() / denom
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, local, own, valid, lse, denom = ctx.saved_tensors
+        grad = torch.sub(logits.float(), lse[..., None]).exp_()
+        idx = local.clamp(0, logits.shape[-1] - 1)[..., None]
+        grad.scatter_(-1, idx, grad.gather(-1, idx)
+                      - own[..., None].to(grad.dtype))
+        grad.mul_((g * valid / denom)[..., None])
+        return grad.to(logits.dtype), None, None, None
+
+
+def lm_loss(logits, labels, mask=None, shard=None):
     """Mean cross-entropy over the valid positions (the counterpart of
     JAX's ``lm_loss``).  logits (B, S, V); labels (B, S) integer, label
     < 0 ignored (a VLM's image prefix); ``mask`` (B, S) bool narrows the
     valid positions further.  In float32.  The label's logit is taken by
     ``gather`` where JAX contracts a one-hot: one term and zeros, the
     same value, without a (B, S, V) one-hot; the backward builds its
-    gradient in one (B, S, V) buffer (``_LMLoss``)."""
+    gradient in one (B, S, V) buffer (``_LMLoss``).  ``shard``: the
+    sharder of a placed tree, whose ``logits`` are this rank's
+    vocabulary columns (``_VocabLMLoss``)."""
     labels = torch.as_tensor(labels).to(logits.device, torch.long)
     valid = labels >= 0
     if mask is not None:
         valid = valid & torch.as_tensor(mask).to(logits.device, torch.bool)
+    tp = shard.tp("vocab") if shard is not None else None
+    if tp is not None:
+        return _VocabLMLoss.apply(logits, labels.clamp(min=0), valid, tp)
     return _LMLoss.apply(logits, labels.clamp(min=0), valid)

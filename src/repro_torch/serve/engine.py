@@ -26,7 +26,8 @@ micro-step leaves its input caches untouched and returns new ones
 admitted slot's rows in place.
 
 On a mesh (``mesh=``, a ``launch.mesh.LMMesh``; ``params`` this rank's
-tree, ``sharding.shard_params``) every rank runs the same engine on the
+placed tree, ``sharding.shard_params(..., kind="decode")`` or
+``init_model(mesh=, kind="decode")``) every rank runs the same engine on the
 same requests: the scheduler, the sessions, the commitments and the
 storage runtimes are host state replicated on every rank, each rank's
 caches are its part (``sharding.place_cache``), the fused step is the
@@ -35,9 +36,9 @@ global batch's on every rank, are checked equal across the ranks before
 the host reads them.  Admission resets, KV blocks sealed and restored
 go to the ranks that hold the slot's rows and positions; a KV block's
 bytes are gathered from them (a collective every rank makes in the same
-order).  The edge runtime registers the whole expert bank (an
-expert-parallel layer's rows gathered over ``model``) and is fed the
-global batch's counts.
+order).  The edge runtime registers the whole expert bank (each
+layer's expert leaves gathered whole from the ranks' parts) and is fed
+the global batch's counts.
 
 Verified sessions (``trust=TrustConfig(...)``): the optimistic
 commit-challenge-audit protocol applied to streaming inference.  Every
@@ -62,10 +63,12 @@ import torch
 from repro_torch.models import transformer as tfm
 from repro_torch.models.builder import materialize
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.moe import moe_decl
 from repro_torch.obs import Observability
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.serve.scheduler import SlotScheduler, SlotState
-from repro_torch.sharding import is_expert_parallel, owned_row, place_cache
+from repro_torch.sharding import (gather_leaf, owned_row, place_cache,
+                                  specs_for)
 from repro_torch.storage import (ExpertCache, ExpertStore, GateEMA,
                                  StorageNetwork)
 from repro_torch.storage.kv import (KV_GENESIS, KVBlockStore,
@@ -143,19 +146,20 @@ class _EdgeExpertRuntime:
         """Chunk every (layer, expert) unit into the storage network
         (version 0 — serving weights are frozen).  Router and shared-
         expert weights stay gate-side resident: they run every tick."""
-        ep = is_expert_parallel(self.cfg, self.mesh)
+        decl = moe_decl(self.cfg)
+        specs = (specs_for(decl, self.cfg, self.mesh)
+                 if self.mesh is not None else None)
 
-        def whole(t):
-            # an expert-parallel rank holds its rows: gather the bank
-            if ep:
-                t = torch.cat(list(self.mesh.model.all_gather(
-                    t, "gather_params")))
+        def whole(t, k):
+            # a placed rank holds its part of the bank: gather it whole
+            if specs is not None:
+                t = gather_leaf(t, specs[k], self.mesh, decl[k].shape)
             return t.detach().cpu().numpy()
 
         def units_of(moe_params, b=None):
             # routed-expert weights only: (E, ...) leading expert axis
             routed = {k: whole(moe_params[k] if b is None
-                               else moe_params[k][b])
+                               else moe_params[k][b], k)
                       for k in ("w_gate", "w_up", "w_down")}
             layer = len(self._like)
             # a copy, so the template does not hold the whole layer

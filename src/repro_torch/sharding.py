@@ -1,5 +1,5 @@
-"""Logical-axis sharding rules and the placement of expert leaves (the
-counterpart of ``repro.sharding``).
+"""Logical-axis sharding rules and the placement of every parameter
+leaf (the counterpart of ``repro.sharding``).
 
 Model code names its parameters' and activations' dimensions with
 *logical* axes ("batch", "vocab", "ff", "experts", ...).
@@ -16,29 +16,37 @@ The "replica" axis is never assigned to a logical axis: replicas hold
 identical copies of the batch shard, and only the consensus vote
 communicates across it (``core.trusted_moe``).
 
-Under SPMD the layout is explicit, so the rules are a record (what
-``Sharder.spec`` reports), and a ``Sharder`` applied to a rank's tensor
-is the identity.  What the port places: the batch over pod x data (each
-rank keeps its rows of the global batch), the experts of an
-expert-parallel MoE layer over ``model`` (``shard_params``: each rank
-keeps its contiguous ``E / model`` rows of ``w_gate``, ``w_up`` and
-``w_down``), and the decode caches by the cache declaration's
-``batch``, ``cache_seq`` and ``kv_seq`` dimensions under the JAX
-package's rules (``shard_caches``, ``place_cache``: each rank keeps its
-batch rows and its contiguous part of the positions).  Every other leaf
-and dimension is whole on every rank (FSDP's embed-over-data placement
-and dense tensor parallelism, a recurrent state's inner dimension over
-``model`` among them, change memory, not results, and are not ported).
+Under SPMD the layout is explicit: a ``Sharder`` applied to a rank's
+tensor is the identity, and the layers ask it what the rank holds
+(``Sharder.tp``, ``Sharder.fsdp_view``).  What the port places:
+
+- the batch over pod x data (each rank keeps its rows of the global
+  batch);
+- every parameter leaf of a decoder-only model as the JAX package's
+  ``partition_specs`` under ``logical_rules(mesh, cfg, params=use_fsdp(
+  cfg, kind, model width))`` say (``placed_specs``, ``shard_params``,
+  ``place_leaf``): ``embed`` over pod x data (FSDP: the layers gather a
+  block's leaves whole before use and reduce-scatter their gradients),
+  and ``vocab``, ``q_dim``, ``kv_dim``, ``ff``, ``experts`` or
+  ``moe_ff`` over ``model`` (tensor and expert parallelism: each rank
+  keeps its contiguous part, and the layers run column- and
+  row-parallel).  The dimensions named ``ssm_inner``, ``ssm_heads`` and
+  ``rglru_inner`` stay whole, and so does every leaf of the
+  encoder-decoder, which runs data-parallel (``unplaced_leaves`` lists
+  them by path and axis);
+- the decode caches by the cache declaration's ``batch``, ``cache_seq``
+  and ``kv_seq`` dimensions under the JAX package's rules
+  (``shard_caches``, ``place_cache``: each rank keeps its batch rows and
+  its contiguous part of the positions; kv heads stay whole).
+
 ``shard_bank`` places the B-MoE system's expert bank on the edge mesh
 (``BMoESystem(mesh="on")``).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Dict, Optional
 
 import torch
-
-_EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 
 
 def _mesh_axes(mesh) -> Dict[str, int]:
@@ -130,18 +138,49 @@ def use_fsdp(cfg, kind: str, model_shards: int = 16,
     return count_params(decl) * 2 / model_shards > hbm_budget
 
 
+# the logical axes whose tensor parallelism waits for a later slice: a
+# leaf's dimension named so stays whole on every rank
+LEFT_WHOLE = ("ssm_inner", "ssm_heads", "rglru_inner")
+
+
 class Sharder:
     """The mesh a model runs on, its rules, whether parameters carry FSDP
     and the in-graph adversary of the trusted-MoE tests.  ``spec`` gives
     JAX's partition spec as a tuple; applied to a rank's tensor the
-    sharder is the identity (the layout is explicit under SPMD)."""
+    sharder is the identity (the layout is explicit under SPMD).
+
+    ``placed``: the model's leaves are this rank's parts
+    (``shard_params``); the layers then run tensor-parallel over
+    ``model`` where ``tp`` names a view, and gather a leaf's ``embed``
+    dimension over ``fsdp_view`` wherever the rank holds part of it.
+    Built so by ``step_sharder``; a sharder made without ``placed`` is a
+    record of the rules over whole leaves."""
 
     def __init__(self, mesh=None, rules: Optional[dict] = None,
-                 fsdp: bool = True, attack=None):
+                 fsdp: bool = True, attack=None, placed: bool = False):
         self.mesh = mesh
         self.rules = rules if rules is not None else logical_rules(mesh)
         self.fsdp = fsdp
         self.attack = attack
+        self.placed = placed and mesh is not None
+
+    def tp(self, axis: str):
+        """The ``model`` view a placed dimension of logical ``axis`` is
+        split over, or None (whole: no mesh, a model axis of one, a rule
+        that leaves it whole, or a ``LEFT_WHOLE`` axis)."""
+        if (not self.placed or axis in LEFT_WHOLE
+                or self.rules.get(axis) != "model"
+                or self.mesh.model.shards == 1):
+            return None
+        return self.mesh.model
+
+    @property
+    def fsdp_view(self):
+        """The pod x data view an FSDP leaf's ``embed`` is split over, or
+        None."""
+        if not self.placed or self.mesh.batch.shards == 1:
+            return None
+        return self.mesh.batch
 
     def spec(self, *axes) -> tuple:
         return tuple(self.rules.get(a) if a is not None else None
@@ -156,87 +195,242 @@ class Sharder:
 NO_SHARD = Sharder(None)
 
 
-# --------------------------------------------------- expert placement
+def step_sharder(cfg, mesh, kind: str, attack=None) -> Optional[Sharder]:
+    """The sharder of a ``kind`` step of ``cfg`` on ``mesh`` over a placed
+    tree (None without a mesh): JAX's activation rules, its FSDP policy,
+    and every leaf placed unless the model is an encoder-decoder."""
+    if mesh is None:
+        return None
+    return Sharder(mesh, logical_rules(mesh, cfg),
+                   fsdp=use_fsdp(cfg, kind, mesh.shape[-1]), attack=attack,
+                   placed=not cfg.is_encoder_decoder)
+
+
+# ------------------------------------------------------ leaf placement
 def is_expert_parallel(cfg, mesh) -> bool:
     """Does ``cfg``'s MoE run expert-parallel on ``mesh``?"""
     return (mesh is not None and getattr(cfg, "moe_impl", "") == "ep"
             and bool(getattr(cfg, "num_experts", 0)))
 
 
-def map_expert_leaves(params, fn: Callable, other: Callable = None):
-    """``params`` with ``fn(leaf, axis)`` applied to the routed experts'
-    ``w_gate``, ``w_up`` and ``w_down`` of every MoE layer (``axis`` the
-    expert axis: 1 in the stacked blocks, 0 in the remainder) and
-    ``other(leaf)`` (default: the leaf itself) to every other leaf."""
-    other = other or (lambda t: t)
-
-    def walk(node, stacked, in_moe):
-        if isinstance(node, dict):
-            return {k: (fn(v, 1 if stacked else 0)
-                        if in_moe and k in _EXPERT_LEAVES
-                        and not isinstance(v, (dict, list))
-                        else walk(v, stacked or k in ("blocks",),
-                                  k == "moe"))
-                    for k, v in node.items()}
-        if isinstance(node, list):
-            return [walk(v, stacked, in_moe) for v in node]
-        return other(node)
-
-    return walk(params, False, False)
+def param_decl(cfg):
+    """The parameter declaration of ``cfg`` (either family)."""
+    from repro_torch.models import encdec
+    from repro_torch.models import transformer as tfm
+    return (encdec.encdec_decl(cfg) if cfg.is_encoder_decoder
+            else tfm.model_decl(cfg))
 
 
-def _cutter(mesh):
-    """(leaf, expert axis) -> this rank's contiguous expert rows, a
-    tensor of its own (the whole leaf is not kept alive by a view)."""
-    m, s = mesh.model.shards, mesh.model.shard
-
-    def cut(t, axis):
-        e_l = t.shape[axis] // m
-        return t.narrow(axis, s * e_l, e_l).clone()
-
-    return cut
+def param_rules(cfg, mesh, kind: str = "train") -> dict:
+    """JAX's parameter rules for a ``kind`` step (``launch/shapes.py``'s
+    choice): ``embed`` over pod x data when ``use_fsdp`` says so."""
+    return logical_rules(mesh, cfg,
+                         params=use_fsdp(cfg, kind, mesh.shape[-1]))
 
 
-def shard_params(params, cfg, mesh):
-    """This rank's tree: under expert parallelism each MoE layer's
-    expert leaves cut to the rank's contiguous ``E / model`` rows, every
-    other leaf as given."""
-    if not is_expert_parallel(cfg, mesh):
-        return params
-    return map_expert_leaves(params, _cutter(mesh))
-
-
-def place_leaf(cfg, mesh):
-    """``models.builder.materialize``'s ``place`` for this rank: an
-    expert-parallel layer's expert leaf (path ``.../moe/w_gate`` and the
-    like) cut to the rank's rows as it is drawn, so the rank's tree is
-    ``shard_params`` of the whole one without the whole one in memory;
-    None when nothing is cut."""
-    if not is_expert_parallel(cfg, mesh):
+def placed_specs(cfg, mesh, kind: str = "train"):
+    """Each leaf's partition spec as the port places it for a ``kind``
+    step: JAX's ``partition_specs`` under ``param_rules``, except that a
+    ``LEFT_WHOLE`` dimension, and every dimension of an encoder-decoder's
+    leaves, is None (whole).  None without a mesh."""
+    if mesh is None:
         return None
-    cut = _cutter(mesh)
+    return specs_for(param_decl(cfg), cfg, mesh, kind)
+
+
+def specs_for(decl, cfg, mesh, kind: str = "train"):
+    """``placed_specs``' specs for any part ``decl`` of the declaration
+    (a layer's, an MoE block's)."""
+    from repro_torch.models.builder import partition_specs
+    rules = dict(param_rules(cfg, mesh, kind))
+    for a in LEFT_WHOLE:
+        rules[a] = None
+    return partition_specs(decl, {} if cfg.is_encoder_decoder else rules)
+
+
+def unplaced_leaves(cfg, mesh, kind: str = "train"):
+    """``[(path, logical axis, JAX's mesh axes)]``: every dimension JAX's
+    specs split that the port keeps whole (``placed_specs``' exceptions),
+    in declaration order."""
+    from repro_torch.models.builder import Leaf, partition_specs
+    decl = param_decl(cfg)
+    jax_specs = partition_specs(decl, param_rules(cfg, mesh, kind))
+    mine = placed_specs(cfg, mesh, kind)
+    out = []
+
+    def walk(d, js, ms, path):
+        if isinstance(d, Leaf):
+            out.extend((path, a, j) for a, j, m in zip(d.axes, js, ms)
+                       if j is not None and m is None)
+        elif isinstance(d, dict):
+            for k in d:
+                walk(d[k], js[k], ms[k], f"{path}/{k}")
+        else:
+            for i, v in enumerate(d):
+                walk(v, js[i], ms[i], f"{path}/{i}")
+
+    walk(decl, jax_specs, mine, "")
+    return out
+
+
+def spec_views(spec, mesh):
+    """Per dimension of a placed leaf, the mesh view it is split over (a
+    group of one counts as whole), or None."""
+    out = []
+    for s in spec:
+        names = () if s is None else ((s,) if isinstance(s, str)
+                                      else tuple(s))
+        if not names:
+            view = None
+        elif names == ("model",):
+            view = mesh.model
+        elif set(names) <= {"pod", "data"}:
+            view = mesh.batch
+        else:
+            raise ValueError(f"the port places no dimension over {names}")
+        out.append(view if view is not None and view.shards > 1 else None)
+    return out
+
+
+def cut_leaf(t: torch.Tensor, spec, mesh, path: str = "a leaf"
+             ) -> torch.Tensor:
+    """This rank's part of a whole leaf under its placed ``spec``, a
+    tensor of its own (the whole leaf is not kept alive by a view); the
+    leaf itself when nothing is cut.  Raises, naming the numbers, when a
+    group does not divide a dimension."""
+    views = spec_views(spec, mesh)
+    if all(v is None for v in views):
+        return t
+    for d, v in enumerate(views):
+        if v is not None:
+            lo, hi = v.span(t.shape[d], f"{path} dimension {d}")
+            t = t.narrow(d, lo, hi - lo)
+    return t.clone()
+
+
+def gather_leaf(t: torch.Tensor, spec, mesh, shape) -> torch.Tensor:
+    """The whole leaf of ``shape`` from this rank's part (``cut_leaf``'s
+    inverse): each dimension the rank holds part of all-gathered over
+    its group, in rank order (``spec`` a training placement's, which
+    splits every dimension any placement does).  Collective over those
+    groups.  No gradient."""
+    for d, v in enumerate(spec_views(spec, mesh)):
+        if v is not None and t.shape[d] < shape[d]:
+            t = torch.cat(list(v.all_gather(t, "gather_params")), dim=d)
+    return t
+
+
+def _spec_map(fn, tree, specs, path=""):
+    """``fn(path, leaf, spec)`` over a parameter tree and its specs."""
+    if isinstance(tree, dict):
+        return {k: _spec_map(fn, tree[k], specs[k], f"{path}/{k}")
+                for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return [_spec_map(fn, t, s, f"{path}/{i}")
+                for i, (t, s) in enumerate(zip(tree, specs))]
+    return fn(path, tree, specs)
+
+
+def shard_params(params, cfg, mesh, kind: str = "train"):
+    """This rank's tree of a whole one, placed for a ``kind`` step
+    (``placed_specs``; prefill and decode place alike): each leaf cut to
+    the rank's part, a tensor of its own; a leaf that is not cut is the
+    input's.  Under expert parallelism an MoE layer's expert leaves keep
+    the rank's contiguous ``E / model`` rows.  Identity without a
+    mesh."""
+    if mesh is None:
+        return params
+    return _spec_map(lambda p, t, s: cut_leaf(t, s, mesh, p), params,
+                     placed_specs(cfg, mesh, kind))
+
+
+def place_leaf(cfg, mesh, kind: str = "train"):
+    """``models.builder.materialize``'s ``place`` for this rank: each leaf
+    cut to its part as it is drawn (``cut_leaf`` under ``placed_specs``),
+    so the rank's tree is ``shard_params`` of the whole one while at most
+    one whole leaf is in memory at a time; None without a mesh."""
+    from repro_torch.models.builder import abstract
+    if mesh is None:
+        return None
+    flat = {}
+    _spec_map(lambda p, t, s: flat.__setitem__(p, s),
+              abstract(param_decl(cfg)), placed_specs(cfg, mesh, kind))
 
     def place(path, t):
-        parts = path.split("/")
-        if parts[-1] not in _EXPERT_LEAVES or parts[-2] != "moe":
-            return t
-        return cut(t, 1 if parts[1] == "blocks" else 0)
+        return cut_leaf(t, flat[path], mesh, path)
 
     return place
 
 
 def gather_params(params, cfg, mesh):
-    """The whole tree from this rank's (``shard_params``' inverse): the
-    expert leaves all-gathered over ``model``.  Collective: every rank of
-    the model group calls it.  No gradient."""
-    if not is_expert_parallel(cfg, mesh):
+    """The whole tree from this rank's (``shard_params``' inverse, either
+    kind's placement): every dimension the rank holds part of
+    all-gathered over its group.  Collective: every rank of the mesh
+    calls it.  No gradient."""
+    from repro_torch.models.builder import abstract
+    if mesh is None:
         return params
+    shapes = {}
+    _spec_map(lambda p, t, s: shapes.__setitem__(p, t.shape),
+              abstract(param_decl(cfg)), abstract(param_decl(cfg)))
+    return _spec_map(lambda p, t, s: gather_leaf(t, s, mesh, shapes[p]),
+                     params, placed_specs(cfg, mesh, "train"))
 
-    def whole(t, axis):
-        parts = mesh.model.all_gather(t, "gather_params")
-        return torch.cat(list(parts), dim=axis)
 
-    return map_expert_leaves(params, whole)
+def leaf_splits(params, cfg, mesh):
+    """Per leaf of a placed tree (either kind's placement), ``(over
+    model, over the batch ranks)``: whether the rank holds part of a
+    dimension the leaf's spec splits over ``model``, and part of its
+    ``embed`` dimension (FSDP), read from its shape against the
+    declaration's."""
+    from repro_torch.core.ledger import tree_flatten
+    from repro_torch.models.builder import Leaf
+    decl = param_decl(cfg)
+    specs = placed_specs(cfg, mesh, "train")
+    out = []
+
+    def walk(t, d, s):
+        if isinstance(d, Leaf):
+            short = [n < w for n, w in zip(t.shape, d.shape)]
+            out.append((any(c and x == "model" for c, x in zip(short, s)),
+                        any(c and a == "embed" for c, a in zip(short,
+                                                               d.axes))))
+        elif isinstance(d, dict):
+            for k in t:
+                walk(t[k], d[k], s[k])
+        else:
+            for a, b, c in zip(t, d, s):
+                walk(a, b, c)
+
+    walk(params, decl, specs)
+    assert len(out) == len(tree_flatten(params)[0])
+    return out
+
+
+def fsdp_gather(tree, decl, shard):
+    """``tree`` (a layer's or the model's top leaves, ``decl`` its
+    declaration) with every leaf whose ``embed`` dimension this rank
+    holds part of gathered whole over ``shard.fsdp_view`` (differentiable:
+    the gradient is reduce-scattered back).  Tensor-parallel dimensions
+    stay split.  ``tree`` itself without FSDP."""
+    from repro_torch.models.builder import Leaf
+    view = shard.fsdp_view if shard is not None else None
+    if view is None:
+        return tree
+
+    def walk(t, d):
+        if isinstance(d, Leaf):
+            if "embed" not in d.axes:
+                return t
+            dim = d.axes.index("embed")
+            if t.shape[dim] == d.shape[dim]:
+                return t
+            return view.gather_dim(t, dim, "fsdp_gather", reduce=True)
+        if isinstance(d, dict):
+            return {k: walk(t[k], d[k]) for k in t}
+        return [walk(a, b) for a, b in zip(t, d)]
+
+    return walk(tree, decl)
 
 
 def shard_bank(bank: Dict[str, torch.Tensor], mesh

@@ -16,14 +16,17 @@ from repro_torch.sharding import place_leaf
 from repro_torch.train.step import make_train_step
 
 
-def init_model(cfg: ModelConfig, seed: int = 0, device=None, mesh=None):
+def init_model(cfg: ModelConfig, seed: int = 0, device=None, mesh=None,
+               kind: str = "train"):
     """Random float32 parameters for ``cfg`` from ``seed``, drawn on
     ``device`` (``None``: the CUDA device).  Under ``mesh`` this rank's
-    tree (``sharding.shard_params`` of the one-device tree, each expert
-    leaf cut as it is drawn)."""
+    tree placed for a ``kind`` step (``sharding.shard_params`` of the
+    one-device tree, each leaf cut as it is drawn: one whole leaf at a
+    time is in memory)."""
     decl = (encdec.encdec_decl(cfg) if cfg.is_encoder_decoder
             else tfm.model_decl(cfg))
-    return materialize(decl, seed, device, place=place_leaf(cfg, mesh))
+    return materialize(decl, seed, device,
+                       place=place_leaf(cfg, mesh, kind))
 
 
 def train(cfg: ModelConfig, batches: Iterator[dict], steps: int, *,

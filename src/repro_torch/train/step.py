@@ -6,7 +6,8 @@ counterpart of ``repro.train.step``).
   loss (``lm_loss`` plus the MoE aux loss), its gradients over
   ``train_microbatches`` microbatches and one AdamW update, in place;
 - ``make_loss_and_grads(cfg, remat=True, mesh=None, attack=None)``:
-  ``(params, batch) -> (loss, aux, grads)``, the step without the update;
+  ``(params, batch) -> (loss, aux, grads)``, the step without the update,
+  and ``apply_update``, the update;
 - ``make_prefill_step(cfg, mesh=None, attack=None)``: ``(params, batch)
   -> next token (B, 1)``, the full-sequence forward and the argmax of the
   last position;
@@ -27,15 +28,23 @@ step's dense mixture is plain products, as in the JAX package.
 Under a mesh (``launch.mesh.LMMesh``) every rank runs the same step
 (SPMD): it is given the whole global batch and keeps its rows of each
 microbatch (split over pod x data); ``params`` is this rank's tree
-(``sharding.shard_params``: an expert-parallel layer's experts cut to
-the rank's rows).  MoE layers run expert-parallel (``moe_impl="ep"``) or
-with the B-MoE vote hook (``core.trusted_moe.make_trust``, built when
-the config's redundancy is on).  Each rank's objective is its rows' mean
-cross-entropy over the batch ranks plus the aux loss (the global
-batch's, from summed routing statistics); the gradients are summed over
-the batch ranks, so every leaf holds the global batch's gradient;
-replicas and model ranks are not reduced (their replicated leaves'
-gradients are already equal).  The reported loss is the global batch's.
+(``sharding.shard_params`` or ``init_model(mesh=)``: every leaf of a
+decoder-only model placed as the JAX package's specs say, FSDP's
+``embed`` over pod x data for training and for inference where
+``use_fsdp`` asks for it, tensor and expert parallelism over ``model``;
+either placement runs in any step).  The layers gather FSDP leaves per
+block and run tensor-parallel (``models.transformer``).  MoE layers run
+expert-parallel (``moe_impl="ep"``) or with the B-MoE vote hook
+(``core.trusted_moe.make_trust``, built when the config's redundancy is
+on).  Each rank's objective is its rows' mean cross-entropy over the
+batch ranks plus the aux loss (the global batch's, from summed routing
+statistics); an FSDP leaf's gradient is reduce-scattered over the batch
+ranks by its gather's backward, every other leaf's is all-reduced over
+them after the backward, so every rank holds its part of the global
+batch's gradient; replicas and model ranks are not reduced (a leaf
+split over ``model`` holds its own part, a replicated one the same
+gradient on every model rank, by the layers' f/g exchanges).  The
+reported loss is the global batch's.
 Decode and the serving chunk take the global batch too and keep its rows
 (all of them when the config is not ``batch_shardable``: batch-1
 long-context decode); their caches are this rank's
@@ -55,8 +64,7 @@ from repro_torch.models import encdec
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
-from repro_torch.sharding import (Sharder, is_expert_parallel, logical_rules,
-                                  map_expert_leaves, use_fsdp)
+from repro_torch.sharding import leaf_splits, step_sharder
 
 # the parameter subtrees whose leaves stack layers on their leading axis
 _STACKED = ("blocks", "enc_blocks", "dec_blocks")
@@ -68,8 +76,7 @@ def _mesh_hooks(cfg: ModelConfig, mesh, attack, kind: str):
     JAX package."""
     if mesh is None:
         return None, None
-    shard = Sharder(mesh, logical_rules(mesh, cfg),
-                    fsdp=use_fsdp(cfg, kind, mesh.shape[-1]), attack=attack)
+    shard = step_sharder(cfg, mesh, kind, attack)
     trust = None
     if kind == "train" and cfg.redundancy.mode != "off":
         expert_sharded = cfg.num_experts % mesh.shape[-1] == 0
@@ -179,7 +186,7 @@ def make_loss_and_grads(cfg: ModelConfig, remat: bool = True, mesh=None,
         for mb in micro:
             logits, aux, labels = model_forward(
                 leaves, _local_rows(mb, mesh), cfg, remat, shard, trust)
-            ce = tfm.lm_loss(logits, labels)
+            ce = tfm.lm_loss(logits, labels, shard=shard)
             del logits
             if nb > 1:
                 ce = ce / nb
@@ -195,9 +202,11 @@ def make_loss_and_grads(cfg: ModelConfig, remat: bool = True, mesh=None,
                 loss_acc = (loss / K if loss_acc is None
                             else loss_acc + loss / K)
                 aux_acc = aux / K if aux_acc is None else aux_acc + aux / K
-        if nb > 1:
-            for g in tree_flatten(grads)[0]:
-                mesh.batch.all_reduce(g, "grads")
+        if nb > 1:                  # FSDP leaves: reduce-scattered
+            for g, (_, fsdp) in zip(tree_flatten(grads)[0],
+                                    leaf_splits(grads, cfg, mesh)):
+                if not fsdp:
+                    mesh.batch.all_reduce(g, "grads")
         return loss_acc, aux_acc, grads
 
     return loss_and_grads
@@ -205,17 +214,23 @@ def make_loss_and_grads(cfg: ModelConfig, remat: bool = True, mesh=None,
 
 def _global_norm(grads, cfg: ModelConfig, mesh) -> torch.Tensor:
     """The global norm of the whole gradient tree from this rank's part:
-    ``adamw.global_norm``'s sum in flatten order, the squares of the
-    expert-parallel leaves summed over the model ranks first."""
-    if not is_expert_parallel(cfg, mesh) or mesh.model.shards == 1:
+    ``adamw.global_norm``'s sum in flatten order, each leaf's squares
+    summed over every group that splits it (``model``, the batch ranks)
+    and a leaf replicated over a group counted once (on its first
+    rank)."""
+    splits = leaf_splits(grads, cfg, mesh)
+    if not any(m or b for m, b in splits):
         return adamw.global_norm(grads)
     flat, _ = tree_flatten(grads)
-    expert, _ = tree_flatten(map_expert_leaves(grads, lambda t, a: True,
-                                               lambda t: False))
     sq = torch.stack([torch.sum(torch.square(g.float())) for g in flat])
-    idx = torch.tensor([i for i, e in enumerate(expert) if e],
-                       device=sq.device)
-    sq[idx] = mesh.model.all_reduce(sq[idx].contiguous(), "grad_norm")
+    once = torch.tensor([(m or mesh.model.shard == 0)
+                         and (b or mesh.batch.shard == 0)
+                         for m, b in splits], device=sq.device)
+    sq = torch.where(once, sq, torch.zeros((), device=sq.device))
+    if any(m for m, _ in splits):
+        sq = mesh.model.all_reduce(sq.contiguous(), "grad_norm")
+    if any(b for _, b in splits):
+        sq = mesh.batch.all_reduce(sq.contiguous(), "grad_norm")
     total = sq[0]
     for i in range(1, len(flat)):
         total = total + sq[i]
@@ -238,14 +253,22 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
 
     def train_step(params, opt_state, batch):
         loss, aux, grads = loss_and_grads(params, batch)
-        kw = {} if mesh is None else {"gnorm": _global_norm(grads, cfg,
-                                                            mesh)}
-        with torch.profiler.record_function("adamw.update"):
-            params, opt_state, om = adamw.update(opt_cfg, grads, opt_state,
-                                                 params, **kw)
+        params, opt_state, om = apply_update(opt_cfg, cfg, params,
+                                             opt_state, grads, mesh)
         return params, opt_state, {"loss": loss, "aux_loss": aux, **om}
 
     return train_step
+
+
+def apply_update(opt_cfg: adamw.AdamWConfig, cfg: ModelConfig, params,
+                 opt_state, grads, mesh=None):
+    """The training step's update of ``make_loss_and_grads``' gradients:
+    ``adamw.update`` in place, under a mesh on this rank's parts with the
+    global gradient norm; a ``torch.profiler`` region named
+    ``adamw.update``.  Returns (params, opt_state, {grad_norm, lr})."""
+    kw = {} if mesh is None else {"gnorm": _global_norm(grads, cfg, mesh)}
+    with torch.profiler.record_function("adamw.update"):
+        return adamw.update(opt_cfg, grads, opt_state, params, **kw)
 
 
 def make_prefill_step(cfg: ModelConfig, mesh=None, attack=None):
@@ -261,7 +284,7 @@ def make_prefill_step(cfg: ModelConfig, mesh=None, attack=None):
     def prefill_step(params, batch):
         logits, _aux, _ = model_forward(params, _local_rows(batch, mesh),
                                         cfg, shard=shard)
-        nxt = logits[:, -1:].argmax(dim=-1)
+        nxt = tfm.vocab_argmax(logits[:, -1:], shard)
         if mesh is not None and mesh.batch.shards > 1:
             nxt = mesh.batch.all_gather(nxt, "next_tokens").reshape(
                 -1, nxt.shape[1])
@@ -305,7 +328,8 @@ def make_decode_step(cfg: ModelConfig, expert_stats: bool = False,
             logits, caches = tfm.forward_decode(
                 params, caches, tokens, pos, cfg, shard=shard,
                 write_mask=active)
-        nxt = _gather_rows(logits[:, -1].argmax(dim=-1), mesh, cfg)
+        nxt = _gather_rows(tfm.vocab_argmax(logits[:, -1], shard), mesh,
+                           cfg)
         return (nxt, caches) if stats is None else (nxt, caches, stats)
 
     return decode_step

@@ -615,42 +615,45 @@ def test_make_step_decode_takes_a_mesh():
 
 # ------------------------------------------- against the one device
 def test_mesh_data1_bitwise_loss_and_logits(world):
-    """Capacity factor 8, data axis 1: loss, aux and logits of the mesh
-    equal the one-device run's bit for bit (EP on (1, 4), the trusted EP
-    and bmoe-paper's vote hook on (1, 2, 2))."""
+    """Capacity factor 8, data axis 1 (EP on (1, 4), the trusted EP and
+    bmoe-paper's vote hook on (1, 2, 2)): the model axis runs the dense
+    layers tensor-parallel (row-parallel sums over ``model`` add partial
+    products in another order), so loss, aux and logits are held to the
+    one-device run at 1e-5 of their largest magnitude."""
     res, _, _ = world
     for r in res:
         for name in ("ep_1x4", "trusted_1x2x2", "bmoe_1x2x2"):
             out = r["one_device/" + name]
-            assert out["loss"][0] == out["loss"][1], name
-            assert out["aux"][0] == out["aux"][1], name
-            assert out["logits_bitwise"], name
+            for key in ("loss", "aux"):
+                got, want = out[key]
+                assert abs(got - want) <= 1e-5 * max(abs(want), 1e-30), name
+            assert out["logits_abs"] <= 1e-5 * out["logits_max"], name
 
 
 def test_mesh_data1_gradients(world):
-    """Capacity factor 8, data axis 1: bmoe-paper's gradients equal the
-    one-device run's bit for bit; EP's within 1e-6 of each leaf's
-    largest magnitude (the expert weights' gradients sum their
-    capacity rows, padded to another count on the mesh, in other
-    blocks), and bitwise every other leaf (``test_mesh_ep_bitwise_*``)."""
+    """Capacity factor 8, data axis 1: the gradients within 1e-5 of each
+    leaf's largest magnitude, bmoe-paper's on (1, 2, 2) and EP's on
+    (1, 4) and (1, 2, 2) (tensor parallelism over model: row-parallel
+    sums; EP's expert weights' gradients also sum their capacity rows,
+    padded to another count on the mesh, in other blocks)."""
     res, _, _ = world
     for r in res:
-        assert r["one_device/bmoe_1x2x2"]["grads_bitwise"]
-        for name in ("ep_1x4", "trusted_1x2x2"):
-            assert r["one_device/" + name]["grads_rel"] <= 1e-6, name
+        for name in ("bmoe_1x2x2", "ep_1x4", "trusted_1x2x2"):
+            assert r["one_device/" + name]["grads_rel"] <= 1e-5, name
 
 
 def test_mesh_data2_within_1e6(world):
-    """Data axis 2 (EP on (2, 2)): the loss within 1e-6 relative (the
-    batch mean is one all-reduce), the gradients within 1e-6 of each
-    leaf's largest magnitude, this rank's logits bitwise."""
+    """Data axis 2 (EP on (2, 2), FSDP over data, tensor parallelism over
+    model): the loss within 1e-6 relative (the batch mean is one
+    all-reduce), the gradients and this rank's logits within 1e-5 of
+    their largest magnitude (row-parallel sums over ``model``)."""
     res, _, _ = world
     for r in res:
         out = r["one_device/ep_2x2"]
         loss, want = out["loss"]
         assert abs(loss - want) <= 1e-6 * abs(want)
-        assert out["grads_rel"] <= 1e-6
-        assert out["logits_bitwise"]
+        assert out["grads_rel"] <= 1e-5
+        assert out["logits_abs"] <= 1e-5 * out["logits_max"]
 
 
 def test_minority_attacked_step_is_the_clean_step(world):
@@ -772,18 +775,21 @@ def test_mesh_factory_widths_match_jax():
 
 def test_expert_placement_round_trip():
     """``shard_params`` and the cut of ``place_leaf`` as the leaves are
-    drawn give the same rank tree; the non-expert leaves stay whole."""
+    drawn give the same rank tree (rank 1 of an abstract (1, 2) mesh):
+    an EP layer's experts are the rank's contiguous rows, the vocabulary
+    its half, and a leaf the placement splits nowhere stays the input's
+    tensor."""
     cfg = ranks.ep_cfg()
     full = init_model(cfg, 3, "cpu")
-    mesh = types.SimpleNamespace(model=types.SimpleNamespace(shards=2,
-                                                             shard=1))
+    mesh = lmesh.abstract_lm_mesh((1, 2), rank=1)
     cut = sharding.shard_params(full, cfg, mesh)
     drawn = init_model(cfg, 3, "cpu", mesh=mesh)
     assert cut["blocks"]["0"]["moe"]["w_gate"].shape[1] == 2
     assert digest_tree(cut) == digest_tree(drawn)
     assert torch.equal(cut["blocks"]["0"]["moe"]["w_up"],
                        full["blocks"]["0"]["moe"]["w_up"][:, 2:4])
-    assert cut["embed"] is full["embed"]
+    assert torch.equal(cut["embed"], full["embed"][256:])
+    assert cut["final_norm"] is full["final_norm"]
 
 
 # ------------------------------------------------------------ launcher
