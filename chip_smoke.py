@@ -14,11 +14,12 @@ capacity 376, edge cache on):
 - the LM stack's prefill and decode at full width, random weights from
   seed 0: qwen2.5-3b (path C: prefill at S=4096, teacher-forced decode
   against the full forward, four requests decoded greedily in one batch
-  against each alone, a profile), recurrentgemma-2b (path D: prefill
-  at S=4096, teacher-forced decode past its 2048-token window) and
-  mamba2-2.7b (path E: prefill at S=4096, 32 SSD chunks, teacher-forced
-  decode over 384 tokens across two chunk boundaries, four requests
-  decoded in one batch against each alone);
+  against each alone, a profile), recurrentgemma-2b (path D, 2 of its 8
+  blocks and the 2 remainder layers: prefill at S=4096, teacher-forced
+  decode past its 2048-token window) and mamba2-2.7b (path E, 32 of 64
+  layers: prefill at S=4096, 32 SSD chunks, teacher-forced decode over
+  384 tokens across two chunk boundaries, four requests decoded in one
+  batch against each alone);
 - the rest of the LM configs (paths H, I and J), prefill at 4,096
   positions and decode against the forward: the MoE models bmoe-paper
   and qwen2-moe-a2.7b at full width and llama4-maverick-400b-a17b at
@@ -26,13 +27,15 @@ capacity 376, edge cache on):
   expert counts held to a recount of the routing, against the forward
   at the config's capacity and at one that drops nothing, every routing
   difference explained by a near-tie or an earlier drop; batched decode
-  equal to each request alone bit for bit); qwen3-32b and gemma3-27b
-  cut in depth to fit the card and pixtral-12b with its 1,024 patch
-  embeddings (path I); seamless-m4t-medium over 4,096 frames, decoded
-  against cross K/V built from its encoder's memory (path J);
+  equal to each request alone bit for bit; qwen2-moe-a2.7b 12 of its
+  24 layers); qwen3-32b (12 of 64 layers), gemma3-27b (8 of 62) and
+  pixtral-12b (20 of 40) with its 1,024 patch embeddings (path I);
+  seamless-m4t-medium over 4,096 frames, decoded against cross K/V
+  built from its encoder's memory (path J);
 - the serving engine (path K, on the weights of paths C and H while
-  they are on the card): K1, qwen2-moe-a2.7b at full width, twelve
-  requests through continuous batching with verified sessions (4 slots,
+  they are on the card): K1, qwen2-moe-a2.7b at full width (12 of 24
+  layers), six requests through continuous batching with verified
+  sessions (4 slots,
   cache 512, chunks up to 16; moe_gemm launched 3 times a MoE layer for
   each micro-step the engine counts; the fixed policy, each request
   alone and a tampered session checked; one decode and one prefill chunk
@@ -46,10 +49,11 @@ capacity 376, edge cache on):
   their kernels): L1, bmoe-paper at full width and depth from seed 0, 4
   steps of (2, 2048) with the loss falling, two steps from one state
   bitwise equal, one layer against the CPU by gradients and one step
-  profiled; L2, recurrentgemma-2b at full width, 2 steps of (2, 4096)
-  over its 2 microbatches with remat; L3, seamless-m4t-medium over 4,096
-  frames and 512 tokens, 2 steps; L4, mamba2-2.7b at full width and
-  depth on path E's weights, 2 steps of (4, 4096) over its 4
+  profiled; L2, recurrentgemma-2b at full width on D's weights, 2 steps
+  of (2, 4096) over its 2 microbatches with remat; L3,
+  seamless-m4t-medium over 4,096
+  frames and 512 tokens, 2 steps; L4, mamba2-2.7b at full width on path
+  E's weights, 2 steps of (4, 4096) over its 4
   microbatches with remat, the SSD backward's share of a profiled step,
   one layer against the CPU by gradients; each path's launches held to
   the config's count;
@@ -156,7 +160,25 @@ capacity 376, edge cache on):
   cache over model: tokens equal, logits within 1e-5; R4, ``moe_gemm``
   and the flash forward and backward at a rank's shapes, each rank's
   launches; P4, R1's step on the abstract (2, 2) mesh books R1 rank 0's
-  bytes by exchange and its parameter-and-moment bytes.
+  bytes by exchange and its parameter-and-moment bytes;
+- the recurrent mixers' tensor parallelism and the encoder-decoder's
+  placement (path S, after R; four ranks on the card over gloo, each
+  one-device reference run first and freed): S1 mamba2-2.7b (2 of 64
+  layers), S2 recurrentgemma-2b's first block (rglru, rglru,
+  local_attn), S3 seamless-m4t-medium (2 encoder and 2 decoder layers),
+  each trained one step on (2, 2) (FSDP over data, the SSD layer's heads
+  and channels, the RG-LRU's channels, the attention, MLP and
+  vocabulary over model): loss within 1e-5, gradients and the update
+  within max(1e-5, twice one device's own difference between two sum
+  orders of the step), a rank's parameters and moments the bytes JAX's
+  specs give (about a quarter of one device's); then a prefill and 16
+  decode steps on (1, 4) (mamba2's 20 heads, recurrentgemma's 640
+  channels a rank; S2 past its 2,048-token window, S3 from ``encode``'s
+  cross K/V): tokens equal, logits within 1e-5 of the largest, the ssm
+  conv history the same bits on every rank; S4 ``ssd_scan``,
+  ``rglru_scan`` and the flash kernels forward and backward at a rank's
+  shapes; P5 S1's step on the abstract (2, 2) mesh books S1 rank 0's
+  bytes.
 
 Each path's launch counts are set to 0 just before it and read just
 after it.
@@ -171,6 +193,7 @@ after it.
     python3 chip_smoke.py --dryrun
     python3 chip_smoke.py --decode-mesh
     python3 chip_smoke.py --tensor-parallel
+    python3 chip_smoke.py --recurrent-tp
 
 The second form builds, then checks and times only the named kernels'
 cases (``moe_gemm``, ``flash_attention``, ``flash_attention_bwd``,
@@ -181,8 +204,9 @@ kernel on one card.
 The third runs path K alone, the fourth path L alone (their models
 initialised from seed 0 as the main run's are), the fifth path M alone,
 the sixth path N alone, the seventh path O alone, the eighth path P
-alone (O1's world run again for P2), the ninth path Q alone (with P3)
-and the tenth path R alone (with P4), and stop the same way.
+alone (O1's world run again for P2), the ninth path Q alone (with P3),
+the tenth path R alone (with P4) and the eleventh path S alone (with
+P5), and stop the same way.
 
 Prints, in order: the card's name and power limit (nvidia-smi), the
 build time, one JSON line per kernel case, the main-path lines, one
@@ -1582,6 +1606,24 @@ def batched_vs_alone(torch, cfg, params, width1_tol=None, bitwise=False):
                 f"{same1}")
 
 
+# paths D and E cut in depth to keep the whole script within its time:
+# recurrentgemma-2b to 2 of its 8 (rglru, rglru, local_attn) blocks and
+# its 2 remainder rglru layers; mamba2-2.7b to 32 of 64 layers (L2 and
+# L4 train these)
+D_BLOCKS = 2
+D_DEPTH = (3 * D_BLOCKS + 2, D_BLOCKS)
+E_DEPTH = (32, 32)
+# path H's qwen2-moe-a2.7b (K1 and P1 run on its weights): 12 of 24
+H_QWEN_DEPTH = (12, 12)
+
+
+def depth_cut(cfg, depth):
+    """``cfg`` at its full width with ``depth`` = (layers, blocks) kept."""
+    import dataclasses
+    return dataclasses.replace(cfg, num_layers=depth[0],
+                               num_blocks=depth[1]).validate()
+
+
 def lm_path(torch, ops, arch: str, want_counts, decode_seq: int,
             serving: bool = False, width1_tol=None, smoke: bool = False,
             depth=None, then=None):
@@ -1602,8 +1644,7 @@ def lm_path(torch, ops, arch: str, want_counts, decode_seq: int,
     reduced = "smoke width" if smoke else None
     if depth:
         full = cfg.num_layers
-        cfg = dataclasses.replace(cfg, num_layers=depth[0],
-                                  num_blocks=depth[1]).validate()
+        cfg = depth_cut(cfg, depth)
         reduced = f"depth {cfg.num_layers} of {full} layers"
     t0 = time.perf_counter()
     params = init_model(cfg, 0)
@@ -1912,13 +1953,15 @@ def train_layer_vs_cpu(torch, cfg):
 
 
 def train_l2(torch, ops, cfg, params):
-    """L2: recurrentgemma-2b at full width on path D's weights:
-    ``make_train_step(remat=True)``, 2 steps on a batch of (2, 4096) cut
-    into its 2 microbatches of (1, 4096), so the 2048-key window masks
-    keys: finite losses and gradient norms, launches per microbatch held
-    to the config (rglru_scan 18 + 16 recomputed, 18 reverse; flash 8 + 8
-    recomputed, 8 backward), the peak memory printed; then a third step
-    profiled for the flash backward's share of the device's busy time."""
+    """L2: recurrentgemma-2b at full width on path D's weights (its
+    ``D_BLOCKS`` blocks and the remainder): ``make_train_step(remat=True)``,
+    2 steps on a batch of (2, 4096) cut into its 2 microbatches of (1,
+    4096), so the 2048-key window masks keys: finite losses and gradient
+    norms, launches per microbatch held to the config (a block's 2
+    rglru_scan and the remainder's 2, the block's recomputed, one
+    reverse each; a block's flash and its recomputation, one backward),
+    the peak memory printed; then a third step profiled for the flash
+    backward's share of the device's busy time."""
     from repro_torch.core.ledger import tree_flatten
     from repro_torch.optim import adamw
     from repro_torch.train.step import make_train_step
@@ -1958,9 +2001,10 @@ def train_l2(torch, ops, cfg, params):
     emit(row)
     require(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
                 for m in metrics), f"L2 metrics {metrics}")
-    require(per_mb["rglru_scan"] == 34 and per_mb["rglru_scan_bwd"] == 18
-            and per_mb["flash_attention"] == 16
-            and per_mb["flash_attention_bwd"] == 8,
+    require(per_mb["rglru_scan"] == 4 * D_BLOCKS + 2
+            and per_mb["rglru_scan_bwd"] == 2 * D_BLOCKS + 2
+            and per_mb["flash_attention"] == 2 * D_BLOCKS
+            and per_mb["flash_attention_bwd"] == D_BLOCKS,
             f"L2 per-microbatch counts {per_mb}")
     require(counts == {k: 2 * K * v for k, v in per_mb.items()},
             f"L2 launched {counts}, wanted {2 * K} x {per_mb}")
@@ -2016,11 +2060,12 @@ def train_l3(torch, ops, cfg, params):
 
 
 def train_l4(torch, ops, cfg, params):
-    """L4: mamba2-2.7b at full width and depth on path E's weights:
-    ``make_train_step(remat=True)``, 2 steps on a batch of (4, 4096) cut
-    into its 4 microbatches of (1, 4096), 32 SSD chunks each: finite
-    losses and gradient norms, launches per microbatch held to the config
-    (ssd_scan 64 + 64 recomputed, 64 ssd_scan_bwd, every other kernel 0),
+    """L4: mamba2-2.7b at full width on path E's weights (``E_DEPTH``'s
+    layers): ``make_train_step(remat=True)``, 2 steps on a batch of (4,
+    4096) cut into its 4 microbatches of (1, 4096), 32 SSD chunks each:
+    finite losses and gradient norms, launches per microbatch held to
+    the config (an ssd_scan a layer and its recomputation, an
+    ssd_scan_bwd a layer, every other kernel 0),
     the peak memory printed; then a third step profiled for the SSD
     backward's share of the device's busy time; then one layer at full
     width, (1, 512) = 4 chunks, against the CPU by gradients."""
@@ -2069,15 +2114,16 @@ def train_l4(torch, ops, cfg, params):
     emit(row)
     require(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
                 for m in metrics), f"L4 metrics {metrics}")
-    require(per_mb == lm_counts(ssd_scan=128, ssd_scan_bwd=64),
+    n = E_DEPTH[0]
+    require(per_mb == lm_counts(ssd_scan=2 * n, ssd_scan_bwd=n),
             f"L4 per-microbatch counts {per_mb}")
     require(counts == {k: 2 * K * v for k, v in per_mb.items()},
             f"L4 launched {counts}, wanted {2 * K} x {per_mb}")
-    require(profiled["ssd_backward_calls"] == K * 64
-            and profiled["ssd_forward_calls"] == 2 * K * 64,
+    require(profiled["ssd_backward_calls"] == K * n
+            and profiled["ssd_forward_calls"] == 2 * K * n,
             f"L4 profiled step: {profiled['ssd_forward_calls']} SSD "
             f"forward and {profiled['ssd_backward_calls']} backward calls, "
-            f"wanted {2 * K * 64} and {K * 64}")
+            f"wanted {2 * K * n} and {K * n}")
     require(peak < 80e9, f"L4 peak memory {peak / 1e9} GB")
     require(layer["ok"], f"L4 one layer against the CPU: {layer}")
     return counts, row
@@ -5321,9 +5367,10 @@ def prefill_batch_rows(torch, cfg, B: int, S: int):
 
 
 def r1_split_noise(torch, cfg, batch) -> float:
-    """The float32 noise of splitting R1's batch rows on one device: the
-    largest difference, relative to each leaf's largest magnitude,
-    between the gradients of one microbatch of 2 rows and of two of 1
+    """The float32 noise of splitting R1's (or S1-S3's) batch rows on one
+    device: the largest difference, relative to each leaf's largest
+    magnitude, between the gradients of one microbatch of 2 rows and of
+    two of 1
     (each weight gradient's rows summed as two halves, as the data
     ranks sum them; the loss over 2 is exact)."""
     import dataclasses
@@ -5604,6 +5651,564 @@ def tp_path(torch, np, ops, mg, fa, ref):
             "gemm": gemm, "flash": flash, "flash_bwd": flash_bwd}
 
 
+# ------- path S: the recurrent mixers' tensor parallelism, seamless placed
+S_SHAPES = {"train": (2, 2), "infer": (1, 4)}
+S_TRAIN = {"S1": (2, 4096), "S2": (2, 2048), "S3": (2, 512)}
+S3_FRAMES = 2048
+S_PREFILL = {"S1": 4096, "S2": 4096, "S3": 512}
+S_DECODE_STEPS = 16
+# decode: (batch, cache length, each row's first position); S2's first
+# row crosses its 2,048-token window, S3's cross K/V from ``encode``
+S_DECODE = {"S1": (1, 4096, (4000,)), "S2": (2, 4096, (2040, 3000)),
+            "S3": (2, 512, (100, 300))}
+S_PREFILL_EVERY = 64                     # positions whose logits are held
+
+
+def s_cfg(sub: str, kind: str = "train"):
+    """Path S's configs at full width: S1 mamba2-2.7b, 2 of 64 layers; S2
+    recurrentgemma-2b's first block (rglru, rglru, local_attn); S3
+    seamless-m4t-medium, 2 encoder and 2 decoder layers; one training
+    microbatch each.  ``kind="decode"``: as a decode shape sets it
+    (``launch.shapes.shape_config``)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.shapes import shape_config
+    if sub == "S1":
+        cfg = _cut(get_config("mamba2-2.7b"), 2, train_microbatches=1)
+    elif sub == "S2":
+        cfg = dataclasses.replace(
+            get_config("recurrentgemma-2b"), num_layers=3, num_blocks=1,
+            remainder=(), train_microbatches=1).validate()
+    else:
+        cfg = dataclasses.replace(
+            get_config("seamless-m4t-medium"), num_layers=2, num_blocks=2,
+            num_encoder_layers=2).validate()
+    if kind == "decode":
+        B, L, _ = S_DECODE[sub]
+        cfg = shape_config(cfg, dict(kind="decode", seq=L, batch=B))
+    return cfg
+
+
+def s_frames(torch, cfg, B: int, S: int, seed: int):
+    """(B, S, d) stub frame embeddings drawn on the card from ``seed``."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    return torch.randn(B, S, cfg.d_model, generator=g, device="cuda")
+
+
+def s_train_batch(torch, cfg, sub: str):
+    B, S = S_TRAIN[sub]
+    batch = _lm_train_batch(torch, cfg, B, S)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = s_frames(torch, cfg, B, S3_FRAMES, 41)
+    return batch
+
+
+def s_prefill_batch(torch, cfg, sub: str):
+    batch = {"tokens": _lm_train_batch(torch, cfg, 1, S_PREFILL[sub],
+                                       seed=1)["tokens"]}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = s_frames(torch, cfg, 1, S3_FRAMES, 42)
+    return batch
+
+
+def s_prefill(torch, cfg, params, batch, mesh):
+    """The prefill's whole logits at every ``S_PREFILL_EVERY``-th position
+    and the last (host), the next tokens of ``make_prefill_step`` and its
+    launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import step_sharder
+    from repro_torch.train.step import make_prefill_step, model_forward
+    shard = step_sharder(cfg, mesh, "prefill")
+    S = batch["tokens"].shape[1]
+    rows = list(range(0, S, S_PREFILL_EVERY)) + [S - 1]
+    with torch.no_grad():
+        logits = model_forward(params, batch, cfg, shard=shard)[0]
+        logits = tfm.gather_vocab(logits[:, rows], shard).cpu()
+    step = make_prefill_step(cfg, mesh)
+    ops.reset_launch_counts()
+    nxt, wall = _timed(torch, lambda: step(params, batch))
+    return {"rows": logits, "next": nxt.tolist(),
+            "launches": ops.launch_counts(), "wall_ms": wall}
+
+
+def s_caches(torch, cfg, sub: str, params, mesh):
+    """The decode caches of S's decode shape, this rank's part: every leaf
+    of the whole cache drawn on the card from a generator seeded by its
+    index (so a rank's part is the whole cache's), cut by
+    ``shard_caches``; S3's cross K/V from ``encode``'s memory of stub
+    frames (``encdec.cross_kv``, whole over heads on every rank)."""
+    from repro_torch.core.ledger import tree_flatten
+    from repro_torch.models import encdec
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.builder import materialize
+    from repro_torch.sharding import shard_caches, step_sharder
+    B, L, _ = S_DECODE[sub]
+    if cfg.is_encoder_decoder:
+        decl = encdec.encdec_cache_decl(cfg, B, L, S3_FRAMES)
+    else:
+        decl = tfm.cache_decl(cfg, B, L)
+    caches = materialize(decl, 0, "cuda")
+    for i, t in enumerate(tree_flatten(caches)[0]):
+        g = torch.Generator("cuda").manual_seed(9_000_011 * (i + 1))
+        t.copy_(torch.randn(t.shape, generator=g, device="cuda"))
+    if cfg.is_encoder_decoder:
+        shard = step_sharder(cfg, mesh, "decode")
+        with torch.no_grad():
+            memory = encdec.encode(params, s_frames(torch, cfg, B, S3_FRAMES,
+                                                    43), cfg, shard=shard)
+            caches["cross_k"], caches["cross_v"] = encdec.cross_kv(
+                params, memory, cfg, shard=shard)
+    return shard_caches(caches, cfg, mesh)
+
+
+def s_decode(torch, cfg, sub: str, params, mesh):
+    """S's ``S_DECODE_STEPS`` decode steps from ``s_caches``: per step the
+    next tokens of ``make_decode_step`` and the whole logits of the
+    forward on the step's input (host); walls; launches; on a mesh,
+    whether each ssm layer's conv history holds the same bits on every
+    rank of its model group."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.models import encdec
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import step_sharder
+    from repro_torch.train.step import make_decode_step
+    B, _, pos = S_DECODE[sub]
+    caches = s_caches(torch, cfg, sub, params, mesh)
+    step = make_decode_step(cfg, mesh=mesh)
+    shard = step_sharder(cfg, mesh, "decode")
+    fwd = encdec.forward_decode if cfg.is_encoder_decoder \
+        else tfm.forward_decode
+    toks = np.random.default_rng(12).integers(0, cfg.vocab_size,
+                                              (S_DECODE_STEPS, B))
+    out = {"next": [], "logits": [], "walls_ms": []}
+    ops.reset_launch_counts()
+    for t in range(S_DECODE_STEPS):
+        batch = {"tokens": torch.tensor(toks[t], device="cuda")[:, None],
+                 "pos": torch.tensor(pos, device="cuda") + t}
+        with torch.no_grad():
+            logits = tfm.gather_vocab(fwd(params, caches, batch["tokens"],
+                                          batch["pos"], cfg,
+                                          shard=shard)[0], shard)
+        out["logits"].append(logits[:, -1].cpu())
+        (nxt, caches), wall = _timed(torch, lambda: step(params, caches,
+                                                         batch))
+        out["next"].append(nxt.tolist())
+        out["walls_ms"].append(wall)
+    out["launches"] = ops.launch_counts()
+    if mesh is not None and not cfg.is_encoder_decoder:
+        same = []
+        for spec, key, i in tfm._layers(cfg):
+            if spec.kind == "ssm":
+                conv = tfm._layer_params(caches, key, i)["conv"]
+                same += [bool(torch.equal(p, conv)) for p in
+                         mesh.model.all_gather(conv, "conv_check")]
+        if same:
+            out["conv_replicated"] = same
+    del caches
+    return out
+
+
+def _s_step_vs_one_device(torch, cfg, mesh, g_mesh, p_mesh, batch,
+                          bar: float):
+    """This rank's gradients and updated parameters against the
+    one-device step's (computed here in this rank's turn, one rank at a
+    time on the card): the largest gradient difference relative to each
+    leaf's largest magnitude, and the largest updated-parameter
+    difference relative to the larger of 1 and the leaf's largest
+    magnitude."""
+    import torch.distributed as dist
+    from repro_torch.core.ledger import tree_flatten
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import shard_params
+    from repro_torch.train.loop import init_model
+    from repro_torch.train.step import apply_update, make_loss_and_grads
+    out = None
+    for turn in range(mesh.world):
+        dist.barrier()
+        if turn != mesh.rank:
+            continue
+        p1 = init_model(cfg, 0, device=mesh.device)
+        s1 = adamw.init(p1)
+        loss1, _, g1 = make_loss_and_grads(cfg, remat=False)(p1, batch)
+        p1, s1, m1 = apply_update(adamw.AdamWConfig(total_steps=1000), cfg,
+                                  p1, s1, g1)
+        del s1
+        g1, p1 = shard_params(g1, cfg, mesh), shard_params(p1, cfg, mesh)
+        rel = [float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+               for a, b in zip(tree_flatten(g_mesh)[0], tree_flatten(g1)[0])]
+        upd = [float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+               for a, b in zip(tree_flatten(p_mesh)[0], tree_flatten(p1)[0])]
+        out = {"loss_one_device": float(loss1),
+               "grad_norm_one_device": float(m1["grad_norm"]),
+               "max_rel_diff": max(rel), "max_update_diff": max(upd),
+               "rel_diff_by_leaf": dict(zip(_leaf_paths(g_mesh), rel))}
+        del g1, p1
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def rtp_rank(rank: int, world: int, out_dir: str, bars: dict) -> None:
+    """One rank of path S's world of 4 (spawned by ``spawn_edges``): each
+    of S1-S3's training step on (2, 2) and its prefill and decode on
+    (1, 4); results to ``<out_dir>/S-rank<r>.pkl``.  It prints
+    nothing."""
+    import pickle
+
+    import torch
+    from repro_torch.kernels import build, ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.library()
+    try:
+        res = _rtp_rank_cases(torch, ops, bars)
+    except BaseException:
+        import traceback
+        with open(os.path.join(out_dir, f"S-rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    with open(os.path.join(out_dir, f"S-rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def _rtp_rank_cases(torch, ops, bars: dict) -> dict:
+    """``rtp_rank``'s cases on this rank; returns what the parent
+    checks."""
+    from repro_torch.launch.dryrun import nbytes
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import init_model
+    from repro_torch.train.step import apply_update, make_loss_and_grads
+    res = {}
+    for sub in ("S1", "S2", "S3"):
+        cfg = s_cfg(sub)
+        mesh = make_lm_mesh(S_SHAPES["train"], ("data", "model"))
+        batch = s_train_batch(torch, cfg, sub)
+        params = init_model(cfg, 0, mesh.device, mesh=mesh)
+        state = adamw.init(params)
+        placed = nbytes((params, state))
+        loss_and_grads = make_loss_and_grads(cfg, remat=True, mesh=mesh)
+        opt_cfg = adamw.AdamWConfig(total_steps=1000)
+
+        def step():                   # make_train_step's two calls
+            loss, _, g = loss_and_grads(params, batch)
+            return loss, g, apply_update(opt_cfg, cfg, params, state, g,
+                                         mesh)[2]
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        mesh.wire_bytes.clear()
+        (loss, g, m), wall = _timed(torch, step)
+        row = {"placed_bytes": placed, "wall_ms": wall,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": ops.launch_counts(),
+               "wire": dict(mesh.wire_bytes), "loss": float(loss),
+               "grad_norm": float(m["grad_norm"])}
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        row["vs_one_device"] = _s_step_vs_one_device(
+            torch, cfg, mesh, g, params, batch, bars[sub])
+        del g, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        res[f"{sub}/train"] = row
+        # prefill and decode on (1, 4)
+        mesh = make_lm_mesh(S_SHAPES["infer"], ("data", "model"))
+        params = init_model(cfg, 0, mesh.device, mesh=mesh, kind="prefill")
+        res[f"{sub}/prefill"] = s_prefill(torch, cfg, params,
+                                          s_prefill_batch(torch, cfg, sub),
+                                          mesh)
+        del params
+        dcfg = s_cfg(sub, "decode")
+        params = init_model(dcfg, 0, mesh.device, mesh=mesh, kind="decode")
+        res[f"{sub}/decode"] = s_decode(torch, dcfg, sub, params, mesh)
+        res[f"{sub}/decode"]["wire"] = dict(mesh.wire_bytes)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def rtp_kernel_cases(torch, np, fa, ss, rg, ref):
+    """The kernels at path S's rank shapes: ``ssd_scan`` and its backward
+    at a mamba2-2.7b rank's 20 heads (model = 4) and 40 heads (model =
+    2) of (1, 4096), P 64, N 128; ``rglru_scan`` and its reverse scan at
+    a recurrentgemma-2b rank's 640 channels (model = 4) and 1,280 (model
+    = 2) of (1, 4096); the flash forward and backward at a
+    seamless-m4t-medium encoder rank's 4 heads (model = 4) and 8 heads
+    (model = 2) of (1, 2048), D 64, non-causal (recurrentgemma's 10 heads
+    do not divide model = 4: every rank attends every head, one
+    device's shape)."""
+    ssd = [check_ssd(torch, ss, ref, 120 + i, f"tp_mamba2_{H}_heads", 1,
+                     4096, H, 64, 128, 128, iters=5)
+           for i, H in enumerate((20, 40))]
+    ssd_bwd = [check_ssd_bwd(torch, ss, ref, 122 + i,
+                             f"tp_mamba2_{H}_heads", 1, 4096, H, 64, 128,
+                             128, iters=5) for i, H in enumerate((20, 40))]
+    scan = [check_rglru(torch, rg, ref, 124 + i, f"tp_rgemma_{C}", 1, 4096,
+                        C) for i, C in enumerate((640, 1280))]
+    scan_bwd = [check_rglru_bwd(torch, rg, ref, 126 + i, f"tp_rgemma_{C}",
+                                1, 4096, C)
+                for i, C in enumerate((640, 1280))]
+    flash = [check_flash(torch, np, fa, ref, 128 + i,
+                         f"tp_seamless_enc_{H}_heads", 1, S3_FRAMES, H, H,
+                         64, False, iters=5) for i, H in enumerate((4, 8))]
+    flash_bwd = [check_flash_bwd(torch, np, fa, ref, 130 + i,
+                                 f"tp_seamless_enc_{H}_heads", 1, S3_FRAMES,
+                                 H, H, 64, False)
+                 for i, H in enumerate((4, 8))]
+    return ssd, ssd_bwd, scan, scan_bwd, flash, flash_bwd
+
+
+def _s_want(cfg, kind: str):
+    """A rank's launches (as one device's) of path S's step of ``kind``."""
+    if kind == "train":
+        return train_step_counts(cfg, remat=True)
+    if kind == "decode":
+        return lm_counts()
+    n = train_step_counts(cfg, remat=False)
+    return {k: (0 if k.endswith("_bwd") else v) for k, v in n.items()}
+
+
+def recurrent_tp_path(torch, np, ops, fa, ss, rg, ref):
+    """Path S: the recurrent mixers' tensor parallelism and the
+    encoder-decoder's placement, four ranks on the card over gloo, each
+    one-device reference run here first and freed.  S1 mamba2-2.7b (2
+    of 64 layers), S2 recurrentgemma-2b's first block, S3
+    seamless-m4t-medium (2 + 2 layers), each trained one step on (2, 2)
+    (FSDP over data, tensor parallelism over model) against one device:
+    loss at 1e-5 relative, gradients at max(1e-5, twice one device's own
+    difference between two sum orders of the step) and the updated
+    parameters at that bar of the larger of 1 and each leaf's largest
+    magnitude, each rank's parameters and moments about a quarter of one
+    device's; then a prefill and ``S_DECODE_STEPS`` decode
+    steps on (1, 4) (mamba2's 20 heads, recurrentgemma's 640 channels a
+    rank): tokens equal, logits within 1e-5 of the largest; S4 the
+    kernels at a rank's shapes; P5 S1's step on the abstract (2, 2) mesh
+    books S1 rank 0's bytes and its parameter-and-moment bytes."""
+    import pickle
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import spawn_edges
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import init_model
+    from repro_torch.train.step import make_train_step
+    t_start = time.perf_counter()
+    ssd, ssd_bwd, scan, scan_bwd, flash, flash_bwd = rtp_kernel_cases(
+        torch, np, fa, ss, rg, ref)
+
+    # the one-device references
+    one, bars = {}, {}
+    for sub in ("S1", "S2", "S3"):
+        cfg = s_cfg(sub)
+        params = init_model(cfg, 0)
+        state = adamw.init(params)
+        row = {"placed_bytes": dryrun.nbytes((params, state))}
+        batch = s_train_batch(torch, cfg, sub)
+        step = make_train_step(cfg, adamw.AdamWConfig(total_steps=1000),
+                               remat=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        out, row["wall_ms"] = _timed(torch, lambda: step(params, state,
+                                                         batch))
+        row.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   launches=ops.launch_counts(),
+                   loss=float(out[2]["loss"]),
+                   grad_norm=float(out[2]["grad_norm"]))
+        del params, state, step, out
+        gc.collect()
+        torch.cuda.empty_cache()
+        row["split_noise"] = r1_split_noise(torch, cfg, batch)
+        bars[sub] = max(1e-5, 2 * row["split_noise"])
+        params = init_model(cfg, 0)
+        row["prefill"] = s_prefill(torch, cfg, params,
+                                   s_prefill_batch(torch, cfg, sub), None)
+        del params
+        dcfg = s_cfg(sub, "decode")
+        params = init_model(dcfg, 0)
+        row["decode"] = s_decode(torch, dcfg, sub, params, None)
+        del params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        one[sub] = row
+    one_s = time.perf_counter() - t_start
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(here, "build", f"rtp-{os.getpid()}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        spawn_edges(rtp_rank, 4, args=(out_dir, bars), device="cuda",
+                    rendezvous_dir=out_dir, timeout_s=420)
+    except BaseException:
+        for r in range(4):
+            err = os.path.join(out_dir, f"S-rank{r}.err")
+            if os.path.exists(err):
+                print(f"path S rank {r}:\n{open(err).read()}",
+                      file=sys.stderr, flush=True)
+        raise
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    res = []
+    for r in range(4):
+        with open(os.path.join(out_dir, f"S-rank{r}.pkl"), "rb") as f:
+            res.append(pickle.load(f))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    world_s = time.perf_counter() - t0
+
+    ok_all = {}
+    for sub in ("S1", "S2", "S3"):
+        cfg, o = s_cfg(sub), one[sub]
+        tr = [r[f"{sub}/train"] for r in res]
+        want = _s_want(cfg, "train")
+        share = [t["placed_bytes"] / o["placed_bytes"] for t in tr]
+        jax_bytes = dryrun.jax_argument_bytes(
+            cfg, dict(kind="train", seq=S_TRAIN[sub][1],
+                      batch=S_TRAIN[sub][0]),
+            dryrun.mesh_for(S_SHAPES["train"]), "train", placed_only=True)
+        vs = [t["vs_one_device"] for t in tr]
+        ok = {"loss_vs_one_device": all(
+                  abs(t["loss"] - v["loss_one_device"])
+                  <= 1e-5 * abs(v["loss_one_device"])
+                  for t, v in zip(tr, vs)),
+              "grads_vs_one_device": all(v["max_rel_diff"] <= bars[sub]
+                                         for v in vs),
+              "grad_norm": all(abs(t["grad_norm"] - v["grad_norm_one_device"])
+                               <= bars[sub] * v["grad_norm_one_device"]
+                               for t, v in zip(tr, vs)),
+              "update_vs_one_device": all(v["max_update_diff"] <= bars[sub]
+                                          for v in vs),
+              "step_loss": all(abs(t["loss"] - o["loss"])
+                               <= 1e-5 * abs(o["loss"]) for t in tr),
+              "placed_bytes_jax_specs": all(t["placed_bytes"] == jax_bytes
+                                            for t in tr),
+              "about_a_quarter": all(0.25 <= s <= 0.26 for s in share),
+              "launches": o["launches"] == want and all(
+                  t["launches"] == want for t in tr)}
+        emit({"phase": "recurrent_tp", "path": sub, "model": cfg.name,
+              "mesh": {"data": 2, "model": 2}, "card": CARD,
+              "reduced": f"{cfg.num_layers} layers"
+                         + (f" + {cfg.num_encoder_layers} encoder"
+                            if cfg.is_encoder_decoder else ""),
+              "step": f"{S_TRAIN[sub]}, remat on"
+                      + (f", {S3_FRAMES} frames" if cfg.is_encoder_decoder
+                         else ""),
+              "checks": ok, "placed_share": share,
+              "placed_gb": {"jax_specs": jax_bytes / 1e9,
+                            "one_device": o["placed_bytes"] / 1e9,
+                            "ranks": [t["placed_bytes"] / 1e9 for t in tr]},
+              "step_peak_gb": {"one_device": o["peak_gb"],
+                               "ranks": [t["peak_gb"] for t in tr]},
+              "walls_ms": {"one_device": o["wall_ms"],
+                           "mesh_rank0": tr[0]["wall_ms"]},
+              "max_rel_grad_diff": [v["max_rel_diff"] for v in vs],
+              "one_device_split_noise": o["split_noise"],
+              "grad_bar": bars[sub],
+              "max_update_diff": [v["max_update_diff"] for v in vs],
+              "rel_grad_diff_top_leaves_rank0": sorted(
+                  vs[0]["rel_diff_by_leaf"].items(),
+                  key=lambda kv: -kv[1])[:6],
+              "loss": {"one_device": o["loss"],
+                       "ranks": [t["loss"] for t in tr]},
+              "launches_rank0": tr[0]["launches"], "want": want,
+              "wire_bytes_rank0": tr[0]["wire"]})
+        require(all(ok.values()), f"{sub} training failed: {ok}")
+        ok_all[f"{sub}/train"] = ok
+        # prefill and decode on (1, 4): tokens equal, logits at 1e-5
+        pf = [r[f"{sub}/prefill"] for r in res]
+        dec = [r[f"{sub}/decode"] for r in res]
+        pscale = float(o["prefill"]["rows"].abs().max())
+        pdiff = max(float((q["rows"] - o["prefill"]["rows"]).abs().max())
+                    for q in pf)
+        dscale = max(float(l.abs().max()) for l in o["decode"]["logits"])
+        ddiff = max(float((a - b).abs().max()) for q in dec
+                    for a, b in zip(q["logits"], o["decode"]["logits"]))
+        pwant = _s_want(cfg, "prefill")
+        ok = {"prefill_next_tokens": all(q["next"] == o["prefill"]["next"]
+                                         for q in pf),
+              "prefill_logits": pdiff <= 1e-5 * pscale,
+              "prefill_launches": o["prefill"]["launches"] == pwant and all(
+                  q["launches"] == pwant for q in pf),
+              "decode_tokens": all(q["next"] == o["decode"]["next"]
+                                   for q in dec),
+              "decode_logits": ddiff <= 1e-5 * dscale,
+              "decode_launches": all(q["launches"] == lm_counts()
+                                     for q in dec)}
+        if "conv_replicated" in dec[0]:
+            ok["conv_history_replicated"] = all(all(q["conv_replicated"])
+                                                for q in dec)
+        B, L, pos = S_DECODE[sub]
+        emit({"phase": "recurrent_tp", "path": sub, "model": cfg.name,
+              "mesh": {"data": 1, "model": 4}, "card": CARD,
+              "prefill": f"1 x {S_PREFILL[sub]}",
+              "decode": f"{S_DECODE_STEPS} steps of a batch of {B} from "
+                        f"{list(pos)}, cache {L}",
+              "checks": ok,
+              "prefill_max_abs_logit_diff": pdiff,
+              "prefill_max_abs_logit": pscale,
+              "decode_max_abs_logit_diff": ddiff,
+              "decode_max_abs_logit": dscale,
+              "prefill_walls_ms": {"one_device": o["prefill"]["wall_ms"],
+                                   "mesh_rank0": pf[0]["wall_ms"]},
+              "decode_walls_ms_median": {
+                  "one_device": sorted(o["decode"]["walls_ms"])[
+                      S_DECODE_STEPS // 2],
+                  "mesh_rank0": sorted(dec[0]["walls_ms"])[
+                      S_DECODE_STEPS // 2]},
+              "prefill_launches_rank0": pf[0]["launches"],
+              "wire_bytes_rank0_prefill_and_decode": dec[0]["wire"]})
+        require(all(ok.values()), f"{sub} prefill/decode failed: {ok}")
+        ok_all[f"{sub}/infer"] = ok
+
+    # P5: S1's step on the abstract (2, 2) mesh as rank 0
+    cfg1 = s_cfg("S1")
+    s1 = res[0]["S1/train"]
+    rec = dryrun.run_one(cfg1.name, dict(kind="train", seq=S_TRAIN["S1"][1],
+                                         batch=S_TRAIN["S1"][0]), cfg=cfg1,
+                         mesh_shape=S_SHAPES["train"], rank=0, remat=True,
+                         verbose=False)
+    p5 = {"wire_bytes_equal": rec["wire_bytes"] == s1["wire"],
+          "placed_bytes_equal": rec["placed_argument_size_in_bytes"]
+          == s1["placed_bytes"]
+          == rec["jax_placed_argument_size_in_bytes"]}
+    emit({"phase": "dryrun", "path": "P5", "model": cfg1.name,
+          "mesh": {"data": 2, "model": 2}, "reduced": "2 of 64 layers",
+          "step": f"train {S_TRAIN['S1']}, remat on",
+          "wire_bytes": {"abstract_rank0": rec["wire_bytes"],
+                         "s1_rank0": s1["wire"]},
+          "placed_bytes": {"abstract_rank0": rec[
+              "placed_argument_size_in_bytes"],
+              "jax_specs": rec["jax_placed_argument_size_in_bytes"],
+              "s1_rank0": s1["placed_bytes"]},
+          "peak_gb_rank0": {"estimate": rec["peak_bytes_estimate"] / 1e9,
+                            "max_memory_allocated": s1["peak_gb"]},
+          "checks": p5})
+    require(all(p5.values()), f"P5 failed: {p5}")
+    emit({"phase": "recurrent_tp", "path": "S4", "card": CARD,
+          "launches_by_rank": {f"{sub} {k}": [r[f"{sub}/{k}"]["launches"]
+                                              for r in res]
+                               for sub in ("S1", "S2", "S3")
+                               for k in ("train", "prefill")},
+          "one_device_s": one_s, "world_s": world_s,
+          "path_s": time.perf_counter() - t_start})
+    return {"launches": {f"{sub} {k}": res[0][f"{sub}/{k}"]["launches"]
+                         for sub in ("S1", "S2", "S3")
+                         for k in ("train", "prefill")},
+            "ssd": ssd, "ssd_bwd": ssd_bwd, "scan": scan,
+            "scan_bwd": scan_bwd, "flash": flash, "flash_bwd": flash_bwd}
+
+
 def profile_batch(torch, run, cpu: bool = True, spans=()):
     """Device time by kernel (and copy) over one warm call of ``run``,
     from torch.profiler's CUDA activities: the eight largest rows, the
@@ -5803,13 +6408,16 @@ def main() -> int:
                     f"ptxas spills in {fn['function']}")
 
     if "--serving" in sys.argv:
-        # path K alone (K3, K2, K1), each model initialised here
+        # path K alone (K3, K2, K1), each model initialised here at the
+        # depth of the path whose weights it serves in the main run
         from repro_torch.configs import get_config
         from repro_torch.train.loop import init_model
-        for arch, k in (("qwen2.5-3b", serving_k3),
-                        ("bmoe-paper", serving_k2),
-                        ("qwen2-moe-a2.7b", serving_k1)):
+        for arch, k, depth in (("qwen2.5-3b", serving_k3, None),
+                               ("bmoe-paper", serving_k2, None),
+                               ("qwen2-moe-a2.7b", serving_k1, H_QWEN_DEPTH)):
             cfg = get_config(arch)
+            if depth:
+                cfg = depth_cut(cfg, depth)
             params = init_model(cfg, 0)
             k(torch, ops, cfg, params)
             del params
@@ -5818,14 +6426,17 @@ def main() -> int:
         return 0
 
     if "--training" in sys.argv:
-        # path L alone (L1, L2, L3, L4), each model initialised here
+        # path L alone (L1, L2, L3, L4), each model initialised here at
+        # the depth of the path whose weights it trains in the main run
         from repro_torch.configs import get_config
         from repro_torch.train.loop import init_model
         train_l1(torch, ops, get_config("bmoe-paper"))
-        for arch, l in (("recurrentgemma-2b", train_l2),
-                        ("seamless-m4t-medium", train_l3),
-                        ("mamba2-2.7b", train_l4)):
+        for arch, l, depth in (("recurrentgemma-2b", train_l2, D_DEPTH),
+                               ("seamless-m4t-medium", train_l3, None),
+                               ("mamba2-2.7b", train_l4, E_DEPTH)):
             cfg = get_config(arch)
+            if depth:
+                cfg = depth_cut(cfg, depth)
             params = init_model(cfg, 0)
             l(torch, ops, cfg, params)
             del params
@@ -5861,6 +6472,11 @@ def main() -> int:
     if "--tensor-parallel" in sys.argv:
         # path R alone (P4 with it)
         tp_path(torch, np, ops, mg, fa, ref)
+        return 0
+
+    if "--recurrent-tp" in sys.argv:
+        # path S alone (P5 with it)
+        recurrent_tp_path(torch, np, ops, fa, ss, rg, ref)
         return 0
 
     if "--kernels" in sys.argv:
@@ -5922,52 +6538,56 @@ def main() -> int:
     # drawn again by ``train``
     trained_lm = {}
     counts_d, row_d, _ = lm_path(torch, ops, "recurrentgemma-2b",
-                                 lm_counts(flash_attention=8,
-                                           rglru_scan=18), decode_seq=2112,
+                                 lm_counts(flash_attention=D_BLOCKS,
+                                           rglru_scan=2 * D_BLOCKS + 2),
+                                 decode_seq=2112, depth=D_DEPTH,
                                  then=lambda cfg, p: trained_lm.setdefault(
                                      "L2", train_l2(torch, ops, cfg, p)))
     # path E: 384 decode steps cross two chunk boundaries of the forward;
     # L4 trains its weights
     counts_e, _, _ = lm_path(torch, ops, "mamba2-2.7b",
-                             lm_counts(ssd_scan=64), decode_seq=384,
-                             serving=True, width1_tol=5e-4,
+                             lm_counts(ssd_scan=E_DEPTH[0]), decode_seq=384,
+                             serving=True, width1_tol=5e-4, depth=E_DEPTH,
                              then=lambda cfg, p: trained_lm.setdefault(
                                  "L4", train_l4(torch, ops, cfg, p)))
     # path H: the MoE LMs, 3 moe_gemm launches a MoE layer; paths K2
     # (edge storage) and K1 (the serving engine at full width) run on
-    # its bmoe-paper and qwen2-moe-a2.7b weights
+    # its bmoe-paper and qwen2-moe-a2.7b weights; qwen2-moe-a2.7b cut to
+    # 12 of its 24 layers to keep the whole script within its time
     counts_h, serving = {}, {}
-    for arch, n_moe, n_attn, seq, smoke, k in (
+    for arch, n_moe, n_attn, seq, smoke, depth, k in (
             # bmoe-paper decodes 64 steps (128 before path K); L1 trains
             # its seed-0 weights, drawn again, after K2 served them
-            ("bmoe-paper", 12, 12, 64, False,
+            ("bmoe-paper", 12, 12, 64, False, None,
              lambda t, o, cfg, p: (serving_k2(t, o, cfg, p),
                                    trained_lm.setdefault(
                                        "L1", train_l1(t, o, cfg)))[0]),
             # P1 after K1, on the same weights
-            ("qwen2-moe-a2.7b", 24, 24, 64, False,
+            ("qwen2-moe-a2.7b", 12, 12, 64, False, H_QWEN_DEPTH,
              lambda t, o, cfg, p: (serving_k1(t, o, cfg, p),
                                    dryrun_p1(t, o, "H", cfg, p,
                                              prefill_batch(t, cfg,
                                                            4096)))[0]),
             # one MoE layer of 128 experts is 64 GB in fp32
-            ("llama4-maverick-400b-a17b", 1, 2, 128, True, None)):
+            ("llama4-maverick-400b-a17b", 1, 2, 128, True, None, None)):
         counts_h[arch], _, after = lm_path(
             torch, ops, arch, lm_counts(moe_gemm=3 * n_moe,
                                         flash_attention=n_attn),
-            decode_seq=seq, serving=True, smoke=smoke,
+            decode_seq=seq, serving=True, smoke=smoke, depth=depth,
             then=k and (lambda cfg, p, k=k: k(torch, ops, cfg, p)))
         if after is not None:
             serving[arch] = after
-    # path I: the attention configs; qwen3-32b and gemma3-27b cut in
-    # depth to fit the card (gemma3: 3 of 10 blocks of 5 local : 1
-    # global, and the 2-layer remainder)
+    # path I: the attention configs cut in depth (qwen3-32b and
+    # gemma3-27b to fit the card, all three to keep the whole script
+    # within its time): qwen3-32b 12 of 64 layers, gemma3-27b 1 of 10
+    # blocks of 5 local : 1 global and the 2-layer remainder,
+    # pixtral-12b 20 of 40
     counts_i = {
         arch: lm_path(torch, ops, arch, lm_counts(flash_attention=n_attn),
                       decode_seq=64, depth=depth)[0]
-        for arch, n_attn, depth in (("qwen3-32b", 24, (24, 24)),
-                                    ("gemma3-27b", 20, (20, 3)),
-                                    ("pixtral-12b", 40, None))}
+        for arch, n_attn, depth in (("qwen3-32b", 12, (12, 12)),
+                                    ("gemma3-27b", 8, (8, 1)),
+                                    ("pixtral-12b", 20, (20, 20)))}
     # path J: the encoder-decoder: 12 encoder, 12 decoder self- and 12
     # cross-attention launches
     counts_j, _, _ = lm_path(torch, ops, "seamless-m4t-medium",
@@ -5999,6 +6619,13 @@ def main() -> int:
     dec_mesh = decode_mesh_path(torch, np, ops, mg, ref)
     # path R: FSDP placement and tensor parallelism (P4 inside it)
     tp = tp_path(torch, np, ops, mg, fa, ref)
+    # path S: the recurrent mixers' tensor parallelism (P5 inside it)
+    rtp = recurrent_tp_path(torch, np, ops, fa, ss, rg, ref)
+    rtp_shapes = {name: [{k: r[k] for k in (
+        "case", "shape", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
+        "bound_by", "library_ms")} for r in rtp[name]]
+        for name in ("ssd", "ssd_bwd", "scan", "scan_bwd", "flash",
+                     "flash_bwd")}
     tp_shapes = {name: [{k: r[k] for k in (
         "case", "shape", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
         "bound_by", "library_ms")} for r in tp[name]]
@@ -6183,8 +6810,12 @@ def main() -> int:
              **{f"LM mesh, a rank ({p})": lm_mesh[p]["flash_attention"]
                 for p in ("O1", "O2_faithful", "O3", "O4")},
              "tensor parallel, a rank, qwen3-32b training step, 2 layers, "
-             "remat (R1)": tp["R1"]["flash_attention"]},
+             "remat (R1)": tp["R1"]["flash_attention"],
+             **{f"recurrent tp, a rank, {k} (S)": c["flash_attention"]
+                for k, c in rtp["launches"].items()
+                if c["flash_attention"]}},
          "tp_rank_shapes": tp_shapes["flash"],
+         "recurrent_tp_rank_shapes": rtp_shapes["flash"],
          "non_causal_shape": {k: flash[2][k] for k in (
              "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "library_backend")},
@@ -6208,8 +6839,12 @@ def main() -> int:
              "seamless-m4t-medium training, 2 steps (L3)": counts_l3[
                  "flash_attention_bwd"],
              "tensor parallel, a rank, qwen3-32b training step, 2 layers "
-             "(R1)": tp["R1"]["flash_attention_bwd"]},
+             "(R1)": tp["R1"]["flash_attention_bwd"],
+             **{f"recurrent tp, a rank, {k} (S)": c["flash_attention_bwd"]
+                for k, c in rtp["launches"].items()
+                if c["flash_attention_bwd"]}},
          "tp_rank_shapes": tp_shapes["flash_bwd"],
+         "recurrent_tp_rank_shapes": rtp_shapes["flash_bwd"],
          "cuda_launches_per_call": flash_bwd[0]["cuda_launches_per_call"],
          "per": "one qwen2.5-3b layer's backward at (1, 4096): q "
                 "(1,4096,16,128), kv heads 2, causal, fp32",
@@ -6233,6 +6868,11 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan.py:41",
          "launches": counts_d["rglru_scan"],
+         "launches_by_path": {
+             "recurrentgemma-2b prefill (D)": counts_d["rglru_scan"],
+             **{f"recurrent tp, a rank, {k} (S)": c["rglru_scan"]
+                for k, c in rtp["launches"].items() if c["rglru_scan"]}},
+         "tp_rank_shapes": rtp_shapes["scan"],
          "per": "one recurrentgemma-2b prefill at (1, 4096); times per "
                 "layer, (1,4096,2560)",
          "max_abs_err": max(r["max_abs_err"] for r in scan),
@@ -6250,7 +6890,10 @@ def main() -> int:
          "launches": counts_l2["rglru_scan_bwd"],
          "launches_by_path": {
              "recurrentgemma-2b training, 2 steps of 2 microbatches (L2)":
-                 counts_l2["rglru_scan_bwd"]},
+                 counts_l2["rglru_scan_bwd"],
+             **{f"recurrent tp, a rank, {k} (S)": c["rglru_scan_bwd"]
+                for k, c in rtp["launches"].items() if c["rglru_scan_bwd"]}},
+         "tp_rank_shapes": rtp_shapes["scan_bwd"],
          "per": "one recurrentgemma-2b layer's backward at (1, 4096), "
                 "(1,4096,2560)",
          "max_abs_err": max(r["max_abs_err"] for r in scan_bwd),
@@ -6265,6 +6908,11 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:53",
          "launches": counts_e["ssd_scan"],
+         "launches_by_path": {
+             "mamba2-2.7b prefill (E)": counts_e["ssd_scan"],
+             **{f"recurrent tp, a rank, {k} (S)": c["ssd_scan"]
+                for k, c in rtp["launches"].items() if c["ssd_scan"]}},
+         "tp_rank_shapes": rtp_shapes["ssd"],
          "per": "one mamba2-2.7b prefill at (1, 4096); times per layer, "
                 "x (1,4096,80,64), N 128, chunk 128",
          "max_abs_err": max(r["max_abs_err"] for r in ssd),
@@ -6281,7 +6929,10 @@ def main() -> int:
          "launches": counts_l4["ssd_scan_bwd"],
          "launches_by_path": {
              "mamba2-2.7b training, 2 steps of 4 microbatches (L4)":
-                 counts_l4["ssd_scan_bwd"]},
+                 counts_l4["ssd_scan_bwd"],
+             **{f"recurrent tp, a rank, {k} (S)": c["ssd_scan_bwd"]
+                for k, c in rtp["launches"].items() if c["ssd_scan_bwd"]}},
+         "tp_rank_shapes": rtp_shapes["ssd_bwd"],
          "per": "one mamba2-2.7b layer's backward at (1, 4096), x "
                 "(1,4096,80,64), N 128, chunk 128",
          "cuda_launches_per_call": ssd_bwd[0]["cuda_launches_per_call"],
@@ -6318,6 +6969,10 @@ def main() -> int:
         k["launches_tp_path_r_rank0"] = {
             "R1": tp["R1"][k["name"]],
             **{f"R2 {s}": c[k["name"]] for s, c in tp["R2"].items()}}
+        # path S, rank 0 of 4: each training step and prefill (its decode
+        # launches no kernel)
+        k["launches_recurrent_tp_path_s_rank0"] = {
+            p: c[k["name"]] for p, c in rtp["launches"].items()}
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -28,7 +28,10 @@ Each record holds the JAX package's keys where they apply
   JAX package's partition specs (FSDP and tensor parallelism included);
   ``placed_argument_size_in_bytes`` and
   ``jax_placed_argument_size_in_bytes``: their parameters and moments
-  alone (equal but for the leaves ``sharding.unplaced_leaves`` lists);
+  alone (equal: the port places every leaf as JAX's specs say).  The
+  two argument columns differ by the batch alone: the port gives every
+  rank the whole batch (and a decode step's ``pos`` as an int), JAX
+  splits it over the batch axes;
 - ``peak_bytes_estimate``: the inputs plus the most bytes the step's own
   storages held at once on the meta device, an estimate of the card's
   ``max_memory_allocated`` (no allocator rounding, no kernel scratch),
@@ -152,24 +155,25 @@ def _spec_bytes(t: torch.Tensor, spec, axes) -> int:
     return n
 
 
-def jax_argument_bytes(cfg, shape, mesh, args, kind: str,
+def jax_argument_bytes(cfg, shape, mesh, kind: str,
                        placed_only: bool = False) -> int:
     """One device's bytes of the step's inputs in float32 under the JAX
-    package's partition specs (``shapes.abstract_params`` and
-    ``input_specs``; the optimizer's moments as the parameters);
+    package's partition specs: its global inputs
+    (``shapes.abstract_params`` and ``input_specs``: the whole batch, a
+    decode step's whole caches and its ``pos`` scalar; the optimizer's
+    moments as the parameters) split by their specs;
     ``placed_only``: the parameters and moments alone."""
     axes = dict(zip(mesh.axis_names, mesh.shape))
     p_abs, p_spec = shp.abstract_params(cfg, mesh=mesh, dtype=torch.float32,
                                         kind=kind)
-    _, a_spec = shp.input_specs(cfg, shape, mesh=mesh, dtype=torch.float32)
+    args, a_spec = shp.input_specs(cfg, shape, mesh=mesh,
+                                   dtype=torch.float32)
 
     def walk(tree, specs):             # the specs' tree follows the tensors'
         if isinstance(tree, torch.Tensor):
             return _spec_bytes(tree, specs, axes)
         if isinstance(tree, dict):
             return sum(walk(tree[k], specs[k]) for k in tree)
-        if not isinstance(tree, (list, tuple)):
-            return 0                   # decode's int ``pos``
         return sum(walk(t, s) for t, s in zip(tree, specs))
 
     params = walk(p_abs, p_spec)
@@ -237,11 +241,11 @@ def run_one(arch: str, shape="train_4k", *, multi_pod: bool = False,
     record = {**head, **rec.as_dict(),
               "argument_size_in_bytes": arg_bytes,
               "jax_argument_size_in_bytes": (
-                  jax_argument_bytes(cfg, info, mesh, args, kind)
+                  jax_argument_bytes(cfg, info, mesh, kind)
                   if mesh is not None else arg_bytes),
               "placed_argument_size_in_bytes": placed_bytes,
               "jax_placed_argument_size_in_bytes": (
-                  jax_argument_bytes(cfg, info, mesh, args, kind, True)
+                  jax_argument_bytes(cfg, info, mesh, kind, True)
                   if mesh is not None else placed_bytes),
               "peak_bytes_estimate": peak,
               "fits": peak <= HW["hbm_per_chip"],

@@ -28,8 +28,9 @@ FSDP leaf's parts gathered over the batch ranks, its backward
 ``reduce_scatter``, one reduce-scatter, on two ranks the all-reduce's
 bits; or a tensor-parallel value's parts gathered over ``model``, its
 backward this rank's part), ``copy_to`` (Megatron's "f": identity, the
-backward an all-reduce) and ``slice_dim`` (a replicated value's part,
-the backward an all-gather); ``psum`` is Megatron's "g".
+backward an all-reduce), ``slice_dim`` (a replicated value's part,
+the backward an all-gather) and ``psum_scatter`` (a reduce-scatter of
+partial sums, the backward an all-gather); ``psum`` is Megatron's "g".
 ``wire_bytes`` counts, per exchange, the bytes this rank sends to the
 other ranks of its group, and each exchange also books them with
 ``launch.opanalysis`` under JAX's op name (all-to-all, all-gather,
@@ -172,6 +173,23 @@ class _PSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None, None
+
+
+class _PSumScatter(torch.autograd.Function):
+    """The sum over the group, this rank's contiguous part of ``dim``
+    kept (a reduce-scatter); the backward all-gathers the parts'
+    cotangents along ``dim``, so each rank's partial term receives the
+    whole cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim, kind):
+        ctx.mesh, ctx.dim, ctx.kind = mesh, dim, kind
+        return mesh.reduce_scatter(x, dim, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        parts = ctx.mesh.all_gather(g, ctx.kind + "_bwd")
+        return torch.cat(list(parts), dim=ctx.dim), None, None, None
 
 
 class _GatherDim(torch.autograd.Function):
@@ -334,6 +352,16 @@ class EdgeMesh:
         if self.shards == 1:
             return x
         return _PSum.apply(x, self, kind)
+
+    def psum_scatter(self, x: torch.Tensor, dim: int, kind: str
+                     ) -> torch.Tensor:
+        """``psum`` then ``slice_dim`` in one reduce-scatter (half an
+        all-reduce's bytes): a row-parallel product's partial sums, of
+        which this rank keeps its part of ``dim``.  Differentiable: the
+        backward all-gathers the parts' cotangents."""
+        if self.shards == 1:
+            return x
+        return _PSumScatter.apply(x, self, dim, kind)
 
     def copy_to(self, x: torch.Tensor, kind: str = "tp_copy"
                 ) -> torch.Tensor:

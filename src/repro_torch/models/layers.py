@@ -241,6 +241,37 @@ def _kv_for_heads(k, v, lo: int, n: int, cfg):
     return k[:, :, idx], v[:, :, idx]        # one kv head a q head
 
 
+def tp_kv_cover(tp, q, k, v, cfg):
+    """Column-parallel (B, S, columns) ``q``, ``k``, ``v`` made to cover
+    whole heads: where ``model`` splits the q heads but not the kv heads,
+    k and v are gathered whole (the backward reduce-scatters); where it
+    splits neither, q, k and v are gathered whole.  Returns (q, k, v,
+    whole_heads): whether each rank attends its own q heads."""
+    m = tp.shards
+    whole_heads = cfg.num_heads % m == 0
+    if not whole_heads:                      # every rank attends every head
+        q = tp.gather_dim(q, -1, "attn_gather", reduce=False)
+    if cfg.num_kv_heads % m:                 # part of a kv head a rank
+        k = tp.gather_dim(k, -1, "attn_gather", reduce=whole_heads)
+        v = tp.gather_dim(v, -1, "attn_gather", reduce=whole_heads)
+    return q, k, v, whole_heads
+
+
+def tp_attend(tp, q, k, v, cfg, whole_heads, **kw):
+    """``blockwise_attention`` of (B, S, n, D) heads from
+    ``tp_kv_cover``: the rank's q heads against the kv heads they read,
+    or every head, then the rank's ``q_dim`` columns kept.  Returns (B,
+    S, q_dim / model)."""
+    B, S = q.shape[:2]
+    if whole_heads and cfg.num_kv_heads % tp.shards:
+        n = q.shape[2]
+        k, v = _kv_for_heads(k, v, tp.shard * n, n, cfg)
+    out = blockwise_attention(q, k, v, **kw).reshape(B, S, -1)
+    if not whole_heads:
+        out = tp.slice_dim(out, -1, "attn_slice")
+    return out
+
+
 def attn_train(params, x, cfg, *, window=0, causal=True, q_chunk=512,
                kv_chunk=512, shard=None):
     B, S, _ = x.shape
@@ -252,14 +283,8 @@ def attn_train(params, x, cfg, *, window=0, causal=True, q_chunk=512,
                                   softcap=cfg.attn_logit_softcap,
                                   q_chunk=q_chunk, kv_chunk=kv_chunk)
         return out.reshape(B, S, cfg.q_dim) @ params["wo"]
-    m = tp.shards
     q, k, v = _project(params, tp.copy_to(x, "attn_in"), cfg)
-    whole_heads = cfg.num_heads % m == 0
-    if not whole_heads:                      # every rank attends every head
-        q = tp.gather_dim(q, -1, "attn_gather", reduce=False)
-    if cfg.num_kv_heads % m:                 # part of a kv head a rank
-        k = tp.gather_dim(k, -1, "attn_gather", reduce=whole_heads)
-        v = tp.gather_dim(v, -1, "attn_gather", reduce=whole_heads)
+    q, k, v, whole_heads = tp_kv_cover(tp, q, k, v, cfg)
     if cfg.qk_norm and whole_heads:
         # the norms act on this rank's heads only: "f" sums their
         # gradients over the group
@@ -268,15 +293,9 @@ def attn_train(params, x, cfg, *, window=0, causal=True, q_chunk=512,
     q = _heads(params, q, positions, cfg, "q_norm")
     k = _heads(params, k, positions, cfg, "k_norm")
     v = v.reshape(B, S, -1, cfg.resolved_head_dim)
-    if whole_heads and cfg.num_kv_heads % m:
-        n = q.shape[2]
-        k, v = _kv_for_heads(k, v, tp.shard * n, n, cfg)
-    out = blockwise_attention(q, k, v, causal=causal, window=window,
-                              softcap=cfg.attn_logit_softcap,
-                              q_chunk=q_chunk, kv_chunk=kv_chunk)
-    out = out.reshape(B, S, -1)
-    if not whole_heads:
-        out = tp.slice_dim(out, -1, "attn_slice")
+    out = tp_attend(tp, q, k, v, cfg, whole_heads, causal=causal,
+                    window=window, softcap=cfg.attn_logit_softcap,
+                    q_chunk=q_chunk, kv_chunk=kv_chunk)
     return tp.psum(out @ params["wo"], "attn_sum")
 
 

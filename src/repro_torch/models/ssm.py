@@ -10,6 +10,25 @@ single-token state update with O(1) memory.
 ``ssd_chunked`` is the chunked form in plain PyTorch, from any initial
 state and returning the final one, the counterpart of the JAX package's
 jnp form; the kernel computes what it computes from a zero state.
+
+Tensor parallelism over ``model`` (a placed tree's ``ssm_inner``
+columns, ``sharding.Sharder.tp``): the input enters through "f"
+(``EdgeMesh.copy_to``), ``wz``, ``wx`` and ``conv_x`` are
+column-parallel and ``out_proj`` row-parallel ("g", ``psum``); the
+gated RMSNorm's sum of squares is summed over the group, and its
+cotangent too (every rank applies it to its own columns).  Where
+``model`` splits the heads (``ssm_heads``) each rank runs the SSD scan
+on its ``H / model`` heads with its parts of ``wdt``, ``dt_bias``,
+``A_log`` and ``D``; ``wB``, ``wC``, ``conv_B`` and ``conv_C`` are whole
+on every rank but read by its heads only, so they enter through "f" and
+their gradients are summed over the group.  Where it splits the
+channels but not the heads, a rank's channels straddle heads: its part
+of the convolved input is gathered whole, every rank runs every head
+(B, C and dt computed alike on every rank from the input, their
+gradients whole) and keeps its channels of the output.  Decode keeps
+the conv history whole on every rank, as JAX's cache spec leaves it: the
+new token's ``x @ wx`` columns are gathered before the history is
+updated; the state holds the rank's heads.
 """
 from __future__ import annotations
 
@@ -94,8 +113,62 @@ def ssd_chunked(x, dt, A, Bmat, Cmat, state0, chunk):
     return y, state
 
 
-def ssm_train(params, x, cfg):
-    """x: (B, S, d) -> (B, S, d). Full-sequence (train/prefill) path."""
+def _gated_norm(y, z, weight, eps, tp=None):
+    """``rmsnorm(y * silu(z), weight)`` over the inner dimension; ``tp``:
+    ``y``, ``z`` and ``weight`` are this rank's columns, and the sum of
+    squares is summed over the group (``copy_to(psum(.))``: the
+    statistic's cotangent is summed too)."""
+    v = y * F.silu(z)
+    if tp is None:
+        return rmsnorm(v, weight, eps)
+    dtype = v.dtype
+    v = v.float()
+    ss = tp.copy_to(tp.psum(torch.sum(v * v, dim=-1, keepdim=True),
+                            "ssm_norm"), "ssm_norm_bwd")
+    var = ss / (v.shape[-1] * tp.shards)
+    return (v * torch.rsqrt(var + eps) * (1.0 + weight.float())).to(dtype)
+
+
+def _ssm_train_tp(params, x, cfg, tp, heads: bool):
+    """``ssm_train`` on this rank's ``ssm_inner`` columns (see the
+    module's docstring); ``heads``: ``model`` splits the heads too."""
+    B, S = x.shape[:2]
+    P = cfg.ssm_head_dim
+    xf = tp.copy_to(x, "ssm_in")
+    z = xf @ params["wz"]
+    xin = F.silu(_causal_conv(xf @ params["wx"], params["conv_x"]))
+    state_w = [params[k] for k in ("wB", "wC", "conv_B", "conv_C")]
+    if heads:                 # whole B and C read by this rank's heads
+        src = xf
+        state_w = [tp.copy_to(w, "ssm_state_w") for w in state_w]
+    else:                     # every head on every rank
+        src = x
+        xin = tp.gather_dim(xin, -1, "ssm_gather", reduce=False)
+    wB, wC, cB, cC = state_w
+    Bmat = F.silu(_causal_conv(src @ wB, cB))
+    Cmat = F.silu(_causal_conv(src @ wC, cC))
+    dt = F.softplus(src @ params["wdt"] + params["dt_bias"])
+    A = -torch.exp(params["A_log"].float())
+    n = A.shape[0]
+    xh = xin.reshape(B, S, n, P)
+    y = ops.ssd_scan(xh.float(), dt.float(), A, Bmat.float(), Cmat.float(),
+                     chunk=min(cfg.ssm_chunk, S))
+    y = y + params["D"].float()[None, None, :, None] * xh
+    y = y.reshape(B, S, n * P).to(x.dtype)
+    if not heads:
+        y = tp.slice_dim(y, -1, "ssm_slice")
+    y = _gated_norm(y, z, params["norm"], cfg.norm_eps, tp)
+    return tp.psum(y @ params["out_proj"], "ssm_sum")
+
+
+def ssm_train(params, x, cfg, shard=None):
+    """x: (B, S, d) -> (B, S, d). Full-sequence (train/prefill) path.
+    ``shard``: the sharder of a placed tree (tensor-parallel over
+    ``model``, see the module's docstring)."""
+    tp = shard.tp("ssm_inner") if shard is not None else None
+    if tp is not None:
+        return _ssm_train_tp(params, x, cfg, tp,
+                             shard.tp("ssm_heads") is not None)
     B, S = x.shape[:2]
     H, P = cfg.ssm_heads, cfg.ssm_head_dim
     z = x @ params["wz"]
@@ -115,10 +188,53 @@ def ssm_train(params, x, cfg):
     return y @ params["out_proj"]
 
 
-def ssm_decode(params, x, cache, cfg):
+def _ssm_decode_tp(params, x, cache, cfg, tp, heads: bool):
+    """``ssm_decode`` on this rank's ``ssm_inner`` columns: the conv
+    history whole on every rank, the state the rank's heads (every head
+    unless ``heads``)."""
+    B = x.shape[0]
+    P, N, inner = cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_inner
+    w = inner // tp.shards
+    lo = tp.shard * w
+    xt = x[:, 0]
+    z = xt @ params["wz"]
+    px = torch.cat(list(tp.all_gather(xt @ params["wx"], "ssm_conv_gather")),
+                   dim=-1)
+    pre = torch.cat([px, xt @ params["wB"], xt @ params["wC"]], dim=-1)
+    hist = torch.cat([cache["conv"], pre[:, None]], dim=1)  # (B, W, .)
+    xin = F.silu((hist[..., lo:lo + w] * params["conv_x"][None]).sum(dim=1))
+    if not heads:
+        xin = torch.cat(list(tp.all_gather(xin, "ssm_gather")), dim=-1)
+    bc = (hist[..., inner:] * torch.cat([params["conv_B"], params["conv_C"]],
+                                        dim=-1)[None]).sum(dim=1)
+    Bmat, Cmat = F.silu(bc[:, :N]), F.silu(bc[:, N:])
+    dt = F.softplus(xt @ params["wdt"] + params["dt_bias"])
+    A = -torch.exp(params["A_log"].float())
+    n = A.shape[0]
+    da = torch.exp(dt * A)
+    xh = xin.reshape(B, n, P).float()
+    state = cache["state"] * da[:, :, None, None] + torch.einsum(
+        "bh,bhp,bn->bhpn", dt.float(), xh, Bmat.float())
+    y = torch.einsum("bn,bhpn->bhp", Cmat.float(), state)
+    y = y + params["D"].float()[None, :, None] * xh
+    y = y.reshape(B, n * P).to(x.dtype)
+    if not heads:
+        y = y[:, lo:lo + w]
+    y = _gated_norm(y, z, params["norm"], cfg.norm_eps, tp)
+    out = tp.psum(y @ params["out_proj"], "ssm_sum")[:, None]
+    return out, {"state": state, "conv": hist[:, 1:]}
+
+
+def ssm_decode(params, x, cache, cfg, shard=None):
     """One-token decode. x: (B, 1, d).
     cache = {"state": (B,H,P,N) f32, "conv": (B, W-1, inner+2N)}.
-    Returns (out (B,1,d), new_cache)."""
+    Returns (out (B,1,d), new_cache).  ``shard``: the sharder of a placed
+    tree; the state then holds this rank's heads where ``model`` splits
+    them (``sharding.shard_caches``)."""
+    tp = shard.tp("ssm_inner") if shard is not None else None
+    if tp is not None:
+        return _ssm_decode_tp(params, x, cache, cfg, tp,
+                              shard.tp("ssm_heads") is not None)
     B = x.shape[0]
     H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     xt = x[:, 0]

@@ -23,12 +23,13 @@ leaves' ``embed`` dimension whole over the batch ranks first
 (``sharding.fsdp_gather``, inside a block's remat region, so the
 backward gathers again instead of keeping whole leaves alive), and the
 layers run tensor-parallel over ``model`` (``models.layers``,
-``models.moe``).  The vocabulary is split over ``model`` too: the
-embedding looks up the rank's rows (zeros elsewhere) and sums over the
-group, which adds one value to zeros and is exact; the head gives this
-rank's vocabulary columns of the logits, which ``lm_loss`` (its
-cross-entropy reduced over the group) and ``vocab_argmax`` take as they
-are, and ``gather_vocab`` pieces together whole.
+``models.moe``, ``models.ssm``, ``models.rglru``).  The vocabulary is
+split over ``model`` too: the embedding looks up the rank's rows (zeros
+for the others) and sums over the group, which adds one value to zeros
+and is exact; the head gives this rank's vocabulary columns of the
+logits, which ``lm_loss`` (its cross-entropy reduced over the group) and
+``vocab_argmax`` take as they are, and ``gather_vocab`` pieces together
+whole.
 """
 from __future__ import annotations
 
@@ -424,9 +425,9 @@ def _layer_train(spec: LayerSpec, p, x, cfg, chunks, shard=None,
         y = attn_train(p["attn"], h, cfg, window=window,
                        q_chunk=chunks[0], kv_chunk=chunks[1], shard=shard)
     elif spec.kind == "rglru":
-        y = rglru_lib.rglru_train(p["rglru"], h, cfg)
+        y = rglru_lib.rglru_train(p["rglru"], h, cfg, shard)
     elif spec.kind == "ssm":
-        y = ssm_lib.ssm_train(p["ssm"], h, cfg)
+        y = ssm_lib.ssm_train(p["ssm"], h, cfg, shard)
     else:
         raise ValueError(spec.kind)
     x = x + y
@@ -506,9 +507,10 @@ def _layer_decode(spec: LayerSpec, p, cache, x, pos, cfg, expert_stats=False,
             split=cache_split(shard, cfg, window, cache["k"].shape[1]),
             shard=shard)
     elif spec.kind == "rglru":
-        y, new_cache = rglru_lib.rglru_decode(p["rglru"], h, cache, cfg)
+        y, new_cache = rglru_lib.rglru_decode(p["rglru"], h, cache, cfg,
+                                              shard)
     elif spec.kind == "ssm":
-        y, new_cache = ssm_lib.ssm_decode(p["ssm"], h, cache, cfg)
+        y, new_cache = ssm_lib.ssm_decode(p["ssm"], h, cache, cfg, shard)
     else:
         raise ValueError(spec.kind)
     if write_mask is not None:

@@ -22,22 +22,23 @@ tensor is the identity, and the layers ask it what the rank holds
 
 - the batch over pod x data (each rank keeps its rows of the global
   batch);
-- every parameter leaf of a decoder-only model as the JAX package's
+- every parameter leaf of every model as the JAX package's
   ``partition_specs`` under ``logical_rules(mesh, cfg, params=use_fsdp(
   cfg, kind, model width))`` say (``placed_specs``, ``shard_params``,
   ``place_leaf``): ``embed`` over pod x data (FSDP: the layers gather a
   block's leaves whole before use and reduce-scatter their gradients),
-  and ``vocab``, ``q_dim``, ``kv_dim``, ``ff``, ``experts`` or
-  ``moe_ff`` over ``model`` (tensor and expert parallelism: each rank
-  keeps its contiguous part, and the layers run column- and
-  row-parallel).  The dimensions named ``ssm_inner``, ``ssm_heads`` and
-  ``rglru_inner`` stay whole, and so does every leaf of the
-  encoder-decoder, which runs data-parallel (``unplaced_leaves`` lists
-  them by path and axis);
-- the decode caches by the cache declaration's ``batch``, ``cache_seq``
-  and ``kv_seq`` dimensions under the JAX package's rules
-  (``shard_caches``, ``place_cache``: each rank keeps its batch rows and
-  its contiguous part of the positions; kv heads stay whole).
+  and ``vocab``, ``q_dim``, ``kv_dim``, ``ff``, ``experts``, ``moe_ff``,
+  ``ssm_inner``, ``ssm_heads`` and ``rglru_inner`` over ``model``
+  (tensor and expert parallelism: each rank keeps its contiguous part,
+  and the layers run column- and row-parallel);
+  ``unplaced_leaves``, the check, lists any dimension JAX splits and the
+  port keeps whole: there is none;
+- the decode caches as the JAX package's cache rules say, on every
+  dimension (``shard_caches``, ``place_cache``: each rank keeps its
+  batch rows, its contiguous part of the positions, and its part of a
+  recurrent mixer's heads or channels over ``model``; kv heads stay
+  whole, as JAX's rules leave them wherever ``cache_seq`` uses
+  ``model``).
 
 ``shard_bank`` places the B-MoE system's expert bank on the edge mesh
 (``BMoESystem(mesh="on")``).
@@ -138,38 +139,29 @@ def use_fsdp(cfg, kind: str, model_shards: int = 16,
     return count_params(decl) * 2 / model_shards > hbm_budget
 
 
-# the logical axes whose tensor parallelism waits for a later slice: a
-# leaf's dimension named so stays whole on every rank
-LEFT_WHOLE = ("ssm_inner", "ssm_heads", "rglru_inner")
-
-
 class Sharder:
     """The mesh a model runs on, its rules, whether parameters carry FSDP
     and the in-graph adversary of the trusted-MoE tests.  ``spec`` gives
     JAX's partition spec as a tuple; applied to a rank's tensor the
     sharder is the identity (the layout is explicit under SPMD).
 
-    ``placed``: the model's leaves are this rank's parts
-    (``shard_params``); the layers then run tensor-parallel over
-    ``model`` where ``tp`` names a view, and gather a leaf's ``embed``
-    dimension over ``fsdp_view`` wherever the rank holds part of it.
-    Built so by ``step_sharder``; a sharder made without ``placed`` is a
-    record of the rules over whole leaves."""
+    On a mesh the model's leaves are this rank's parts (``shard_params``):
+    the layers run tensor-parallel over ``model`` where ``tp`` names a
+    view, and gather a leaf's ``embed`` dimension over ``fsdp_view``
+    wherever the rank holds part of it."""
 
     def __init__(self, mesh=None, rules: Optional[dict] = None,
-                 fsdp: bool = True, attack=None, placed: bool = False):
+                 fsdp: bool = True, attack=None):
         self.mesh = mesh
         self.rules = rules if rules is not None else logical_rules(mesh)
         self.fsdp = fsdp
         self.attack = attack
-        self.placed = placed and mesh is not None
 
     def tp(self, axis: str):
         """The ``model`` view a placed dimension of logical ``axis`` is
         split over, or None (whole: no mesh, a model axis of one, a rule
-        that leaves it whole, or a ``LEFT_WHOLE`` axis)."""
-        if (not self.placed or axis in LEFT_WHOLE
-                or self.rules.get(axis) != "model"
+        that leaves it whole)."""
+        if (self.mesh is None or self.rules.get(axis) != "model"
                 or self.mesh.model.shards == 1):
             return None
         return self.mesh.model
@@ -178,7 +170,7 @@ class Sharder:
     def fsdp_view(self):
         """The pod x data view an FSDP leaf's ``embed`` is split over, or
         None."""
-        if not self.placed or self.mesh.batch.shards == 1:
+        if self.mesh is None or self.mesh.batch.shards == 1:
             return None
         return self.mesh.batch
 
@@ -197,13 +189,12 @@ NO_SHARD = Sharder(None)
 
 def step_sharder(cfg, mesh, kind: str, attack=None) -> Optional[Sharder]:
     """The sharder of a ``kind`` step of ``cfg`` on ``mesh`` over a placed
-    tree (None without a mesh): JAX's activation rules, its FSDP policy,
-    and every leaf placed unless the model is an encoder-decoder."""
+    tree (None without a mesh): JAX's activation rules and its FSDP
+    policy."""
     if mesh is None:
         return None
     return Sharder(mesh, logical_rules(mesh, cfg),
-                   fsdp=use_fsdp(cfg, kind, mesh.shape[-1]), attack=attack,
-                   placed=not cfg.is_encoder_decoder)
+                   fsdp=use_fsdp(cfg, kind, mesh.shape[-1]), attack=attack)
 
 
 # ------------------------------------------------------ leaf placement
@@ -230,9 +221,8 @@ def param_rules(cfg, mesh, kind: str = "train") -> dict:
 
 def placed_specs(cfg, mesh, kind: str = "train"):
     """Each leaf's partition spec as the port places it for a ``kind``
-    step: JAX's ``partition_specs`` under ``param_rules``, except that a
-    ``LEFT_WHOLE`` dimension, and every dimension of an encoder-decoder's
-    leaves, is None (whole).  None without a mesh."""
+    step: JAX's ``partition_specs`` under ``param_rules``.  None without
+    a mesh."""
     if mesh is None:
         return None
     return specs_for(param_decl(cfg), cfg, mesh, kind)
@@ -242,16 +232,14 @@ def specs_for(decl, cfg, mesh, kind: str = "train"):
     """``placed_specs``' specs for any part ``decl`` of the declaration
     (a layer's, an MoE block's)."""
     from repro_torch.models.builder import partition_specs
-    rules = dict(param_rules(cfg, mesh, kind))
-    for a in LEFT_WHOLE:
-        rules[a] = None
-    return partition_specs(decl, {} if cfg.is_encoder_decoder else rules)
+    return partition_specs(decl, param_rules(cfg, mesh, kind))
 
 
 def unplaced_leaves(cfg, mesh, kind: str = "train"):
     """``[(path, logical axis, JAX's mesh axes)]``: every dimension JAX's
-    specs split that the port keeps whole (``placed_specs``' exceptions),
-    in declaration order."""
+    specs split that the port keeps whole, in declaration order (the
+    check that ``placed_specs`` follows JAX's specs: empty for every
+    config)."""
     from repro_torch.models.builder import Leaf, partition_specs
     decl = param_decl(cfg)
     jax_specs = partition_specs(decl, param_rules(cfg, mesh, kind))
@@ -445,11 +433,6 @@ def shard_bank(bank: Dict[str, torch.Tensor], mesh
 
 
 # ---------------------------------------------------- cache placement
-# the cache declaration's dimensions the port splits; the others (kv
-# heads, recurrent inner dims over model: tensor parallelism) stay whole
-_CACHE_PLACED = ("batch", "cache_seq", "kv_seq")
-
-
 def cache_decl_of(cfg):
     """The decode cache declaration's logical axes for ``cfg`` (the
     leaves' shapes at unit sizes; only their axes are read)."""
@@ -461,26 +444,32 @@ def cache_decl_of(cfg):
 
 
 def cache_specs(decl, cfg, mesh):
-    """Each cache leaf's partition spec as the port places it: JAX's
-    (``builder.partition_specs`` under ``logical_rules(mesh, cfg)``) on
-    the ``batch``, ``cache_seq`` and ``kv_seq`` dimensions, None on every
-    other."""
+    """Each cache leaf's partition spec: JAX's (``builder.partition_specs``
+    under ``logical_rules(mesh, cfg)``), which the port places on every
+    dimension."""
     from repro_torch.models.builder import partition_specs
-    rules = logical_rules(mesh, cfg)
-    return partition_specs(decl, {a: rules.get(a) for a in _CACHE_PLACED})
+    return partition_specs(decl, logical_rules(mesh, cfg))
 
 
-def _dim_view(mesh, cfg, axis: str, rules: dict):
+def _dim_view(mesh, cfg, axis, rules: dict):
     """The mesh view a cache dimension of logical ``axis`` splits over,
-    or None (whole on every rank, or a group of one)."""
+    or None (whole on every rank, or a group of one): the batch over pod
+    x data, the linear cache's positions over ``mesh.cache_group(cfg)``,
+    any other dimension JAX's rules put over ``model`` (the ring's
+    positions, a recurrent mixer's heads or channels) over ``model``."""
+    rule = rules.get(axis) if axis is not None else None
+    if not rule:
+        return None
     if axis == "batch":
-        view = mesh.batch if rules.get("batch") else None
+        view = mesh.batch
     elif axis == "cache_seq":
-        view = mesh.cache_group(cfg) if rules.get("cache_seq") else None
-    elif axis == "kv_seq":
-        view = mesh.model if rules.get("kv_seq") else None
+        view = mesh.cache_group(cfg)
+    elif rule == "model" and axis != "kv_heads":
+        view = mesh.model
     else:
-        view = None
+        raise ValueError(f"the port splits no cache dimension {axis!r} "
+                         f"over {rule!r} (its decode attention holds every "
+                         f"kv head of its positions)")
     return view if view is not None and view.shards > 1 else None
 
 
@@ -518,9 +507,11 @@ def shard_caches(caches, cfg, mesh):
     ``encdec_cache_decl`` of ``cfg``), as tensors of their own: each
     leaf's ``batch`` dimension cut to the rank's rows (split over pod x
     data when ``cfg`` is ``batch_shardable``), ``cache_seq`` to its
-    contiguous positions over ``mesh.cache_group(cfg)`` and ``kv_seq``
-    (a sliding-window ring) over ``model`` where the window divides it,
-    as ``cache_specs`` says.  Raises, naming the numbers, when a group
+    contiguous positions over ``mesh.cache_group(cfg)``, and ``kv_seq``
+    (a sliding-window ring, where the window divides ``model``),
+    ``ssm_heads`` (where the heads divide it) and ``rglru_inner`` to
+    the rank's contiguous part over ``model``, as ``cache_specs``
+    says.  Raises, naming the numbers, when a group
     does not divide a dimension.  Identity without a mesh."""
     if mesh is None:
         return caches

@@ -28,12 +28,13 @@ step's dense mixture is plain products, as in the JAX package.
 Under a mesh (``launch.mesh.LMMesh``) every rank runs the same step
 (SPMD): it is given the whole global batch and keeps its rows of each
 microbatch (split over pod x data); ``params`` is this rank's tree
-(``sharding.shard_params`` or ``init_model(mesh=)``: every leaf of a
-decoder-only model placed as the JAX package's specs say, FSDP's
+(``sharding.shard_params`` or ``init_model(mesh=)``: every leaf
+placed as the JAX package's specs say, FSDP's
 ``embed`` over pod x data for training and for inference where
 ``use_fsdp`` asks for it, tensor and expert parallelism over ``model``;
 either placement runs in any step).  The layers gather FSDP leaves per
-block and run tensor-parallel (``models.transformer``).  MoE layers run
+block and run tensor-parallel (``models.transformer``,
+``models.encdec``).  MoE layers run
 expert-parallel (``moe_impl="ep"``) or with the B-MoE vote hook
 (``core.trusted_moe.make_trust``, built when the config's redundancy is
 on).  Each rank's objective is its rows' mean cross-entropy over the
@@ -112,13 +113,13 @@ def model_forward(params, batch, cfg: ModelConfig, remat: bool = False,
     labels); a VLM's labels gain -1 (no loss) over the prefix.
     ``remat`` checkpoints each stacked block (the training step's
     choice; prefill and decode have no backward).  ``shard`` and
-    ``trust``: a mesh's sharder and vote hook (``tfm.forward_train``);
-    ``batch`` is then this rank's rows, and the encoder-decoder runs
-    data-parallel."""
+    ``trust``: a mesh's sharder and vote hook (``tfm.forward_train``;
+    ``encdec.forward_train`` takes the sharder alone); ``batch`` is then
+    this rank's rows."""
     if cfg.is_encoder_decoder:
         logits, aux = encdec.forward_train(params, batch["frames"],
                                            batch["tokens"], cfg,
-                                           remat=remat)
+                                           shard=shard, remat=remat)
         return logits, aux, batch.get("labels")
     prefix = batch.get("patches")
     logits, aux = tfm.forward_train(params, batch["tokens"], cfg,

@@ -1693,3 +1693,43 @@ def test_dry_run_counts_a_card_prefill(cuda):
     assert rec["kernel_flops"] == real.kernel_flops
     assert rec["kernel_calls"] == real.kernel_calls == launches
     assert rec["argument_size_in_bytes"] == dryrun.nbytes((params, args))
+
+
+def test_recurrent_tp_and_encdec_on_the_card(cuda, tmp_path):
+    """The recurrent mixers and the encoder-decoder tensor-parallel on a
+    (data 1, model 2) mesh, two ranks sharing the card over gloo, every
+    case of ``tests/torch_recurrent_tp_ranks.py`` at smoke width
+    (mamba2's SSD scan on a rank's heads, and on every head where the
+    heads do not divide; recurrentgemma's RG-LRU on a rank's channels;
+    seamless-m4t-medium's attention, cross-attention and vocabulary
+    split): the training step's loss at 1e-5 relative and gradients
+    within 1e-5 of each leaf's largest magnitude, the prefill's logits
+    within 1e-5 of the one-device forward's largest and its next tokens
+    equal; a rank launches what one device launches (a layer's scan or
+    attention forward twice under remat, its backward once)."""
+    import torch_recurrent_tp_ranks as ranks
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import spawn_edges
+    build.library()
+    spawn_edges(ranks.card_rank, 2, args=(str(tmp_path),), device="cuda",
+                rendezvous_dir=str(tmp_path), timeout_s=300)
+    want = {"mamba2": dict(ssd_scan=4, ssd_scan_bwd=2),
+            "mamba2_odd": dict(ssd_scan=4, ssd_scan_bwd=2),
+            "rgemma": dict(rglru_scan=2, rglru_scan_bwd=1,
+                           flash_attention=2, flash_attention_bwd=1),
+            "seamless": dict(flash_attention=12, flash_attention_bwd=6)}
+    for r in range(2):
+        with open(tmp_path / f"rank{r}.pkl", "rb") as f:
+            res = pickle.load(f)
+        for name, n in want.items():
+            got = res[name]
+            a, b = got["loss"]
+            assert abs(a - b) <= 1e-5 * abs(b), name
+            assert got["grads_rel"] <= 1e-5, (name, got["grads_rel"])
+            assert got["logits_abs"] <= 1e-5 * got["logits_max"], name
+            np.testing.assert_array_equal(got["next"], got["one_next"])
+            assert {k: v for k, v in got["train_launches"].items()
+                    if v} == n, (name, got["train_launches"])
+            assert {k: v for k, v in got["prefill_launches"].items()
+                    if v} == {k: v // 2 for k, v in n.items()
+                              if not k.endswith("_bwd")}, name

@@ -355,3 +355,21 @@ def test_dry_run_records_on_the_production_mesh():
     md = roofline.to_markdown([row, roofline.roofline_row(dec)], records=[
         dryrun.run_one("qwen2.5-3b", "long_500k", verbose=False)])
     assert "decode_32k" in md and "skipped" in md
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "mamba2-2.7b",
+                                  "recurrentgemma-2b", "seamless-m4t-medium"])
+def test_dry_run_decode_bytes_follow_jax_specs(arch):
+    """A decode step of batch 8 x 256 on the abstract (2, 2) mesh at smoke
+    width: the rank's parameters and placed caches are the bytes JAX's
+    specs give them (every leaf and cache dimension placed as they say,
+    the caches split once), and the two argument columns differ by the
+    batch alone: the port gives every rank the whole (8, 1) int32 tokens
+    and ``pos`` as an int, JAX's specs split the tokens over data and
+    keep a 4-byte ``pos``."""
+    rec = dryrun.run_one(arch, dict(kind="decode", seq=256, batch=8),
+                         mesh_shape=(2, 2), smoke=True, verbose=False)
+    assert rec["placed_argument_size_in_bytes"] == \
+        rec["jax_placed_argument_size_in_bytes"]
+    assert rec["argument_size_in_bytes"] - rec["jax_argument_size_in_bytes"] \
+        == 8 * 4 - (8 // 2) * 4 - 4

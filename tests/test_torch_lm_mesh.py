@@ -529,10 +529,10 @@ CACHE_MESHES = (("2x2", (2, 2), ("data", "model"), 4),
 def test_cache_placement_matches_jax_specs(arch):
     """For every config's cache declaration and six meshes (no devices:
     abstract meshes), ``cache_specs`` equals JAX's ``partition_specs``
-    under its ``logical_rules`` leaf by leaf on the ``batch``,
-    ``cache_seq`` and ``kv_seq`` dimensions (None elsewhere: those are
-    tensor parallelism's), and ``place_cache``'s shapes are the shard
-    shapes JAX's specs give those dimensions."""
+    under its ``logical_rules`` leaf by leaf on every dimension (the
+    batch, the positions, the ssm state's heads and the RG-LRU's
+    channels), and ``place_cache``'s shapes are the shard shapes JAX's
+    specs give."""
     from repro.models import encdec as jencdec
     from repro.models import transformer as jtfm
     from repro.models.builder import partition_specs as jspecs
@@ -566,15 +566,11 @@ def test_cache_placement_matches_jax_specs(arch):
         for g, w, ax, pl, wh in zip(got, want, axes, placed, whole):
             w = tuple(w) + (None,) * (len(ax) - len(w))
             for a, gs, ws, n_pl, n in zip(ax, g, w, pl.shape, wh.shape):
-                if a in ("batch", "cache_seq", "kv_seq"):
-                    # a PartitionSpec writes a one-name tuple as the name
-                    names_ = (ws,) if isinstance(ws, str) else (ws or ())
-                    assert ((gs,) if isinstance(gs, str) else (gs or ())) \
-                        == names_, (name, ax, g, w)
-                    assert n_pl == n // math.prod(widths[x]
-                                                  for x in names_)
-                else:
-                    assert gs is None and n_pl == n
+                # a PartitionSpec writes a one-name tuple as the name
+                names_ = (ws,) if isinstance(ws, str) else (ws or ())
+                assert ((gs,) if isinstance(gs, str) else (gs or ())) \
+                    == names_, (name, ax, g, w)
+                assert n_pl == n // math.prod(widths[x] for x in names_)
 
 
 def test_an_indivisible_cache_raises():

@@ -312,63 +312,40 @@ SPEC_MESHES = (((16, 16), ("data", "model")),
                ((2, 2), ("data", "model")), ((1, 4), ("data", "model")))
 
 
-def _want_unplaced(decl, jax_specs, enc_dec: bool):
-    """(path, axis, mesh axes) of every split dimension of an
-    encoder-decoder; of every split ``ssm_inner``, ``ssm_heads`` or
-    ``rglru_inner`` dimension otherwise."""
-    specs = jax.tree_util.tree_leaves(
-        jax_specs, is_leaf=lambda x: isinstance(x, jax.sharding.
-                                                PartitionSpec))
-    out = []
-    for (path, leaf), spec in zip(_paths(decl), specs):
-        spec = tuple(spec) + (None,) * (len(leaf.axes) - len(spec))
-        for a, s in zip(leaf.axes, spec):
-            if s is not None and (enc_dec or a in sharding.LEFT_WHOLE):
-                out.append((path, a, (s,) if isinstance(s, str)
-                            else tuple(s)))
-    return sorted(out)
-
-
 @pytest.mark.parametrize("arch", sorted(JARCH_IDS))
 def test_placed_specs_match_jax(arch):
-    """For every config (full width), four meshes and both step kinds,
-    ``placed_specs`` equals JAX's ``partition_specs`` under its
-    ``logical_rules(params=use_fsdp(...))`` leaf by leaf, except the
-    dimensions ``unplaced_leaves`` lists, and that list is exactly the
-    split ``ssm_inner``, ``ssm_heads`` and ``rglru_inner`` dimensions
-    (every split dimension of the encoder-decoder)."""
+    """For every config (full width), four meshes and the three step
+    kinds, ``placed_specs`` equals JAX's ``partition_specs`` under its
+    ``logical_rules(params=use_fsdp(...))`` leaf by leaf on every
+    dimension, and ``unplaced_leaves`` is empty: the recurrent mixers'
+    ``ssm_inner``, ``ssm_heads`` and ``rglru_inner`` dimensions and the
+    encoder-decoder's leaves are placed like every other."""
     jcfg, cfg = jget_config(arch), get_config(arch)
     jdecl = (jencdec.encdec_decl(jcfg) if jcfg.is_encoder_decoder
              else jtfm.model_decl(jcfg))
     for shape, names in SPEC_MESHES:
         jm = types.SimpleNamespace(axis_names=names, devices=np.empty(shape))
         mesh = lmesh.abstract_lm_mesh(shape, names)
-        for kind in ("train", "prefill"):
+        for kind in ("train", "prefill", "decode"):
             rules = jsharding.logical_rules(
                 jm, jcfg, params=jsharding.use_fsdp(jcfg, kind, shape[-1]))
             want = jspecs(jdecl, rules)
-            unplaced = sharding.unplaced_leaves(cfg, mesh, kind)
-            assert sorted((p, a, (m,) if isinstance(m, str) else tuple(m))
-                          for p, a, m in unplaced) == _want_unplaced(
-                jdecl, want, jcfg.is_encoder_decoder), (shape, kind)
-            gone = {(p, a) for p, a, _ in unplaced}
+            assert sharding.unplaced_leaves(cfg, mesh, kind) == [], (shape,
+                                                                     kind)
             got = sharding.placed_specs(cfg, mesh, kind)
-            paths = [p for p, _ in _paths(jdecl)]
-            for path, leaf, g, w in zip(
-                    paths, [lf for _, lf in _paths(jdecl)],
-                    jax.tree_util.tree_leaves(
-                        got, is_leaf=lambda x: isinstance(x, tuple)),
-                    jax.tree_util.tree_leaves(
-                        want, is_leaf=lambda x: isinstance(
-                            x, jax.sharding.PartitionSpec))):
+            leaves = _paths(jdecl)
+            got = jax.tree_util.tree_leaves(
+                got, is_leaf=lambda x: isinstance(x, tuple))
+            want = jax.tree_util.tree_leaves(
+                want, is_leaf=lambda x: isinstance(
+                    x, jax.sharding.PartitionSpec))
+            assert len(got) == len(want) == len(leaves)
+            for (path, leaf), g, w in zip(leaves, got, want):
                 w = tuple(w) + (None,) * (len(leaf.axes) - len(w))
                 for a, gs, ws in zip(leaf.axes, g, w):
-                    if (path, a) in gone:
-                        assert gs is None
-                    else:
-                        # a PartitionSpec writes a one-name tuple as the name
-                        assert _names(gs) == _names(ws), (shape, kind, path,
-                                                          a, gs, ws)
+                    # a PartitionSpec writes a one-name tuple as the name
+                    assert _names(gs) == _names(ws), (shape, kind, path, a,
+                                                      gs, ws)
 
 
 def _names(s):
